@@ -1,0 +1,23 @@
+"""daccord_tpu_torch — the PyTorch/CUDA port of the daccord consensus engine.
+
+Long-read error correction by per-window local de Bruijn graph consensus over
+DALIGNER piles, written in PyTorch for an NVIDIA H100. The layout mirrors the
+JAX package ``daccord_tpu`` module for module, so each file has one obvious
+counterpart there:
+
+- ``utils``    : base encodings.
+- ``formats``  : Dazzler DB / LAS / FASTA readers and writers.
+- ``oracle``   : numpy executable spec (alignment, windows, error profile,
+                 per-window DBG consensus, stitching).
+- ``sim``      : synthetic genome/read/overlap generator.
+- ``kernels``  : batched torch window solver, the tier ladder, and the
+                 hand-written Hopper kernel (``csrc/dp_backtrack.cu``).
+- ``runtime``  : the DB+LAS -> FASTA pipeline.
+- ``tools``    : the ``daccord`` command line.
+
+The package imports torch and numpy only. Entry points run on ``cuda`` unless
+the caller passes ``device="cpu"``; without CUDA they raise instead of falling
+back.
+"""
+
+__version__ = "0.1.0"

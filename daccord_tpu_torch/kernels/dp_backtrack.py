@@ -1,0 +1,231 @@
+"""Fused heaviest-path DP + candidate choice + backtrack, for a batch of windows.
+
+``dp_backtrack_batch`` is the port of the Pallas TPU kernel
+``daccord_tpu/kernels/pallas_window.py:dp_backtrack_batch``. On a CUDA tensor
+it launches the hand-written Hopper kernel ``csrc/dp_backtrack.cu`` (built
+with nvcc for sm_90a at first use, bound through ctypes) or raises; it never
+falls back to the plain version there. On a CPU tensor it runs
+:func:`dp_backtrack_plain`, a line-by-line torch transcription of the Pallas
+body that the CPU tests hold bit-equal to the Pallas kernel in interpret mode.
+
+``launches`` counts the kernel's launches (not the plain version's calls), and
+``launches_by_shape`` splits them by (M, P), so a run can show that its main
+path went through the kernel at every ladder shape it reached.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+NEG = -1e30
+PAD = 4
+
+#: kernel launches since the count was last set to 0, in all and by (M, P)
+launches = 0
+launches_by_shape: dict[tuple[int, int], int] = {}
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
+                    "dp_backtrack.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_lib = None
+build_log = ""       # nvcc's output of the build this process ran (ptxas -v)
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the dp_backtrack kernel is built with "
+                       "the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> tuple[str, float]:
+    """Compile ``csrc/dp_backtrack.cu`` for sm_90a into the build directory,
+    keyed by a hash of the source and flags; returns (library path, seconds
+    spent compiling — 0 when the library was already built)."""
+    global build_log
+    with open(_SRC, "rb") as fh:
+        key = hashlib.sha256(fh.read() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = os.path.join(_BUILD_DIR, f"dp_backtrack-{key}.so")
+    if os.path.exists(out):
+        return out, 0.0
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.tmp.{os.getpid()}"
+    t0 = time.perf_counter()
+    res = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
+                         capture_output=True, text=True)
+    build_log = (res.stdout + res.stderr).strip()
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {_SRC}:\n{build_log}")
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(path)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.dp_backtrack_launch.argtypes = [vp] * 8 + [ci] * 8 + [vp]
+        lib.dp_backtrack_launch.restype = ci
+        lib.dp_backtrack_error_string.argtypes = [ci]
+        lib.dp_backtrack_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(adjW, wt, s0, snk_ok, sel, cons_len, t_lo, t_hi):
+    B, M, M2 = adjW.shape
+    P = wt.shape[1]
+    if M2 != M or tuple(wt.shape) != (B, P, M) or tuple(s0.shape) != (B, M) \
+            or tuple(snk_ok.shape) != (B, M) or tuple(sel.shape) != (B, M):
+        raise ValueError(f"dp_backtrack: shapes adjW {tuple(adjW.shape)} wt "
+                         f"{tuple(wt.shape)} s0 {tuple(s0.shape)} snk_ok "
+                         f"{tuple(snk_ok.shape)} sel {tuple(sel.shape)} disagree")
+    for name, t, dt in (("adjW", adjW, torch.float32), ("wt", wt, torch.float32),
+                        ("s0", s0, torch.float32), ("snk_ok", snk_ok, torch.bool),
+                        ("sel", sel, torch.int32)):
+        if t.dtype != dt:
+            raise TypeError(f"dp_backtrack: {name} is {t.dtype}, expected {dt}")
+        if t.device != adjW.device:
+            raise ValueError(f"dp_backtrack: {name} on {t.device}, adjW on {adjW.device}")
+    if not (0 <= t_lo <= t_hi <= P - 1):
+        raise ValueError(f"dp_backtrack: t range [{t_lo}, {t_hi}] outside [0, {P - 1}]")
+    return B, M, P
+
+
+def dp_backtrack_batch(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
+                       snk_ok: torch.Tensor, sel: torch.Tensor, *, k: int,
+                       cons_len: int, n_candidates: int, t_lo: int, t_hi: int):
+    """adjW [B,M,M] f32 (0 or -1e30), wt [B,P,M] f32, s0 [B,M] f32,
+    snk_ok [B,M] bool, sel [B,M] i32 k-mer codes ->
+    (cand [B,C,CL] i32, clen [B,C] i32, ok [B,C] bool).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream, without synchronising, or raise."""
+    global launches
+    B, M, P = _check(adjW, wt, s0, snk_ok, sel, cons_len, t_lo, t_hi)
+    dev = adjW.device
+    if dev.type == "cpu":
+        return dp_backtrack_plain(adjW, wt, s0, snk_ok, sel, k=k,
+                                  cons_len=cons_len, n_candidates=n_candidates,
+                                  t_lo=t_lo, t_hi=t_hi)
+    if dev.type != "cuda":
+        raise ValueError(f"dp_backtrack: no kernel for device {dev}")
+    if M > 1024:
+        raise ValueError(f"dp_backtrack: M={M} exceeds one block of threads")
+    if not all(t.is_contiguous() for t in (adjW, wt, s0, snk_ok, sel)):
+        raise ValueError("dp_backtrack: inputs must be contiguous")
+    C, CL = n_candidates, cons_len
+    lib = _load()
+    cand = torch.empty((B, C, CL), dtype=torch.int32, device=dev)
+    clen = torch.empty((B, C), dtype=torch.int32, device=dev)
+    ok = torch.empty((B, C), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.dp_backtrack_launch(
+        adjW.data_ptr(), wt.data_ptr(), s0.data_ptr(), snk_ok.data_ptr(),
+        sel.data_ptr(), cand.data_ptr(), clen.data_ptr(), ok.data_ptr(),
+        B, M, P, C, CL, k, t_lo, t_hi, stream)
+    if rc != 0:
+        msg = lib.dp_backtrack_error_string(rc).decode()
+        raise RuntimeError(f"dp_backtrack launch failed (B={B}, M={M}, P={P}): "
+                           f"{msg} ({rc})")
+    launches += 1
+    launches_by_shape[(M, P)] = launches_by_shape.get((M, P), 0) + 1
+    return cand, clen, ok
+
+
+def dp_backtrack_plain(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
+                       snk_ok: torch.Tensor, sel: torch.Tensor, *, k: int,
+                       cons_len: int, n_candidates: int, t_lo: int, t_hi: int,
+                       chunk: int = 1 << 24):
+    """Plain torch version of the kernel: the Pallas body ``_fused_kernel``
+    transcribed op for op over a batch axis (on any device). Windows are
+    processed in chunks of at most ``chunk`` [u, v] DP cells."""
+    B, M, P = _check(adjW, wt, s0, snk_ok, sel, cons_len, t_lo, t_hi)
+    step = max(1, chunk // max(M * M, 1))
+    if B > step:
+        parts = [dp_backtrack_plain(adjW[i:i + step], wt[i:i + step],
+                                    s0[i:i + step], snk_ok[i:i + step],
+                                    sel[i:i + step], k=k, cons_len=cons_len,
+                                    n_candidates=n_candidates, t_lo=t_lo,
+                                    t_hi=t_hi)
+                 for i in range(0, B, step)]
+        return tuple(torch.cat(x) for x in zip(*parts))
+    dev = adjW.device
+    C, CL = n_candidates, cons_len
+    i32 = torch.int32
+
+    # ---- heaviest-path max-plus DP, state [B, M] --------------------------
+    s = s0
+    scores = [s]
+    ptrs = [torch.zeros((B, M), dtype=i32, device=dev)]
+    iota_u = torch.arange(M, dtype=i32, device=dev).view(1, M, 1)
+    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    for t in range(1, P):
+        cand3 = s[:, :, None] + adjW                        # [B, u, v]
+        best = cand3.amax(dim=1)                            # [B, v]
+        # explicit first-max tie-break: the lowest u reaching the max
+        best_u = torch.where(cand3 == best[:, None, :], iota_u,
+                             torch.full_like(iota_u, M)).amin(dim=1)
+        s = torch.where(best > NEG / 2, best + wt[:, t, :], neg)
+        scores.append(s)
+        ptrs.append(best_u)
+    scores_t = torch.stack(scores, dim=1)                   # [B, P, M]
+    ptrs_t = torch.stack(ptrs, dim=1)                       # [B, P, M]
+
+    # ---- admissible end states -------------------------------------------
+    iota_t = torch.arange(P, device=dev).view(1, P, 1)
+    iota_v = torch.arange(M, device=dev).view(1, 1, M)
+    t_ok = (iota_t >= t_lo) & (iota_t <= t_hi)
+    final = torch.where(t_ok & snk_ok[:, None, :], scores_t, neg)
+    flat_idx = (iota_t * M + iota_v).expand(B, P, M)
+
+    sel_i = sel                                             # [B, M] codes
+    rows = torch.arange(B, device=dev)
+    iota_cl = torch.arange(CL, device=dev)
+    shifts = torch.clamp(2 * (k - 1 - iota_cl), 0, 30)
+    tail_t = torch.clamp(iota_cl - k + 1, 0, P - 1)
+    chosen = torch.zeros((B, M), dtype=torch.bool, device=dev)
+    cands, clens, oks = [], [], []
+    for _ in range(C):
+        fmask = torch.where(chosen[:, None, :], neg, final)
+        mx = fmask.amax(dim=(1, 2))                          # [B]
+        idx = torch.where(fmask == mx[:, None, None], flat_idx,
+                          torch.full_like(flat_idx, P * M)).amin(dim=(1, 2))
+        t_best = idx // M
+        v_best = idx % M
+        chosen = chosen | (iota_v[0] == v_best[:, None])
+
+        # ---- backtrack: walk the pointer stack from t = P-1 down to 0 -----
+        kpath = torch.empty((B, P), dtype=i32, device=dev)
+        node = torch.zeros_like(v_best)
+        for i in range(P):
+            t = P - 1 - i
+            forced = torch.where(t_best == t, v_best, node).clamp(0, M - 1)
+            kpath[:, t] = sel_i[rows, forced]
+            ptr_val = ptrs_t[rows, t, forced].to(forced.dtype)
+            node = torch.where((t <= t_best) & (t > 0), ptr_val, forced)
+
+        first = kpath[:, :1]
+        head = torch.bitwise_right_shift(first, shifts) & 3   # codes are >= 0
+        tail = kpath[:, tail_t] & 3
+        base = torch.where(iota_cl < k, head, tail)
+        cands.append(torch.where(iota_cl[None, :] < (t_best + k)[:, None],
+                                 base, torch.full_like(base, PAD)))
+        clens.append((t_best + k).to(i32))
+        oks.append(mx > NEG / 2)
+    return (torch.stack(cands, dim=1).to(i32), torch.stack(clens, dim=1),
+            torch.stack(oks, dim=1))

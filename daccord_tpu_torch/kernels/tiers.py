@@ -1,0 +1,199 @@
+"""Escalation ladder over the batched window solver.
+
+The port of ``daccord_tpu/kernels/tiers.py``'s fused ladder. Tier 0 solves
+the whole batch; the optional wide overflow rescue re-solves windows whose
+top-M cap bound at the rescue active-set size; tier-0 failures then run
+through the escalation tiers. PyTorch runs eagerly, so failures are compacted
+to their real count with ``torch.nonzero`` (the JAX program pads them to a
+static ``esc_cap``): the M=256 rescue tier only pays for the windows that
+reach it. Windows are solved independently, so compaction cannot change any
+window's result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..oracle.consensus import ConsensusConfig, make_offset_likely
+from ..oracle.profile import ErrorProfile
+from .window_kernel import KernelParams, solve_batch_core
+
+
+@dataclass
+class TierLadder:
+    params: list[KernelParams]
+    tables: dict[int, torch.Tensor]   # k -> OL table [P, O] f32, on the device
+    wide_p0: KernelParams | None = None   # overflow-rescue tier: tier 0 at
+                                          # the rescue active-set size
+
+    @classmethod
+    def from_config(cls, profile: ErrorProfile, cfg: ConsensusConfig,
+                    max_kmers: int = 64, rescue_max_kmers: int = 256,
+                    overflow_rescue: bool = False,
+                    device: str | torch.device = "cuda") -> "TierLadder":
+        tables = {k: t.table for k, t in make_offset_likely(profile, cfg).items()}
+        params = [
+            dict(k=k, min_count=mc, edge_min_count=emc,
+                 count_frac=cfg.dbg.count_frac,
+                 anchor_slack=cfg.dbg.anchor_slack,
+                 end_slack=cfg.dbg.end_slack,
+                 len_slack=cfg.dbg.len_slack,
+                 n_candidates=cfg.dbg.n_candidates,
+                 min_depth=cfg.dbg.min_depth,
+                 max_err=cfg.dbg.max_err,
+                 # min_count=1 tiers keep every count-1 k-mer; they need a
+                 # much larger active set or the rescue fails on the
+                 # arbitrary truncation (run compacted, so affordable)
+                 max_kmers=rescue_max_kmers if mc <= 1 else max_kmers,
+                 wlen=cfg.w)
+            for k, mc, emc in cfg.tiers
+        ]
+        ladder = cls.from_numpy(tables, params, device=device)
+        if overflow_rescue and ladder.params[0].max_kmers < rescue_max_kmers:
+            ladder.wide_p0 = dataclasses.replace(ladder.params[0],
+                                                 max_kmers=rescue_max_kmers)
+        return ladder
+
+    @classmethod
+    def from_numpy(cls, tables: dict[int, np.ndarray], params: list[dict],
+                   wide_p0: dict | None = None,
+                   device: str | torch.device = "cuda") -> "TierLadder":
+        """Build a ladder from plain arrays and parameter dicts — e.g. the JAX
+        ``TierLadder``'s tables (``np.asarray``) and the fields of its
+        ``KernelParams`` — so both packages solve with identical tables."""
+        from ..utils.device import resolve_device
+
+        dev = resolve_device(device)
+        # pack_result stores tier+1 in 5 bits next to the overflow flag
+        if len(params) >= 31:
+            raise ValueError(f"{len(params)} tiers: too deep for the packed-result layout")
+        return cls(params=[KernelParams(**p) for p in params],
+                   tables={int(k): torch.as_tensor(np.array(t, dtype=np.float32),
+                                                   device=dev)
+                           for k, t in tables.items()},
+                   wide_p0=None if wide_p0 is None else KernelParams(**wide_p0))
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.tables.values())).device
+
+
+def ladder_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
+                tables: tuple, params: tuple[KernelParams, ...],
+                wide_p0: KernelParams | None = None, dp=None) -> dict:
+    """Full escalation ladder over one batch.
+
+    ``tables[i]`` is the OffsetLikely table for ``params[i]``. Every tier-0
+    failure deep enough to solve runs through the remaining tiers (the JAX
+    ladder at ``esc_cap`` = the batch, so ``esc_overflow`` is always 0).
+    ``wide_p0`` re-solves every window whose tier-0 top-M cap bound at the
+    rescue set size, replacing the capped result where the wide solve
+    succeeds. ``dp`` selects the DP/backtrack implementation (see
+    ``solve_batch_core``)."""
+    p0 = params[0]
+    out0 = solve_batch_core(seqs, lens, nsegs, tables[0], p0, dp)
+    solved = out0["solved"]
+    cons = out0["cons"]
+    cons_len = out0["cons_len"]
+    err = out0["err"]
+    tier = torch.where(solved, 0, -1).to(torch.int32)
+    # top-M-cap flag, seeded from tier 0; escalation tiers OR in their own
+    m_ovf = out0["m_overflow"]
+
+    if wide_p0 is not None:
+        idx = torch.nonzero(m_ovf & (nsegs >= p0.min_depth)).flatten()
+        if idx.numel():
+            out_w = solve_batch_core(seqs[idx], lens[idx], nsegs[idx],
+                                     tables[0], wide_p0, dp)
+            take = out_w["solved"]
+            it = idx[take]
+            cons[it] = out_w["cons"][take]
+            cons_len[it] = out_w["cons_len"][take]
+            err[it] = out_w["err"][take]
+            solved[it] = True
+            tier[it] = 0
+            # the flag clears only where the wide set didn't cap too
+            m_ovf[idx[take & ~out_w["m_overflow"]]] = False
+
+    if len(params) > 1:
+        idx = torch.nonzero(~solved & (nsegs >= p0.min_depth)).flatten()
+        e_movf = torch.zeros(idx.numel(), dtype=torch.bool, device=seqs.device)
+        live = torch.arange(idx.numel(), device=seqs.device)   # unsolved slots
+        for ti in range(1, len(params)):
+            if live.numel() == 0:
+                break
+            rows = idx[live]
+            out_t = solve_batch_core(seqs[rows], lens[rows], nsegs[rows],
+                                     tables[ti], params[ti], dp)
+            e_movf[live] |= out_t["m_overflow"]
+            take = out_t["solved"]
+            rt = rows[take]
+            cons[rt] = out_t["cons"][take]
+            cons_len[rt] = out_t["cons_len"][take]
+            err[rt] = out_t["err"][take]
+            solved[rt] = True
+            tier[rt] = ti
+            live = live[~take]
+        # the overflow flag scatters for ALL escaped windows (an unsolved but
+        # truncated window is still unexplained vs the oracle)
+        m_ovf[idx] = m_ovf[idx] | e_movf
+
+    return dict(cons=cons, cons_len=cons_len, err=err, solved=solved, tier=tier,
+                m_ovf=m_ovf, esc_overflow=0)
+
+
+def pack_result(out: dict) -> torch.Tensor:
+    """Pack a ladder result dict into ONE int32 array [B, words+3], the JAX
+    package's wire layout: ``cons`` int8 x4 per word (little-endian), then
+    cons_len, err (f32 bitcast), and tier+1 in 5 bits with the per-window
+    top-M flag at bit 5 and esc_overflow in row 0's high bits."""
+    cons = out["cons"]
+    B, CL = cons.shape
+    words = (CL + 3) // 4
+    c = torch.full((B, words * 4), 4, dtype=torch.int8, device=cons.device)
+    c[:, :CL] = cons
+    cw = c.view(torch.uint8).contiguous().view(torch.int32)     # [B, words]
+    errw = out["err"].to(torch.float32).contiguous().view(torch.int32)
+    tier = out["tier"].to(torch.int32) + 1
+    movf = out["m_ovf"].to(torch.int32)
+    ovf = torch.zeros(B, dtype=torch.int32, device=cons.device)
+    if B:
+        ovf[0] = int(out["esc_overflow"])
+    tierw = tier | (movf << 5) | (ovf << 6)
+    return torch.cat([cw, out["cons_len"].to(torch.int32)[:, None],
+                      errw[:, None], tierw[:, None]], dim=1)
+
+
+def unpack_result(arr: np.ndarray, cons_len_cl: int) -> dict:
+    """Host-side inverse of :func:`pack_result` (numpy)."""
+    arr = np.asarray(arr)
+    B = arr.shape[0]
+    CL = cons_len_cl
+    words = (CL + 3) // 4
+    cons = np.ascontiguousarray(arr[:, :words]).view(np.int8).reshape(B, words * 4)[:, :CL]
+    cons_len = arr[:, words]
+    err = np.ascontiguousarray(arr[:, words + 1]).view(np.float32)
+    tierw = arr[:, words + 2]
+    tier = (tierw & 31) - 1
+    m_ovf = ((tierw >> 5) & 1).astype(bool)
+    overflow = int(tierw[0] >> 6) if B else 0
+    return dict(cons=cons, cons_len=cons_len, err=err, solved=tier >= 0,
+                tier=tier, m_ovf=m_ovf, esc_overflow=overflow)
+
+
+def solve_ladder(batch, ladder: TierLadder) -> dict:
+    """Solve one host ``WindowBatch`` on the ladder's device; host numpy
+    results (one packed device->host copy)."""
+    dev = ladder.device
+    seqs = torch.as_tensor(batch.seqs, device=dev)
+    lens = torch.as_tensor(batch.lens, device=dev)
+    nsegs = torch.as_tensor(batch.nsegs, device=dev)
+    tables = tuple(ladder.tables[p.k] for p in ladder.params)
+    out = ladder_core(seqs, lens, nsegs, tables, tuple(ladder.params),
+                      ladder.wide_p0)
+    return unpack_result(pack_result(out).cpu().numpy(),
+                         ladder.params[0].cons_len)

@@ -1,0 +1,79 @@
+"""Command line of the port.
+
+    python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT [-E EPROF]
+        [-b BATCH] [--device cuda|cpu]
+
+``-E`` reads the error profile from EPROF when the file exists, and otherwise
+estimates it and writes it there; the file is the JSON of
+``ErrorProfile.save``, the same as the JAX package's ``daccord -E``, so a
+profile made by either package drives the other. A JSON line of run
+statistics goes to stderr.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+from ..formats.dazzdb import read_db
+from ..formats.las import LasFile
+from ..oracle.profile import ErrorProfile
+from ..runtime.pipeline import PipelineConfig, correct_to_fasta, estimate_profile_for_shard
+
+
+def daccord_run(argv=None):
+    """Parse the ``daccord`` arguments and run the correction; returns the
+    run's PipelineStats and the parsed arguments."""
+    p = argparse.ArgumentParser(prog="daccord",
+                                description="Correct long reads: DB + LAS -> FASTA")
+    p.add_argument("db")
+    p.add_argument("las")
+    p.add_argument("-o", "--out", default="-", help="output FASTA ('-' = stdout)")
+    p.add_argument("-E", "--eprof", default=None, metavar="PATH",
+                   help="error profile JSON: read when it exists, else "
+                        "estimated and written here")
+    p.add_argument("-b", "--batch", type=int, default=2048,
+                   help="windows per ladder call")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where the ladder runs (default cuda; no fallback)")
+    args = p.parse_args(argv)
+
+    cfg = PipelineConfig(batch_size=args.batch, device=args.device)
+    prof = None
+    if args.eprof and os.path.exists(args.eprof):
+        prof = ErrorProfile.load(args.eprof)
+    elif args.eprof:
+        prof = estimate_profile_for_shard(read_db(args.db), LasFile(args.las), cfg)
+        prof.save(args.eprof)
+    return correct_to_fasta(args.db, args.las, args.out, cfg, profile=prof), args
+
+
+def daccord_main(argv=None) -> int:
+    stats, args = daccord_run(argv)
+    print(json.dumps({
+        "reads": stats.n_reads, "windows": stats.n_windows,
+        "solved": stats.n_solved, "skipped_shallow": stats.n_skipped_shallow,
+        "topm_overflow": stats.n_topm_overflow,
+        "end_trimmed": stats.n_end_trimmed, "fragments": stats.n_fragments,
+        "bases_out": stats.bases_out, "batches": stats.n_batches,
+        "tiers": {str(k): v for k, v in sorted(stats.tier_histogram.items())},
+        "profile_s": round(stats.profile_s, 3),
+        "windowing_s": round(stats.windowing_s, 3),
+        "ladder_s": round(stats.ladder_s, 3), "wall_s": round(stats.wall_s, 3),
+        "device": args.device}), file=sys.stderr)
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] != "daccord":
+        print("usage: python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT "
+              "[-E EPROF] [-b BATCH] [--device cuda|cpu]", file=sys.stderr)
+        return 2
+    return daccord_main(argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,83 @@
+"""Tests of the port that need a CUDA card: the hand-written kernel has no
+CPU form. Each test skips without a card.
+
+This file imports neither jax nor ``daccord_tpu``, so it also runs on a
+machine without JAX; there the JAX-configuring ``tests/conftest.py`` is left
+out:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from daccord_tpu_torch.kernels import dp_backtrack
+from daccord_tpu_torch.kernels.window_kernel import KernelParams
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the dp_backtrack kernel has no CPU form")
+    return torch.device("cuda")
+
+
+def make_inputs(seed: int, B: int, M: int, P: int, device):
+    """Random DP inputs with integer-valued weights (equal path sums tie
+    exactly), one window with no sink-admissible end state and one with no
+    start state."""
+    rng = np.random.default_rng(seed)
+    adjW = np.where(rng.random((B, M, M)) < 0.2, 0, -1e30).astype(np.float32)
+    wt = np.rint(rng.random((B, P, M)) * 3).astype(np.float32)
+    s0 = np.where(rng.random((B, M)) < 0.4, np.rint(rng.random((B, M)) * 2),
+                  -1e30).astype(np.float32)
+    snk = rng.random((B, M)) < 0.5
+    snk[0] = False
+    s0[1] = -1e30
+    sel = np.sort(rng.integers(0, 4**6, (B, M)), axis=1).astype(np.int32)
+    return [torch.as_tensor(a, device=device) for a in (adjW, wt, s0, snk, sel)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,M", [(8, 64), (10, 64), (12, 64), (8, 256)])
+def test_kernel_matches_plain_at_ladder_shapes(cuda, k, M):
+    p = KernelParams(k=k, max_kmers=M)
+    t_lo, t_hi = p.t_range
+    args = make_inputs(seed=k * M, B=96, M=M, P=p.positions, device=cuda)
+    kw = dict(k=k, cons_len=p.cons_len, n_candidates=p.n_candidates,
+              t_lo=t_lo, t_hi=t_hi)
+    before = dp_backtrack.launches
+    got = dp_backtrack.dp_backtrack_batch(*args, **kw)
+    assert dp_backtrack.launches == before + 1
+    ref = dp_backtrack.dp_backtrack_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("cand", "clen", "ok"), got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r), name
+    assert not got[2][0].any() and not got[2][1].any()
+
+
+@pytest.mark.cuda
+def test_kernel_ties_take_lowest_index(cuda):
+    """A complete graph with uniform weights: every choice ties."""
+    B, M, P, k = 3, 64, 41, 8
+    args = [torch.zeros((B, M, M), device=cuda),
+            torch.ones((B, P, M), device=cuda),
+            torch.zeros((B, M), device=cuda),
+            torch.ones((B, M), dtype=torch.bool, device=cuda),
+            (torch.arange(M, dtype=torch.int32, device=cuda) * 5).repeat(B, 1)]
+    kw = dict(k=k, cons_len=48, n_candidates=3, t_lo=24, t_hi=40)
+    got = dp_backtrack.dp_backtrack_batch(*args, **kw)
+    ref = dp_backtrack.dp_backtrack_plain(*args, **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_cannot_take(cuda):
+    adjW, wt, s0, snk, sel = make_inputs(0, 4, 64, 41, cuda)
+    kw = dict(k=8, cons_len=48, n_candidates=3, t_lo=24, t_hi=40)
+    with pytest.raises(ValueError, match="contiguous"):
+        dp_backtrack.dp_backtrack_batch(adjW.transpose(1, 2), wt, s0, snk, sel, **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        dp_backtrack.dp_backtrack_batch(adjW, wt.cpu(), s0, snk, sel, **kw)
