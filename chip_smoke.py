@@ -6,22 +6,34 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA -> exit 1;
-2. build ``daccord_tpu_torch/csrc/dp_backtrack.cu`` for sm_90a (nvcc), with
-   the build seconds and ptxas' register/shared-memory report;
-3. kernel phase: at B=2048 for every ladder shape (M, P), inputs made by the
-   port's ``prep_batch`` from real windows of the phase-4 dataset (topped up
-   from a seeded generator if a tier had fewer), the kernel held bit-equal to
-   its plain torch version on the card, both timed with CUDA events, beside
-   the least time the card could take (bytes or f32 operations at peak);
-4. slice phase: the ``daccord`` command line in-process on cuda (batch 2048)
-   on the 20 kb / 20x simulated dataset, with the kernel's launch counts set to
-   0 just before and read just after; then one 2048-window batch through the
-   ladder with the kernel and with the plain DP on the card (packed results
-   bit-equal), the same batch on the CPU (drift from the f32 matmul order at
-   most 0.5% of windows), and the corrected reads scored against the
-   simulation's truth (they must beat the raw reads). Beside it, one ladder
-   call's time split into tier 0's prep, DP kernel and rescore, and the
-   device's busy share of the call under ``torch.profiler``.
+2. build the three kernels ``daccord_tpu_torch/csrc/{dp_backtrack,
+   heaviest_path,gather_pages}.cu`` for sm_90a, one nvcc each, all started
+   together, with the build seconds and ptxas' register/shared-memory report;
+3. kernel phase, at B=2048 on inputs made from real windows of the phase-4
+   dataset (topped up from a seeded generator if a tier had fewer), each
+   kernel held bit-equal to its plain torch version on the card, both timed
+   with CUDA events, beside the least time the card could take (bytes or f32
+   operations at peak) and, where one PyTorch call computes the same
+   function, that call's time:
+   - ``dp_backtrack`` (fused DP + backtrack) and ``heaviest_path`` (the DP
+     alone) at every ladder shape (M, P), on inputs ``prep_batch`` made;
+   - ``gather_pages`` once per shape family of the paged run, on a paged
+     batch packed from the real windows routed to that family;
+4. slice phase, two runs of the ``daccord`` command line in-process on cuda
+   (batch 2048) on the 20 kb / 20x simulated dataset with one ``-E``
+   profile, each with every kernel's launch counts set to 0 just before and
+   read just after: the dense fused run (``--paged off --dp fused``, must
+   launch ``dp_backtrack``) and the paged scan run (``--paged on --dp scan``,
+   must launch ``gather_pages`` and ``heaviest_path``). Their FASTA outputs
+   are compared (the drift bound of ROADMAP's parity invariant), and both
+   are scored against the simulation's truth (they must beat the raw
+   reads). Then one 2048-window batch: the gathered paged tile is bit-equal
+   to the dense tile; the scan-route ladder, the paged ladder and the ladder
+   with the plain DP are bit-equal to the fused-route ladder on the card;
+   the same batch on the CPU differs from the card's on at most 0.5% of
+   windows. Beside it, one ladder call's time split into tier 0's prep, DP
+   kernel and rescore, and the device's busy share of the call under
+   ``torch.profiler``.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``daccord_tpu``.
@@ -45,8 +57,10 @@ DEVICE = "cuda"              # a CPU rehearsal of the control flow may set "cpu"
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOP_S = 67e12           # H100 SXM float32 outside the tensor cores
 DATASET = dict(genome_len=20_000, coverage=20, read_len_mean=2_000, seed=42)
-REPLACES = "daccord_tpu/kernels/pallas_window.py:129"
-SOURCE = "daccord_tpu_torch/csrc/dp_backtrack.cu"
+KERNELS = ("dp_backtrack", "heaviest_path", "gather_pages")
+REPLACES = {"dp_backtrack": "daccord_tpu/kernels/pallas_window.py:129",
+            "heaviest_path": "daccord_tpu/kernels/pallas_dp.py:36",
+            "gather_pages": "daccord_tpu/kernels/pallas_window.py:96"}
 
 
 def log(*a) -> None:
@@ -109,20 +123,38 @@ def real_windows(db, las, cfg, need: int):
     return tuple(np.concatenate([g[i] for g in got])[:need] for i in range(3))
 
 
-def bound(ins, outs, M: int, P: int, C: int, T: int) -> tuple[float, str]:
-    """Least time (ms) the card could take for one launch: every input read
-    once and every output written once at the HBM rate, against the DP's
-    (P-1)*M*M f32 add+compare pairs and the C end-state scans over T*M
-    scores at the f32 rate; whichever is larger bounds it."""
-    nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
-    Bn = ins[0].shape[0]
-    ops = Bn * (2 * (P - 1) * M * M + C * T * M)
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_FLOP_S
+def source(name: str) -> str:
+    return f"daccord_tpu_torch/csrc/{name}.cu"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, ops: int) -> tuple[float, str]:
+    """Least time (ms) the card could take: the bytes that must move at the
+    HBM rate against the f32 operations at the f32 rate; whichever is
+    larger bounds it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, ops / F32_FLOP_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(ladder, seqs, lens, nsegs, dev) -> list[dict]:
-    from daccord_tpu_torch.kernels import dp_backtrack
+def max_err(got, ref) -> float:
+    return max(float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+               for a, b in zip(got, ref))
+
+
+def row(name: str, kernel: str, key, err: float, ms: float, plain_ms: float,
+        bms: float, by: str, library_ms=None) -> dict:
+    return dict(name=name, kernel=kernel, key=key, route="cuda",
+                source=source(kernel), replaces=REPLACES[kernel], max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=library_ms)
+
+
+def dp_kernel_phase(ladder, seqs, lens, nsegs, dev) -> list[dict]:
+    """``dp_backtrack`` and ``heaviest_path`` at every ladder shape."""
+    from daccord_tpu_torch.kernels import dp_backtrack, heaviest_path
     from daccord_tpu_torch.kernels.window_kernel import prep_batch
 
     rows = []
@@ -134,30 +166,106 @@ def kernel_phase(ladder, seqs, lens, nsegs, dev) -> list[dict]:
     for p in shapes:
         M, P, C, CL = p.max_kmers, p.positions, p.n_candidates, p.cons_len
         t_lo, t_hi = p.t_range
+        T = t_hi - t_lo + 1
         g = prep_batch(tseqs, tlens, tnsegs, ladder.tables[p.k], p)
         ins = (g["adjW"], g["W"].transpose(1, 2).contiguous(), g["score0"],
                g["snk_ok"], g["sel"])
+        Bn = ins[0].shape[0]
         kw = dict(k=p.k, cons_len=CL, n_candidates=C, t_lo=t_lo, t_hi=t_hi)
+
         got = dp_backtrack.dp_backtrack_batch(*ins, **kw)
         ref = dp_backtrack.dp_backtrack_plain(*ins, **kw)
         torch.cuda.synchronize()
-        err = max(float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                  for a, b in zip(got, ref))
         for name, a, b in zip(("cand", "clen", "ok"), got, ref):
             if not torch.equal(a, b):
                 raise AssertionError(f"dp_backtrack M={M} P={P}: kernel {name} "
                                      f"differs from the plain version")
         ms = cuda_ms(lambda: dp_backtrack.dp_backtrack_batch(*ins, **kw), 20)
         plain_ms = cuda_ms(lambda: dp_backtrack.dp_backtrack_plain(*ins, **kw), 3)
-        bms, by = bound(ins, got, M, P, C, t_hi - t_lo + 1)
+        # the DP's (P-1)*M*M add+compare pairs and the C end-state scans
+        bms, by = bound(nbytes(*ins, *got), Bn * (2 * (P - 1) * M * M + C * T * M))
         n_ok = int(got[2].any(dim=1).sum())
-        log(f"kernel dp_backtrack M={M} P={P} k={p.k} B={ins[0].shape[0]}: "
-            f"bit-equal to plain, windows with a path {n_ok}, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by})")
-        rows.append(dict(name=f"dp_backtrack[M={M},P={P}]", route="cuda",
-                         source=SOURCE, replaces=REPLACES, shape=(M, P),
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bms, bound_by=by, library_ms=None))
+        log(f"kernel dp_backtrack M={M} P={P} k={p.k} B={Bn}: bit-equal to plain, "
+            f"windows with a path {n_ok}, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bms:.6f} ms ({by})")
+        rows.append(row(f"dp_backtrack[M={M},P={P}]", "dp_backtrack", (M, P),
+                        max_err(got, ref), ms, plain_ms, bms, by))
+
+        hins = ins[:3]
+        got = heaviest_path.heaviest_path_batch(*hins)
+        ref = dp_backtrack.heaviest_path_plain(*hins)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("scores", "ptrs"), got, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"heaviest_path M={M} P={P}: kernel {name} "
+                                     f"differs from the plain version")
+        ms = cuda_ms(lambda: heaviest_path.heaviest_path_batch(*hins), 20)
+        plain_ms = cuda_ms(lambda: dp_backtrack.heaviest_path_plain(*hins), 3)
+        bms, by = bound(nbytes(*hins, *got), Bn * 2 * (P - 1) * M * M)
+        log(f"kernel heaviest_path M={M} P={P} k={p.k} B={Bn}: bit-equal to plain, "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by})")
+        rows.append(row(f"heaviest_path[M={M},P={P}]", "heaviest_path", (M, P),
+                        max_err(got, ref), ms, plain_ms, bms, by))
+    return rows
+
+
+def paged_family_batch(seqs, lens, nsegs, families, fi: int, page_len: int):
+    """A B-row paged batch of family ``fi`` from the real windows: those the
+    router sends to it (else those that fit it), repeated in order up to B
+    rows and cut where the pages would overflow one pool, as the router
+    cuts. Returns (paged batch, real windows used)."""
+    from daccord_tpu_torch.kernels import paging
+    from daccord_tpu_torch.kernels.tensorize import BatchShape, WindowBatch
+
+    fam = families[fi]
+    pgs = paging.window_pages(lens, page_len)
+    idx = np.nonzero(paging.assign_family(families, nsegs, pgs) == fi)[0]
+    if not len(idx):
+        idx = np.nonzero((nsegs <= fam.depth) & (pgs <= fam.pages))[0]
+    rows = np.resize(idx, B)
+    take = max(int(np.searchsorted(np.cumsum(pgs[rows]), B * fam.budget,
+                                   side="right")), 1)
+    rows = rows[:take]
+    dense = WindowBatch(seqs=seqs[rows, :fam.depth], lens=lens[rows, :fam.depth],
+                        nsegs=nsegs[rows],
+                        shape=BatchShape(depth=fam.depth, seg_len=seqs.shape[2]),
+                        read_ids=np.zeros(len(rows), np.int64),
+                        wstarts=np.zeros(len(rows), np.int64))
+    return paging.pack_paged(dense, fam, target_rows=B), len(idx)
+
+
+def gather_kernel_phase(seqs, lens, nsegs, families, page_len: int, dev) -> list[dict]:
+    """``gather_pages`` once per shape family."""
+    from daccord_tpu_torch.kernels import gather_pages
+
+    rows = []
+    for fi, fam in enumerate(families):
+        pb, n_real = paged_family_batch(seqs, lens, nsegs, families, fi, page_len)
+        gather_pages.check_table(pb.table, pb.pool.shape[0])
+        pool = torch.as_tensor(pb.pool, device=dev)
+        table = torch.as_tensor(pb.table, device=dev)
+        N, PPW = pool.shape[0], table.shape[1]
+        got = gather_pages.gather_pages(pool, table)
+        ref = gather_pages.gather_pages_plain(pool, table)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"gather_pages {fam.describe()}: kernel differs "
+                                 f"from the plain version")
+        ms = cuda_ms(lambda: gather_pages.gather_pages(pool, table), 50)
+        plain_ms = cuda_ms(lambda: gather_pages.gather_pages_plain(pool, table), 20)
+        flat = table.view(-1)
+        lib_ms = cuda_ms(lambda: pool.index_select(0, flat).view(B, PPW, fam.page_len), 50)
+        # the table read once, every distinct page it references read once,
+        # the output written once; no arithmetic
+        pages = int(torch.unique(table).numel())
+        bms, by = bound(nbytes(table, got) + pages * fam.page_len, 0)
+        log(f"kernel gather_pages {fam.describe()} B={B}: pool {N} x {fam.page_len}, "
+            f"table {B} x {PPW}, {pb.size} rows from {n_real} real windows, "
+            f"{pages} distinct pages; bit-equal to plain, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+            f"{bms:.6f} ms ({by})")
+        rows.append(row(f"gather_pages[{fam.describe()}]", "gather_pages", (N, PPW),
+                        0.0, ms, plain_ms, bms, by, lib_ms))
     return rows
 
 
@@ -236,6 +344,51 @@ def score_vs_truth(fasta: str, truth: str, db) -> tuple[float, float]:
     return e / max(n, 1), re / max(rn, 1)
 
 
+def daccord(argv: list[str], counters) -> tuple:
+    """One in-process ``daccord`` run with every kernel's launch counts set
+    to 0 just before and read just after: (stats, {kernel: (launches,
+    launches by shape)})."""
+    for mod in counters:
+        mod.launches = 0
+        mod.launches_by_shape.clear()
+    from daccord_tpu_torch.tools.cli import daccord_run
+
+    stats, _ = daccord_run(argv)
+    torch.cuda.synchronize()
+    return stats, {mod.__name__.rsplit(".", 1)[1]: (mod.launches,
+                                                    dict(mod.launches_by_shape))
+                   for mod in counters}
+
+
+def log_run(tag: str, stats, launched: dict) -> None:
+    n = max(stats.n_batches, 1)
+    log(f"daccord {tag}: reads {stats.n_reads}, windows {stats.n_windows}, solved "
+        f"{stats.n_solved} ({stats.n_solved / max(stats.n_windows, 1):.4f}), "
+        f"skipped shallow {stats.n_skipped_shallow}, batches {stats.n_batches}, "
+        f"tiers {dict(sorted(stats.tier_histogram.items()))}, "
+        f"fragments {stats.n_fragments}, bases out {stats.bases_out}")
+    log(f"daccord {tag}: wall {stats.wall_s:.3f} s, {stats.windows_per_sec():.1f} "
+        f"windows/s, {stats.bases_per_sec():.1f} bases/s; host windowing "
+        f"{stats.windowing_s * 1e3:.1f} ms, device ladder {stats.ladder_s * 1e3:.1f} "
+        f"ms ({stats.ladder_s * 1e3 / n:.1f} ms per batch), profile/family sample "
+        f"{stats.profile_s * 1e3:.1f} ms; pad waste {stats.pad_waste:.4f}, "
+        f"H2D {stats.h2d_bytes} bytes ({stats.h2d_bytes / n:.0f} per batch)")
+    for name, (total, by_shape) in launched.items():
+        shapes = ", ".join(f"{k}: {v}" for k, v in sorted(by_shape.items()))
+        log(f"daccord {tag}: {name} launches {total} ({shapes})")
+
+
+def fasta_drift(a: str, b: str) -> tuple[int, int, int, int]:
+    """(records of ``a``, records of ``b`` identical to them, bases of ``a``,
+    bases of ``b``)."""
+    from daccord_tpu_torch.formats.fasta import read_fasta
+
+    ra = {r.name: r.seq for r in read_fasta(a)}
+    rb = {r.name: r.seq for r in read_fasta(b)}
+    same = sum(rb.get(n) == s for n, s in ra.items())
+    return len(ra), same, sum(map(len, ra.values())), sum(map(len, rb.values()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
@@ -243,13 +396,16 @@ def main() -> int:
         return 1
     from daccord_tpu_torch.formats.dazzdb import read_db
     from daccord_tpu_torch.formats.las import LasFile
-    from daccord_tpu_torch.kernels import dp_backtrack
+    from daccord_tpu_torch.kernels import (dp_backtrack, gather_pages, heaviest_path,
+                                           nvcc, paging)
+    from daccord_tpu_torch.kernels.tensorize import BatchShape, WindowBatch
     from daccord_tpu_torch.kernels.tiers import (TierLadder, ladder_core,
-                                                 pack_result, unpack_result)
+                                                 ladder_core_paged, pack_result,
+                                                 unpack_result)
     from daccord_tpu_torch.runtime.pipeline import (PipelineConfig,
-                                                    estimate_profile_for_shard)
+                                                    estimate_profile_for_shard,
+                                                    run_families)
     from daccord_tpu_torch.sim import SimConfig, make_dataset
-    from daccord_tpu_torch.tools.cli import daccord_run
 
     t_all = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -261,11 +417,16 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     # ---- 2. build -----------------------------------------------------------
-    path, secs = dp_backtrack.build()
-    log(f"build: {os.path.relpath(path)} in {secs:.2f} s (nvcc sm_90a)")
-    for line in dp_backtrack.build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    built = nvcc.build_many(KERNELS)
+    log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc sm_90a, one process each, in parallel)")
+    for name, (path, secs) in built.items():
+        log(f"  {name}: {os.path.relpath(path)} in {secs:.2f} s")
+        for line in nvcc.logs.get(name, "").splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"    ptxas: {line.strip()}")
+    counters = (dp_backtrack, heaviest_path, gather_pages)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t0 = time.perf_counter()
@@ -274,10 +435,13 @@ def main() -> int:
         db, las = read_db(d["db"]), LasFile(d["las"])
         cfg = PipelineConfig(batch_size=B, device=dev.type)
         t0 = time.perf_counter()
-        prof = estimate_profile_for_shard(db, las, cfg)
+        prof, sample = estimate_profile_for_shard(db, las, cfg, return_windows=True)
         eprof = os.path.join(tmp, "eprof.json")
         prof.save(eprof)
-        log(f"profile pass: {time.perf_counter() - t0:.1f} s -> {prof}")
+        families = run_families(db, las, cfg, sample)
+        log(f"profile pass: {time.perf_counter() - t0:.1f} s -> {prof}; "
+            f"{len(sample)} sampled windows -> families "
+            f"{[f.describe() for f in families]}")
         ladder = TierLadder.from_config(prof, cfg.consensus, device=dev)
 
         # ---- 3. kernel phase ------------------------------------------------
@@ -291,35 +455,39 @@ def main() -> int:
                                  zip((seqs, lens, nsegs), extra))
         log(f"kernel inputs: {n_real} real windows + {B - n_real} generated, "
             f"windowed in {time.perf_counter() - t0:.1f} s")
-        rows = kernel_phase(ladder, seqs, lens, nsegs, dev)
+        rows = dp_kernel_phase(ladder, seqs, lens, nsegs, dev)
+        rows += gather_kernel_phase(seqs, lens, nsegs, families, cfg.page_len, dev)
 
-        # ---- 4. slice phase: the main path ----------------------------------
-        out = os.path.join(tmp, "out.fasta")
-        torch.cuda.reset_peak_memory_stats()
-        dp_backtrack.launches = 0
-        dp_backtrack.launches_by_shape.clear()
-        stats, _ = daccord_run([d["db"], d["las"], "-o", out, "-E", eprof,
-                                "-b", str(B), "--device", dev.type])
-        torch.cuda.synchronize()
-        launches = dp_backtrack.launches
-        by_shape = dict(dp_backtrack.launches_by_shape)
-        log(f"daccord: reads {stats.n_reads}, windows {stats.n_windows}, solved "
-            f"{stats.n_solved} ({stats.n_solved / max(stats.n_windows, 1):.4f}), "
-            f"skipped shallow {stats.n_skipped_shallow}, batches {stats.n_batches}, "
-            f"tiers {dict(sorted(stats.tier_histogram.items()))}, "
-            f"fragments {stats.n_fragments}, bases out {stats.bases_out}")
-        log(f"daccord: wall {stats.wall_s:.3f} s, {stats.windows_per_sec():.1f} "
-            f"windows/s, {stats.bases_per_sec():.1f} bases/s; host windowing "
-            f"{stats.windowing_s * 1e3:.1f} ms, device ladder {stats.ladder_s * 1e3:.1f} ms")
-        per_shape = ", ".join(f"M={m} P={p}: {n}" for (m, p), n in sorted(by_shape.items()))
-        log(f"dp_backtrack launches on the main path: {launches} ({per_shape}); "
-            f"device ladder {stats.ladder_s * 1e3 / max(stats.n_batches, 1):.1f} ms "
-            f"per batch; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-        if launches <= 0:
-            raise AssertionError("the main path never launched the dp_backtrack kernel")
-        if stats.n_solved <= 0 or stats.bases_out <= 0:
-            raise AssertionError("the main path solved no window")
+        # ---- 4. slice phase: the two main paths -----------------------------
+        runs = {}
+        for tag, paged, route in (("dense fused", "off", "fused"),
+                                  ("paged scan", "on", "scan")):
+            out = os.path.join(tmp, f"out_{paged}_{route}.fasta")
+            torch.cuda.reset_peak_memory_stats()
+            stats, launched = daccord([d["db"], d["las"], "-o", out, "-E", eprof,
+                                       "-b", str(B), "--device", dev.type,
+                                       "--paged", paged, "--dp", route], counters)
+            log_run(tag, stats, launched)
+            log(f"daccord {tag}: peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            if stats.n_solved <= 0 or stats.bases_out <= 0:
+                raise AssertionError(f"daccord {tag} solved no window")
+            runs[tag] = (out, stats, launched)
+        dense_launch = runs["dense fused"][2]
+        paged_launch = runs["paged scan"][2]
+        for run_launched, name in ((dense_launch, "dp_backtrack"),
+                                   (paged_launch, "heaviest_path"),
+                                   (paged_launch, "gather_pages")):
+            if run_launched[name][0] <= 0:
+                raise AssertionError(f"the main path never launched the {name} kernel")
+        if not runs["paged scan"][1].paged:
+            raise AssertionError("the paged run did not ship paged batches")
+        n_rec, same, bases_a, bases_b = fasta_drift(runs["dense fused"][0],
+                                                    runs["paged scan"][0])
+        log(f"paged scan vs dense fused FASTA: {same}/{n_rec} records identical "
+            f"({n_rec - same} differ), bases {bases_a} vs {bases_b}")
+        if same < 0.95 * n_rec or abs(bases_a - bases_b) > 0.005 * bases_a:
+            raise AssertionError("the paged scan run drifted past the parity bound")
 
         tseqs, tlens, tnsegs = (torch.as_tensor(a[:B], device=dev)
                                 for a in (seqs, lens, nsegs))
@@ -328,13 +496,34 @@ def main() -> int:
         kern = pack_result(ladder_core(tseqs, tlens, tnsegs, tables, params))
         plain = pack_result(ladder_core(tseqs, tlens, tnsegs, tables, params,
                                         dp=dp_backtrack.dp_backtrack_plain))
+        scan = pack_result(ladder_core(tseqs, tlens, tnsegs, tables, params,
+                                       route="scan"))
+        full = paging.ShapeFamily(depth=cfg.depth, pages=cfg.depth * cfg.seg_len
+                                  // cfg.page_len, page_len=cfg.page_len)
+        pb = paging.pack_paged(WindowBatch(
+            seqs=seqs[:B], lens=lens[:B], nsegs=nsegs[:B],
+            shape=BatchShape(depth=cfg.depth, seg_len=cfg.seg_len),
+            read_ids=np.zeros(B, np.int64), wstarts=np.zeros(B, np.int64)), full)
+        gather_pages.check_table(pb.table, pb.pool.shape[0])
+        ppool, ptable, plens, pnsegs = (torch.as_tensor(a, device=dev) for a in
+                                        (pb.pool, pb.table, pb.lens, pb.nsegs))
+        tile = paging.gather_windows(ppool, ptable, plens, page_len=cfg.page_len,
+                                     seg_len=cfg.seg_len)
+        paged_scan = pack_result(ladder_core_paged(
+            ppool, ptable, plens, pnsegs, tables, params, page_len=cfg.page_len,
+            seg_len=cfg.seg_len, route="scan"))
         torch.cuda.synchronize()
-        if not torch.equal(kern, plain):
-            raise AssertionError("ladder with the kernel differs from the ladder "
-                                 "with the plain DP on the card")
+        if not torch.equal(tile, tseqs):
+            raise AssertionError("the gathered paged tile differs from the dense tile")
+        for what, got in (("the plain DP", plain), ("the scan route", scan),
+                          ("the paged scan route", paged_scan)):
+            if not torch.equal(got, kern):
+                raise AssertionError(f"ladder with {what} differs from the fused "
+                                     f"ladder on the card")
         res = unpack_result(kern.cpu().numpy(), params[0].cons_len)
-        log(f"ladder on one batch of {B}: kernel == plain DP on the card, "
-            f"bit-equal; tiers {np.unique(res['tier'], return_counts=True)}")
+        log(f"one batch of {B}: gathered paged tile == dense tile; ladder with the "
+            f"fused kernel == plain DP == scan route == paged scan route on the "
+            f"card, bit-equal; tiers {np.unique(res['tier'], return_counts=True)}")
 
         ladder_breakdown(ladder, tseqs, tlens, tnsegs)
 
@@ -351,15 +540,19 @@ def main() -> int:
         if differ > 0.005 * B:
             raise AssertionError(f"card and CPU ladders differ on {differ} windows")
 
-        err, raw = score_vs_truth(out, d["truth"], db)
-        q = -10 * math.log10(max(err, 1e-9))
-        log(f"accuracy vs truth: corrected error rate {err:.6f} (Q{q:.2f}), "
-            f"raw {raw:.6f}")
-        if not err < raw / 2:
-            raise AssertionError("corrected reads are not clearly better than raw")
+        for tag, (out, _, _) in runs.items():
+            err, raw = score_vs_truth(out, d["truth"], db)
+            q = -10 * math.log10(max(err, 1e-9))
+            log(f"accuracy vs truth, {tag}: corrected error rate {err:.6f} "
+                f"(Q{q:.2f}), raw {raw:.6f}")
+            if not err < raw / 2:
+                raise AssertionError(f"{tag}: corrected reads are not clearly "
+                                     f"better than raw")
 
     for r in rows:
-        r["launches"] = by_shape.get(r.pop("shape"), 0)
+        kernel = r.pop("kernel")
+        run_launched = dense_launch if kernel == "dp_backtrack" else paged_launch
+        r["launches"] = run_launched[kernel][1].get(r.pop("key"), 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"smoke total {time.perf_counter() - t_all:.1f} s")

@@ -16,13 +16,10 @@ path went through the kernel at every ladder shape it reached.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
+
+from . import nvcc as _nvcc
 
 NEG = -1e30
 PAD = 4
@@ -31,52 +28,25 @@ PAD = 4
 launches = 0
 launches_by_shape: dict[tuple[int, int], int] = {}
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                    "dp_backtrack.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _lib = None
 build_log = ""       # nvcc's output of the build this process ran (ptxas -v)
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the dp_backtrack kernel is built with "
-                       "the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
-
-
 def build() -> tuple[str, float]:
-    """Compile ``csrc/dp_backtrack.cu`` for sm_90a into the build directory,
-    keyed by a hash of the source and flags; returns (library path, seconds
-    spent compiling — 0 when the library was already built)."""
+    """Compile ``csrc/dp_backtrack.cu`` for sm_90a into the build directory
+    (``kernels/nvcc.py``); returns (library path, seconds spent compiling --
+    0 when the library was already built)."""
     global build_log
-    with open(_SRC, "rb") as fh:
-        key = hashlib.sha256(fh.read() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(_BUILD_DIR, f"dp_backtrack-{key}.so")
-    if os.path.exists(out):
-        return out, 0.0
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp.{os.getpid()}"
-    t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
-                         capture_output=True, text=True)
-    build_log = (res.stdout + res.stderr).strip()
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {_SRC}:\n{build_log}")
-    os.replace(tmp, out)
-    return out, time.perf_counter() - t0
+    path, secs = _nvcc.build("dp_backtrack")
+    build_log = _nvcc.logs.get("dp_backtrack", build_log)
+    return path, secs
 
 
 def _load():
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(path)
+        build()
+        lib = _nvcc.load("dp_backtrack")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.dp_backtrack_launch.argtypes = [vp] * 8 + [ci] * 8 + [vp]
         lib.dp_backtrack_launch.restype = ci
@@ -152,27 +122,36 @@ def dp_backtrack_plain(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
                        cons_len: int, n_candidates: int, t_lo: int, t_hi: int,
                        chunk: int = 1 << 24):
     """Plain torch version of the kernel: the Pallas body ``_fused_kernel``
-    transcribed op for op over a batch axis (on any device). Windows are
-    processed in chunks of at most ``chunk`` [u, v] DP cells."""
-    B, M, P = _check(adjW, wt, s0, snk_ok, sel, cons_len, t_lo, t_hi)
+    transcribed op for op over a batch axis (on any device), as its two
+    halves: :func:`heaviest_path_plain` then :func:`candidates_backtrack`."""
+    _check(adjW, wt, s0, snk_ok, sel, cons_len, t_lo, t_hi)
+    scores, ptrs = heaviest_path_plain(adjW, wt, s0, chunk=chunk)
+    return candidates_backtrack(scores, ptrs, snk_ok, sel, k=k,
+                                cons_len=cons_len, n_candidates=n_candidates,
+                                t_lo=t_lo, t_hi=t_hi)
+
+
+def heaviest_path_plain(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
+                        chunk: int = 1 << 24):
+    """The max-plus DP alone: adjW [B,M,M] f32, wt [B,P,M] f32, s0 [B,M] f32
+    -> (scores [B,P,M] f32, ptrs [B,P,M] i32), the first u reaching the max
+    on ties and NEG where the best predecessor is NEG -- the Pallas
+    ``pallas_dp._dp_kernel`` (and the JAX scan route's ``_dp_scan_one``) op
+    for op. Windows are processed in chunks of at most ``chunk`` [u, v]
+    cells."""
+    B, M, _ = adjW.shape
+    P = wt.shape[1]
     step = max(1, chunk // max(M * M, 1))
     if B > step:
-        parts = [dp_backtrack_plain(adjW[i:i + step], wt[i:i + step],
-                                    s0[i:i + step], snk_ok[i:i + step],
-                                    sel[i:i + step], k=k, cons_len=cons_len,
-                                    n_candidates=n_candidates, t_lo=t_lo,
-                                    t_hi=t_hi)
+        parts = [heaviest_path_plain(adjW[i:i + step], wt[i:i + step],
+                                     s0[i:i + step])
                  for i in range(0, B, step)]
         return tuple(torch.cat(x) for x in zip(*parts))
     dev = adjW.device
-    C, CL = n_candidates, cons_len
-    i32 = torch.int32
-
-    # ---- heaviest-path max-plus DP, state [B, M] --------------------------
     s = s0
     scores = [s]
-    ptrs = [torch.zeros((B, M), dtype=i32, device=dev)]
-    iota_u = torch.arange(M, dtype=i32, device=dev).view(1, M, 1)
+    ptrs = [torch.zeros((B, M), dtype=torch.int32, device=dev)]
+    iota_u = torch.arange(M, dtype=torch.int32, device=dev).view(1, M, 1)
     neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
     for t in range(1, P):
         cand3 = s[:, :, None] + adjW                        # [B, u, v]
@@ -183,17 +162,39 @@ def dp_backtrack_plain(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
         s = torch.where(best > NEG / 2, best + wt[:, t, :], neg)
         scores.append(s)
         ptrs.append(best_u)
-    scores_t = torch.stack(scores, dim=1)                   # [B, P, M]
-    ptrs_t = torch.stack(ptrs, dim=1)                       # [B, P, M]
+    return torch.stack(scores, dim=1), torch.stack(ptrs, dim=1)
+
+
+def candidates_backtrack(scores: torch.Tensor, ptrs: torch.Tensor,
+                         snk_ok: torch.Tensor, sel: torch.Tensor, *, k: int,
+                         cons_len: int, n_candidates: int, t_lo: int, t_hi: int):
+    """C end states with distinct final k-mers and their backtrack, from the
+    DP's stacks: scores [B,P,M] f32, ptrs [B,P,M] i32, snk_ok [B,M] bool,
+    sel [B,M] i32 -> (cand [B,C,CL] i32, clen [B,C] i32, ok [B,C] bool).
+    The candidate half of the JAX ``_finish_one`` (the argmax over the flat
+    t-major index, the lowest index on ties; an all-masked round gives index
+    0 and ok False), in torch on any device."""
+    B, P, M = scores.shape
+    if tuple(ptrs.shape) != (B, P, M) or tuple(snk_ok.shape) != (B, M) \
+            or tuple(sel.shape) != (B, M):
+        raise ValueError(f"candidates_backtrack: shapes scores {tuple(scores.shape)} "
+                         f"ptrs {tuple(ptrs.shape)} snk_ok {tuple(snk_ok.shape)} "
+                         f"sel {tuple(sel.shape)} disagree")
+    if not (0 <= t_lo <= t_hi <= P - 1):
+        raise ValueError(f"candidates_backtrack: t range [{t_lo}, {t_hi}] "
+                         f"outside [0, {P - 1}]")
+    dev = scores.device
+    C, CL = n_candidates, cons_len
+    i32 = torch.int32
+    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
 
     # ---- admissible end states -------------------------------------------
     iota_t = torch.arange(P, device=dev).view(1, P, 1)
     iota_v = torch.arange(M, device=dev).view(1, 1, M)
     t_ok = (iota_t >= t_lo) & (iota_t <= t_hi)
-    final = torch.where(t_ok & snk_ok[:, None, :], scores_t, neg)
+    final = torch.where(t_ok & snk_ok[:, None, :], scores, neg)
     flat_idx = (iota_t * M + iota_v).expand(B, P, M)
 
-    sel_i = sel                                             # [B, M] codes
     rows = torch.arange(B, device=dev)
     iota_cl = torch.arange(CL, device=dev)
     shifts = torch.clamp(2 * (k - 1 - iota_cl), 0, 30)
@@ -215,8 +216,8 @@ def dp_backtrack_plain(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
         for i in range(P):
             t = P - 1 - i
             forced = torch.where(t_best == t, v_best, node).clamp(0, M - 1)
-            kpath[:, t] = sel_i[rows, forced]
-            ptr_val = ptrs_t[rows, t, forced].to(forced.dtype)
+            kpath[:, t] = sel[rows, forced]
+            ptr_val = ptrs[rows, t, forced].to(forced.dtype)
             node = torch.where((t <= t_best) & (t > 0), ptr_val, forced)
 
         first = kpath[:, :1]

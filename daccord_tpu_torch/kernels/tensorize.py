@@ -9,6 +9,7 @@ device.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,6 +40,10 @@ class WindowBatch:
     @property
     def size(self) -> int:
         return len(self.nsegs)
+
+    def pad_waste(self) -> float:
+        """Fraction of seq cells that are padding."""
+        return 1.0 - int(self.lens.sum()) / max(self.seqs.size, 1)
 
 
 def tensorize_windows(items: list[tuple[int, WindowSegments]],
@@ -78,13 +83,31 @@ def tensorize_windows(items: list[tuple[int, WindowSegments]],
                        read_ids=read_ids, wstarts=wstarts)
 
 
-def pad_batch(batch: WindowBatch, target: int) -> WindowBatch:
+def slice_batch(batch, lo: int, hi: int):
+    """Row slice [lo, hi) of a batch, as views. Paged batches
+    (``kernels/paging.py``) slice by table rows; the page pool is shared."""
+    if getattr(batch, "pool", None) is not None:
+        from .paging import slice_paged
+
+        return slice_paged(batch, lo, hi)
+    return dataclasses.replace(
+        batch, seqs=batch.seqs[lo:hi], lens=batch.lens[lo:hi],
+        nsegs=batch.nsegs[lo:hi], read_ids=batch.read_ids[lo:hi],
+        wstarts=batch.wstarts[lo:hi])
+
+
+def pad_batch(batch, target: int):
     """Pad a batch to ``target`` windows with empty rows (nsegs 0, which the
-    solver marks unsolved), so every launch of a run has one shape."""
+    solver marks unsolved), so every launch of a run has one shape. Paged
+    batches pad by sentinel table rows (``paging.pad_paged``)."""
     B = batch.size
     if B == target:
         return batch
     assert B < target, (B, target)
+    if getattr(batch, "pool", None) is not None:
+        from .paging import pad_paged
+
+        return pad_paged(batch, target)
     D, L = batch.shape.depth, batch.shape.seg_len
     seqs = np.full((target, D, L), PAD, dtype=np.int8)
     seqs[:B] = batch.seqs

@@ -29,12 +29,15 @@ class TierLadder:
     tables: dict[int, torch.Tensor]   # k -> OL table [P, O] f32, on the device
     wide_p0: KernelParams | None = None   # overflow-rescue tier: tier 0 at
                                           # the rescue active-set size
+    route: str = "fused"                  # heaviest-path route of every
+                                          # tier (solve_batch_core)
 
     @classmethod
     def from_config(cls, profile: ErrorProfile, cfg: ConsensusConfig,
                     max_kmers: int = 64, rescue_max_kmers: int = 256,
                     overflow_rescue: bool = False,
-                    device: str | torch.device = "cuda") -> "TierLadder":
+                    device: str | torch.device = "cuda",
+                    route: str = "fused") -> "TierLadder":
         tables = {k: t.table for k, t in make_offset_likely(profile, cfg).items()}
         params = [
             dict(k=k, min_count=mc, edge_min_count=emc,
@@ -52,7 +55,7 @@ class TierLadder:
                  wlen=cfg.w)
             for k, mc, emc in cfg.tiers
         ]
-        ladder = cls.from_numpy(tables, params, device=device)
+        ladder = cls.from_numpy(tables, params, device=device, route=route)
         if overflow_rescue and ladder.params[0].max_kmers < rescue_max_kmers:
             ladder.wide_p0 = dataclasses.replace(ladder.params[0],
                                                  max_kmers=rescue_max_kmers)
@@ -61,7 +64,8 @@ class TierLadder:
     @classmethod
     def from_numpy(cls, tables: dict[int, np.ndarray], params: list[dict],
                    wide_p0: dict | None = None,
-                   device: str | torch.device = "cuda") -> "TierLadder":
+                   device: str | torch.device = "cuda",
+                   route: str = "fused") -> "TierLadder":
         """Build a ladder from plain arrays and parameter dicts — e.g. the JAX
         ``TierLadder``'s tables (``np.asarray``) and the fields of its
         ``KernelParams`` — so both packages solve with identical tables."""
@@ -75,7 +79,8 @@ class TierLadder:
                    tables={int(k): torch.as_tensor(np.array(t, dtype=np.float32),
                                                    device=dev)
                            for k, t in tables.items()},
-                   wide_p0=None if wide_p0 is None else KernelParams(**wide_p0))
+                   wide_p0=None if wide_p0 is None else KernelParams(**wide_p0),
+                   route=route)
 
     @property
     def device(self) -> torch.device:
@@ -84,7 +89,8 @@ class TierLadder:
 
 def ladder_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
                 tables: tuple, params: tuple[KernelParams, ...],
-                wide_p0: KernelParams | None = None, dp=None) -> dict:
+                wide_p0: KernelParams | None = None, dp=None,
+                route: str = "fused") -> dict:
     """Full escalation ladder over one batch.
 
     ``tables[i]`` is the OffsetLikely table for ``params[i]``. Every tier-0
@@ -92,10 +98,10 @@ def ladder_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
     ladder at ``esc_cap`` = the batch, so ``esc_overflow`` is always 0).
     ``wide_p0`` re-solves every window whose tier-0 top-M cap bound at the
     rescue set size, replacing the capped result where the wide solve
-    succeeds. ``dp`` selects the DP/backtrack implementation (see
-    ``solve_batch_core``)."""
+    succeeds. ``route`` and ``dp`` select the heaviest-path route and its
+    implementation (see ``solve_batch_core``)."""
     p0 = params[0]
-    out0 = solve_batch_core(seqs, lens, nsegs, tables[0], p0, dp)
+    out0 = solve_batch_core(seqs, lens, nsegs, tables[0], p0, dp, route)
     solved = out0["solved"]
     cons = out0["cons"]
     cons_len = out0["cons_len"]
@@ -108,7 +114,7 @@ def ladder_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
         idx = torch.nonzero(m_ovf & (nsegs >= p0.min_depth)).flatten()
         if idx.numel():
             out_w = solve_batch_core(seqs[idx], lens[idx], nsegs[idx],
-                                     tables[0], wide_p0, dp)
+                                     tables[0], wide_p0, dp, route)
             take = out_w["solved"]
             it = idx[take]
             cons[it] = out_w["cons"][take]
@@ -128,7 +134,7 @@ def ladder_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
                 break
             rows = idx[live]
             out_t = solve_batch_core(seqs[rows], lens[rows], nsegs[rows],
-                                     tables[ti], params[ti], dp)
+                                     tables[ti], params[ti], dp, route)
             e_movf[live] |= out_t["m_overflow"]
             take = out_t["solved"]
             rt = rows[take]
@@ -144,6 +150,21 @@ def ladder_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
 
     return dict(cons=cons, cons_len=cons_len, err=err, solved=solved, tier=tier,
                 m_ovf=m_ovf, esc_overflow=0)
+
+
+def ladder_core_paged(pool: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
+                      nsegs: torch.Tensor, tables: tuple,
+                      params: tuple[KernelParams, ...], *, page_len: int,
+                      seg_len: int, wide_p0: KernelParams | None = None,
+                      dp=None, route: str = "fused") -> dict:
+    """Paged form of :func:`ladder_core`: the page gather
+    (``paging.gather_windows``, the kernel on CUDA) rebuilds the exact dense
+    ``[B, D, L]`` tile on the device, then the unchanged ladder solves it.
+    Paging changes which cells cross the bus, never any window's result."""
+    from .paging import gather_windows
+
+    seqs = gather_windows(pool, table, lens, page_len=page_len, seg_len=seg_len)
+    return ladder_core(seqs, lens, nsegs, tables, params, wide_p0, dp, route)
 
 
 def pack_result(out: dict) -> torch.Tensor:
@@ -185,15 +206,36 @@ def unpack_result(arr: np.ndarray, cons_len_cl: int) -> dict:
                 tier=tier, m_ovf=m_ovf, esc_overflow=overflow)
 
 
+def upload_arrays(batch) -> tuple[np.ndarray, ...]:
+    """The host arrays :func:`solve_ladder` copies to the device: pool,
+    table, lens and nsegs of a paged batch (the dense tile never crosses the
+    bus), seqs, lens and nsegs of a dense one."""
+    if getattr(batch, "pool", None) is not None:
+        return batch.pool, batch.table, batch.lens, batch.nsegs
+    return batch.seqs, batch.lens, batch.nsegs
+
+
 def solve_ladder(batch, ladder: TierLadder) -> dict:
-    """Solve one host ``WindowBatch`` on the ladder's device; host numpy
-    results (one packed device->host copy)."""
+    """Solve one host ``WindowBatch`` or ``PagedWindowBatch`` on the ladder's
+    device; host numpy results (one packed device->host copy). A paged
+    batch's page table is checked against its pool before the upload."""
     dev = ladder.device
-    seqs = torch.as_tensor(batch.seqs, device=dev)
-    lens = torch.as_tensor(batch.lens, device=dev)
-    nsegs = torch.as_tensor(batch.nsegs, device=dev)
     tables = tuple(ladder.tables[p.k] for p in ladder.params)
-    out = ladder_core(seqs, lens, nsegs, tables, tuple(ladder.params),
-                      ladder.wide_p0)
+    params = tuple(ladder.params)
+    if getattr(batch, "pool", None) is not None:
+        from .gather_pages import check_table
+
+        check_table(batch.table, batch.pool.shape[0])
+        pool, table, lens, nsegs = (torch.as_tensor(a, device=dev)
+                                    for a in upload_arrays(batch))
+        out = ladder_core_paged(pool, table, lens, nsegs, tables, params,
+                                page_len=batch.family.page_len,
+                                seg_len=batch.shape.seg_len,
+                                wide_p0=ladder.wide_p0, route=ladder.route)
+    else:
+        seqs, lens, nsegs = (torch.as_tensor(a, device=dev)
+                             for a in upload_arrays(batch))
+        out = ladder_core(seqs, lens, nsegs, tables, params, ladder.wide_p0,
+                          route=ladder.route)
     return unpack_result(pack_result(out).cpu().numpy(),
                          ladder.params[0].cons_len)

@@ -6,9 +6,10 @@ axis in place of ``vmap``. One batch solve has three stages:
 - graph construction (:func:`prep_batch`): k-mer extraction, frequency
   filtering and top-M compaction, (k+1)-mer edge support, the OffsetLikely
   position weights as one f32 matmul, and the source/sink anchors;
-- the heaviest path, C candidate end states and their backtrack: the
-  hand-written kernel ``kernels.dp_backtrack`` (on CUDA) or its plain version
-  (on the CPU);
+- the heaviest path, C candidate end states and their backtrack: on the
+  fused route the hand-written kernel ``kernels.dp_backtrack``, on the scan
+  route the hand-written DP kernel ``kernels.heaviest_path`` then the torch
+  backtrack (on the CPU, each kernel's plain version);
 - the Myers bit-parallel rescore of the candidates against the window's
   segments (:func:`edit_distance_myers`) and the acceptance rule
   (:func:`rescore_pick`).
@@ -25,6 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from . import dp_backtrack as _dp
+from . import heaviest_path as _hp
 
 NEG = -1e30
 PAD = 4
@@ -267,20 +269,40 @@ def rescore_pick(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
 
 
 def solve_batch_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
-                     ol: torch.Tensor, p: KernelParams, dp=None) -> dict:
-    """Solve a batch of windows: prep, the fused DP/backtrack, rescore.
+                     ol: torch.Tensor, p: KernelParams, dp=None,
+                     route: str = "fused") -> dict:
+    """Solve a batch of windows: prep, the heaviest path and its candidates,
+    rescore.
 
-    ``dp`` is the DP/backtrack implementation; None is the kernel wrapper
-    ``dp_backtrack.dp_backtrack_batch`` (the kernel on CUDA, the plain
-    version on the CPU). Returns cons [B, CL] int8, cons_len [B] i32,
-    err [B] f32, solved [B] bool, m_overflow [B] bool."""
-    dp = _dp.dp_backtrack_batch if dp is None else dp
+    ``route`` picks how the heaviest path runs, the JAX package's two solve
+    routes (bit-identical to each other):
+
+    - ``"fused"`` (its ``--pallas`` route): the DP, the end-state choice and
+      the backtrack in one kernel, ``dp_backtrack.dp_backtrack_batch``;
+    - ``"scan"`` (its default route): the DP alone,
+      ``heaviest_path.heaviest_path_batch``, writes the score and pointer
+      stacks, then ``dp_backtrack.candidates_backtrack`` (torch) chooses the
+      end states and walks the pointers.
+
+    ``dp`` replaces the route's kernel wrapper with a function of the same
+    signature (e.g. its plain version); None is the wrapper (the kernel on
+    CUDA, the plain version on the CPU). Returns cons [B, CL] int8,
+    cons_len [B] i32, err [B] f32, solved [B] bool, m_overflow [B] bool."""
     g = prep_batch(seqs, lens, nsegs, ol, p)
     wt = g["W"].transpose(1, 2).contiguous()               # [B, P, M]
     t_lo, t_hi = p.t_range
-    cand, clen, ok = dp(g["adjW"], wt, g["score0"], g["snk_ok"], g["sel"],
-                        k=p.k, cons_len=p.cons_len,
-                        n_candidates=p.n_candidates, t_lo=t_lo, t_hi=t_hi)
+    kw = dict(k=p.k, cons_len=p.cons_len, n_candidates=p.n_candidates,
+              t_lo=t_lo, t_hi=t_hi)
+    if route == "fused":
+        dp = _dp.dp_backtrack_batch if dp is None else dp
+        cand, clen, ok = dp(g["adjW"], wt, g["score0"], g["snk_ok"], g["sel"], **kw)
+    elif route == "scan":
+        dp = _hp.heaviest_path_batch if dp is None else dp
+        scores, ptrs = dp(g["adjW"], wt, g["score0"])
+        cand, clen, ok = _dp.candidates_backtrack(scores, ptrs, g["snk_ok"],
+                                                  g["sel"], **kw)
+    else:
+        raise ValueError(f"route {route!r}: expected 'fused' or 'scan'")
     out = rescore_pick(seqs, lens, nsegs, cand.to(torch.int8), clen, ok, p)
     out["m_overflow"] = g["m_overflow"]
     return out

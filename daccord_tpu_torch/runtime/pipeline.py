@@ -9,8 +9,15 @@ The lean main path of ``daccord_tpu/runtime/pipeline.py``, in this order:
   slots, cut windows, pack them into [D, L] rows);
 - skip-shallow: windows with fewer than ``min_depth`` segments never reach
   the device (the solver would mark them unsolved);
-- dense ``batch_size`` x D x L batches, one ladder call each (the last batch
-  is padded with empty rows so every call has one shape);
+- batching, one ladder call per batch of ``batch_size`` rows (a partial
+  batch is padded with empty rows so every call of a bucket has one shape).
+  Dense (``paged="off"``), every window goes to one D x L bucket. Paged
+  (``kernels/paging.py``), a family router sends each window to the
+  smallest corpus-derived (depth, pages) shape family that holds it, and a
+  batch ships as a page pool and a page table instead of the dense tile.
+  A bucket flushes when it holds ``batch_size`` rows, when its pages fill
+  one pool, when its oldest row has waited ``bucket_flush_reads`` reads, or
+  at the end of the run;
 - end-trim: prefix/suffix runs of windows solved only by a low-confidence
   rescue tier (min_count <= 1) count as unsolved, because read ends have
   thin piles and such windows carry near-raw error rates;
@@ -32,8 +39,9 @@ import numpy as np
 from ..formats.dazzdb import DazzDB, read_db
 from ..formats.fasta import FastaRecord, write_fasta
 from ..formats.las import _HDR_SIZE, LasFile, index_las
+from ..kernels import paging
 from ..kernels.tensorize import BatchShape, WindowBatch, pad_batch, tensorize_windows
-from ..kernels.tiers import TierLadder, solve_ladder
+from ..kernels.tiers import TierLadder, solve_ladder, upload_arrays
 from ..oracle.consensus import ConsensusConfig, estimate_profile_two_pass, stitch_results
 from ..oracle.profile import ErrorProfile
 from ..oracle.windows import cut_windows, refine_overlap
@@ -52,6 +60,16 @@ class PipelineConfig:
     depth: int = 32              # D: segments per window row (depth cap)
     seg_len: int = 64            # L: bases per segment
     device: str = "cuda"         # "cuda" or "cpu"; no silent fallback
+    paged: str = "off"           # "on" | "off" | "auto" (on for cuda, off
+                                 # for cpu): ship batches as page pool +
+                                 # page table (kernels/paging.py)
+    page_len: int = 16           # paged page length; must divide seg_len
+    paged_families: int = 4      # most shape families the router derives
+    bucket_flush_reads: int = 128    # flush a partial bucket once its oldest
+                                 # row has waited this many reads
+    dp_route: str = "fused"      # heaviest-path route: "fused" (DP +
+                                 # backtrack kernel) or "scan" (DP kernel,
+                                 # torch backtrack); bit-identical
 
 
 @dataclass
@@ -67,10 +85,19 @@ class PipelineStats:
     bases_in: int = 0
     bases_out: int = 0
     tier_histogram: dict = field(default_factory=dict)
-    profile_s: float = 0.0       # profile pass (host)
+    paged: bool = False          # batches shipped as page pool + table
+    pad_cells: int = 0           # payload cells shipped: dense seqs, or the
+    used_cells: int = 0          # paged pool; used = real bases
+    h2d_bytes: int = 0           # bytes of the arrays handed to the ladder
+                                 # (copied host -> device on cuda)
+    profile_s: float = 0.0       # profile pass and paged family sample (host)
     windowing_s: float = 0.0     # host pile windowing
     ladder_s: float = 0.0        # ladder calls, device results on the host
     wall_s: float = 0.0
+
+    @property
+    def pad_waste(self) -> float:
+        return 1.0 - self.used_cells / self.pad_cells if self.pad_cells else 0.0
 
     def bases_per_sec(self) -> float:
         return self.bases_out / self.wall_s if self.wall_s else 0.0
@@ -111,10 +138,10 @@ def _strided_pile_ranges(las: LasFile, n: int) -> list[tuple[int, int]]:
     return out
 
 
-def estimate_profile_for_shard(db: DazzDB, las: LasFile,
-                               cfg: PipelineConfig) -> ErrorProfile:
-    """Profile pass over ``PROFILE_SAMPLE_PILES`` piles strided across the
-    LAS file (one pile per strided range)."""
+def _sample_windows(db: DazzDB, las: LasFile, cfg: PipelineConfig):
+    """The one strided pile sample (refined overlaps and cut windows of
+    ``PROFILE_SAMPLE_PILES`` piles, one per strided range), shared by the
+    profile pass and the paged family derivation."""
     refined_all, windows_all = [], []
     for s, e in _strided_pile_ranges(las, PROFILE_SAMPLE_PILES):
         for aread, pile in las.iter_piles(s, e):
@@ -125,8 +152,70 @@ def estimate_profile_for_shard(db: DazzDB, las: LasFile,
             windows_all.extend(cut_windows(a_bases, refined, w=cfg.consensus.w,
                                            adv=cfg.consensus.adv))
             break   # one pile per strided range
-    return estimate_profile_two_pass(refined_all, windows_all, cfg.consensus,
+    return refined_all, windows_all
+
+
+def estimate_profile_for_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
+                               return_windows: bool = False):
+    """Profile pass over the strided pile sample. ``return_windows`` also
+    returns the sampled windows, so a paged run derives its shape families
+    from the same sample instead of sampling twice."""
+    refined_all, windows_all = _sample_windows(db, las, cfg)
+    prof = estimate_profile_two_pass(refined_all, windows_all, cfg.consensus,
                                      sample=32)
+    return (prof, windows_all) if return_windows else prof
+
+
+def families_from_windows(windows: list, cfg: PipelineConfig) -> list:
+    """Shape families for the paged router from a window sample (its
+    length x depth histogram). The sample only shifts family budgets, never
+    correctness: the full-coverage family routes any window the sample did
+    not predict."""
+    shape = BatchShape(depth=cfg.depth, seg_len=cfg.seg_len, wlen=cfg.consensus.w)
+    if windows:
+        b = tensorize_windows([(0, ws) for ws in windows], shape)
+        ns = b.nsegs
+        pg = paging.window_pages(b.lens, cfg.page_len)
+    else:
+        ns = pg = np.zeros(0, np.int64)
+    return paging.derive_families(
+        ns, pg, max_depth=cfg.depth,
+        max_pages=-(-cfg.depth * cfg.seg_len // cfg.page_len),
+        budget=cfg.paged_families, page_len=cfg.page_len)
+
+
+def derive_families_for_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig) -> list:
+    """:func:`families_from_windows` over a fresh pile sample, for a run whose
+    profile was passed in (no profile-pass sample to reuse)."""
+    _, windows_all = _sample_windows(db, las, cfg)
+    return families_from_windows(windows_all, cfg)
+
+
+def run_families(db: DazzDB, las: LasFile, cfg: PipelineConfig,
+                 sample: list | None = None) -> list:
+    """The shape families a paged run routes to: derived from the profile
+    pass's ``sample`` when there is one (else from a fresh sample), each
+    pool budget raised where needed so that one ``batch_size``-row pool
+    holds at least one worst-case window of its family (or the router's
+    budget cut could never make progress)."""
+    fams = (families_from_windows(sample, cfg) if sample is not None
+            else derive_families_for_shard(db, las, cfg))
+    B = cfg.batch_size
+    return [f if B * f.budget >= f.pages else
+            paging.ShapeFamily(depth=f.depth, pages=f.pages, page_len=f.page_len,
+                               pool_pages=-(-f.pages // B))
+            for f in fams]
+
+
+def paged_enabled(cfg: PipelineConfig, device) -> bool:
+    """Whether a run ships paged batches: ``on``, or ``auto`` on cuda."""
+    if cfg.paged not in ("on", "off", "auto"):
+        raise ValueError(f"paged={cfg.paged!r}: expected on|off|auto")
+    on = cfg.paged == "on" or (cfg.paged == "auto" and device.type == "cuda")
+    if on and (cfg.page_len <= 0 or cfg.seg_len % cfg.page_len):
+        raise ValueError(f"page_len {cfg.page_len} must be positive and divide "
+                         f"seg_len {cfg.seg_len}")
+    return on
 
 
 def iter_pile_blocks(db: DazzDB, las: LasFile, cfg: PipelineConfig):
@@ -188,23 +277,44 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
                   profile: ErrorProfile | None = None):
     """Correct every pile; yields (aread, fragments, stats) in input order."""
     dev = resolve_device(cfg.device)
-    stats = PipelineStats()
+    paged_on = paged_enabled(cfg, dev)
+    stats = PipelineStats(paged=paged_on)
     t_start = time.perf_counter()
+    sample = None
     if profile is None:
         t0 = time.perf_counter()
-        profile = estimate_profile_for_shard(db, las, cfg)
+        if paged_on:
+            profile, sample = estimate_profile_for_shard(db, las, cfg,
+                                                         return_windows=True)
+        else:
+            profile = estimate_profile_for_shard(db, las, cfg)
         stats.profile_s = time.perf_counter() - t0
-    ladder = TierLadder.from_config(profile, cfg.consensus, device=dev)
+    ladder = TierLadder.from_config(profile, cfg.consensus, device=dev,
+                                    route=cfg.dp_route)
     w, adv = cfg.consensus.w, cfg.consensus.adv
-    shape = BatchShape(depth=cfg.depth, seg_len=cfg.seg_len, wlen=w)
+    B = cfg.batch_size
     min_depth = cfg.consensus.dbg.min_depth
     rescue_tiers = {i for i, t in enumerate(cfg.consensus.tiers) if t[1] <= 1}
+    if paged_on:
+        t0 = time.perf_counter()
+        families = run_families(db, las, cfg, sample)
+        stats.profile_s += time.perf_counter() - t0
+        shapes = [BatchShape(depth=f.depth, seg_len=cfg.seg_len, wlen=w)
+                  for f in families]
+        cap_pages = [B * f.budget for f in families]
+    else:
+        families = None
+        shapes = [BatchShape(depth=cfg.depth, seg_len=cfg.seg_len, wlen=w)]
+    nb = len(shapes)
 
     pending: dict[int, _PendingRead] = {}
     order: list[int] = []
     ready: dict[int, list[np.ndarray]] = {}
-    rows: list[tuple] = []          # buffered (seqs, lens, nsegs, rid, widx) blocks
-    n_rows = 0
+    # per-bucket row buffers: blocks of (seqs, lens, nsegs, rid, widx, pages)
+    blocks_of: list[list[tuple]] = [[] for _ in range(nb)]
+    nrows = [0] * nb
+    npages = [0] * nb
+    first_seen: list[int | None] = [None] * nb   # n_reads at the oldest row
 
     def finalize_read(r: int, pr: _PendingRead) -> None:
         _trim_rescue_ends(pr, rescue_tiers, stats)
@@ -212,15 +322,44 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
                                   cfg.consensus)
         del pending[r]
 
-    def run_batch(take: int) -> None:
-        nonlocal rows, n_rows
-        cat = [np.concatenate([blk[i] for blk in rows]) for i in range(5)]
-        seqs, lens, nsg, rid, widx = (a[:take] for a in cat)
-        rows = [tuple(a[take:] for a in cat)] if n_rows > take else []
-        n_rows -= take
-        batch = pad_batch(WindowBatch(seqs=seqs, lens=lens, nsegs=nsg, shape=shape,
-                                      read_ids=rid, wstarts=widx * adv),
-                          cfg.batch_size)
+    def push(bi: int, cols: tuple) -> None:
+        blocks_of[bi].append(cols)
+        nrows[bi] += len(cols[2])
+        npages[bi] += int(cols[5].sum())
+        if first_seen[bi] is None:
+            first_seen[bi] = stats.n_reads
+
+    def pop_rows(bi: int, take: int) -> list[np.ndarray]:
+        """Bucket ``bi``'s first ``take`` rows; the rest stay buffered and
+        keep the oldest row's stamp."""
+        cat = [np.concatenate([blk[i] for blk in blocks_of[bi]]) for i in range(6)]
+        blocks_of[bi] = [tuple(a[take:] for a in cat)] if nrows[bi] > take else []
+        nrows[bi] -= take
+        if not nrows[bi]:
+            first_seen[bi] = None
+        rows = [a[:take] for a in cat]
+        npages[bi] -= int(rows[5].sum())
+        return rows
+
+    def paged_take(bi: int, take: int) -> int:
+        """The largest prefix of bucket ``bi`` (never zero rows) whose pages
+        fit one pool: the guarantee behind pack_paged's budget check."""
+        pages = np.concatenate([blk[5] for blk in blocks_of[bi]])[:take]
+        fit = int(np.searchsorted(np.cumsum(pages), cap_pages[bi], side="right"))
+        return max(min(take, fit), 1)
+
+    def run_batch(bi: int, take: int) -> None:
+        seqs, lens, nsg, rid, widx, _ = pop_rows(bi, take)
+        batch = WindowBatch(seqs=seqs, lens=lens, nsegs=nsg, shape=shapes[bi],
+                            read_ids=rid, wstarts=widx * adv)
+        if paged_on:
+            batch = paging.pack_paged(batch, families[bi], target_rows=B)
+            stats.pad_cells += int(batch.pool.size)
+        else:
+            batch = pad_batch(batch, B)
+            stats.pad_cells += int(batch.seqs.size)
+        stats.used_cells += int(lens.sum())
+        stats.h2d_bytes += sum(int(a.nbytes) for a in upload_arrays(batch))
         t0 = time.perf_counter()
         out = solve_ladder(batch, ladder)
         stats.ladder_s += time.perf_counter() - t0
@@ -241,6 +380,21 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
                 stats.tier_histogram[t] = stats.tier_histogram.get(t, 0) + 1
             if pr.n_done == pr.n_windows:
                 finalize_read(r, pr)
+
+    def run_batches(final: bool) -> None:
+        for bi in range(nb):
+            # a partial flush once the bucket's oldest row has waited too
+            # long bounds the in-order emission lag under bucket skew
+            stale = (first_seen[bi] is not None
+                     and stats.n_reads - first_seen[bi] >= cfg.bucket_flush_reads)
+            while (nrows[bi] >= B
+                   or (paged_on and npages[bi] >= cap_pages[bi])
+                   or ((final or stale) and nrows[bi] > 0)):
+                stale = False
+                take = min(B, nrows[bi])
+                if paged_on:
+                    take = paged_take(bi, take)
+                run_batch(bi, take)
 
     emit_idx = 0
 
@@ -280,17 +434,27 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
             stats.n_skipped_shallow += int(shallow.sum())
             keep = ~shallow
             seqs, lens, nsegs, widx = seqs[keep], lens[keep], nsegs[keep], widx[keep]
-            if len(nsegs):
-                rows.append((seqs, lens, nsegs,
-                             np.full(len(nsegs), aread, dtype=np.int64), widx))
-                n_rows += len(nsegs)
-            elif pr.n_done == pr.n_windows:
-                finalize_read(aread, pr)
-        while n_rows >= cfg.batch_size:
-            run_batch(cfg.batch_size)
+            rid = np.full(len(nsegs), aread, dtype=np.int64)
+            if not len(nsegs):
+                if pr.n_done == pr.n_windows:
+                    finalize_read(aread, pr)
+            elif paged_on:
+                # family router: the smallest (depth, pages) family that
+                # holds each window; rows keep only the family's depth
+                pgs = paging.window_pages(lens, cfg.page_len)
+                assign = paging.assign_family(families, nsegs, pgs)
+                for bi in range(nb):
+                    sel = np.nonzero(assign == bi)[0]
+                    if len(sel):
+                        Df = families[bi].depth
+                        push(bi, (seqs[sel, :Df], lens[sel, :Df], nsegs[sel],
+                                  rid[sel], widx[sel], pgs[sel]))
+            else:
+                push(0, (seqs, lens, nsegs, rid, widx,
+                         np.zeros(len(nsegs), np.int64)))
+        run_batches(final=False)
         yield from emit_ready()
-    if n_rows:
-        run_batch(n_rows)
+    run_batches(final=True)
     yield from emit_ready()
     stats.wall_s = time.perf_counter() - t_start
 

@@ -1,13 +1,16 @@
 """Command line of the port.
 
     python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT [-E EPROF]
-        [-b BATCH] [--device cuda|cpu]
+        [-b BATCH] [--device cuda|cpu] [--paged on|off|auto] [--page-len N]
+        [--dp fused|scan]
 
 ``-E`` reads the error profile from EPROF when the file exists, and otherwise
 estimates it and writes it there; the file is the JSON of
 ``ErrorProfile.save``, the same as the JAX package's ``daccord -E``, so a
-profile made by either package drives the other. A JSON line of run
-statistics goes to stderr.
+profile made by either package drives the other. ``--paged`` ships batches
+as a page pool and page table (``kernels/paging.py``) instead of the dense
+tile, and ``--dp`` picks the heaviest-path route; neither changes the FASTA.
+A JSON line of run statistics goes to stderr.
 """
 
 from __future__ import annotations
@@ -38,9 +41,27 @@ def daccord_run(argv=None):
                    help="windows per ladder call")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the ladder runs (default cuda; no fallback)")
+    p.add_argument("--paged", choices=("on", "off", "auto"), default="off",
+                   help="ragged paged batches: a page pool + page table per "
+                        "corpus-derived (depth, pages) shape family instead "
+                        "of dense [B, D, L] tiles, gathered on the device; "
+                        "byte-identical FASTA. 'auto' = on for cuda")
+    p.add_argument("--page-len", type=int, default=16, metavar="N",
+                   help="paged page length in bases (must divide the "
+                        "segment length, 64)")
+    p.add_argument("--dp", choices=("fused", "scan"), default="fused",
+                   help="heaviest-path route: 'fused' (DP + backtrack in one "
+                        "kernel) or 'scan' (DP kernel writing the score and "
+                        "pointer stacks, backtrack in torch); bit-identical")
     args = p.parse_args(argv)
 
-    cfg = PipelineConfig(batch_size=args.batch, device=args.device)
+    cfg = PipelineConfig(batch_size=args.batch, device=args.device,
+                         paged=args.paged, page_len=args.page_len,
+                         dp_route=args.dp)
+    if args.paged != "off" and (args.page_len <= 0
+                                or cfg.seg_len % args.page_len):
+        raise SystemExit(f"--page-len {args.page_len} must be positive and "
+                         f"divide the segment length {cfg.seg_len}")
     prof = None
     if args.eprof and os.path.exists(args.eprof):
         prof = ErrorProfile.load(args.eprof)
@@ -62,6 +83,8 @@ def daccord_main(argv=None) -> int:
         "profile_s": round(stats.profile_s, 3),
         "windowing_s": round(stats.windowing_s, 3),
         "ladder_s": round(stats.ladder_s, 3), "wall_s": round(stats.wall_s, 3),
+        "paged": stats.paged, "pad_waste": round(stats.pad_waste, 4),
+        "h2d_bytes": stats.h2d_bytes, "dp": args.dp,
         "device": args.device}), file=sys.stderr)
     return 0
 
@@ -70,7 +93,8 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] != "daccord":
         print("usage: python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT "
-              "[-E EPROF] [-b BATCH] [--device cuda|cpu]", file=sys.stderr)
+              "[-E EPROF] [-b BATCH] [--device cuda|cpu] [--paged on|off|auto] "
+              "[--page-len N] [--dp fused|scan]", file=sys.stderr)
         return 2
     return daccord_main(argv[1:])
 

@@ -1,5 +1,6 @@
-"""Tests of the port that need a CUDA card: the hand-written kernel has no
-CPU form. Each test skips without a card.
+"""Tests of the port that need a CUDA card: the hand-written kernels
+(``dp_backtrack``, ``heaviest_path``, ``gather_pages``) have no CPU form.
+Each test skips without a card.
 
 This file imports neither jax nor ``daccord_tpu``, so it also runs on a
 machine without JAX; there the JAX-configuring ``tests/conftest.py`` is left
@@ -12,14 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from daccord_tpu_torch.kernels import dp_backtrack
+from daccord_tpu_torch.kernels import dp_backtrack, gather_pages, heaviest_path, paging
 from daccord_tpu_torch.kernels.window_kernel import KernelParams
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the dp_backtrack kernel has no CPU form")
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU form")
     return torch.device("cuda")
 
 
@@ -81,3 +82,62 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         dp_backtrack.dp_backtrack_batch(adjW.transpose(1, 2), wt, s0, snk, sel, **kw)
     with pytest.raises(ValueError, match="on cpu"):
         dp_backtrack.dp_backtrack_batch(adjW, wt.cpu(), s0, snk, sel, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,M", [(8, 64), (10, 64), (12, 64), (8, 256)])
+def test_heaviest_path_matches_plain_at_ladder_shapes(cuda, k, M):
+    P = KernelParams(k=k, max_kmers=M).positions
+    adjW, wt, s0, _, _ = make_inputs(seed=k + M, B=64, M=M, P=P, device=cuda)
+    before = heaviest_path.launches
+    got = heaviest_path.heaviest_path_batch(adjW, wt, s0)
+    assert heaviest_path.launches == before + 1
+    ref = dp_backtrack.heaviest_path_plain(adjW, wt, s0)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("scores", "ptrs"), got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r), name
+    with pytest.raises(ValueError, match="contiguous"):
+        heaviest_path.heaviest_path_batch(adjW.transpose(1, 2), wt, s0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("PL,offset", [(16, 0), (16, 1), (8, 0), (4, 2), (32, 0),
+                                       (3, 0)])
+def test_gather_pages_matches_plain(cuda, PL, offset):
+    """Every page length and alignment: the widest vector that divides the
+    page and both addresses, down to single bytes."""
+    rng = np.random.default_rng(PL + offset)
+    N, B, PPW = 300, 37, 19
+    buf = torch.as_tensor(rng.integers(-128, 128, N * PL + offset).astype(np.int8),
+                          device=cuda)
+    pool = buf[offset:].view(N, PL)
+    table = torch.as_tensor(rng.integers(0, N, (B, PPW)).astype(np.int32), device=cuda)
+    before = gather_pages.launches
+    got = gather_pages.gather_pages(pool, table)
+    assert gather_pages.launches == before + 1
+    ref = gather_pages.gather_pages_plain(pool, table)
+    torch.cuda.synchronize()
+    assert got.shape == (B, PPW, PL) and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_gather_windows_rebuilds_the_dense_tile(cuda):
+    rng = np.random.default_rng(4)
+    B, D, L = 40, 32, 64
+    seqs = np.full((B, D, L), 4, np.int8)
+    lens = np.zeros((B, D), np.int32)
+    for b in range(B):
+        for d in range(int(rng.integers(0, D + 1))):
+            n = int(rng.integers(0, L + 1))
+            seqs[b, d, :n] = rng.integers(0, 4, n)
+            lens[b, d] = n
+    from daccord_tpu_torch.kernels.tensorize import BatchShape, WindowBatch
+
+    dense = WindowBatch(seqs=seqs, lens=lens, nsegs=(lens > 0).sum(1).astype(np.int32),
+                        shape=BatchShape(depth=D, seg_len=L, wlen=40),
+                        read_ids=np.arange(B), wstarts=np.zeros(B, np.int64))
+    pb = paging.pack_paged(dense, paging.ShapeFamily(depth=D, pages=128))
+    got = paging.gather_windows(*(torch.as_tensor(a, device=cuda)
+                                  for a in (pb.pool, pb.table, pb.lens)),
+                                page_len=16, seg_len=L)
+    assert torch.equal(got.cpu(), torch.as_tensor(seqs))

@@ -31,6 +31,16 @@ from daccord_tpu_torch.oracle import cut_windows, refine_overlap
 from daccord_tpu_torch.sim import SimConfig, simulate
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """The tier-1 run puts several test files side by side on the CPU; a
+    torch thread pool the size of the machine in each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _batch():
     """Every window of the longest read of a small simulated genome, plus

@@ -21,6 +21,16 @@ from daccord_tpu_torch.runtime.pipeline import PipelineConfig, correct_to_fasta
 from daccord_tpu_torch.sim import SimConfig, make_dataset
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """The tier-1 run puts several test files side by side on the CPU; a
+    torch thread pool the size of the machine in each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _dataset(root: str):
     return make_dataset(root, SimConfig(genome_len=3000, coverage=12,

@@ -136,6 +136,10 @@ def test_port_imports_no_jax():
         "import daccord_tpu_torch.formats, daccord_tpu_torch.oracle\n"
         "import daccord_tpu_torch.sim, daccord_tpu_torch.kernels\n"
         "import daccord_tpu_torch.kernels.dp_backtrack\n"
+        "import daccord_tpu_torch.kernels.heaviest_path\n"
+        "import daccord_tpu_torch.kernels.gather_pages\n"
+        "import daccord_tpu_torch.kernels.paging, daccord_tpu_torch.kernels.nvcc\n"
+        "import daccord_tpu_torch.tools.dp_ab\n"
         "import daccord_tpu_torch.runtime.pipeline\n"
         "import daccord_tpu_torch.tools.cli\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
