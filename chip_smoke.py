@@ -9,30 +9,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 2. build the three kernels ``daccord_tpu_torch/csrc/{dp_backtrack,
    heaviest_path,gather_pages}.cu`` for sm_90a, one nvcc each, all started
    together, with the build seconds and ptxas' register/shared-memory report;
-3. kernel phase, at B=2048 on inputs made from real windows of the phase-4
-   dataset (topped up from a seeded generator if a tier had fewer), each
-   kernel held bit-equal to its plain torch version on the card, both timed
-   with CUDA events, beside the least time the card could take (bytes or f32
-   operations at peak) and, where one PyTorch call computes the same
-   function, that call's time:
+3. slice phase, two runs of the ``daccord`` command line in-process on cuda
+   (batch 2048) on the 20 kb / 20x simulated dataset with one ``-E``
+   profile, each with every kernel's launch counts (and the DP kernels'
+   windows per shape) set to 0 just before and read just after: the dense
+   fused run (``--paged off --dp fused``, must launch ``dp_backtrack``) and
+   the paged scan run (``--paged on --dp scan``, must launch
+   ``gather_pages`` and ``heaviest_path``). Each prints the mean batch the
+   path gave each DP shape. Their FASTA outputs are compared (the drift
+   bound of ROADMAP's parity invariant), and both are scored against the
+   simulation's truth (they must beat the raw reads);
+4. kernel phase, on inputs made from real windows of the dataset (topped up
+   from a seeded generator if there were fewer than B), each kernel held
+   bit-equal to its plain torch version on the card and timed (its device
+   time per launch from ``torch.profiler``'s kernel events; the plain
+   version between CUDA events), beside the least time the card could take
+   (bytes or f32 operations at peak) and, where one PyTorch call computes
+   the same function, that call's time:
    - ``dp_backtrack`` (fused DP + backtrack) and ``heaviest_path`` (the DP
-     alone) at every ladder shape (M, P), on inputs ``prep_batch`` made;
+     alone) at every ladder shape (M, P), on inputs ``prep_batch`` made, at
+     B=2048 and at the mean batch the phase-3 run gave that shape;
    - ``gather_pages`` once per shape family of the paged run, on a paged
      batch packed from the real windows routed to that family;
-4. slice phase, two runs of the ``daccord`` command line in-process on cuda
-   (batch 2048) on the 20 kb / 20x simulated dataset with one ``-E``
-   profile, each with every kernel's launch counts set to 0 just before and
-   read just after: the dense fused run (``--paged off --dp fused``, must
-   launch ``dp_backtrack``) and the paged scan run (``--paged on --dp scan``,
-   must launch ``gather_pages`` and ``heaviest_path``). Their FASTA outputs
-   are compared (the drift bound of ROADMAP's parity invariant), and both
-   are scored against the simulation's truth (they must beat the raw
-   reads). Then one 2048-window batch: the gathered paged tile is bit-equal
-   to the dense tile; the scan-route ladder, the paged ladder and the ladder
-   with the plain DP are bit-equal to the fused-route ladder on the card;
-   the same batch on the CPU differs from the card's on at most 0.5% of
-   windows. Beside it, one ladder call's time split into tier 0's prep, DP
-   kernel and rescore, and the device's busy share of the call under
+5. one 2048-window batch: the gathered paged tile is bit-equal to the dense
+   tile; the scan-route ladder, the paged ladder and the ladder with the
+   plain DP are bit-equal to the fused-route ladder on the card; the same
+   batch on the CPU differs from the card's on at most 0.5% of windows.
+   Beside it, one ladder call's time split into tier 0's prep, DP kernel
+   and rescore, and the device's busy share of the call under
    ``torch.profiler``.
 
 The second-to-last line is the kernels' JSON record, the last line
@@ -65,21 +69,6 @@ REPLACES = {"dp_backtrack": "daccord_tpu/kernels/pallas_window.py:129",
 
 def log(*a) -> None:
     print(*a, flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, each between two
-    CUDA events, after two warm-up runs."""
-    for _ in range(2):
-        fn()
-    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-          for _ in range(reps)]
-    for s, e in ev:
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
 def synthetic_windows(n: int, D: int, L: int, wlen: int, seed: int):
@@ -145,15 +134,43 @@ def max_err(got, ref) -> float:
 
 
 def row(name: str, kernel: str, key, err: float, ms: float, plain_ms: float,
-        bms: float, by: str, library_ms=None) -> dict:
+        bms: float, by: str, library_ms=None, timed_by: str = "profiler",
+        path=None) -> dict:
+    """One kernel's record; ``path``, for the DP kernels, is the same
+    kernel's (B, ms, plain ms, bound ms) at the batch the path gave it."""
+    pb, pms, pplain, pbound = path if path else (None,) * 4
     return dict(name=name, kernel=kernel, key=key, route="cuda",
                 source=source(kernel), replaces=REPLACES[kernel], max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=library_ms)
+                library_ms=library_ms, timed_by=timed_by, path_B=pb, path_ms=pms,
+                path_plain_ms=pplain, path_bound_ms=pbound)
 
 
-def dp_kernel_phase(ladder, seqs, lens, nsegs, dev) -> list[dict]:
-    """``dp_backtrack`` and ``heaviest_path`` at every ladder shape."""
+def dp_case(kernel: str, fn, plain, ins, kw: dict, ops: int, label: str) -> dict:
+    """One DP kernel on ``ins``: bit-equal to its plain version or raise;
+    its device time per launch, the plain version's time, and the bound
+    from these inputs (``ops`` f32 operations a window)."""
+    from daccord_tpu_torch.tools.timing import event_ms, kernel_ms
+
+    got = fn(*ins, **kw)
+    ref = plain(*ins, **kw)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: kernel output {i} differs from the "
+                                 f"plain version")
+    ms, how = kernel_ms(lambda: fn(*ins, **kw), f"{kernel}_kernel", 20)
+    plain_ms = event_ms(lambda: plain(*ins, **kw), 3)
+    bms, by = bound(nbytes(*ins, *got), ins[0].shape[0] * ops)
+    log(f"kernel {label}: bit-equal to plain, kernel {ms:.4f} ms ({how}), plain "
+        f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by})")
+    return dict(got=got, err=max_err(got, ref), ms=ms, how=how, plain_ms=plain_ms,
+                bound_ms=bms, by=by)
+
+
+def dp_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[dict]:
+    """``dp_backtrack`` and ``heaviest_path`` at every ladder shape, at B and
+    at the batch the path gave the shape (``path_b[kernel][(M, P)]``)."""
     from daccord_tpu_torch.kernels import dp_backtrack, heaviest_path
     from daccord_tpu_torch.kernels.window_kernel import prep_batch
 
@@ -172,40 +189,28 @@ def dp_kernel_phase(ladder, seqs, lens, nsegs, dev) -> list[dict]:
                g["snk_ok"], g["sel"])
         Bn = ins[0].shape[0]
         kw = dict(k=p.k, cons_len=CL, n_candidates=C, t_lo=t_lo, t_hi=t_hi)
-
-        got = dp_backtrack.dp_backtrack_batch(*ins, **kw)
-        ref = dp_backtrack.dp_backtrack_plain(*ins, **kw)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("cand", "clen", "ok"), got, ref):
-            if not torch.equal(a, b):
-                raise AssertionError(f"dp_backtrack M={M} P={P}: kernel {name} "
-                                     f"differs from the plain version")
-        ms = cuda_ms(lambda: dp_backtrack.dp_backtrack_batch(*ins, **kw), 20)
-        plain_ms = cuda_ms(lambda: dp_backtrack.dp_backtrack_plain(*ins, **kw), 3)
-        # the DP's (P-1)*M*M add+compare pairs and the C end-state scans
-        bms, by = bound(nbytes(*ins, *got), Bn * (2 * (P - 1) * M * M + C * T * M))
-        n_ok = int(got[2].any(dim=1).sum())
-        log(f"kernel dp_backtrack M={M} P={P} k={p.k} B={Bn}: bit-equal to plain, "
-            f"windows with a path {n_ok}, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, bound {bms:.6f} ms ({by})")
-        rows.append(row(f"dp_backtrack[M={M},P={P}]", "dp_backtrack", (M, P),
-                        max_err(got, ref), ms, plain_ms, bms, by))
-
-        hins = ins[:3]
-        got = heaviest_path.heaviest_path_batch(*hins)
-        ref = dp_backtrack.heaviest_path_plain(*hins)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("scores", "ptrs"), got, ref):
-            if not torch.equal(a, b):
-                raise AssertionError(f"heaviest_path M={M} P={P}: kernel {name} "
-                                     f"differs from the plain version")
-        ms = cuda_ms(lambda: heaviest_path.heaviest_path_batch(*hins), 20)
-        plain_ms = cuda_ms(lambda: dp_backtrack.heaviest_path_plain(*hins), 3)
-        bms, by = bound(nbytes(*hins, *got), Bn * 2 * (P - 1) * M * M)
-        log(f"kernel heaviest_path M={M} P={P} k={p.k} B={Bn}: bit-equal to plain, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by})")
-        rows.append(row(f"heaviest_path[M={M},P={P}]", "heaviest_path", (M, P),
-                        max_err(got, ref), ms, plain_ms, bms, by))
+        cases = (
+            # the DP's (P-1)*M*M add+compare pairs and the C end-state scans
+            ("dp_backtrack", dp_backtrack.dp_backtrack_batch,
+             dp_backtrack.dp_backtrack_plain, ins, kw, 2 * (P - 1) * M * M + C * T * M),
+            ("heaviest_path", heaviest_path.heaviest_path_batch,
+             dp_backtrack.heaviest_path_plain, ins[:3], {}, 2 * (P - 1) * M * M))
+        for kernel, fn, plain, kins, kkw, ops in cases:
+            pb = path_b[kernel].get((M, P))
+            res = {Bx: dp_case(kernel, fn, plain, tuple(t[:Bx] for t in kins), kkw, ops,
+                               f"{kernel} M={M} P={P} k={p.k} B={Bx}")
+                   for Bx in dict.fromkeys((Bn, pb)) if Bx is not None}
+            full = res[Bn]
+            if kernel == "dp_backtrack":
+                log(f"  windows with a path at B={Bn}: "
+                    f"{int(full['got'][2].any(dim=1).sum())}")
+            path = None if pb is None else (pb, res[pb]["ms"], res[pb]["plain_ms"],
+                                            res[pb]["bound_ms"])
+            rows.append(row(f"{kernel}[M={M},P={P}]", kernel, (M, P),
+                            max(r["err"] for r in res.values()), full["ms"],
+                            full["plain_ms"], full["bound_ms"], full["by"],
+                            timed_by="/".join(sorted({r["how"] for r in res.values()})),
+                            path=path))
     return rows
 
 
@@ -237,6 +242,7 @@ def paged_family_batch(seqs, lens, nsegs, families, fi: int, page_len: int):
 def gather_kernel_phase(seqs, lens, nsegs, families, page_len: int, dev) -> list[dict]:
     """``gather_pages`` once per shape family."""
     from daccord_tpu_torch.kernels import gather_pages
+    from daccord_tpu_torch.tools.timing import event_ms, kernel_ms
 
     rows = []
     for fi, fam in enumerate(families):
@@ -251,21 +257,23 @@ def gather_kernel_phase(seqs, lens, nsegs, families, page_len: int, dev) -> list
         if not torch.equal(got, ref):
             raise AssertionError(f"gather_pages {fam.describe()}: kernel differs "
                                  f"from the plain version")
-        ms = cuda_ms(lambda: gather_pages.gather_pages(pool, table), 50)
-        plain_ms = cuda_ms(lambda: gather_pages.gather_pages_plain(pool, table), 20)
+        ms, how = kernel_ms(lambda: gather_pages.gather_pages(pool, table),
+                            "gather_pages_kernel", 50)
+        plain_ms = event_ms(lambda: gather_pages.gather_pages_plain(pool, table), 20)
         flat = table.view(-1)
-        lib_ms = cuda_ms(lambda: pool.index_select(0, flat).view(B, PPW, fam.page_len), 50)
+        lib_ms, lib_how = kernel_ms(
+            lambda: pool.index_select(0, flat).view(B, PPW, fam.page_len), None, 50)
         # the table read once, every distinct page it references read once,
         # the output written once; no arithmetic
         pages = int(torch.unique(table).numel())
         bms, by = bound(nbytes(table, got) + pages * fam.page_len, 0)
         log(f"kernel gather_pages {fam.describe()} B={B}: pool {N} x {fam.page_len}, "
             f"table {B} x {PPW}, {pb.size} rows from {n_real} real windows, "
-            f"{pages} distinct pages; bit-equal to plain, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+            f"{pages} distinct pages; bit-equal to plain, kernel {ms:.4f} ms ({how}), "
+            f"plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms ({lib_how}), bound "
             f"{bms:.6f} ms ({by})")
         rows.append(row(f"gather_pages[{fam.describe()}]", "gather_pages", (N, PPW),
-                        0.0, ms, plain_ms, bms, by, lib_ms))
+                        0.0, ms, plain_ms, bms, by, lib_ms, timed_by=how))
     return rows
 
 
@@ -276,6 +284,7 @@ def ladder_breakdown(ladder, seqs, lens, nsegs) -> None:
     from daccord_tpu_torch.kernels import dp_backtrack
     from daccord_tpu_torch.kernels.tiers import ladder_core
     from daccord_tpu_torch.kernels.window_kernel import prep_batch, rescore_pick
+    from daccord_tpu_torch.tools.timing import event_ms
 
     p = ladder.params[0]
     ol = ladder.tables[p.k]
@@ -287,12 +296,12 @@ def ladder_breakdown(ladder, seqs, lens, nsegs) -> None:
            g["snk_ok"], g["sel"])
     cand, clen, ok = dp_backtrack.dp_backtrack_batch(*ins, **kw)
     cand = cand.to(torch.int8)
-    prep_ms = cuda_ms(lambda: prep_batch(seqs, lens, nsegs, ol, p), 5)
-    dp_ms = cuda_ms(lambda: dp_backtrack.dp_backtrack_batch(*ins, **kw), 5)
-    resc_ms = cuda_ms(lambda: rescore_pick(seqs, lens, nsegs, cand, clen, ok, p), 5)
+    prep_ms = event_ms(lambda: prep_batch(seqs, lens, nsegs, ol, p), 5)
+    dp_ms = event_ms(lambda: dp_backtrack.dp_backtrack_batch(*ins, **kw), 5)
+    resc_ms = event_ms(lambda: rescore_pick(seqs, lens, nsegs, cand, clen, ok, p), 5)
     tables = tuple(ladder.tables[q.k] for q in ladder.params)
     call = lambda: ladder_core(seqs, lens, nsegs, tables, tuple(ladder.params))
-    ladder_ms = cuda_ms(call, 3)
+    ladder_ms = event_ms(call, 3)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -351,13 +360,20 @@ def daccord(argv: list[str], counters) -> tuple:
     for mod in counters:
         mod.launches = 0
         mod.launches_by_shape.clear()
+        getattr(mod, "windows_by_shape", {}).clear()
     from daccord_tpu_torch.tools.cli import daccord_run
 
     stats, _ = daccord_run(argv)
     torch.cuda.synchronize()
-    return stats, {mod.__name__.rsplit(".", 1)[1]: (mod.launches,
-                                                    dict(mod.launches_by_shape))
-                   for mod in counters}
+    return stats, {mod.__name__.rsplit(".", 1)[1]: (
+        mod.launches, dict(mod.launches_by_shape),
+        dict(getattr(mod, "windows_by_shape", {}))) for mod in counters}
+
+
+def mean_batches(launched: dict, kernel: str) -> dict:
+    """The mean windows a launch of ``kernel`` took, by (M, P), rounded."""
+    _, by_shape, windows = launched[kernel]
+    return {key: max(1, round(windows[key] / n)) for key, n in by_shape.items() if n}
 
 
 def log_run(tag: str, stats, launched: dict) -> None:
@@ -373,9 +389,13 @@ def log_run(tag: str, stats, launched: dict) -> None:
         f"ms ({stats.ladder_s * 1e3 / n:.1f} ms per batch), profile/family sample "
         f"{stats.profile_s * 1e3:.1f} ms; pad waste {stats.pad_waste:.4f}, "
         f"H2D {stats.h2d_bytes} bytes ({stats.h2d_bytes / n:.0f} per batch)")
-    for name, (total, by_shape) in launched.items():
+    for name, (total, by_shape, windows) in launched.items():
         shapes = ", ".join(f"{k}: {v}" for k, v in sorted(by_shape.items()))
         log(f"daccord {tag}: {name} launches {total} ({shapes})")
+        if windows:
+            means = ", ".join(f"{k}: {windows[k] / n:.1f}"
+                              for k, n in sorted(by_shape.items()) if n)
+            log(f"daccord {tag}: {name} mean windows per launch ({means})")
 
 
 def fasta_drift(a: str, b: str) -> tuple[int, int, int, int]:
@@ -444,21 +464,7 @@ def main() -> int:
             f"{[f.describe() for f in families]}")
         ladder = TierLadder.from_config(prof, cfg.consensus, device=dev)
 
-        # ---- 3. kernel phase ------------------------------------------------
-        t0 = time.perf_counter()
-        seqs, lens, nsegs = real_windows(db, las, cfg, B)
-        n_real = len(nsegs)
-        if n_real < B:
-            extra = synthetic_windows(B - n_real, cfg.depth, cfg.seg_len,
-                                      cfg.consensus.w, seed=7)
-            seqs, lens, nsegs = (np.concatenate([a, x]) for a, x in
-                                 zip((seqs, lens, nsegs), extra))
-        log(f"kernel inputs: {n_real} real windows + {B - n_real} generated, "
-            f"windowed in {time.perf_counter() - t0:.1f} s")
-        rows = dp_kernel_phase(ladder, seqs, lens, nsegs, dev)
-        rows += gather_kernel_phase(seqs, lens, nsegs, families, cfg.page_len, dev)
-
-        # ---- 4. slice phase: the two main paths -----------------------------
+        # ---- 3. slice phase: the two main paths -----------------------------
         runs = {}
         for tag, paged, route in (("dense fused", "off", "fused"),
                                   ("paged scan", "on", "scan")):
@@ -489,6 +495,23 @@ def main() -> int:
         if same < 0.95 * n_rec or abs(bases_a - bases_b) > 0.005 * bases_a:
             raise AssertionError("the paged scan run drifted past the parity bound")
 
+        # ---- 4. kernel phase ------------------------------------------------
+        t0 = time.perf_counter()
+        seqs, lens, nsegs = real_windows(db, las, cfg, B)
+        n_real = len(nsegs)
+        if n_real < B:
+            extra = synthetic_windows(B - n_real, cfg.depth, cfg.seg_len,
+                                      cfg.consensus.w, seed=7)
+            seqs, lens, nsegs = (np.concatenate([a, x]) for a, x in
+                                 zip((seqs, lens, nsegs), extra))
+        log(f"kernel inputs: {n_real} real windows + {B - n_real} generated, "
+            f"windowed in {time.perf_counter() - t0:.1f} s")
+        path_b = {"dp_backtrack": mean_batches(dense_launch, "dp_backtrack"),
+                  "heaviest_path": mean_batches(paged_launch, "heaviest_path")}
+        rows = dp_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b)
+        rows += gather_kernel_phase(seqs, lens, nsegs, families, cfg.page_len, dev)
+
+        # ---- 5. one batch through every route -------------------------------
         tseqs, tlens, tnsegs = (torch.as_tensor(a[:B], device=dev)
                                 for a in (seqs, lens, nsegs))
         tables = tuple(ladder.tables[p.k] for p in ladder.params)
@@ -554,7 +577,8 @@ def main() -> int:
         run_launched = dense_launch if kernel == "dp_backtrack" else paged_launch
         r["launches"] = run_launched[kernel][1].get(r.pop("key"), 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_by", "path_B",
+            "path_ms", "path_plain_ms", "path_bound_ms")
     log(f"smoke total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

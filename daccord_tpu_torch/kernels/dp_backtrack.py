@@ -8,9 +8,15 @@ falls back to the plain version there. On a CPU tensor it runs
 :func:`dp_backtrack_plain`, a line-by-line torch transcription of the Pallas
 body that the CPU tests hold bit-equal to the Pallas kernel in interpret mode.
 
-``launches`` counts the kernel's launches (not the plain version's calls), and
+``launches`` counts the kernel's launches (not the plain version's calls),
 ``launches_by_shape`` splits them by (M, P), so a run can show that its main
-path went through the kernel at every ladder shape it reached.
+path went through the kernel at every ladder shape it reached, and
+``windows_by_shape`` counts the windows of those launches (their mean is the
+batch the path gives each shape).
+
+The kernel reads the adjacency as bits: ``adjW`` must hold only +0.0 and
+-1e30 (what ``prep_batch`` makes), and any other value traps the kernel,
+which leaves the CUDA context unusable. It takes M up to ``MAX_M``.
 """
 
 from __future__ import annotations
@@ -23,10 +29,13 @@ from . import nvcc as _nvcc
 
 NEG = -1e30
 PAD = 4
+MAX_M = 256          # the kernel's widest window (csrc/dp_backtrack.cu)
 
-#: kernel launches since the count was last set to 0, in all and by (M, P)
+#: kernel launches since the count was last set to 0, in all and by (M, P),
+#: and the windows those launches took, by (M, P)
 launches = 0
 launches_by_shape: dict[tuple[int, int], int] = {}
+windows_by_shape: dict[tuple[int, int], int] = {}
 
 _lib = None
 build_log = ""       # nvcc's output of the build this process ran (ptxas -v)
@@ -94,8 +103,8 @@ def dp_backtrack_batch(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
                                   t_lo=t_lo, t_hi=t_hi)
     if dev.type != "cuda":
         raise ValueError(f"dp_backtrack: no kernel for device {dev}")
-    if M > 1024:
-        raise ValueError(f"dp_backtrack: M={M} exceeds one block of threads")
+    if M > MAX_M:
+        raise ValueError(f"dp_backtrack: M={M} exceeds the kernel's {MAX_M}")
     if not all(t.is_contiguous() for t in (adjW, wt, s0, snk_ok, sel)):
         raise ValueError("dp_backtrack: inputs must be contiguous")
     C, CL = n_candidates, cons_len
@@ -114,6 +123,7 @@ def dp_backtrack_batch(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
                            f"{msg} ({rc})")
     launches += 1
     launches_by_shape[(M, P)] = launches_by_shape.get((M, P), 0) + 1
+    windows_by_shape[(M, P)] = windows_by_shape.get((M, P), 0) + B
     return cand, clen, ok
 
 

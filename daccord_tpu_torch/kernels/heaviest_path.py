@@ -10,7 +10,10 @@ On a CPU tensor it runs :func:`dp_backtrack.heaviest_path_plain`, the DP half
 of the fused kernel's plain version.
 
 ``launches`` counts the kernel's launches, ``launches_by_shape`` splits them
-by (M, P).
+by (M, P), ``windows_by_shape`` counts the windows of those launches.
+
+Like ``dp_backtrack``'s kernel, it reads the adjacency as bits: any value
+of ``adjW`` other than +0.0 and -1e30 traps it. It takes M up to ``MAX_M``.
 """
 
 from __future__ import annotations
@@ -20,11 +23,13 @@ import ctypes
 import torch
 
 from . import nvcc as _nvcc
-from .dp_backtrack import heaviest_path_plain
+from .dp_backtrack import MAX_M, heaviest_path_plain
 
-#: kernel launches since the count was last set to 0, in all and by (M, P)
+#: kernel launches since the count was last set to 0, in all and by (M, P),
+#: and the windows those launches took, by (M, P)
 launches = 0
 launches_by_shape: dict[tuple[int, int], int] = {}
+windows_by_shape: dict[tuple[int, int], int] = {}
 
 _lib = None
 
@@ -64,8 +69,8 @@ def heaviest_path_batch(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor):
         return heaviest_path_plain(adjW, wt, s0)
     if dev.type != "cuda":
         raise ValueError(f"heaviest_path: no kernel for device {dev}")
-    if M > 1024:
-        raise ValueError(f"heaviest_path: M={M} exceeds one block of threads")
+    if M > MAX_M:
+        raise ValueError(f"heaviest_path: M={M} exceeds the kernel's {MAX_M}")
     if not all(t.is_contiguous() for t in (adjW, wt, s0)):
         raise ValueError("heaviest_path: inputs must be contiguous")
     lib = _load()
@@ -81,4 +86,5 @@ def heaviest_path_batch(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor):
                            f"{msg} ({rc})")
     launches += 1
     launches_by_shape[(M, P)] = launches_by_shape.get((M, P), 0) + 1
+    windows_by_shape[(M, P)] = windows_by_shape.get((M, P), 0) + B
     return scores, ptrs

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles for sm_90a into a shared library with a
 plain C interface, loaded with ctypes, in ``daccord_tpu_torch/_build/``. The
-library's file name carries a hash of the source and the flags, so an
-unchanged kernel loads at once and a changed one rebuilds. :func:`build_many`
-starts one nvcc per source, all at the same time. A missing toolkit or a
-failed build raises: nothing falls back.
+library's file name carries a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an unchanged kernel loads at once and a
+changed one rebuilds. :func:`build_many` starts one nvcc per source, all at
+the same time. A missing toolkit or a failed build raises: nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -42,11 +43,21 @@ def source(name: str) -> str:
     return os.path.join(CSRC, f"{name}.cu")
 
 
+def source_key(path: str) -> str:
+    """A hash of a source, the headers (``*.cuh``) beside it and the flags."""
+    d = os.path.dirname(os.path.abspath(path))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [path] + sorted(os.path.join(d, x) for x in os.listdir(d)
+                             if x.endswith(".cuh")):
+        with open(f, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to, keyed by the source and the flags."""
-    with open(source(name), "rb") as fh:
-        key = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{key}.so")
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, its headers
+    and the flags."""
+    return os.path.join(BUILD_DIR, f"{name}-{source_key(source(name))}.so")
 
 
 def build_many(names) -> dict[str, tuple[str, float]]:

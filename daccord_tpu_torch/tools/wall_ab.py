@@ -1,0 +1,86 @@
+"""A/B of one ``daccord`` run's wall between two checkouts of the port, on one card.
+
+    python -m daccord_tpu_torch.tools.wall_ab A_ROOT B_ROOT \\
+        [--paged off|on] [--dp fused|scan] [--turns ABBA]
+
+Makes the simulated dataset of ``chip_smoke.py`` (20 kb genome, 20x,
+seed 42) and its error profile once, then runs the ``daccord`` command line
+of each checkout (``A_ROOT``, ``B_ROOT``: directories that hold a
+``daccord_tpu_torch`` package) in a fresh process per turn, in the order of
+``--turns``, so that host noise falls on both sides alike. Prints the card's
+name and power limit, one JSON line per turn (wall, windows/s, host
+windowing and device ladder seconds) and whether the FASTA outputs agree.
+"""
+
+from __future__ import annotations
+
+import argparse
+import filecmp
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+RUN = """
+import json, sys, torch
+from daccord_tpu_torch.tools.cli import daccord_run
+stats, _ = daccord_run(sys.argv[1:])
+torch.cuda.synchronize()
+print("STATS " + json.dumps(dict(
+    wall_s=stats.wall_s, windows_per_s=stats.windows_per_sec(),
+    bases_per_s=stats.bases_per_sec(), windowing_s=stats.windowing_s,
+    ladder_s=stats.ladder_s, n_windows=stats.n_windows, n_batches=stats.n_batches)))
+"""
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="wall_ab", description=__doc__.splitlines()[0])
+    ap.add_argument("a")
+    ap.add_argument("b")
+    ap.add_argument("--paged", choices=("on", "off"), default="off")
+    ap.add_argument("--dp", choices=("fused", "scan"), default="fused")
+    ap.add_argument("--turns", default="ABBA")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("wall_ab: needs a CUDA card", file=sys.stderr)
+        return 1
+    from ..formats.dazzdb import read_db
+    from ..formats.las import LasFile
+    from ..runtime.pipeline import PipelineConfig, estimate_profile_for_shard
+    from ..sim import SimConfig, make_dataset
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    roots = {"A": os.path.abspath(args.a), "B": os.path.abspath(args.b)}
+    with tempfile.TemporaryDirectory(prefix="wall_ab_") as tmp:
+        d = make_dataset(tmp, SimConfig(genome_len=20_000, coverage=20,
+                                        read_len_mean=2_000, seed=42))
+        eprof = os.path.join(tmp, "eprof.json")
+        estimate_profile_for_shard(read_db(d["db"]), LasFile(d["las"]),
+                                   PipelineConfig(device="cpu")).save(eprof)
+        outs = {}
+        for i, tag in enumerate(args.turns):
+            out = os.path.join(tmp, f"out_{i}_{tag}.fasta")
+            res = subprocess.run(
+                [sys.executable, "-c", RUN, d["db"], d["las"], "-o", out, "-E", eprof,
+                 "-b", "2048", "--device", "cuda", "--paged", args.paged,
+                 "--dp", args.dp],
+                cwd=roots[tag], env={**os.environ, "PYTHONPATH": roots[tag]},
+                capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"turn {i} ({tag}) failed:\n{res.stdout}{res.stderr}")
+            stats = json.loads(res.stdout.split("STATS ", 1)[1].splitlines()[0])
+            print(json.dumps({"turn": i, "side": tag, **stats}), flush=True)
+            outs.setdefault(tag, out)
+        same = filecmp.cmp(outs["A"], outs["B"], shallow=False) if len(outs) == 2 else None
+        print(f"FASTA of A and B identical: {same}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,6 +9,10 @@ out:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -35,17 +39,24 @@ def make_inputs(seed: int, B: int, M: int, P: int, device):
                   -1e30).astype(np.float32)
     snk = rng.random((B, M)) < 0.5
     snk[0] = False
-    s0[1] = -1e30
+    s0[1:2] = -1e30
     sel = np.sort(rng.integers(0, 4**6, (B, M)), axis=1).astype(np.int32)
     return [torch.as_tensor(a, device=device) for a in (adjW, wt, s0, snk, sel)]
 
 
+LADDER_SHAPES = [(8, 64), (10, 64), (12, 64), (8, 256)]      # (k, M)
+# one window, a partial block of windows, fewer blocks than SMs, and the
+# escalation tiers' batch with a partial block
+BATCHES = [1, 7, 128, 133]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,M", [(8, 64), (10, 64), (12, 64), (8, 256)])
-def test_kernel_matches_plain_at_ladder_shapes(cuda, k, M):
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("k,M", LADDER_SHAPES)
+def test_kernel_matches_plain_at_ladder_shapes(cuda, k, M, B):
     p = KernelParams(k=k, max_kmers=M)
     t_lo, t_hi = p.t_range
-    args = make_inputs(seed=k * M, B=96, M=M, P=p.positions, device=cuda)
+    args = make_inputs(seed=k * M + B, B=B, M=M, P=p.positions, device=cuda)
     kw = dict(k=k, cons_len=p.cons_len, n_candidates=p.n_candidates,
               t_lo=t_lo, t_hi=t_hi)
     before = dp_backtrack.launches
@@ -55,7 +66,7 @@ def test_kernel_matches_plain_at_ladder_shapes(cuda, k, M):
     torch.cuda.synchronize()
     for name, g, r in zip(("cand", "clen", "ok"), got, ref):
         assert g.dtype == r.dtype and torch.equal(g, r), name
-    assert not got[2][0].any() and not got[2][1].any()
+    assert not got[2][:2].any()
 
 
 @pytest.mark.cuda
@@ -85,10 +96,11 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,M", [(8, 64), (10, 64), (12, 64), (8, 256)])
-def test_heaviest_path_matches_plain_at_ladder_shapes(cuda, k, M):
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("k,M", LADDER_SHAPES)
+def test_heaviest_path_matches_plain_at_ladder_shapes(cuda, k, M, B):
     P = KernelParams(k=k, max_kmers=M).positions
-    adjW, wt, s0, _, _ = make_inputs(seed=k + M, B=64, M=M, P=P, device=cuda)
+    adjW, wt, s0, _, _ = make_inputs(seed=k + M + B, B=B, M=M, P=P, device=cuda)
     before = heaviest_path.launches
     got = heaviest_path.heaviest_path_batch(adjW, wt, s0)
     assert heaviest_path.launches == before + 1
@@ -98,6 +110,70 @@ def test_heaviest_path_matches_plain_at_ladder_shapes(cuda, k, M):
         assert g.dtype == r.dtype and torch.equal(g, r), name
     with pytest.raises(ValueError, match="contiguous"):
         heaviest_path.heaviest_path_batch(adjW.transpose(1, 2), wt, s0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,shift", [(16, 0), (37, 0), (100, 0), (64, 1)])
+def test_kernels_match_plain_off_the_ladder_widths(cuda, M, shift):
+    """Widths the ladder does not use (padded columns and predecessors; at
+    M=37 an adjacency that is no whole number of 16-byte loads), and an
+    adjacency whose start is not 16-byte aligned (``shift`` floats)."""
+    P, k = 12, 4
+    adjW, wt, s0, snk, sel = make_inputs(seed=M, B=3, M=M, P=P, device=cuda)
+    buf = torch.empty(adjW.numel() + shift, device=cuda)
+    adjW = buf[shift:].view(adjW.shape).copy_(adjW)
+    args = (adjW, wt, s0, snk, sel)
+    kw = dict(k=k, cons_len=P - 1 + k, n_candidates=3, t_lo=3, t_hi=P - 1)
+    got = dp_backtrack.dp_backtrack_batch(*args, **kw)
+    ref = dp_backtrack.dp_backtrack_plain(*args, **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    got = heaviest_path.heaviest_path_batch(*args[:3])
+    ref = dp_backtrack.heaviest_path_plain(*args[:3])
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError, match="exceeds"):
+        heaviest_path.heaviest_path_batch(*make_inputs(0, 1, 260, 4, cuda)[:3])
+
+
+TRAP = """
+import sys, torch
+from daccord_tpu_torch.kernels import dp_backtrack, heaviest_path
+kernel, M, bad = sys.argv[1], int(sys.argv[2]), float(sys.argv[3])
+adjW = torch.full((3, M, M), -1e30, device="cuda")
+adjW[:, :, 0] = 0.0
+adjW[1, 2, 5] = bad
+wt = torch.ones((3, 41, M), device="cuda")
+s0 = torch.zeros((3, M), device="cuda")
+if kernel == "dp_backtrack":
+    dp_backtrack.dp_backtrack_batch(
+        adjW, wt, s0, torch.ones((3, M), dtype=torch.bool, device="cuda"),
+        torch.zeros((3, M), dtype=torch.int32, device="cuda"), k=8, cons_len=48,
+        n_candidates=3, t_lo=24, t_hi=40)
+else:
+    heaviest_path.heaviest_path_batch(adjW, wt, s0)
+torch.cuda.synchronize()
+print("no trap")
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,M,bad", [("dp_backtrack", 64, "1.0"),
+                                          ("heaviest_path", 256, "1.0"),
+                                          ("dp_backtrack", 256, "-0.0"),
+                                          ("heaviest_path", 64, "-0.0")])
+def test_kernels_trap_on_adjacency_the_bits_cannot_hold(cuda, kernel, M, bad):
+    """An adjW value other than +0.0 or -1e30 stops the kernel (in a child
+    process: a trap leaves that process's CUDA context unusable)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", TRAP, kernel, str(M), bad], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode != 0 and "no trap" not in res.stdout, res.stdout
+    args = make_inputs(seed=1, B=2, M=M, P=9, device=cuda)
+    got = heaviest_path.heaviest_path_batch(*args[:3])
+    ref = dp_backtrack.heaviest_path_plain(*args[:3])
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, r) for g, r in zip(got, ref)), "this context survives"
 
 
 @pytest.mark.cuda
