@@ -8,18 +8,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. the card's name and power limit (``nvidia-smi``); no CUDA -> exit 1;
 2. build the three kernels ``daccord_tpu_torch/csrc/{dp_backtrack,
    heaviest_path,gather_pages}.cu`` for sm_90a, one nvcc each, all started
-   together, with the build seconds and ptxas' register/shared-memory report;
-3. slice phase, two runs of the ``daccord`` command line in-process on cuda
-   (batch 2048) on the 20 kb / 20x simulated dataset with one ``-E``
-   profile, each with every kernel's launch counts (and the DP kernels'
-   windows per shape) set to 0 just before and read just after: the dense
-   fused run (``--paged off --dp fused``, must launch ``dp_backtrack``) and
-   the paged scan run (``--paged on --dp scan``, must launch
-   ``gather_pages`` and ``heaviest_path``). Each prints the mean batch the
-   path gave each DP shape. Their FASTA outputs are compared (the drift
-   bound of ROADMAP's parity invariant), and both are scored against the
-   simulation's truth (they must beat the raw reads);
-4. kernel phase, on inputs made from real windows of the dataset (topped up
+   together, with the build seconds and ptxas' register/shared-memory
+   report, and beside them the host library ``daccord_tpu_torch/native/
+   dazz_native.cpp`` with g++ (its seconds, the g++ version and the host's
+   usable CPUs);
+3. feeder phase, the first 40 piles of the 20 kb / 20x simulated dataset:
+   the host library's windows are byte-equal to the numpy feeder's, and
+   three feeders' windows/s (the numpy feeder and the host library on one
+   thread, the host library on N = min(8, usable CPUs) threads);
+4. slice phase, three runs of the ``daccord`` command line in-process on
+   cuda (batch 2048), each with every kernel's launch counts (and the DP
+   kernels' windows per shape) set to 0 just before and read just after: on
+   the 20 kb set with one ``-E`` profile, the dense fused run (``--paged off
+   --dp fused``, must launch ``dp_backtrack``) and the paged scan run
+   (``--paged on --dp scan -t N``, must launch ``gather_pages`` and
+   ``heaviest_path``); then the dense fused run with ``-t N`` on a 100 kb /
+   30x set of 5 kb reads (about 3 Mb of reads, 300k windows). Each prints
+   its wall, windows/s, host windowing and device ladder, and the mean
+   batch the path gave each DP shape. The two 20 kb FASTA outputs are
+   compared (the drift bound of ROADMAP's parity invariant), and all three
+   are scored against the simulation's truth (they must beat the raw
+   reads);
+5. kernel phase, on inputs made from real windows of the dataset (topped up
    from a seeded generator if there were fewer than B), each kernel held
    bit-equal to its plain torch version on the card and timed (its device
    time per launch from ``torch.profiler``'s kernel events; the plain
@@ -28,10 +38,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the same function, that call's time:
    - ``dp_backtrack`` (fused DP + backtrack) and ``heaviest_path`` (the DP
      alone) at every ladder shape (M, P), on inputs ``prep_batch`` made, at
-     B=2048 and at the mean batch the phase-3 run gave that shape;
+     B=2048 and at the mean batch the phase-4 run gave that shape;
    - ``gather_pages`` once per shape family of the paged run, on a paged
      batch packed from the real windows routed to that family;
-5. one 2048-window batch: the gathered paged tile is bit-equal to the dense
+6. one 2048-window batch: the gathered paged tile is bit-equal to the dense
    tile; the scan-route ladder, the paged ladder and the ladder with the
    plain DP are bit-equal to the fused-route ladder on the card; the same
    batch on the CPU differs from the card's on at most 0.5% of windows.
@@ -61,6 +71,8 @@ DEVICE = "cuda"              # a CPU rehearsal of the control flow may set "cpu"
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOP_S = 67e12           # H100 SXM float32 outside the tensor cores
 DATASET = dict(genome_len=20_000, coverage=20, read_len_mean=2_000, seed=42)
+BIG_DATASET = dict(genome_len=100_000, coverage=30, read_len_mean=5_000, seed=43)
+FEEDER_PILES = 40            # piles the feeder phase windows through each route
 KERNELS = ("dp_backtrack", "heaviest_path", "gather_pages")
 REPLACES = {"dp_backtrack": "daccord_tpu/kernels/pallas_window.py:129",
             "heaviest_path": "daccord_tpu/kernels/pallas_dp.py:36",
@@ -110,6 +122,49 @@ def real_windows(db, las, cfg, need: int):
         if n >= need:
             break
     return tuple(np.concatenate([g[i] for g in got])[:need] for i in range(3))
+
+
+def same_blocks(got: list, ref: list) -> bool:
+    """Whether two feeders' pile blocks are byte-equal, dtypes included."""
+    return len(got) == len(ref) and all(
+        g[0] == r[0] and all(x.dtype == y.dtype and np.array_equal(x, y)
+                             for x, y in zip(g[1:], r[1:]))
+        for g, r in zip(got, ref))
+
+
+def feeder_phase(db, las, cfg, nthreads: int) -> None:
+    """The first ``FEEDER_PILES`` piles through the numpy feeder and through
+    the host library on one and on ``nthreads`` threads: byte-equal or
+    raise, and each feeder's windows/s (host clock, from the first pile's
+    request to the last pile's block)."""
+    from dataclasses import replace
+    from itertools import islice
+
+    from daccord_tpu_torch.runtime.pipeline import (iter_pile_blocks,
+                                                    iter_pile_blocks_threaded)
+
+    def run(c, threads: int):
+        t0 = time.perf_counter()
+        it = (iter_pile_blocks_threaded(db, las, c, threads) if threads
+              else iter_pile_blocks(db, las, c))
+        blocks = list(islice(it, FEEDER_PILES))
+        secs = time.perf_counter() - t0
+        it.close()
+        return blocks, secs
+
+    ref, ref_s = run(replace(cfg, use_native=False), 0)
+    nwin = sum(len(b[4]) for b in ref)
+    log(f"feeder phase: {len(ref)} piles, {nwin} windows")
+    log(f"  numpy feeder (library alignments), 1 thread: {ref_s:.3f} s, "
+        f"{nwin / ref_s:.1f} windows/s")
+    for threads in (0, nthreads):
+        got, secs = run(cfg, threads)
+        tag = f"host library, {max(threads, 1)} thread{'s' if threads > 1 else ''}"
+        if not same_blocks(got, ref):
+            raise AssertionError(f"feeder phase: the {tag} windows differ from the "
+                                 f"numpy feeder's")
+        log(f"  {tag}: {secs:.3f} s, {nwin / secs:.1f} windows/s; byte-equal to the "
+            f"numpy feeder")
 
 
 def source(name: str) -> str:
@@ -322,37 +377,6 @@ def ladder_breakdown(ladder, seqs, lens, nsegs) -> None:
         log("ladder call under torch.profiler: no device events (busy share not measured)")
 
 
-def score_vs_truth(fasta: str, truth: str, db) -> tuple[float, float]:
-    """(corrected, raw) error rates of the corrected fragments against the
-    simulation's truth: each fragment's best infix edit distance to its
-    read's true sequence, and the raw reads' edit distance to the same."""
-    from daccord_tpu_torch.formats.fasta import read_fasta
-    from daccord_tpu_torch.oracle.align import edit_distance, infix_distance
-    from daccord_tpu_torch.utils.bases import revcomp_ints, seq_to_ints
-
-    t = np.load(truth)
-    genome, starts, ends, strands = t["genome"], t["starts"], t["ends"], t["strands"]
-
-    def truth_of(rid: int) -> np.ndarray:
-        tr = genome[starts[rid]:ends[rid]]
-        return revcomp_ints(tr) if strands[rid] == 1 else tr
-
-    e = n = 0
-    rids = set()
-    for rec in read_fasta(fasta):
-        rid = int(rec.name.split()[0].removeprefix("read").split("/")[0])
-        f = seq_to_ints(rec.seq)
-        e += infix_distance(f, truth_of(rid))
-        n += len(f)
-        rids.add(rid)
-    re = rn = 0
-    for rid in sorted(rids):
-        raw = db.read_bases(rid)
-        re += edit_distance(raw, truth_of(rid))
-        rn += len(raw)
-    return e / max(n, 1), re / max(rn, 1)
-
-
 def daccord(argv: list[str], counters) -> tuple:
     """One in-process ``daccord`` run with every kernel's launch counts set
     to 0 just before and read just after: (stats, {kernel: (launches,
@@ -383,6 +407,8 @@ def log_run(tag: str, stats, launched: dict) -> None:
         f"skipped shallow {stats.n_skipped_shallow}, batches {stats.n_batches}, "
         f"tiers {dict(sorted(stats.tier_histogram.items()))}, "
         f"fragments {stats.n_fragments}, bases out {stats.bases_out}")
+    log(f"daccord {tag}: feeder {'host library' if stats.native_host else 'numpy'}, "
+        f"QV ranking {'on' if stats.qv_ranked else 'off (no track)'}")
     log(f"daccord {tag}: wall {stats.wall_s:.3f} s, {stats.windows_per_sec():.1f} "
         f"windows/s, {stats.bases_per_sec():.1f} bases/s; host windowing "
         f"{stats.windowing_s * 1e3:.1f} ms, device ladder {stats.ladder_s * 1e3:.1f} "
@@ -414,6 +440,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
               file=sys.stderr)
         return 1
+    from concurrent.futures import ThreadPoolExecutor
+
+    from daccord_tpu_torch import native
     from daccord_tpu_torch.formats.dazzdb import read_db
     from daccord_tpu_torch.formats.las import LasFile
     from daccord_tpu_torch.kernels import (dp_backtrack, gather_pages, heaviest_path,
@@ -425,7 +454,7 @@ def main() -> int:
     from daccord_tpu_torch.runtime.pipeline import (PipelineConfig,
                                                     estimate_profile_for_shard,
                                                     run_families)
-    from daccord_tpu_torch.sim import SimConfig, make_dataset
+    from daccord_tpu_torch.sim import SimConfig, make_dataset, score_vs_truth
 
     t_all = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -438,9 +467,21 @@ def main() -> int:
 
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    built = nvcc.build_many(KERNELS)
-    log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc sm_90a, one process each, in parallel)")
+    with ThreadPoolExecutor(1) as ex:
+        host = ex.submit(native.build)
+        built = nvcc.build_many(KERNELS)
+        host_path, host_s = host.result()
+    native.load()
+    log(f"build: {len(built)} kernels and the host library in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc sm_90a and g++, one process each, "
+        f"in parallel)")
+    gxx = subprocess.run([native.CXX, "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    ncpu = len(os.sched_getaffinity(0))
+    nthreads = min(8, ncpu)
+    log(f"  host library: {os.path.relpath(host_path)} in {host_s:.2f} s ({gxx}; "
+        f"{' '.join(native.CXX_FLAGS)}); usable CPUs {ncpu}, so N = {nthreads} "
+        f"feeder threads")
     for name, (path, secs) in built.items():
         log(f"  {name}: {os.path.relpath(path)} in {secs:.2f} s")
         for line in nvcc.logs.get(name, "").splitlines():
@@ -464,26 +505,45 @@ def main() -> int:
             f"{[f.describe() for f in families]}")
         ladder = TierLadder.from_config(prof, cfg.consensus, device=dev)
 
-        # ---- 3. slice phase: the two main paths -----------------------------
+        # ---- 3. feeder phase ----------------------------------------------
+        feeder_phase(db, las, cfg, nthreads)
+
+        # ---- 4. slice phase: the three main-path runs ------------------------
+        t0 = time.perf_counter()
+        big = make_dataset(tmp, SimConfig(**BIG_DATASET), name="big")
+        big_db = read_db(big["db"])
+        big_eprof = os.path.join(tmp, "big_eprof.json")
+        estimate_profile_for_shard(big_db, LasFile(big["las"]), cfg).save(big_eprof)
+        log(f"dataset {BIG_DATASET}: made, profile estimated in "
+            f"{time.perf_counter() - t0:.1f} s; {big_db.nreads} reads, "
+            f"{big_db.totlen} bases")
         runs = {}
-        for tag, paged, route in (("dense fused", "off", "fused"),
-                                  ("paged scan", "on", "scan")):
-            out = os.path.join(tmp, f"out_{paged}_{route}.fasta")
+        for tag, ds, ep, args in (
+                ("dense fused", d, eprof, ["--paged", "off", "--dp", "fused"]),
+                ("paged scan", d, eprof, ["--paged", "on", "--dp", "scan",
+                                          "-t", str(nthreads)]),
+                ("100 kb dense fused", big, big_eprof,
+                 ["--paged", "off", "--dp", "fused", "-t", str(nthreads)])):
+            out = os.path.join(tmp, f"out_{tag.replace(' ', '_')}.fasta")
             torch.cuda.reset_peak_memory_stats()
-            stats, launched = daccord([d["db"], d["las"], "-o", out, "-E", eprof,
-                                       "-b", str(B), "--device", dev.type,
-                                       "--paged", paged, "--dp", route], counters)
-            log_run(tag, stats, launched)
+            stats, launched = daccord([ds["db"], ds["las"], "-o", out, "-E", ep,
+                                       "-b", str(B), "--device", dev.type, *args],
+                                      counters)
+            log_run(f"{tag} ({' '.join(args)})", stats, launched)
             log(f"daccord {tag}: peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
             if stats.n_solved <= 0 or stats.bases_out <= 0:
                 raise AssertionError(f"daccord {tag} solved no window")
-            runs[tag] = (out, stats, launched)
+            if not stats.native_host:
+                raise AssertionError(f"daccord {tag} did not window through the "
+                                     f"host library")
+            runs[tag] = (out, stats, launched, ds)
         dense_launch = runs["dense fused"][2]
         paged_launch = runs["paged scan"][2]
         for run_launched, name in ((dense_launch, "dp_backtrack"),
                                    (paged_launch, "heaviest_path"),
-                                   (paged_launch, "gather_pages")):
+                                   (paged_launch, "gather_pages"),
+                                   (runs["100 kb dense fused"][2], "dp_backtrack")):
             if run_launched[name][0] <= 0:
                 raise AssertionError(f"the main path never launched the {name} kernel")
         if not runs["paged scan"][1].paged:
@@ -495,7 +555,7 @@ def main() -> int:
         if same < 0.95 * n_rec or abs(bases_a - bases_b) > 0.005 * bases_a:
             raise AssertionError("the paged scan run drifted past the parity bound")
 
-        # ---- 4. kernel phase ------------------------------------------------
+        # ---- 5. kernel phase ------------------------------------------------
         t0 = time.perf_counter()
         seqs, lens, nsegs = real_windows(db, las, cfg, B)
         n_real = len(nsegs)
@@ -511,7 +571,7 @@ def main() -> int:
         rows = dp_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b)
         rows += gather_kernel_phase(seqs, lens, nsegs, families, cfg.page_len, dev)
 
-        # ---- 5. one batch through every route -------------------------------
+        # ---- 6. one batch through every route -------------------------------
         tseqs, tlens, tnsegs = (torch.as_tensor(a[:B], device=dev)
                                 for a in (seqs, lens, nsegs))
         tables = tuple(ladder.tables[p.k] for p in ladder.params)
@@ -563,11 +623,13 @@ def main() -> int:
         if differ > 0.005 * B:
             raise AssertionError(f"card and CPU ladders differ on {differ} windows")
 
-        for tag, (out, _, _) in runs.items():
-            err, raw = score_vs_truth(out, d["truth"], db)
+        for tag, (out, _, _, ds) in runs.items():
+            t0 = time.perf_counter()
+            err, raw = score_vs_truth(out, ds["truth"], read_db(ds["db"]))
             q = -10 * math.log10(max(err, 1e-9))
             log(f"accuracy vs truth, {tag}: corrected error rate {err:.6f} "
-                f"(Q{q:.2f}), raw {raw:.6f}")
+                f"(Q{q:.2f}), raw {raw:.6f} (scored in "
+                f"{time.perf_counter() - t0:.1f} s)")
             if not err < raw / 2:
                 raise AssertionError(f"{tag}: corrected reads are not clearly "
                                      f"better than raw")

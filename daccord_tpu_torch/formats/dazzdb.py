@@ -25,7 +25,9 @@ reads in the other:
 
 ``<name>.db``  ::   small text stub (file list + block partition).
 
-Only what the consensus path reads and the simulator writes lives here; the
+Variable-length tracks (``.<name>.<track>.anno`` offsets, ``.data`` bytes;
+e.g. the ``inqual`` intrinsic-QV track) read with :func:`read_track`. Only
+what the consensus path reads and the simulator writes lives here; the
 strict ingest validation of the JAX package is not ported yet (ROADMAP).
 """
 
@@ -37,6 +39,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..native.api import decode_reads_batch
 from ..utils.bases import pack_2bit, unpack_2bit
 
 _HDR_FMT = "<4i4fi4xq5i4x8si4x8s8s8s"  # 112 bytes, pointers as opaque 8-byte pads
@@ -71,11 +74,24 @@ class DazzDB:
     bps: np.ndarray = field(repr=False)  # uint8 packed base store
     names: list[str] = field(default_factory=list, repr=False)
 
+    def __post_init__(self) -> None:
+        self._boffs = np.fromiter((r.boff for r in self.reads), np.int64, len(self.reads))
+        self._rlens = np.fromiter((r.rlen for r in self.reads), np.int32, len(self.reads))
+
     def read_bases(self, i: int) -> np.ndarray:
         """Decode read ``i`` to an int8 array of 0..3."""
         r = self.reads[i]
         nbytes = (r.rlen + 3) // 4
         return unpack_2bit(self.bps[r.boff : r.boff + nbytes], r.rlen)
+
+    def read_bases_batch(self, ids) -> list[np.ndarray]:
+        """Decode many reads in one call of the host library's 2-bit decode;
+        views over one buffer, equal to :meth:`read_bases` of each."""
+        ids = np.fromiter(ids, np.int64)
+        return decode_reads_batch(self.bps, self._boffs[ids], self._rlens[ids])
+
+    def read_length(self, i: int) -> int:
+        return self.reads[i].rlen
 
     def __len__(self) -> int:
         return self.nreads
@@ -185,3 +201,30 @@ def read_db(path: str) -> DazzDB:
     return DazzDB(path=os.path.join(d, f"{stem}.db"), nreads=nreads,
                   totlen=totlen, maxlen=maxlen, cutoff=cutoff, reads=reads,
                   bps=bps, names=names)
+
+
+def _track_paths(db_path: str, track: str) -> tuple[str, str]:
+    """(.anno, .data) paths of a whole-DB track."""
+    d, stem = _db_stems(db_path)
+    return (os.path.join(d, f".{stem}.{track}.anno"),
+            os.path.join(d, f".{stem}.{track}.data"))
+
+
+def read_track(db_path: str, track: str) -> list[np.ndarray]:
+    """A variable-length track as per-read uint8 arrays. Raises
+    ``FileNotFoundError`` when the track is absent, ``ValueError`` when its
+    files disagree."""
+    anno_path, data_path = _track_paths(db_path, track)
+    with open(anno_path, "rb") as fh:
+        head = fh.read(8)
+        if len(head) < 8:
+            raise ValueError(f"{anno_path}: truncated track header")
+        nreads, size = struct.unpack("<2i", head)
+        if size != 0:
+            raise ValueError(f"{anno_path}: unsupported fixed-size track (size={size})")
+        offsets = np.frombuffer(fh.read(8 * (nreads + 1)), dtype=np.int64)
+    data = np.fromfile(data_path, dtype=np.uint8)
+    if (nreads < 0 or len(offsets) != nreads + 1 or offsets[0] < 0
+            or (np.diff(offsets) < 0).any() or offsets[-1] > len(data)):
+        raise ValueError(f"{anno_path}: offsets do not fit {data_path}")
+    return [data[offsets[i] : offsets[i + 1]] for i in range(nreads)]

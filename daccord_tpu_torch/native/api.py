@@ -1,0 +1,163 @@
+"""Numpy-facing wrappers over the port's host library (ctypes marshalling)."""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from . import load
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+class ColumnarLas:
+    """A whole LAS file as columns: one array per record field, the trace
+    points flattened (``trace_flat[trace_off[i]:trace_off[i + 1]]`` holds
+    record ``i``'s (diffs, b bases) pairs), and the pile boundaries."""
+
+    __slots__ = ("tspace", "novl", "aread", "bread", "abpos", "aepos", "bbpos",
+                 "bepos", "comp", "diffs", "trace_off", "trace_flat", "pile_starts")
+
+    def __init__(self, path: str):
+        lib = load()
+        novl = ctypes.c_int64()
+        tspace = ctypes.c_int32()
+        telems = ctypes.c_int64()
+        rc = lib.las_scan(path.encode(), 0, 0, ctypes.byref(novl),
+                          ctypes.byref(tspace), ctypes.byref(telems))
+        if rc != 0:
+            raise IOError(f"las_scan({path}) failed: {rc}")
+        n, te = novl.value, telems.value
+        self.novl, self.tspace = n, tspace.value
+        self.aread = np.empty(n, np.int32)
+        self.bread = np.empty(n, np.int32)
+        self.abpos = np.empty(n, np.int32)
+        self.aepos = np.empty(n, np.int32)
+        self.bbpos = np.empty(n, np.int32)
+        self.bepos = np.empty(n, np.int32)
+        self.comp = np.empty(n, np.uint8)
+        self.diffs = np.empty(n, np.int32)
+        self.trace_off = np.empty(n + 1, np.int64)
+        self.trace_flat = np.empty(te, np.int32)
+        rc = lib.las_load(path.encode(), 0, 0, n, _ptr(self.aread), _ptr(self.bread),
+                          _ptr(self.abpos), _ptr(self.aepos), _ptr(self.bbpos),
+                          _ptr(self.bepos), _ptr(self.comp), _ptr(self.diffs),
+                          _ptr(self.trace_off), _ptr(self.trace_flat))
+        if rc != 0:
+            raise IOError(f"las_load({path}) failed: {rc}")
+        # pile boundaries (the file is sorted by aread)
+        if n:
+            change = np.nonzero(np.diff(self.aread))[0] + 1
+            self.pile_starts = np.concatenate([[0], change, [n]]).astype(np.int64)
+        else:
+            self.pile_starts = np.zeros(1, np.int64)
+
+    def piles(self):
+        """(aread, first record, end record) of every pile, in file order."""
+        for p in range(len(self.pile_starts) - 1):
+            s, e = int(self.pile_starts[p]), int(self.pile_starts[p + 1])
+            yield int(self.aread[s]), s, e
+
+
+def decode_reads_batch(bps: np.ndarray, boffs: np.ndarray,
+                       rlens: np.ndarray) -> list[np.ndarray]:
+    """Decode a batch of 2-bit packed reads into views over one buffer."""
+    lib = load()
+    n = len(rlens)
+    boffs = np.ascontiguousarray(boffs, dtype=np.int64)
+    rlens = np.ascontiguousarray(rlens, dtype=np.int32)
+    out_off = np.zeros(n + 1, np.int64)
+    np.cumsum(rlens, out=out_off[1:])
+    out = np.empty(int(out_off[-1]), np.int8)
+    bps = np.ascontiguousarray(bps, dtype=np.uint8)
+    if n and int(out_off[-1]) and (boffs.min() < 0 or int(
+            (boffs + (rlens.astype(np.int64) + 3) // 4).max()) > len(bps)):
+        raise ValueError("a read lies outside the base store")
+    rc = lib.decode_reads(_ptr(bps), _ptr(boffs), _ptr(rlens), n,
+                          _ptr(out), _ptr(out_off))
+    if rc != 0:
+        raise RuntimeError(f"decode_reads failed: {rc}")
+    return [out[out_off[i] : out_off[i + 1]] for i in range(n)]
+
+
+def process_pile_native(a_bases: np.ndarray, col: ColumnarLas, s: int, e: int,
+                        b_reads: list[np.ndarray],
+                        w: int, adv: int, D: int, L: int,
+                        include_a: bool = True,
+                        order: np.ndarray | None = None):
+    """Windows of one pile (records ``s:e`` of ``col``) as batch tensors.
+
+    ``b_reads``: decoded stored-orientation B bases per overlap, already in
+    ``order`` if one is given. ``order`` permutes the pile (indices into
+    [0, e-s)), so the first overlaps in it fill the depth slots first.
+    Returns (seqs [nwin,D,L] int8, lens [nwin,D] i32, nsegs [nwin] i32).
+    """
+    lib = load()
+    novl = e - s
+    alen = len(a_bases)
+    nwin = 0 if alen < w else (alen - w) // adv + 1
+    # process_pile writes only the filled cells: PAD and zeros elsewhere
+    seqs = np.full((nwin, D, L), 4, dtype=np.int8)
+    lens = np.zeros((nwin, D), dtype=np.int32)
+    nsegs = np.zeros(nwin, dtype=np.int32)
+    if nwin == 0:
+        return seqs, lens, nsegs
+    if len(b_reads) != novl:
+        raise ValueError(f"{len(b_reads)} B reads for a pile of {novl} overlaps")
+
+    b_len = np.fromiter((len(b) for b in b_reads), np.int32, novl)
+    b_off = np.zeros(novl + 1, np.int64)
+    np.cumsum(b_len, out=b_off[1:])
+    b_concat = (np.concatenate(b_reads) if novl else np.zeros(0, np.int8)).astype(
+        np.int8, copy=False)
+    a_c = np.ascontiguousarray(a_bases, dtype=np.int8)
+
+    gi = (np.arange(s, e, dtype=np.int64) if order is None
+          else s + np.asarray(order, dtype=np.int64))
+    if len(gi) != novl or (novl and (gi.min() < s or gi.max() >= e)):
+        raise ValueError("order must index the pile's own overlaps")
+    abpos = col.abpos[gi]
+    aepos = col.aepos[gi]
+    bbpos = col.bbpos[gi]
+    bepos = col.bepos[gi]
+    comp = col.comp[gi]
+    # each overlap's trace slice, gathered in pile order: one index array
+    # (the slices' starts repeated over their lengths, plus a running count)
+    tlens = col.trace_off[gi + 1] - col.trace_off[gi]
+    toff = np.zeros(novl + 1, np.int64)
+    np.cumsum(tlens, out=toff[1:])
+    tflat = col.trace_flat[np.repeat(col.trace_off[gi] - toff[:-1], tlens)
+                           + np.arange(toff[-1], dtype=np.int64)]
+    # the C side trusts every coordinate: each overlap's A span lies in the
+    # A read, its trace has a pair for every tile of that span, and the
+    # trace's B bases lie in its B read
+    if novl:
+        cb = np.zeros(len(tflat) // 2 + 1, np.int64)
+        np.cumsum(tflat[1::2], out=cb[1:])
+        bsum = cb[toff[1:] // 2] - cb[toff[:-1] // 2]
+        if (abpos.min() < 0 or aepos.max() > alen or (aepos < abpos).any()
+                or (bbpos < 0).any() or (bbpos + bsum > b_len).any()
+                or (tlens // 2 < _n_tiles(abpos, aepos, col.tspace)).any()):
+            raise ValueError("an overlap of the pile lies outside its reads "
+                             "or its trace does not cover it")
+
+    rc = lib.process_pile(_ptr(a_c), alen, novl,
+                          _ptr(abpos), _ptr(aepos), _ptr(bbpos), _ptr(bepos),
+                          _ptr(comp),
+                          _ptr(b_concat), _ptr(b_off), _ptr(b_len),
+                          _ptr(tflat), _ptr(toff),
+                          col.tspace, w, adv, D, L, 1 if include_a else 0,
+                          _ptr(seqs), _ptr(lens), _ptr(nsegs), nwin)
+    if rc != 0:
+        raise RuntimeError(f"process_pile failed: {rc}")
+    return seqs, lens, nsegs
+
+
+def _n_tiles(abpos: np.ndarray, aepos: np.ndarray, tspace: int) -> np.ndarray:
+    """Trace tiles of each overlap: [abpos, aepos) cut at multiples of tspace."""
+    ab = abpos.astype(np.int64)
+    ae = aepos.astype(np.int64)
+    return np.where(ae > ab, (ae - 1) // tspace - ab // tspace + 1, 0)

@@ -1,4 +1,4 @@
-"""Pairwise alignment primitives (numpy edit-distance DP).
+"""Pairwise alignment primitives: exact unit-cost edit distance.
 
 Used to
 
@@ -10,31 +10,107 @@ Used to
       (``overlap_suffix_prefix``), and
   (d) score corrected reads against the truth (``infix_distance``).
 
-The DP is plain unit-cost Levenshtein. These are the numpy forms of
-``daccord_tpu.oracle.align``; they give the same distances and the same
-backtrack tie order as that module (whose C++ host library is not part of the
-port).
+Each runs in the port's host library (``native/dazz_native.cpp``: Myers
+bit-parallel DP, verify-retry banded fills). Beside each stands its numpy
+form, ``*_plain``: the same distances and the same backtrack tie order, which
+the tests hold the library to. Both give what ``daccord_tpu.oracle.align``
+gives.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+
+from ..native import load
 
 _BIG = 1 << 30
 
 
-def pack_segments(segs: list[np.ndarray]) -> list[np.ndarray]:
-    """Segment list in the form :func:`edit_distance_sum` takes."""
-    return list(segs)
+def _i8(x) -> np.ndarray:
+    return np.ascontiguousarray(x, dtype=np.int8)
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def pack_segments(segs: list[np.ndarray]) -> tuple:
+    """Flatten a segment list once for repeated :func:`edit_distance_sum`
+    calls: (flat bases, offsets, lengths, the list)."""
+    lens = np.fromiter((len(s) for s in segs), np.int32, len(segs))
+    offs = np.zeros(len(segs), dtype=np.int64)
+    if len(lens):
+        np.cumsum(lens[:-1], out=offs[1:])
+    flat = (np.concatenate([_i8(s) for s in segs]) if lens.sum()
+            else np.zeros(1, np.int8))
+    return flat, offs, lens, list(segs)
 
 
 def edit_distance_sum(cand: np.ndarray, segs) -> int:
-    """Sum of exact edit distances of ``cand`` vs each segment."""
-    return sum(edit_distance(cand, s) for s in segs)
+    """Sum of exact edit distances of ``cand`` vs each segment; ``segs`` is a
+    segment list or a :func:`pack_segments` result."""
+    flat, offs, lens, _ = segs if isinstance(segs, tuple) else pack_segments(segs)
+    if not len(lens):
+        return 0
+    cand = _i8(cand)
+    return int(load().edit_distance_sum(_ptr(cand), len(cand), _ptr(flat),
+                                        _ptr(offs), _ptr(lens), len(lens)))
 
 
 def edit_distance(a: np.ndarray, b: np.ndarray) -> int:
-    """Exact unit-cost edit distance between int8 base arrays.
+    """Exact unit-cost edit distance between int8 base arrays."""
+    return edit_distance_sum(a, [b])
+
+
+def align_path(a: np.ndarray, b: np.ndarray) -> tuple[int, np.ndarray]:
+    """Full DP with backtrack.
+
+    Returns (distance, a2b) where ``a2b`` has length ``len(a)+1`` and maps every
+    A prefix boundary to the aligned B prefix boundary (monotone). This is the
+    shape consumed by window cutting: B position of A position ``i`` is
+    ``a2b[i]``.
+    """
+    a, b = _i8(a), _i8(b)
+    a2b = np.zeros(len(a) + 1, dtype=np.int64)
+    d = load().align_map(_ptr(a), len(a), _ptr(b), len(b), _ptr(a2b))
+    return int(d), a2b
+
+
+def infix_distance(needle: np.ndarray, haystack: np.ndarray) -> int:
+    """Best edit distance of ``needle`` against any infix of ``haystack``
+    (free start/end gaps in the haystack); scores corrected reads against
+    the truth."""
+    a, b = _i8(needle), _i8(haystack)
+    return int(load().infix_distance(_ptr(a), len(a), _ptr(b), len(b)))
+
+
+def overlap_suffix_prefix(a: np.ndarray, b: np.ndarray) -> tuple[int, int, int]:
+    """Best alignment of a suffix of ``a`` against a prefix of ``b``.
+
+    Used by window stitching: returns (cost, a_start, b_end) minimizing
+    edit cost of a[a_start:] vs b[:b_end], normalized against trivial empty
+    overlaps by requiring the aligned span to score better than its length.
+    """
+    a, b = _i8(a), _i8(b)
+    cost, a_start, b_end = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    load().suffix_prefix(_ptr(a), len(a), _ptr(b), len(b), ctypes.byref(cost),
+                         ctypes.byref(a_start), ctypes.byref(b_end))
+    return cost.value, a_start.value, b_end.value
+
+
+# ---------------------------------------------------------------------------
+# numpy forms (the tests' reference)
+# ---------------------------------------------------------------------------
+
+def edit_distance_sum_plain(cand: np.ndarray, segs: list[np.ndarray]) -> int:
+    """numpy form of :func:`edit_distance_sum` (a segment list)."""
+    return sum(edit_distance_plain(cand, s) for s in segs)
+
+
+def edit_distance_plain(a: np.ndarray, b: np.ndarray) -> int:
+    """numpy form of :func:`edit_distance`.
 
     Verify-retry banding: a result below the band slack proves every optimal
     path stayed inside the band, so the banded value equals the full DP's;
@@ -75,14 +151,9 @@ def _edit_distance_banded(a, b, n: int, m: int, band: int) -> int:
     return int(prev[m])
 
 
-def align_path(a: np.ndarray, b: np.ndarray) -> tuple[int, np.ndarray]:
-    """Full DP with backtrack.
-
-    Returns (distance, a2b) where ``a2b`` has length ``len(a)+1`` and maps every
-    A prefix boundary to the aligned B prefix boundary (monotone). This is the
-    shape consumed by window cutting: B position of A position ``i`` is
-    ``a2b[i]``.
-    """
+def align_path_plain(a: np.ndarray, b: np.ndarray) -> tuple[int, np.ndarray]:
+    """numpy form of :func:`align_path` (full DP, backtrack preferring the
+    diagonal, then deletion, then insertion)."""
     a = np.asarray(a)
     b = np.asarray(b)
     n, m = len(a), len(b)
@@ -115,10 +186,8 @@ def align_path(a: np.ndarray, b: np.ndarray) -> tuple[int, np.ndarray]:
     return int(D[n, m]), a2b
 
 
-def infix_distance(needle: np.ndarray, haystack: np.ndarray) -> int:
-    """Best edit distance of ``needle`` against any infix of ``haystack``
-    (free start/end gaps in the haystack); scores corrected reads against
-    the truth."""
+def infix_distance_plain(needle: np.ndarray, haystack: np.ndarray) -> int:
+    """numpy form of :func:`infix_distance`."""
     a = np.asarray(needle)
     b = np.asarray(haystack)
     n, m = len(a), len(b)
@@ -136,13 +205,8 @@ def infix_distance(needle: np.ndarray, haystack: np.ndarray) -> int:
     return int(prev.min())
 
 
-def overlap_suffix_prefix(a: np.ndarray, b: np.ndarray) -> tuple[int, int, int]:
-    """Best alignment of a suffix of ``a`` against a prefix of ``b``.
-
-    Used by window stitching: returns (cost, a_start, b_end) minimizing
-    edit cost of a[a_start:] vs b[:b_end], normalized against trivial empty
-    overlaps by requiring the aligned span to score better than its length.
-    """
+def overlap_suffix_prefix_plain(a: np.ndarray, b: np.ndarray) -> tuple[int, int, int]:
+    """numpy form of :func:`overlap_suffix_prefix`."""
     a = np.ascontiguousarray(a, dtype=np.int8)
     b = np.ascontiguousarray(b, dtype=np.int8)
     n, m = len(a), len(b)

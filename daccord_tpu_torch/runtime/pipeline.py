@@ -4,9 +4,15 @@ The lean main path of ``daccord_tpu/runtime/pipeline.py``, in this order:
 
 - the profile pass: a strided sample of piles, windowed on the host, gives
   the two-pass error profile (skipped when a profile is passed in);
-- the host windowing of every pile (numpy: realign each overlap's trace
-  tiles, rank the overlaps by trace-diff rate so the best fill the depth
-  slots, cut windows, pack them into [D, L] rows);
+- the host windowing of every pile: rank the pile's overlaps (trace-diff
+  rate, plus the B read's intrinsic QV when the DB has an ``inqual`` track)
+  so the best fill the depth slots, then realign each overlap's trace tiles,
+  cut windows and pack them into [D, L] rows. By default one call of the
+  host library per pile does the last three (``native/dazz_native.cpp
+  process_pile``), on ``feeder_threads`` threads ahead of the batching loop
+  when that is above 0; ``use_native=False`` runs the numpy feeder
+  (``oracle/windows.py``, ``kernels/tensorize.py``), which writes the same
+  bytes;
 - skip-shallow: windows with fewer than ``min_depth`` segments never reach
   the device (the solver would mark them unsolved);
 - batching, one ladder call per batch of ``batch_size`` rows (a partial
@@ -32,16 +38,19 @@ from __future__ import annotations
 import os
 import sys
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..formats.dazzdb import DazzDB, read_db
+from ..formats.dazzdb import DazzDB, read_db, read_track
 from ..formats.fasta import FastaRecord, write_fasta
 from ..formats.las import _HDR_SIZE, LasFile, index_las
 from ..kernels import paging
 from ..kernels.tensorize import BatchShape, WindowBatch, pad_batch, tensorize_windows
 from ..kernels.tiers import TierLadder, solve_ladder, upload_arrays
+from ..native.api import ColumnarLas, process_pile_native
 from ..oracle.consensus import ConsensusConfig, estimate_profile_two_pass, stitch_results
 from ..oracle.profile import ErrorProfile
 from ..oracle.windows import cut_windows, refine_overlap
@@ -70,6 +79,16 @@ class PipelineConfig:
     dp_route: str = "fused"      # heaviest-path route: "fused" (DP +
                                  # backtrack kernel) or "scan" (DP kernel,
                                  # torch backtrack); bit-identical
+    use_native: bool = True      # window piles in the host library; False:
+                                 # the numpy feeder (same bytes, slower)
+    feeder_threads: int = 0      # piles windowed by this many threads ahead
+                                 # of the batching loop (0 = in the loop);
+                                 # the library releases the GIL. Needs
+                                 # use_native
+    depth_rank: bool = True      # best-ranked overlaps fill the depth slots
+    qv_track: str | None = "inqual"  # intrinsic-QV track whose B-read tile
+                                 # QVs join the depth-ranking score (absent
+                                 # track: trace-diff rate only)
 
 
 @dataclass
@@ -86,12 +105,17 @@ class PipelineStats:
     bases_out: int = 0
     tier_histogram: dict = field(default_factory=dict)
     paged: bool = False          # batches shipped as page pool + table
+    native_host: bool = False    # piles windowed by the host library
+    qv_ranked: bool = False      # a QV track joined the depth ranking
     pad_cells: int = 0           # payload cells shipped: dense seqs, or the
     used_cells: int = 0          # paged pool; used = real bases
     h2d_bytes: int = 0           # bytes of the arrays handed to the ladder
                                  # (copied host -> device on cuda)
     profile_s: float = 0.0       # profile pass and paged family sample (host)
-    windowing_s: float = 0.0     # host pile windowing
+    windowing_s: float = 0.0     # wall the pile loop blocked on the
+                                 # feeder; with feeder threads, less than
+                                 # the feeder's CPU time, which they spend
+                                 # ahead of the loop (under the ladder)
     ladder_s: float = 0.0        # ladder calls, device results on the host
     wall_s: float = 0.0
 
@@ -106,10 +130,111 @@ class PipelineStats:
         return self.n_windows / self.wall_s if self.wall_s else 0.0
 
 
-def _rank_scores(diffs: np.ndarray, spans: np.ndarray) -> np.ndarray:
-    """Depth-ranking score per overlap: the pair trace-diff rate (lower
-    ranks first)."""
-    return diffs.astype(np.float64) / spans
+#: the QV track's byte for a tile without coverage, and its QV -> error rate
+#: scale (``daccord_tpu/tools/lastools.py``, which writes the track)
+QV_NOCOV = 255
+QV_SCALE = 200.0
+
+
+class QvRanker:
+    """Per-overlap B-read quality from an intrinsic-QV track.
+
+    The track holds one QV byte per tspace tile per read; :meth:`rates`
+    averages each B read's tiles under its aligned interval and returns
+    error-rate units (QV / QV_SCALE), NaN when no covered tile has coverage.
+    The per-read prefix sums are one global cumsum built here, differenced
+    inside each read's tile span, so ranking a pile is vectorized numpy
+    (it runs in the feeder threads, which only read this state).
+    """
+
+    def __init__(self, qv_payloads: list, tspace: int, db: DazzDB):
+        self.tspace = tspace
+        nt = np.fromiter((len(p) for p in qv_payloads), np.int64,
+                         len(qv_payloads))
+        self.tile_base = np.zeros(len(nt) + 1, np.int64)
+        np.cumsum(nt, out=self.tile_base[1:])
+        flat = (np.concatenate(qv_payloads) if len(qv_payloads)
+                else np.zeros(0, np.uint8))
+        valid = flat != QV_NOCOV
+        self.cv = np.zeros(len(flat) + 1, np.float64)
+        np.cumsum(np.where(valid, flat, 0), out=self.cv[1:])
+        self.cc = np.zeros(len(flat) + 1, np.int64)
+        np.cumsum(valid, out=self.cc[1:])
+        self.rlens = np.fromiter((db.read_length(i)
+                                  for i in range(len(qv_payloads))),
+                                 np.int64, len(qv_payloads))
+
+    def rates(self, bread, bbpos, bepos, comp) -> np.ndarray:
+        """Per-overlap mean QV rate; NaN = no QV information."""
+        bread = np.asarray(bread, np.int64)
+        bb = np.asarray(bbpos, np.int64)
+        be = np.asarray(bepos, np.int64)
+        comp = np.asarray(comp).astype(bool)
+        inb = (bread >= 0) & (bread < len(self.rlens))
+        br = np.where(inb, bread, 0)
+        blen = self.rlens[br]
+        # LAS B coordinates of complemented overlaps live in complement
+        # space; the track indexes forward-strand tiles
+        fb = np.where(comp, blen - be, bb)
+        fe = np.where(comp, blen - bb, be)
+        nt = self.tile_base[br + 1] - self.tile_base[br]
+        g0 = np.maximum(fb // self.tspace, 0)
+        g1 = np.minimum((np.maximum(fe, fb + 1) - 1) // self.tspace, nt - 1)
+        ok = inb & (nt > 0) & (g1 >= g0)
+        lo = np.where(ok, self.tile_base[br] + g0, 0)
+        hi = np.where(ok, self.tile_base[br] + g1 + 1, 0)
+        cnt = self.cc[hi] - self.cc[lo]
+        sums = self.cv[hi] - self.cv[lo]
+        return np.where(ok & (cnt > 0),
+                        sums / np.maximum(cnt, 1) / QV_SCALE, np.nan)
+
+
+#: weight of the B read's intrinsic QV rate in the depth-ranking score. The
+#: pair trace rate already holds B's errors, and it alone separates
+#: alignments across repeat copies, so the QV term enters small: enough to
+#: sink intrinsically noisy B reads without diluting the pair signal.
+QV_RANK_WEIGHT = 0.25
+
+
+def _rank_scores(diffs: np.ndarray, spans: np.ndarray,
+                 bq: np.ndarray | None) -> np.ndarray:
+    """Depth-ranking score per overlap (lower ranks first): the pair
+    trace-diff rate plus, when a QV track is loaded, the down-weighted
+    intrinsic error rate of the B read. Overlaps whose B tiles have no QV
+    coverage take the pile median, so unknown quality ranks neutral, not
+    best. One function for both feeders, whose orders must agree."""
+    score = diffs.astype(np.float64) / spans
+    if bq is not None:
+        valid = ~np.isnan(bq)
+        fill = float(np.median(bq[valid])) if valid.any() else 0.0
+        score = score + QV_RANK_WEIGHT * np.where(valid, bq, fill)
+    return score
+
+
+def _depth_order(diffs, abpos, aepos, bread, bbpos, bepos, comp,
+                 qvr: QvRanker | None) -> np.ndarray:
+    """The pile's overlaps best first (lowest :func:`_rank_scores`, stable),
+    so the best alignments fill the depth slots: one rule for both feeders."""
+    span = np.maximum(np.asarray(aepos) - np.asarray(abpos), 1)
+    bq = None if qvr is None else qvr.rates(bread, bbpos, bepos, comp)
+    return np.argsort(_rank_scores(np.asarray(diffs), span, bq), kind="stable")
+
+
+def load_qv_ranker(db: DazzDB, las: LasFile, cfg: PipelineConfig) -> QvRanker | None:
+    """The run's QV ranker, or None when ranking or the track is off, the
+    track is absent, or its tile geometry does not match this LAS's tspace
+    (a track written under another tspace would map the wrong tiles)."""
+    if not cfg.qv_track or not cfg.depth_rank:
+        return None
+    try:
+        payloads = read_track(db.path, cfg.qv_track)
+    except FileNotFoundError:
+        return None
+    tspace = las.tspace
+    if any(len(p) != (db.read_length(i) + tspace - 1) // tspace
+           for i, p in enumerate(payloads)):
+        return None
+    return QvRanker(payloads, tspace, db)
 
 
 def _stride_take(n_items: int, n: int, offset: int = 0) -> np.ndarray:
@@ -218,25 +343,69 @@ def paged_enabled(cfg: PipelineConfig, device) -> bool:
     return on
 
 
-def iter_pile_blocks(db: DazzDB, las: LasFile, cfg: PipelineConfig):
+def _window_one_pile(db: DazzDB, col: ColumnarLas, cfg: PipelineConfig,
+                     aread: int, s: int, e: int, qvr: QvRanker | None):
+    """Window one pile (records ``s:e`` of ``col``) through the host library;
+    the one body of the synchronous and the threaded native feeder, so they
+    write the same bytes. Runs in the feeder threads."""
+    a = db.read_bases(aread)
+    order = None
+    if cfg.depth_rank:
+        order = _depth_order(col.diffs[s:e], col.abpos[s:e], col.aepos[s:e],
+                             col.bread[s:e], col.bbpos[s:e], col.bepos[s:e],
+                             col.comp[s:e], qvr)
+    idxs = np.arange(s, e) if order is None else s + order
+    b_reads = db.read_bases_batch(col.bread[idxs])
+    seqs, lens, nsegs = process_pile_native(a, col, s, e, b_reads, cfg.consensus.w,
+                                            cfg.consensus.adv, cfg.depth,
+                                            cfg.seg_len, order=order)
+    return aread, a, seqs, lens, nsegs
+
+
+def iter_pile_blocks(db: DazzDB, las: LasFile, cfg: PipelineConfig,
+                     qvr: QvRanker | None = None):
     """Yield (aread, a_bases, seqs [nwin,D,L], lens [nwin,D], nsegs [nwin])
-    per pile, windowed on the host."""
+    per pile, windowed on the host: by the host library (``use_native``),
+    else by the numpy feeder. Both write the same bytes."""
+    if cfg.use_native:
+        col = ColumnarLas(las.path)
+        for aread, s, e in col.piles():
+            yield _window_one_pile(db, col, cfg, aread, s, e, qvr)
+        return
     w, adv = cfg.consensus.w, cfg.consensus.adv
     shape = BatchShape(depth=cfg.depth, seg_len=cfg.seg_len, wlen=w)
     for aread, pile in las.iter_piles():
         a = db.read_bases(aread)
-        if pile:
-            # quality-ranked depth capping: the best alignments (lowest
-            # trace-diff rate) fill the depth slots
-            diffs = np.asarray([o.diffs for o in pile])
-            span = np.maximum(np.asarray([o.aepos - o.abpos for o in pile]), 1)
-            order = np.argsort(_rank_scores(diffs, span), kind="stable")
-            pile = [pile[i] for i in order]
+        if cfg.depth_rank and pile:
+            cols = [[getattr(o, f) for o in pile] for f in (
+                "diffs", "abpos", "aepos", "bread", "bbpos", "bepos", "is_comp")]
+            pile = [pile[i] for i in _depth_order(*cols, qvr)]
         refined = [refine_overlap(o, a, db.read_bases(o.bread), las.tspace)
                    for o in pile]
         windows = cut_windows(a, refined, w=w, adv=adv)
         b = tensorize_windows([(aread, ws) for ws in windows], shape)
         yield aread, a, b.seqs, b.lens, b.nsegs
+
+
+def iter_pile_blocks_threaded(db: DazzDB, las: LasFile, cfg: PipelineConfig,
+                              nthreads: int, qvr: QvRanker | None = None):
+    """The native stream of :func:`iter_pile_blocks`, windowed by
+    ``nthreads`` threads with a bounded in-order prefetch of ``nthreads + 2``
+    piles: the same blocks in the same order, so every downstream byte is
+    the same; only the wall changes."""
+    col = ColumnarLas(las.path)
+    piles = iter(col.piles())
+    with ThreadPoolExecutor(max_workers=nthreads) as ex:
+        inflight: deque = deque()
+        for item in piles:
+            inflight.append(ex.submit(_window_one_pile, db, col, cfg, *item, qvr))
+            if len(inflight) >= nthreads + 2:
+                break
+        while inflight:
+            yield inflight.popleft().result()
+            for item in piles:
+                inflight.append(ex.submit(_window_one_pile, db, col, cfg, *item, qvr))
+                break
 
 
 class _PendingRead:
@@ -278,7 +447,12 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
     """Correct every pile; yields (aread, fragments, stats) in input order."""
     dev = resolve_device(cfg.device)
     paged_on = paged_enabled(cfg, dev)
-    stats = PipelineStats(paged=paged_on)
+    if cfg.feeder_threads < 0 or (cfg.feeder_threads and not cfg.use_native):
+        raise ValueError(f"feeder_threads={cfg.feeder_threads}: threads window "
+                         "piles through the host library (use_native), 0 in the loop")
+    qvr = load_qv_ranker(db, las, cfg)
+    stats = PipelineStats(paged=paged_on, native_host=cfg.use_native,
+                          qv_ranked=qvr is not None)
     t_start = time.perf_counter()
     sample = None
     if profile is None:
@@ -409,7 +583,8 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
             yield r, frags, stats
             emit_idx += 1
 
-    blocks = iter_pile_blocks(db, las, cfg)
+    blocks = (iter_pile_blocks_threaded(db, las, cfg, cfg.feeder_threads, qvr)
+              if cfg.feeder_threads else iter_pile_blocks(db, las, cfg, qvr))
     while True:
         t0 = time.perf_counter()
         blk = next(blocks, None)

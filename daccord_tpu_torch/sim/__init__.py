@@ -1,3 +1,3 @@
-from .synth import SimConfig, SimResult, make_dataset, simulate
+from .synth import SimConfig, SimResult, make_dataset, score_vs_truth, simulate
 
-__all__ = ["SimConfig", "SimResult", "simulate", "make_dataset"]
+__all__ = ["SimConfig", "SimResult", "simulate", "make_dataset", "score_vs_truth"]

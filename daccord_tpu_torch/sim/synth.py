@@ -24,7 +24,8 @@ from dataclasses import asdict, dataclass
 
 import numpy as np
 
-from ..formats.dazzdb import write_db
+from ..formats.dazzdb import DazzDB, write_db
+from ..formats.fasta import read_fasta
 from ..formats.las import Overlap, write_las, OVL_COMP
 from ..utils.bases import revcomp_ints
 
@@ -492,3 +493,35 @@ def make_dataset(outdir: str, cfg: SimConfig, name: str = "sim") -> dict:
     with open(os.path.join(outdir, f"{name}.config.json"), "wt") as fh:
         json.dump(asdict(cfg), fh, indent=2)
     return {"db": db_path, "las": las_path, "truth": truth_path, "result": res}
+
+
+def score_vs_truth(fasta: str, truth: str, db: DazzDB) -> tuple[float, float]:
+    """(corrected, raw) error rates of corrected fragments against the
+    simulation's truth (the ``truth`` file of :func:`make_dataset`): each
+    fragment's best infix edit distance to its read's true sequence, and the
+    raw reads' edit distance to the same, over the reads with a fragment.
+    Records are named ``read<id>/<fragment>``."""
+    from ..oracle.align import edit_distance, infix_distance
+    from ..utils.bases import seq_to_ints
+
+    t = np.load(truth)
+    genome, starts, ends, strands = t["genome"], t["starts"], t["ends"], t["strands"]
+
+    def truth_of(rid: int) -> np.ndarray:
+        tr = genome[starts[rid]:ends[rid]]
+        return revcomp_ints(tr) if strands[rid] == 1 else tr
+
+    e = n = 0
+    rids = set()
+    for rec in read_fasta(fasta):
+        rid = int(rec.name.split()[0].removeprefix("read").split("/")[0])
+        f = seq_to_ints(rec.seq)
+        e += infix_distance(f, truth_of(rid))
+        n += len(f)
+        rids.add(rid)
+    re = rn = 0
+    for rid in sorted(rids):
+        raw = db.read_bases(rid)
+        re += edit_distance(raw, truth_of(rid))
+        rn += len(raw)
+    return e / max(n, 1), re / max(rn, 1)

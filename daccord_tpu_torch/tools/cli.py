@@ -1,7 +1,8 @@
 """Command line of the port.
 
     python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT [-E EPROF]
-        [-b BATCH] [--device cuda|cpu] [--paged on|off|auto] [--page-len N]
+        [-b BATCH] [-t THREADS] [--no-native] [--qv-track NAME]
+        [--device cuda|cpu] [--paged on|off|auto] [--page-len N]
         [--dp fused|scan]
 
 ``-E`` reads the error profile from EPROF when the file exists, and otherwise
@@ -10,7 +11,11 @@ estimates it and writes it there; the file is the JSON of
 profile made by either package drives the other. ``--paged`` ships batches
 as a page pool and page table (``kernels/paging.py``) instead of the dense
 tile, and ``--dp`` picks the heaviest-path route; neither changes the FASTA.
-A JSON line of run statistics goes to stderr.
+Piles are windowed by the port's host library (``native/``), on ``-t``
+threads ahead of the batching loop when ``-t`` is above 0; ``--no-native``
+windows them in numpy instead, with the same FASTA. ``--qv-track`` names the
+intrinsic-QV track that joins the depth ranking (``inqual``; ignored when
+the DB has none). A JSON line of run statistics goes to stderr.
 """
 
 from __future__ import annotations
@@ -39,6 +44,16 @@ def daccord_run(argv=None):
                         "estimated and written here")
     p.add_argument("-b", "--batch", type=int, default=2048,
                    help="windows per ladder call")
+    p.add_argument("-t", "--threads", type=int, default=0,
+                   help="pile windowing threads ahead of the batching loop "
+                        "(0 = in the loop)")
+    p.add_argument("--no-native", action="store_true",
+                   help="window piles in numpy instead of the host library "
+                        "(same FASTA, slower)")
+    p.add_argument("--qv-track", default="inqual", metavar="NAME",
+                   help="intrinsic-QV track whose B-read QVs join the depth "
+                        "ranking; '' = trace-diff rate only (default inqual; "
+                        "a DB without the track ranks by trace diffs)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the ladder runs (default cuda; no fallback)")
     p.add_argument("--paged", choices=("on", "off", "auto"), default="off",
@@ -54,10 +69,14 @@ def daccord_run(argv=None):
                         "kernel) or 'scan' (DP kernel writing the score and "
                         "pointer stacks, backtrack in torch); bit-identical")
     args = p.parse_args(argv)
+    if args.threads < 0 or (args.threads and args.no_native):
+        raise SystemExit("-t needs the host library: give -t 0 with --no-native")
 
     cfg = PipelineConfig(batch_size=args.batch, device=args.device,
                          paged=args.paged, page_len=args.page_len,
-                         dp_route=args.dp)
+                         dp_route=args.dp, use_native=not args.no_native,
+                         feeder_threads=args.threads,
+                         qv_track=args.qv_track or None)
     if args.paged != "off" and (args.page_len <= 0
                                 or cfg.seg_len % args.page_len):
         raise SystemExit(f"--page-len {args.page_len} must be positive and "
@@ -85,7 +104,8 @@ def daccord_main(argv=None) -> int:
         "ladder_s": round(stats.ladder_s, 3), "wall_s": round(stats.wall_s, 3),
         "paged": stats.paged, "pad_waste": round(stats.pad_waste, 4),
         "h2d_bytes": stats.h2d_bytes, "dp": args.dp,
-        "device": args.device}), file=sys.stderr)
+        "native_host": stats.native_host, "threads": args.threads,
+        "qv_ranked": stats.qv_ranked, "device": args.device}), file=sys.stderr)
     return 0
 
 
@@ -93,8 +113,9 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] != "daccord":
         print("usage: python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT "
-              "[-E EPROF] [-b BATCH] [--device cuda|cpu] [--paged on|off|auto] "
-              "[--page-len N] [--dp fused|scan]", file=sys.stderr)
+              "[-E EPROF] [-b BATCH] [-t THREADS] [--no-native] [--qv-track NAME] "
+              "[--device cuda|cpu] [--paged on|off|auto] [--page-len N] "
+              "[--dp fused|scan]", file=sys.stderr)
         return 2
     return daccord_main(argv[1:])
 

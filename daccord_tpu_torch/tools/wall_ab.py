@@ -2,14 +2,17 @@
 
     python -m daccord_tpu_torch.tools.wall_ab A_ROOT B_ROOT \\
         [--paged off|on] [--dp fused|scan] [--turns ABBA]
+        [--sim GENOME,COVERAGE,READLEN[,SEED]] [--b-args "-t 8"]
 
-Makes the simulated dataset of ``chip_smoke.py`` (20 kb genome, 20x,
-seed 42) and its error profile once, then runs the ``daccord`` command line
-of each checkout (``A_ROOT``, ``B_ROOT``: directories that hold a
-``daccord_tpu_torch`` package) in a fresh process per turn, in the order of
-``--turns``, so that host noise falls on both sides alike. Prints the card's
-name and power limit, one JSON line per turn (wall, windows/s, host
-windowing and device ladder seconds) and whether the FASTA outputs agree.
+Makes a simulated dataset (by default ``chip_smoke.py``'s: 20 kb genome,
+20x, 2 kb reads, seed 42) and its error profile once, then runs the
+``daccord`` command line of each checkout (``A_ROOT``, ``B_ROOT``:
+directories that hold a ``daccord_tpu_torch`` package) in a fresh process
+per turn, in the order of ``--turns``, so that host noise falls on both
+sides alike. ``--b-args`` adds flags to B's command line only (flags that
+A's does not know, such as ``-t``). Prints the card's name and power limit,
+one JSON line per turn (wall, windows/s, host windowing and device ladder
+seconds) and whether the FASTA outputs agree.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import argparse
 import filecmp
 import json
 import os
+import shlex
 import subprocess
 import sys
 import tempfile
@@ -43,7 +47,15 @@ def main(argv=None) -> int:
     ap.add_argument("--paged", choices=("on", "off"), default="off")
     ap.add_argument("--dp", choices=("fused", "scan"), default="fused")
     ap.add_argument("--turns", default="ABBA")
+    ap.add_argument("--sim", default="20000,20,2000,42",
+                    metavar="GENOME,COVERAGE,READLEN[,SEED]")
+    ap.add_argument("--b-args", default="", metavar="FLAGS",
+                    help="flags added to B's daccord command line only")
     args = ap.parse_args(argv)
+    sim = [float(x) for x in args.sim.split(",")]
+    if len(sim) not in (3, 4):
+        ap.error("--sim takes GENOME,COVERAGE,READLEN[,SEED]")
+    genome, coverage, read_len, seed = (*sim, 42)[:4]
     if not torch.cuda.is_available():
         print("wall_ab: needs a CUDA card", file=sys.stderr)
         return 1
@@ -58,8 +70,10 @@ def main(argv=None) -> int:
     print(f"card: {smi}", flush=True)
     roots = {"A": os.path.abspath(args.a), "B": os.path.abspath(args.b)}
     with tempfile.TemporaryDirectory(prefix="wall_ab_") as tmp:
-        d = make_dataset(tmp, SimConfig(genome_len=20_000, coverage=20,
-                                        read_len_mean=2_000, seed=42))
+        sim_cfg = SimConfig(genome_len=int(genome), coverage=coverage,
+                            read_len_mean=read_len, seed=int(seed))
+        print(f"dataset: {sim_cfg}", flush=True)
+        d = make_dataset(tmp, sim_cfg)
         eprof = os.path.join(tmp, "eprof.json")
         estimate_profile_for_shard(read_db(d["db"]), LasFile(d["las"]),
                                    PipelineConfig(device="cpu")).save(eprof)
@@ -69,7 +83,7 @@ def main(argv=None) -> int:
             res = subprocess.run(
                 [sys.executable, "-c", RUN, d["db"], d["las"], "-o", out, "-E", eprof,
                  "-b", "2048", "--device", "cuda", "--paged", args.paged,
-                 "--dp", args.dp],
+                 "--dp", args.dp, *(shlex.split(args.b_args) if tag == "B" else [])],
                 cwd=roots[tag], env={**os.environ, "PYTHONPATH": roots[tag]},
                 capture_output=True, text=True)
             if res.returncode != 0:
