@@ -38,20 +38,20 @@ def _ptr(a: np.ndarray):
 
 def pack_segments(segs: list[np.ndarray]) -> tuple:
     """Flatten a segment list once for repeated :func:`edit_distance_sum`
-    calls: (flat bases, offsets, lengths, the list)."""
+    calls: (flat bases, offsets, lengths)."""
     lens = np.fromiter((len(s) for s in segs), np.int32, len(segs))
     offs = np.zeros(len(segs), dtype=np.int64)
     if len(lens):
         np.cumsum(lens[:-1], out=offs[1:])
     flat = (np.concatenate([_i8(s) for s in segs]) if lens.sum()
             else np.zeros(1, np.int8))
-    return flat, offs, lens, list(segs)
+    return flat, offs, lens
 
 
 def edit_distance_sum(cand: np.ndarray, segs) -> int:
     """Sum of exact edit distances of ``cand`` vs each segment; ``segs`` is a
     segment list or a :func:`pack_segments` result."""
-    flat, offs, lens, _ = segs if isinstance(segs, tuple) else pack_segments(segs)
+    flat, offs, lens = segs if isinstance(segs, tuple) else pack_segments(segs)
     if not len(lens):
         return 0
     cand = _i8(cand)

@@ -29,6 +29,7 @@ import time
 import torch
 
 from .. import native
+from .wall_ab import sim_config
 
 
 class _Counted:
@@ -74,17 +75,14 @@ def main(argv=None) -> int:
     ap.add_argument("--paged", choices=("on", "off"), default="off")
     ap.add_argument("--dp", choices=("fused", "scan"), default="fused")
     args = ap.parse_args(argv)
-    sim = [float(x) for x in args.sim.split(",")]
-    if len(sim) not in (3, 4):
-        ap.error("--sim takes GENOME,COVERAGE,READLEN[,SEED]")
-    genome, coverage, read_len, seed = (*sim, 42)[:4]
+    sim_cfg = sim_config(ap, args.sim)
     if not torch.cuda.is_available():
         print("host_calls: needs a CUDA card", file=sys.stderr)
         return 1
     from ..formats.dazzdb import read_db
     from ..formats.las import LasFile
     from ..runtime.pipeline import PipelineConfig, correct_to_fasta, estimate_profile_for_shard
-    from ..sim import SimConfig, make_dataset, score_vs_truth
+    from ..sim import make_dataset, score_vs_truth
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -94,8 +92,6 @@ def main(argv=None) -> int:
     counted = native._lib = _Counted(real)
     try:
         with tempfile.TemporaryDirectory(prefix="host_calls_") as tmp:
-            sim_cfg = SimConfig(genome_len=int(genome), coverage=coverage,
-                                read_len_mean=read_len, seed=int(seed))
             d = make_dataset(tmp, sim_cfg)
             db = read_db(d["db"])
             cfg = PipelineConfig(batch_size=2048, device="cuda", paged=args.paged,

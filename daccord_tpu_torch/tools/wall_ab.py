@@ -40,6 +40,19 @@ print("STATS " + json.dumps(dict(
 """
 
 
+def sim_config(ap: argparse.ArgumentParser, spec: str):
+    """The ``SimConfig`` of a ``--sim GENOME,COVERAGE,READLEN[,SEED]`` value
+    (seed 42 when left out)."""
+    from ..sim import SimConfig
+
+    sim = [float(x) for x in spec.split(",")]
+    if len(sim) not in (3, 4):
+        ap.error("--sim takes GENOME,COVERAGE,READLEN[,SEED]")
+    genome, coverage, read_len, seed = (*sim, 42)[:4]
+    return SimConfig(genome_len=int(genome), coverage=coverage,
+                     read_len_mean=read_len, seed=int(seed))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="wall_ab", description=__doc__.splitlines()[0])
     ap.add_argument("a")
@@ -52,17 +65,14 @@ def main(argv=None) -> int:
     ap.add_argument("--b-args", default="", metavar="FLAGS",
                     help="flags added to B's daccord command line only")
     args = ap.parse_args(argv)
-    sim = [float(x) for x in args.sim.split(",")]
-    if len(sim) not in (3, 4):
-        ap.error("--sim takes GENOME,COVERAGE,READLEN[,SEED]")
-    genome, coverage, read_len, seed = (*sim, 42)[:4]
+    sim_cfg = sim_config(ap, args.sim)
     if not torch.cuda.is_available():
         print("wall_ab: needs a CUDA card", file=sys.stderr)
         return 1
     from ..formats.dazzdb import read_db
     from ..formats.las import LasFile
     from ..runtime.pipeline import PipelineConfig, estimate_profile_for_shard
-    from ..sim import SimConfig, make_dataset
+    from ..sim import make_dataset
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -70,8 +80,6 @@ def main(argv=None) -> int:
     print(f"card: {smi}", flush=True)
     roots = {"A": os.path.abspath(args.a), "B": os.path.abspath(args.b)}
     with tempfile.TemporaryDirectory(prefix="wall_ab_") as tmp:
-        sim_cfg = SimConfig(genome_len=int(genome), coverage=coverage,
-                            read_len_mean=read_len, seed=int(seed))
         print(f"dataset: {sim_cfg}", flush=True)
         d = make_dataset(tmp, sim_cfg)
         eprof = os.path.join(tmp, "eprof.json")
