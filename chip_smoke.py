@@ -17,18 +17,36 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    three feeders' windows/s (the numpy feeder and the host library on one
    thread, the host library on N = min(8, usable CPUs) threads);
 4. slice phase, three runs of the ``daccord`` command line in-process on
-   cuda (batch 2048), each with every kernel's launch counts (and the DP
-   kernels' windows per shape) set to 0 just before and read just after: on
-   the 20 kb set with one ``-E`` profile, the dense fused run (``--paged off
-   --dp fused``, must launch ``dp_backtrack``) and the paged scan run
-   (``--paged on --dp scan -t N``, must launch ``gather_pages`` and
-   ``heaviest_path``); then the dense fused run with ``-t N`` on a 100 kb /
-   30x set of 5 kb reads (about 3 Mb of reads, 300k windows). Each prints
-   its wall, windows/s, host windowing and device ladder, and the mean
-   batch the path gave each DP shape. The two 20 kb FASTA outputs are
-   compared (the drift bound of ROADMAP's parity invariant), and all three
-   are scored against the simulation's truth (they must beat the raw
-   reads);
+   cuda (batch 2048) with the JAX package's defaults (the in-flight deque
+   at 8 ladder calls on the dispatcher thread, dense depth buckets 8/16/32,
+   strict ingest validation, the monster-pile guard at 100,000 overlaps),
+   each with every kernel's launch counts (and the DP kernels' windows per
+   shape) set to 0 just before and read just after: on the 20 kb set with
+   one ``-E`` profile, the dense fused run (``--paged off --dp fused``, must
+   launch ``dp_backtrack``) and the paged scan run (``--paged on --dp scan
+   -t N``, must launch ``gather_pages`` and ``heaviest_path``); then the
+   dense fused run with ``-t N`` on a 100 kb / 30x set of 5 kb reads (about
+   3 Mb of reads, 300k windows). Each prints its wall, windows/s, the
+   ingest scan, host windowing, ladder dispatch and the wall blocked in
+   fetch ("device"), the rest ("else"), the feeder stage profile, batches
+   per bucket, pad waste, the mean batch the path gave each DP shape, the
+   peak device memory and the pinned host memory in flight. The two 20 kb
+   FASTA outputs are compared (the drift bound of ROADMAP's parity
+   invariant), and all three are scored against the simulation's truth
+   (they must beat the raw reads);
+4b. the slice's checks on the 20 kb set, each a ``daccord`` run with the
+   counts set to 0 before it: ``--max-inflight 1`` and a second deque run
+   write the first deque run's FASTA byte for byte (their walls on one
+   line); ``--depth-buckets ''`` (one
+   bucket) stays within the drift bound of the bucketed run; on a copy of
+   the LAS the script corrupts (one record's coordinates bit-flipped,
+   another's ``tlen`` made absurd), ``--ingest-policy strict`` exits
+   non-zero naming both offsets and piles, and ``quarantine`` emits exactly
+   those two reads uncorrected with one sidecar row each and every other
+   read within the drift bound of the clean run; ``--max-pile-overlaps``
+   one below the deepest pile contains the deepest piles only; ``-J 0,3``,
+   ``-J 1,3`` and ``-J 2,3`` concatenate to the unsharded FASTA, byte for
+   byte;
 5. kernel phase, on inputs made from real windows of the dataset (topped up
    from a seeded generator if there were fewer than B), each kernel held
    bit-equal to its plain torch version on the card and timed (its device
@@ -400,21 +418,47 @@ def mean_batches(launched: dict, kernel: str) -> dict:
     return {key: max(1, round(windows[key] / n)) for key, n in by_shape.items() if n}
 
 
+def else_s(stats) -> float:
+    """The wall less the ingest scan, windowing, ladder dispatch, the wait
+    in fetch and the profile/family sample: scatter, stitch and FASTA."""
+    return (stats.wall_s - stats.ingest_s - stats.windowing_s - stats.ladder_s
+            - stats.device_s - stats.profile_s)
+
+
+def pinned_peak() -> str:
+    """Peak pinned host memory of the caching host allocator, where this
+    torch reports it."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return "not reported by this torch"
+    peaks = {k: v for k, v in stats().items() if "bytes" in k and "peak" in k}
+    return ", ".join(f"{k} {v}" for k, v in sorted(peaks.items())) or "not reported"
+
+
 def log_run(tag: str, stats, launched: dict) -> None:
     n = max(stats.n_batches, 1)
     log(f"daccord {tag}: reads {stats.n_reads}, windows {stats.n_windows}, solved "
         f"{stats.n_solved} ({stats.n_solved / max(stats.n_windows, 1):.4f}), "
-        f"skipped shallow {stats.n_skipped_shallow}, batches {stats.n_batches}, "
+        f"skipped shallow {stats.n_skipped_shallow}, batches {stats.n_batches} "
+        f"{dict(sorted(stats.batches_by_bucket.items()))}, "
         f"tiers {dict(sorted(stats.tier_histogram.items()))}, "
-        f"fragments {stats.n_fragments}, bases out {stats.bases_out}")
+        f"fragments {stats.n_fragments}, bases out {stats.bases_out}, quarantined "
+        f"{stats.n_quarantined} (ingest issues {stats.n_ingest_issues}, monster "
+        f"piles {stats.n_monster_piles})")
     log(f"daccord {tag}: feeder {'host library' if stats.native_host else 'numpy'}, "
-        f"QV ranking {'on' if stats.qv_ranked else 'off (no track)'}")
-    log(f"daccord {tag}: wall {stats.wall_s:.3f} s, {stats.windows_per_sec():.1f} "
-        f"windows/s, {stats.bases_per_sec():.1f} bases/s; host windowing "
-        f"{stats.windowing_s * 1e3:.1f} ms, device ladder {stats.ladder_s * 1e3:.1f} "
-        f"ms ({stats.ladder_s * 1e3 / n:.1f} ms per batch), profile/family sample "
-        f"{stats.profile_s * 1e3:.1f} ms; pad waste {stats.pad_waste:.4f}, "
-        f"H2D {stats.h2d_bytes} bytes ({stats.h2d_bytes / n:.0f} per batch)")
+        f"QV ranking {'on' if stats.qv_ranked else 'off (no track)'}, ladder "
+        f"calls in flight at most {stats.peak_inflight}")
+    w = stats.wall_s
+    log(f"daccord {tag}: wall {w:.3f} s, {stats.windows_per_sec():.1f} windows/s, "
+        f"{stats.bases_per_sec():.1f} bases/s; ingest_s {stats.ingest_s:.3f} s, "
+        f"windowing_s {stats.windowing_s:.3f} s, ladder_s {stats.ladder_s:.3f} s "
+        f"({stats.ladder_s * 1e3 / n:.1f} ms per batch), device_s "
+        f"{stats.device_s:.3f} s ({stats.device_s / w:.4f} of the wall; the ladder "
+        f"calls' own wall solve_s {stats.solve_s:.3f} s), profile/"
+        f"family sample {stats.profile_s:.3f} s, else {else_s(stats):.3f} s "
+        f"({else_s(stats) / w:.4f}); pad waste {stats.pad_waste:.4f}, H2D "
+        f"{stats.h2d_bytes} bytes ({stats.h2d_bytes / n:.0f} per batch)")
+    log(f"daccord {tag}: feeder stage profile {json.dumps(stats.stage_profile)}")
     for name, (total, by_shape, windows) in launched.items():
         shapes = ", ".join(f"{k}: {v}" for k, v in sorted(by_shape.items()))
         log(f"daccord {tag}: {name} launches {total} ({shapes})")
@@ -422,6 +466,162 @@ def log_run(tag: str, stats, launched: dict) -> None:
             means = ", ".join(f"{k}: {windows[k] / n:.1f}"
                               for k, n in sorted(by_shape.items()) if n)
             log(f"daccord {tag}: {name} mean windows per launch ({means})")
+
+
+def records(path: str) -> dict:
+    from daccord_tpu_torch.formats.fasta import read_fasta
+
+    return {r.name: r.seq for r in read_fasta(path)}
+
+
+def read_id(name: str) -> int:
+    return int(name[4:].split("/")[0])
+
+
+def within_drift(got: dict, ref: dict, what: str) -> str:
+    """ROADMAP's drift bound between two FASTA record sets (at least 95% of
+    ``ref``'s records identical, bases within 0.5%, record counts within
+    5%), or raise; returns the measured drift as text."""
+    same = sum(got.get(n) == s for n, s in ref.items())
+    bg, br = sum(map(len, got.values())), sum(map(len, ref.values()))
+    text = (f"{same}/{len(ref)} records identical ({len(ref) - same} differ), "
+            f"bases {bg} vs {br}")
+    if (same < 0.95 * len(ref) or abs(bg - br) > 0.005 * br
+            or abs(len(got) - len(ref)) > 0.05 * len(ref)):
+        raise AssertionError(f"{what}: drifted past the parity bound: {text}")
+    return text
+
+
+def corrupt_copy(src: str, dst: str) -> list[tuple[int, int, str]]:
+    """Copy a LAS with two records corrupted: record 5's abpos gets its top
+    bit flipped (framing intact, coordinates out of bounds) and the record
+    two thirds in gets bit 30 of its tlen set (framing lost). Returns
+    (record offset, aread, field) of each."""
+    with open(src, "rb") as fh:
+        data = bytearray(fh.read())
+    tspace = int.from_bytes(data[8:12], "little")
+    tsize = 1 if tspace <= 125 else 2
+    offs, pos = [], 16
+    while pos < len(data):
+        offs.append(pos)
+        pos += 40 + int.from_bytes(data[pos:pos + 4], "little", signed=True) * tsize
+    out = []
+    for off, field, byte, bit in ((offs[4], "abpos", 8 + 3, 0x80),
+                                  (offs[2 * len(offs) // 3], "tlen", 3, 0x40)):
+        data[off + byte] ^= bit
+        out.append((off, int.from_bytes(data[off + 28:off + 32], "little"), field))
+    with open(dst, "wb") as fh:
+        fh.write(bytes(data))
+    return out
+
+
+def slice_checks(d: dict, eprof: str, dense: tuple, counters, tmp: str) -> None:
+    """Phase 4b: the deque against one call in flight, buckets against one
+    bucket, the ingest policies on a corrupted LAS, the monster guard and
+    ``-J`` shards, each a ``daccord`` run on the 20 kb set with the dense
+    fused run's flags (``dense``: its FASTA path and stats)."""
+    from daccord_tpu_torch.formats.dazzdb import read_db
+    from daccord_tpu_torch.native.api import ColumnarLas
+
+    dense_out, dense_stats = dense
+    base = ["-E", eprof, "-b", str(B), "--device", DEVICE, "--paged", "off",
+            "--dp", "fused"]
+    clean = records(dense_out)
+
+    def run(tag: str, las: str, *extra: str):
+        out = os.path.join(tmp, f"check_{tag}.fasta")
+        stats, launched = daccord([d["db"], las, "-o", out, *base, *extra], counters)
+        if launched["dp_backtrack"][0] <= 0:
+            raise AssertionError(f"{tag}: the run never launched dp_backtrack")
+        return out, stats
+
+    # the main run above was the process's first (cold); the deque runs again
+    # after the synchronous run, so the two walls on the line are both warm
+    walls = []
+    for tag, mi in (("sync", "1"), ("deque", "8")):
+        out, st = run(tag, d["las"], "--max-inflight", mi)
+        with open(out, "rb") as a, open(dense_out, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"max_inflight {mi} and 8 wrote different FASTA")
+        walls.append(f"max_inflight {mi} wall {st.wall_s:.3f} s (ladder_s "
+                     f"{st.ladder_s:.3f}, device_s {st.device_s:.3f}, solve_s "
+                     f"{st.solve_s:.3f}, windowing_s "
+                     f"{st.windowing_s:.3f}, else {else_s(st):.3f})")
+    log(f"deque vs sync, 20 kb dense fused -t 0, both after the first run: "
+        f"{'; '.join(walls)}; FASTA byte-identical to the first run's")
+
+    out, st = run("one_bucket", d["las"], "--depth-buckets", "")
+    log(f"one bucket (D32) vs buckets 8/16/32: {within_drift(records(out), clean, 'one bucket')}; "
+        f"batches {st.n_batches} vs {dense_stats.n_batches}, pad waste "
+        f"{st.pad_waste:.4f} vs {dense_stats.pad_waste:.4f}, wall {st.wall_s:.3f} vs "
+        f"{dense_stats.wall_s:.3f} s")
+
+    bad = os.path.join(tmp, "corrupt.las")
+    hurt = corrupt_copy(d["las"], bad)
+    try:
+        run("strict", bad)
+    except SystemExit as e:
+        msg = str(e.code)
+    else:
+        raise AssertionError("the strict run over a corrupt LAS did not exit")
+    for off, aread, _ in hurt:
+        if f"offset={off}" not in msg or f"pile aread={aread}" not in msg:
+            raise AssertionError(f"the strict report does not name offset {off} / "
+                                 f"pile {aread}: {msg}")
+    if not msg.startswith("daccord: ingest integrity failure (2 issues)"):
+        raise AssertionError(f"strict run: unexpected report {msg}")
+    log(f"strict ingest over the corrupted LAS exits: {msg.splitlines()[0]} "
+        f"{' | '.join(x.strip() for x in msg.splitlines()[1:3])}")
+
+    side = os.path.join(tmp, "quarantine.jsonl")
+    out, st = run("quarantine", bad, "--ingest-policy", "quarantine",
+                  "--quarantine", side)
+    with open(side) as fh:
+        rows = [json.loads(x) for x in fh]
+    named = sorted(a for _, a, _ in hurt)
+    if sorted(r["aread"] for r in rows) != named or st.n_quarantined != 2:
+        raise AssertionError(f"quarantine: sidecar {rows}, {st.n_quarantined} "
+                             f"quarantined; expected reads {named}")
+    got = records(out)
+    db = read_db(d["db"])
+    for r in named:
+        if (got.get(f"read{r}/0") != "".join("ACGT"[b] for b in db.read_bases(r))
+                or f"read{r}/1" in got):
+            raise AssertionError(f"quarantine: read {r} not emitted uncorrected")
+    others = {n: s for n, s in clean.items() if read_id(n) not in named}
+    log(f"quarantine run: {st.n_quarantined} piles contained ({[r['kind'] for r in rows]}), "
+        f"reads {named} emitted uncorrected, sidecar rows {len(rows)}; other reads "
+        f"vs the clean run: "
+        f"{within_drift({n: s for n, s in got.items() if read_id(n) not in named}, others, 'quarantine')}")
+
+    sizes = np.bincount(ColumnarLas(d["las"]).aread)
+    deepest = [int(a) for a in np.nonzero(sizes == sizes.max())[0]]
+    side = os.path.join(tmp, "monster.jsonl")
+    out, st = run("monster", d["las"], "--max-pile-overlaps", str(int(sizes.max()) - 1),
+                  "--quarantine", side)
+    with open(side) as fh:
+        rows = [json.loads(x) for x in fh]
+    if (st.n_monster_piles != len(deepest) or [r["aread"] for r in rows] != deepest
+            or {r["kind"] for r in rows} != {"monster_pile"}):
+        raise AssertionError(f"monster guard: {st.n_monster_piles} piles, sidecar "
+                             f"{rows}; expected the deepest piles {deepest}")
+    got = records(out)
+    log(f"monster guard at {int(sizes.max()) - 1} overlaps: contained piles {deepest} "
+        f"({int(sizes.max())} overlaps each) only; other reads vs the clean run: "
+        f"""{within_drift({n: s for n, s in got.items() if read_id(n) not in deepest},
+                          {n: s for n, s in clean.items() if read_id(n) not in deepest},
+                          'monster guard')}""")
+
+    parts = []
+    for i in range(3):
+        out, st = run(f"shard{i}", d["las"], "-J", f"{i},3")
+        with open(out) as fh:
+            parts.append(fh.read())
+        log(f"-J {i},3: reads {st.n_reads}, windows {st.n_windows}, wall {st.wall_s:.3f} s")
+    with open(dense_out) as fh:
+        if "".join(parts) != fh.read() or not all(parts):
+            raise AssertionError("-J 0,3 + 1,3 + 2,3 differ from the unsharded FASTA")
+    log("-J 0,3 + -J 1,3 + -J 2,3 concatenated == the unsharded FASTA, byte for byte")
 
 
 def fasta_drift(a: str, b: str) -> tuple[int, int, int, int]:
@@ -530,8 +730,11 @@ def main() -> int:
                                        "-b", str(B), "--device", dev.type, *args],
                                       counters)
             log_run(f"{tag} ({' '.join(args)})", stats, launched)
+            packed = stats.peak_inflight * B * (-(-ladder.params[0].cons_len // 4) + 3) * 4
             log(f"daccord {tag}: peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; pinned host "
+                f"memory {pinned_peak()}; packed results in flight at most "
+                f"{stats.peak_inflight} x {B} rows (~{packed} bytes)")
             if stats.n_solved <= 0 or stats.bases_out <= 0:
                 raise AssertionError(f"daccord {tag} solved no window")
             if not stats.native_host:
@@ -554,6 +757,11 @@ def main() -> int:
             f"({n_rec - same} differ), bases {bases_a} vs {bases_b}")
         if same < 0.95 * n_rec or abs(bases_a - bases_b) > 0.005 * bases_a:
             raise AssertionError("the paged scan run drifted past the parity bound")
+
+        # ---- 4b. the slice's checks -----------------------------------------
+        t0 = time.perf_counter()
+        slice_checks(d, eprof, runs["dense fused"][:2], counters, tmp)
+        log(f"slice checks: {time.perf_counter() - t0:.1f} s")
 
         # ---- 5. kernel phase ------------------------------------------------
         t0 = time.perf_counter()

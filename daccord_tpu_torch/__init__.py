@@ -5,13 +5,16 @@ DALIGNER piles, written in PyTorch for an NVIDIA H100. The layout mirrors the
 JAX package ``daccord_tpu`` module for module, so each file has one obvious
 counterpart there:
 
-- ``utils``    : base encodings.
-- ``formats``  : Dazzler DB / LAS / FASTA readers and writers.
+- ``utils``    : base encodings, URL inputs (``aio``), the feeder's stage
+                 profile (``obs``).
+- ``formats``  : Dazzler DB / LAS / FASTA readers and writers, and the
+                 ingest validation (``ingest``).
 - ``oracle``   : numpy executable spec (alignment, windows, error profile,
                  per-window DBG consensus, stitching).
 - ``sim``      : synthetic genome/read/overlap generator.
-- ``kernels``  : batched torch window solver, the tier ladder, and the
-                 hand-written Hopper kernel (``csrc/dp_backtrack.cu``).
+- ``kernels``  : batched torch window solver, the tier ladder and its
+                 dispatcher thread, and the hand-written Hopper kernels
+                 (``csrc/*.cu``).
 - ``runtime``  : the DB+LAS -> FASTA pipeline.
 - ``tools``    : the ``daccord`` command line.
 

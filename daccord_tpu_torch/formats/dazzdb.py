@@ -27,8 +27,9 @@ reads in the other:
 
 Variable-length tracks (``.<name>.<track>.anno`` offsets, ``.data`` bytes;
 e.g. the ``inqual`` intrinsic-QV track) read with :func:`read_track`. Only
-what the consensus path reads and the simulator writes lives here; the
-strict ingest validation of the JAX package is not ported yet (ROADMAP).
+what the consensus path reads and the simulator writes lives here. Every
+.idx byte is validated before it steers a decode (:func:`read_db`), with the
+structured errors of ``formats/ingest.py``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import numpy as np
 
 from ..native.api import decode_reads_batch
 from ..utils.bases import pack_2bit, unpack_2bit
+from .ingest import IngestError, IngestIssue
 
 _HDR_FMT = "<4i4fi4xq5i4x8si4x8s8s8s"  # 112 bytes, pointers as opaque 8-byte pads
 _HDR_SIZE = struct.calcsize(_HDR_FMT)
@@ -73,6 +75,10 @@ class DazzDB:
     reads: list[DazzRead]
     bps: np.ndarray = field(repr=False)  # uint8 packed base store
     names: list[str] = field(default_factory=list, repr=False)
+    # read ids whose .idx record failed validation under read_db(strict=False)
+    # (quarantine policy): their rlen/boff are garbage, so their bases are
+    # never decoded and piles referencing them quarantine at ingest
+    bad_reads: set = field(default_factory=set, repr=False)
 
     def __post_init__(self) -> None:
         self._boffs = np.fromiter((r.boff for r in self.reads), np.int64, len(self.reads))
@@ -165,33 +171,53 @@ def write_db(path: str, seqs: list[np.ndarray], names: list[str] | None = None,
                   names=names)
 
 
-def read_db(path: str) -> DazzDB:
+def read_db(path: str, strict: bool = True) -> DazzDB:
     """Load a DB triple written by :func:`write_db` (or DAZZ_DB-compatible).
 
-    Raises ``ValueError`` when the .idx cannot hold its header and records, or
-    a read record points outside the base store."""
+    A torn header or a read count the .idx cannot hold raises a structured
+    :class:`~.ingest.IngestError`. A read record whose ``rlen``/``boff``
+    would index outside the base store raises under ``strict`` (the
+    default); with ``strict=False`` (the quarantine policy) its id lands in
+    ``DazzDB.bad_reads`` so piles referencing it are contained at ingest."""
     d, stem = _db_stems(path)
     idx_path = os.path.join(d, f".{stem}.idx")
     bps = np.fromfile(os.path.join(d, f".{stem}.bps"), dtype=np.uint8)
+    idx_size = os.path.getsize(idx_path)
     with open(idx_path, "rb") as fh:
         hdr = fh.read(_HDR_SIZE)
         if len(hdr) < _HDR_SIZE:
-            raise ValueError(f"{idx_path}: truncated DB header")
+            raise IngestError(IngestIssue(
+                "truncation", idx_path, len(hdr),
+                f"idx holds {len(hdr)} of the {_HDR_SIZE}-byte DB header"))
         fields = struct.unpack(_HDR_FMT, hdr)
         ureads, cutoff, maxlen, totlen, nreads = (fields[0], fields[2],
                                                   fields[8], fields[9],
                                                   fields[10])
+        if ureads < 0 or totlen < 0 or not (0 <= nreads <= ureads):
+            raise IngestError(IngestIssue(
+                "bad_header", idx_path, 0,
+                f"ureads={ureads} nreads={nreads} totlen={totlen} fail sanity"))
+        if idx_size < _HDR_SIZE + _READ_SIZE * ureads:
+            raise IngestError(IngestIssue(
+                "truncation", idx_path, idx_size,
+                f"idx holds {(idx_size - _HDR_SIZE) // _READ_SIZE} of "
+                f"{ureads} read records"))
         raw = fh.read(_READ_SIZE * ureads)
-    if ureads < 0 or not (0 <= nreads <= ureads) or len(raw) < _READ_SIZE * ureads:
-        raise ValueError(f"{idx_path}: header claims {ureads} reads the file "
-                         "does not hold")
     reads = []
+    bad: set[int] = set()
+    issues: list[IngestIssue] = []
     for i in range(ureads):
         origin, rlen, fpulse, boff, coff, flags = struct.unpack_from(
             _READ_FMT, raw, i * _READ_SIZE)
         if rlen < 0 or boff < 0 or boff + (rlen + 3) // 4 > len(bps):
-            raise ValueError(f"{idx_path}: read {i} lies outside the base store")
+            issues.append(IngestIssue(
+                "db_read", idx_path, _HDR_SIZE + i * _READ_SIZE,
+                f"read {i}: rlen={rlen} boff={boff} outside the "
+                f"{len(bps)}-byte base store", aread=i, record=i))
+            bad.add(i)
         reads.append(DazzRead(origin, rlen, fpulse, boff, coff, flags))
+    if issues and strict:
+        raise IngestError(issues)
 
     names: list[str] = []
     name_path = os.path.join(d, f".{stem}.names")
@@ -200,7 +226,18 @@ def read_db(path: str) -> DazzDB:
             names = [ln.rstrip("\n") for ln in fh]
     return DazzDB(path=os.path.join(d, f"{stem}.db"), nreads=nreads,
                   totlen=totlen, maxlen=maxlen, cutoff=cutoff, reads=reads,
-                  bps=bps, names=names)
+                  bps=bps, names=names, bad_reads=bad)
+
+
+def db_blocks(db_path: str) -> list[tuple[int, int]]:
+    """The block partition of the .db stub as [start, end) read pairs."""
+    d, stem = _db_stems(db_path)
+    with open(os.path.join(d, f"{stem}.db"), "rt") as fh:
+        lines = [ln.rstrip("\n") for ln in fh]
+    nfiles = int(lines[0].split("=")[1])
+    nb = int(lines[1 + nfiles].split("=")[1])
+    bounds = [int(ln.split()[0]) for ln in lines[3 + nfiles : 3 + nfiles + nb + 1]]
+    return [(bounds[i], bounds[i + 1]) for i in range(nb)]
 
 
 def _track_paths(db_path: str, track: str) -> tuple[str, str]:

@@ -22,6 +22,7 @@ which leaves the CUDA context unusable. It takes M up to ``MAX_M``.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -36,6 +37,7 @@ MAX_M = 256          # the kernel's widest window (csrc/dp_backtrack.cu)
 launches = 0
 launches_by_shape: dict[tuple[int, int], int] = {}
 windows_by_shape: dict[tuple[int, int], int] = {}
+_count_lock = threading.Lock()   # launches may come from the dispatcher thread
 
 _lib = None
 build_log = ""       # nvcc's output of the build this process ran (ptxas -v)
@@ -121,9 +123,10 @@ def dp_backtrack_batch(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
         msg = lib.dp_backtrack_error_string(rc).decode()
         raise RuntimeError(f"dp_backtrack launch failed (B={B}, M={M}, P={P}): "
                            f"{msg} ({rc})")
-    launches += 1
-    launches_by_shape[(M, P)] = launches_by_shape.get((M, P), 0) + 1
-    windows_by_shape[(M, P)] = windows_by_shape.get((M, P), 0) + B
+    with _count_lock:
+        launches += 1
+        launches_by_shape[(M, P)] = launches_by_shape.get((M, P), 0) + 1
+        windows_by_shape[(M, P)] = windows_by_shape.get((M, P), 0) + B
     return cand, clen, ok
 
 

@@ -20,6 +20,7 @@ batches of one shape family apart at a fixed batch width.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ from . import nvcc as _nvcc
 #: kernel launches since the count was last set to 0, in all and by (N, PPW)
 launches = 0
 launches_by_shape: dict[tuple[int, int], int] = {}
+_count_lock = threading.Lock()   # launches may come from the dispatcher thread
 
 _lib = None
 
@@ -101,6 +103,7 @@ def gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         msg = lib.gather_pages_error_string(rc).decode()
         raise RuntimeError(f"gather_pages launch failed (B={B}, PPW={PPW}, "
                            f"PL={PL}): {msg} ({rc})")
-    launches += 1
-    launches_by_shape[(N, PPW)] = launches_by_shape.get((N, PPW), 0) + 1
+    with _count_lock:
+        launches += 1
+        launches_by_shape[(N, PPW)] = launches_by_shape.get((N, PPW), 0) + 1
     return out

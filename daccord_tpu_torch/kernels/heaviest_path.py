@@ -19,6 +19,7 @@ of ``adjW`` other than +0.0 and -1e30 traps it. It takes M up to ``MAX_M``.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -30,6 +31,7 @@ from .dp_backtrack import MAX_M, heaviest_path_plain
 launches = 0
 launches_by_shape: dict[tuple[int, int], int] = {}
 windows_by_shape: dict[tuple[int, int], int] = {}
+_count_lock = threading.Lock()   # launches may come from the dispatcher thread
 
 _lib = None
 
@@ -84,7 +86,8 @@ def heaviest_path_batch(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor):
         msg = lib.heaviest_path_error_string(rc).decode()
         raise RuntimeError(f"heaviest_path launch failed (B={B}, M={M}, P={P}): "
                            f"{msg} ({rc})")
-    launches += 1
-    launches_by_shape[(M, P)] = launches_by_shape.get((M, P), 0) + 1
-    windows_by_shape[(M, P)] = windows_by_shape.get((M, P), 0) + B
+    with _count_lock:
+        launches += 1
+        launches_by_shape[(M, P)] = launches_by_shape.get((M, P), 0) + 1
+        windows_by_shape[(M, P)] = windows_by_shape.get((M, P), 0) + B
     return scores, ptrs

@@ -14,19 +14,24 @@ def _ptr(a: np.ndarray):
 
 
 class ColumnarLas:
-    """A whole LAS file as columns: one array per record field, the trace
-    points flattened (``trace_flat[trace_off[i]:trace_off[i + 1]]`` holds
-    record ``i``'s (diffs, b bases) pairs), and the pile boundaries."""
+    """The records of a LAS byte range ``[start, end)`` (default: the whole
+    file) as columns: one array per record field, the trace points flattened
+    (``trace_flat[trace_off[i]:trace_off[i + 1]]`` holds record ``i``'s
+    (diffs, b bases) pairs), and the pile boundaries. The library trusts
+    every record header, so a range from an unvalidated file goes through
+    the ingest scan (``formats/ingest.py``) first."""
 
     __slots__ = ("tspace", "novl", "aread", "bread", "abpos", "aepos", "bbpos",
                  "bepos", "comp", "diffs", "trace_off", "trace_flat", "pile_starts")
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, start: int | None = None, end: int | None = None):
         lib = load()
+        b0 = 0 if start is None else int(start)
+        b1 = 0 if end is None else int(end)
         novl = ctypes.c_int64()
         tspace = ctypes.c_int32()
         telems = ctypes.c_int64()
-        rc = lib.las_scan(path.encode(), 0, 0, ctypes.byref(novl),
+        rc = lib.las_scan(path.encode(), b0, b1, ctypes.byref(novl),
                           ctypes.byref(tspace), ctypes.byref(telems))
         if rc != 0:
             raise IOError(f"las_scan({path}) failed: {rc}")
@@ -42,7 +47,7 @@ class ColumnarLas:
         self.diffs = np.empty(n, np.int32)
         self.trace_off = np.empty(n + 1, np.int64)
         self.trace_flat = np.empty(te, np.int32)
-        rc = lib.las_load(path.encode(), 0, 0, n, _ptr(self.aread), _ptr(self.bread),
+        rc = lib.las_load(path.encode(), b0, b1, n, _ptr(self.aread), _ptr(self.bread),
                           _ptr(self.abpos), _ptr(self.aepos), _ptr(self.bbpos),
                           _ptr(self.bepos), _ptr(self.comp), _ptr(self.diffs),
                           _ptr(self.trace_off), _ptr(self.trace_flat))

@@ -1,9 +1,17 @@
 """End-to-end correction pipeline: DB + LAS piles -> window batches -> FASTA.
 
-The lean main path of ``daccord_tpu/runtime/pipeline.py``, in this order:
+The port of ``daccord_tpu/runtime/pipeline.py``'s default ``daccord`` run,
+in this order:
 
-- the profile pass: a strided sample of piles, windowed on the host, gives
-  the two-pass error profile (skipped when a profile is passed in);
+- the ingest gate (``formats/ingest.py``): every record header of the byte
+  range is validated before any decoder trusts it. ``strict`` (the default)
+  raises an ``IngestError`` naming each issue's kind, byte offset and pile;
+  ``quarantine`` streams the clean byte segments through the feeders and
+  emits each corrupt pile's read uncorrected, with one sidecar row; ``off``
+  trusts the input;
+- the profile pass: a strided sample of (clean) piles, windowed on the
+  host, gives the two-pass error profile (skipped when a profile is passed
+  in);
 - the host windowing of every pile: rank the pile's overlaps (trace-diff
   rate, plus the B read's intrinsic QV when the DB has an ``inqual`` track)
   so the best fill the depth slots, then realign each overlap's trace tiles,
@@ -12,54 +20,65 @@ The lean main path of ``daccord_tpu/runtime/pipeline.py``, in this order:
   process_pile``), on ``feeder_threads`` threads ahead of the batching loop
   when that is above 0; ``use_native=False`` runs the numpy feeder
   (``oracle/windows.py``, ``kernels/tensorize.py``), which writes the same
-  bytes;
+  bytes. A pile of more than ``max_pile_overlaps`` overlaps is contained
+  before it is windowed, as a quarantined pile is (the monster-pile guard);
 - skip-shallow: windows with fewer than ``min_depth`` segments never reach
   the device (the solver would mark them unsolved);
 - batching, one ladder call per batch of ``batch_size`` rows (a partial
   batch is padded with empty rows so every call of a bucket has one shape).
-  Dense (``paged="off"``), every window goes to one D x L bucket. Paged
+  Dense (``paged="off"``), each window goes to the smallest (D, L) bucket of
+  ``depth_buckets`` x ``seg_len_buckets`` that holds it. Paged
   (``kernels/paging.py``), a family router sends each window to the
   smallest corpus-derived (depth, pages) shape family that holds it, and a
   batch ships as a page pool and a page table instead of the dense tile.
   A bucket flushes when it holds ``batch_size`` rows, when its pages fill
   one pool, when its oldest row has waited ``bucket_flush_reads`` reads, or
   at the end of the run;
+- the in-flight deque: each batch is handed to the ladder dispatcher
+  (``kernels/tiers.py LadderDispatcher``) and queued; once ``max_inflight``
+  are queued, the oldest half is fetched and scattered to their reads, so
+  the host windows, scatters and stitches while the card solves.
+  ``max_inflight=1`` solves each batch on the pipeline's thread;
 - end-trim: prefix/suffix runs of windows solved only by a low-confidence
   rescue tier (min_count <= 1) count as unsolved, because read ends have
   thin piles and such windows carry near-raw error rates;
 - stitching, and FASTA records in input order.
 
-Windows are solved independently, so how rows are grouped into batches never
-changes a window's result.
+Windows are solved independently, so how rows are grouped into batches, and
+how many batches are in flight, never changes a window's result.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 
 from ..formats.dazzdb import DazzDB, read_db, read_track
 from ..formats.fasta import FastaRecord, write_fasta
+from ..formats.ingest import scan_with_db
 from ..formats.las import _HDR_SIZE, LasFile, index_las
 from ..kernels import paging
 from ..kernels.tensorize import BatchShape, WindowBatch, pad_batch, tensorize_windows
-from ..kernels.tiers import TierLadder, solve_ladder, upload_arrays
+from ..kernels.tiers import (LadderDispatcher, TierLadder, fetch_many,
+                             solve_ladder_async, upload_arrays)
 from ..native.api import ColumnarLas, process_pile_native
 from ..oracle.consensus import ConsensusConfig, estimate_profile_two_pass, stitch_results
 from ..oracle.profile import ErrorProfile
 from ..oracle.windows import cut_windows, refine_overlap
+from ..utils import aio
 from ..utils.bases import ints_to_seq
 from ..utils.device import resolve_device
+from ..utils.obs import StageProfile
 
 
-#: piles sampled (strided across the input) by the error-profile pass
-PROFILE_SAMPLE_PILES = 4
+INGEST_POLICIES = ("strict", "quarantine", "off")
 
 
 @dataclass
@@ -68,7 +87,20 @@ class PipelineConfig:
     batch_size: int = 2048       # windows per ladder call
     depth: int = 32              # D: segments per window row (depth cap)
     seg_len: int = 64            # L: bases per segment
+    max_kmers: int = 64          # tier-0 top-M active set
+    rescue_max_kmers: int = 256  # active set of the min_count <= 1 tiers
+    overflow_rescue: bool = False    # re-solve top-M-capped windows at
+                                 # rescue_max_kmers
+    profile_sample_piles: int = 4    # piles (strided across the range) of
+                                 # the profile pass
     device: str = "cuda"         # "cuda" or "cpu"; no silent fallback
+    max_inflight: int = 8        # ladder calls in flight: the deque fills to
+                                 # this depth, then drains half of it
+                                 # (1 = solve each batch on the pipeline's
+                                 # thread)
+    depth_buckets: tuple = (8, 16)   # dense sub-depth buckets below ``depth``;
+                                 # () = one bucket
+    seg_len_buckets: tuple = ()  # dense sub-length buckets below ``seg_len``
     paged: str = "off"           # "on" | "off" | "auto" (on for cuda, off
                                  # for cpu): ship batches as page pool +
                                  # page table (kernels/paging.py)
@@ -89,6 +121,16 @@ class PipelineConfig:
     qv_track: str | None = "inqual"  # intrinsic-QV track whose B-read tile
                                  # QVs join the depth-ranking score (absent
                                  # track: trace-diff rate only)
+    end_trim: bool = True        # rescue-tier-solved read ends count as
+                                 # unsolved
+    ingest_policy: str = "strict"    # "strict" | "quarantine" | "off"
+                                 # (formats/ingest.py)
+    quarantine_path: str | None = None   # jsonl sidecar, one row per
+                                 # contained pile (created only when one is)
+    max_pile_overlaps: int = 100_000     # monster-pile guard: a pile of more
+                                 # overlaps is contained (read emitted
+                                 # uncorrected) before it is windowed;
+                                 # 0 = off
 
 
 @dataclass
@@ -101,9 +143,15 @@ class PipelineStats:
     n_end_trimmed: int = 0
     n_fragments: int = 0
     n_batches: int = 0
+    n_quarantined: int = 0       # piles contained (their reads emitted
+                                 # uncorrected), monster piles included
+    n_ingest_issues: int = 0     # integrity violations the scan found
+    n_monster_piles: int = 0     # piles contained by the monster guard
     bases_in: int = 0
     bases_out: int = 0
     tier_histogram: dict = field(default_factory=dict)
+    batches_by_bucket: dict = field(default_factory=dict)  # bucket shape ->
+                                 # ladder calls
     paged: bool = False          # batches shipped as page pool + table
     native_host: bool = False    # piles windowed by the host library
     qv_ranked: bool = False      # a QV track joined the depth ranking
@@ -111,12 +159,25 @@ class PipelineStats:
     used_cells: int = 0          # paged pool; used = real bases
     h2d_bytes: int = 0           # bytes of the arrays handed to the ladder
                                  # (copied host -> device on cuda)
+    peak_inflight: int = 0       # most ladder calls queued at once
+    ingest_s: float = 0.0        # the ingest scan (host)
     profile_s: float = 0.0       # profile pass and paged family sample (host)
     windowing_s: float = 0.0     # wall the pile loop blocked on the
                                  # feeder; with feeder threads, less than
                                  # the feeder's CPU time, which they spend
-                                 # ahead of the loop (under the ladder)
-    ladder_s: float = 0.0        # ladder calls, device results on the host
+                                 # ahead of the loop
+    ladder_s: float = 0.0        # wall of the ladder dispatches: with the
+                                 # dispatcher (max_inflight > 1) the enqueue
+                                 # only; at max_inflight=1 the whole ladder
+                                 # call, device results on the host
+    device_s: float = 0.0        # wall the host blocked in fetch, waiting
+                                 # for in-flight ladder calls
+    solve_s: float = 0.0         # wall of the ladder calls themselves, on
+                                 # the thread that ran them (the
+                                 # dispatcher's, or the pipeline's at
+                                 # max_inflight=1)
+    stage_profile: dict = field(default_factory=dict)  # StageProfile.summary()
+                                 # of the feeder stages
     wall_s: float = 0.0
 
     @property
@@ -245,10 +306,13 @@ def _stride_take(n_items: int, n: int, offset: int = 0) -> np.ndarray:
                       + offset) % n_items)
 
 
-def _strided_pile_ranges(las: LasFile, n: int) -> list[tuple[int, int]]:
-    """Byte ranges of ``n`` piles spread evenly across the LAS file."""
+def _strided_pile_ranges(las: LasFile, n: int, start: int | None = None,
+                         end: int | None = None) -> list[tuple[int, int]]:
+    """Byte ranges of ``n`` piles spread evenly across ``[start, end)``
+    (default: the whole file), from the aread index sidecar."""
     idx = index_las(las.path)
-    lo, hi = _HDR_SIZE, os.path.getsize(las.path)
+    lo = start if start is not None else _HDR_SIZE
+    hi = end if end is not None else aio.getsize(las.path)
     if len(idx) == 0:
         return [(lo, hi)]
     sel = np.nonzero((idx[:, 1] >= lo) & (idx[:, 1] < hi))[0]
@@ -263,12 +327,21 @@ def _strided_pile_ranges(las: LasFile, n: int) -> list[tuple[int, int]]:
     return out
 
 
-def _sample_windows(db: DazzDB, las: LasFile, cfg: PipelineConfig):
+def _sample_windows(db: DazzDB, las: LasFile, cfg: PipelineConfig,
+                    start: int | None = None, end: int | None = None,
+                    pile_ranges: list | None = None):
     """The one strided pile sample (refined overlaps and cut windows of
-    ``PROFILE_SAMPLE_PILES`` piles, one per strided range), shared by the
-    profile pass and the paged family derivation."""
+    ``cfg.profile_sample_piles`` piles, one per strided range), shared by the
+    profile pass and the paged family derivation. ``pile_ranges`` (the ingest
+    scan's clean piles, under the quarantine policy) replaces the index
+    stride, so the sample never decodes a corrupt pile."""
+    if pile_ranges is not None:
+        ranges = [pile_ranges[int(t)]
+                  for t in _stride_take(len(pile_ranges), cfg.profile_sample_piles)]
+    else:
+        ranges = _strided_pile_ranges(las, cfg.profile_sample_piles, start, end)
     refined_all, windows_all = [], []
-    for s, e in _strided_pile_ranges(las, PROFILE_SAMPLE_PILES):
+    for s, e in ranges:
         for aread, pile in las.iter_piles(s, e):
             a_bases = db.read_bases(aread)
             refined = [refine_overlap(o, a_bases, db.read_bases(o.bread), las.tspace)
@@ -281,11 +354,14 @@ def _sample_windows(db: DazzDB, las: LasFile, cfg: PipelineConfig):
 
 
 def estimate_profile_for_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
+                               start: int | None = None, end: int | None = None,
+                               pile_ranges: list | None = None,
                                return_windows: bool = False):
-    """Profile pass over the strided pile sample. ``return_windows`` also
-    returns the sampled windows, so a paged run derives its shape families
-    from the same sample instead of sampling twice."""
-    refined_all, windows_all = _sample_windows(db, las, cfg)
+    """Profile pass over the strided pile sample of ``[start, end)``.
+    ``return_windows`` also returns the sampled windows, so a paged run
+    derives its shape families from the same sample instead of sampling
+    twice."""
+    refined_all, windows_all = _sample_windows(db, las, cfg, start, end, pile_ranges)
     prof = estimate_profile_two_pass(refined_all, windows_all, cfg.consensus,
                                      sample=32)
     return (prof, windows_all) if return_windows else prof
@@ -309,22 +385,25 @@ def families_from_windows(windows: list, cfg: PipelineConfig) -> list:
         budget=cfg.paged_families, page_len=cfg.page_len)
 
 
-def derive_families_for_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig) -> list:
+def derive_families_for_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
+                              start: int | None = None, end: int | None = None,
+                              pile_ranges: list | None = None) -> list:
     """:func:`families_from_windows` over a fresh pile sample, for a run whose
     profile was passed in (no profile-pass sample to reuse)."""
-    _, windows_all = _sample_windows(db, las, cfg)
+    _, windows_all = _sample_windows(db, las, cfg, start, end, pile_ranges)
     return families_from_windows(windows_all, cfg)
 
 
 def run_families(db: DazzDB, las: LasFile, cfg: PipelineConfig,
-                 sample: list | None = None) -> list:
+                 sample: list | None = None, start: int | None = None,
+                 end: int | None = None, pile_ranges: list | None = None) -> list:
     """The shape families a paged run routes to: derived from the profile
     pass's ``sample`` when there is one (else from a fresh sample), each
     pool budget raised where needed so that one ``batch_size``-row pool
     holds at least one worst-case window of its family (or the router's
     budget cut could never make progress)."""
     fams = (families_from_windows(sample, cfg) if sample is not None
-            else derive_families_for_shard(db, las, cfg))
+            else derive_families_for_shard(db, las, cfg, start, end, pile_ranges))
     B = cfg.batch_size
     return [f if B * f.budget >= f.pages else
             paging.ShapeFamily(depth=f.depth, pages=f.pages, page_len=f.page_len,
@@ -343,68 +422,173 @@ def paged_enabled(cfg: PipelineConfig, device) -> bool:
     return on
 
 
+def dense_buckets(cfg: PipelineConfig) -> list[tuple[int, int]]:
+    """The dense (D, L) buckets: every depth of ``depth_buckets`` below
+    ``depth`` plus ``depth``, times every length of ``seg_len_buckets``
+    below ``seg_len`` plus ``seg_len``; depth-major."""
+    D, L = cfg.depth, cfg.seg_len
+    d_b = sorted({b for b in cfg.depth_buckets if 0 < b < D} | {D})
+    l_b = sorted({b for b in cfg.seg_len_buckets if 0 < b < L} | {L})
+    return [(d, ln) for d in d_b for ln in l_b]
+
+
+def route_dense(buckets: list[tuple[int, int]], nsegs: np.ndarray,
+                lens: np.ndarray) -> np.ndarray:
+    """Index of the smallest bucket that holds each window: the smallest
+    depth at or above its segment count, then the smallest length at or
+    above its longest segment."""
+    d_arr = np.asarray(sorted({d for d, _ in buckets}))
+    l_arr = np.asarray(sorted({ln for _, ln in buckets}))
+    assign = np.searchsorted(d_arr, nsegs, side="left")
+    if len(l_arr) > 1:
+        assign = assign * len(l_arr) + np.searchsorted(l_arr, lens.max(axis=1),
+                                                        side="left")
+    return assign
+
+
 def _window_one_pile(db: DazzDB, col: ColumnarLas, cfg: PipelineConfig,
-                     aread: int, s: int, e: int, qvr: QvRanker | None):
+                     aread: int, s: int, e: int, qvr: QvRanker | None,
+                     prof: StageProfile | None = None):
     """Window one pile (records ``s:e`` of ``col``) through the host library;
     the one body of the synchronous and the threaded native feeder, so they
-    write the same bytes. Runs in the feeder threads."""
+    write the same bytes. Runs in the feeder threads. ``prof`` books the
+    stage walls: ``decode`` (2-bit decodes), ``rank`` (depth ranking) and
+    ``realign`` (the library call, which also cuts and packs the windows)."""
+    t0 = time.perf_counter()
     a = db.read_bases(aread)
+    t1 = time.perf_counter()
     order = None
     if cfg.depth_rank:
         order = _depth_order(col.diffs[s:e], col.abpos[s:e], col.aepos[s:e],
                              col.bread[s:e], col.bbpos[s:e], col.bepos[s:e],
                              col.comp[s:e], qvr)
+    t2 = time.perf_counter()
     idxs = np.arange(s, e) if order is None else s + order
     b_reads = db.read_bases_batch(col.bread[idxs])
+    t3 = time.perf_counter()
     seqs, lens, nsegs = process_pile_native(a, col, s, e, b_reads, cfg.consensus.w,
                                             cfg.consensus.adv, cfg.depth,
                                             cfg.seg_len, order=order)
+    if prof is not None:
+        prof.add("decode", (t1 - t0) + (t3 - t2))
+        prof.add("rank", t2 - t1)
+        prof.add("realign", time.perf_counter() - t3)
     return aread, a, seqs, lens, nsegs
 
 
+def _monster_marker(aread: int, n_overlaps: int) -> tuple:
+    """Quarantine marker for a pile over the overlap budget: it rides the
+    ingest containment path (read emitted uncorrected, sidecar row,
+    ``n_quarantined``)."""
+    return ("quarantine", int(aread), -1, "monster_pile",
+            f"pile busts the capacity budget ({n_overlaps} overlaps)")
+
+
+def _load_columns(las: LasFile, start, end, prof: StageProfile | None) -> ColumnarLas:
+    t0 = time.perf_counter()
+    col = ColumnarLas(las.path, start, end)
+    if prof is not None:
+        prof.add("decode", time.perf_counter() - t0)   # the columnar parse
+    return col
+
+
 def iter_pile_blocks(db: DazzDB, las: LasFile, cfg: PipelineConfig,
-                     qvr: QvRanker | None = None):
+                     qvr: QvRanker | None = None, *, start: int | None = None,
+                     end: int | None = None, monster=None,
+                     prof: StageProfile | None = None):
     """Yield (aread, a_bases, seqs [nwin,D,L], lens [nwin,D], nsegs [nwin])
-    per pile, windowed on the host: by the host library (``use_native``),
-    else by the numpy feeder. Both write the same bytes."""
+    per pile of ``[start, end)``, windowed on the host: by the host library
+    (``use_native``), else by the numpy feeder. Both write the same bytes.
+    ``monster(aread, n_overlaps) -> bool`` is asked before each pile is
+    windowed; a pile it refuses yields a :func:`_monster_marker` instead."""
     if cfg.use_native:
-        col = ColumnarLas(las.path)
+        col = _load_columns(las, start, end, prof)
         for aread, s, e in col.piles():
-            yield _window_one_pile(db, col, cfg, aread, s, e, qvr)
+            if monster is not None and monster(aread, e - s):
+                yield _monster_marker(aread, e - s)
+                continue
+            yield _window_one_pile(db, col, cfg, aread, s, e, qvr, prof)
         return
     w, adv = cfg.consensus.w, cfg.consensus.adv
     shape = BatchShape(depth=cfg.depth, seg_len=cfg.seg_len, wlen=w)
-    for aread, pile in las.iter_piles():
+    it = las.iter_piles(start, end)
+    while True:
+        t0 = time.perf_counter()
+        nxt = next(it, None)
+        if nxt is None:
+            return
+        aread, pile = nxt
+        if prof is not None:
+            prof.add("decode", time.perf_counter() - t0)   # the LAS record walk
+        if monster is not None and monster(aread, len(pile)):
+            yield _monster_marker(aread, len(pile))
+            continue
+        t0 = time.perf_counter()
         a = db.read_bases(aread)
+        t1 = time.perf_counter()
         if cfg.depth_rank and pile:
             cols = [[getattr(o, f) for o in pile] for f in (
                 "diffs", "abpos", "aepos", "bread", "bbpos", "bepos", "is_comp")]
             pile = [pile[i] for i in _depth_order(*cols, qvr)]
-        refined = [refine_overlap(o, a, db.read_bases(o.bread), las.tspace)
-                   for o in pile]
+        t2 = time.perf_counter()
+        refined, b_dec = [], 0.0
+        for o in pile:
+            td = time.perf_counter()
+            b = db.read_bases(o.bread)
+            b_dec += time.perf_counter() - td
+            refined.append(refine_overlap(o, a, b, las.tspace))
+        t3 = time.perf_counter()
         windows = cut_windows(a, refined, w=w, adv=adv)
+        t4 = time.perf_counter()
         b = tensorize_windows([(aread, ws) for ws in windows], shape)
+        if prof is not None:
+            prof.add("decode", (t1 - t0) + b_dec)
+            prof.add("rank", t2 - t1)
+            prof.add("realign", (t3 - t2) - b_dec)
+            prof.add("kmer", t4 - t3)
+            prof.add("tensorize", time.perf_counter() - t4)
         yield aread, a, b.seqs, b.lens, b.nsegs
 
 
+class _Ready:
+    """A resolved stand-in for a Future: monster-pile markers interleave
+    with the windowing jobs in input order."""
+
+    __slots__ = ("v",)
+
+    def __init__(self, v):
+        self.v = v
+
+    def result(self):
+        return self.v
+
+
 def iter_pile_blocks_threaded(db: DazzDB, las: LasFile, cfg: PipelineConfig,
-                              nthreads: int, qvr: QvRanker | None = None):
+                              nthreads: int, qvr: QvRanker | None = None, *,
+                              start: int | None = None, end: int | None = None,
+                              monster=None, prof: StageProfile | None = None):
     """The native stream of :func:`iter_pile_blocks`, windowed by
     ``nthreads`` threads with a bounded in-order prefetch of ``nthreads + 2``
     piles: the same blocks in the same order, so every downstream byte is
-    the same; only the wall changes."""
-    col = ColumnarLas(las.path)
+    the same; only the wall changes. The monster guard runs in the ordered
+    submission loop; ``prof`` stage walls sum across the threads."""
+    col = _load_columns(las, start, end, prof)
     piles = iter(col.piles())
     with ThreadPoolExecutor(max_workers=nthreads) as ex:
+        def submit(aread, s, e):
+            if monster is not None and monster(aread, e - s):
+                return _Ready(_monster_marker(aread, e - s))
+            return ex.submit(_window_one_pile, db, col, cfg, aread, s, e, qvr, prof)
+
         inflight: deque = deque()
         for item in piles:
-            inflight.append(ex.submit(_window_one_pile, db, col, cfg, *item, qvr))
+            inflight.append(submit(*item))
             if len(inflight) >= nthreads + 2:
                 break
         while inflight:
             yield inflight.popleft().result()
             for item in piles:
-                inflight.append(ex.submit(_window_one_pile, db, col, cfg, *item, qvr))
+                inflight.append(submit(*item))
                 break
 
 
@@ -442,43 +626,81 @@ def _trim_rescue_ends(pr: _PendingRead, rescue_tiers: set, stats: PipelineStats)
     sweep(range(pr.n_windows - 1, -1, -1))
 
 
-def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
-                  profile: ErrorProfile | None = None):
-    """Correct every pile; yields (aread, fragments, stats) in input order."""
-    dev = resolve_device(cfg.device)
-    paged_on = paged_enabled(cfg, dev)
+def _check_config(cfg: PipelineConfig) -> None:
     if cfg.feeder_threads < 0 or (cfg.feeder_threads and not cfg.use_native):
         raise ValueError(f"feeder_threads={cfg.feeder_threads}: threads window "
                          "piles through the host library (use_native), 0 in the loop")
-    qvr = load_qv_ranker(db, las, cfg)
-    stats = PipelineStats(paged=paged_on, native_host=cfg.use_native,
-                          qv_ranked=qvr is not None)
+    if cfg.ingest_policy not in INGEST_POLICIES:
+        raise ValueError(f"ingest_policy={cfg.ingest_policy!r}: expected "
+                         + "|".join(INGEST_POLICIES))
+    if cfg.max_inflight < 1:
+        raise ValueError(f"max_inflight={cfg.max_inflight}: at least 1")
+    if cfg.max_pile_overlaps < 0:
+        raise ValueError(f"max_pile_overlaps={cfg.max_pile_overlaps}: 0 (off) "
+                         "or a positive budget")
+
+
+def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
+                  start: int | None = None, end: int | None = None,
+                  profile: ErrorProfile | None = None):
+    """Correct every pile of the byte range ``[start, end)`` (default: the
+    whole file); yields (aread, fragments, stats) in input order. Under the
+    strict ingest policy a corrupt range raises ``IngestError`` before any
+    pile is windowed."""
+    dev = resolve_device(cfg.device)
+    paged_on = paged_enabled(cfg, dev)
+    _check_config(cfg)
+    stats = PipelineStats(paged=paged_on, native_host=cfg.use_native)
+    prof = StageProfile(threads=max(1, cfg.feeder_threads))
     t_start = time.perf_counter()
+
+    report = None
+    if cfg.ingest_policy != "off":
+        t0 = time.perf_counter()
+        report = scan_with_db(db, las, start, end)
+        stats.ingest_s = time.perf_counter() - t0
+        stats.n_ingest_issues = len(report.issues)
+        if report.issues and cfg.ingest_policy == "strict":
+            raise report.error()
+    # quarantine: the profile sample and the family sample take clean piles
+    # only (the aread index cannot be built over a corrupt file)
+    clean = report.pile_ranges if report is not None and report.issues else None
+    qvr = load_qv_ranker(db, las, cfg)
+    stats.qv_ranked = qvr is not None
+
     sample = None
     if profile is None:
         t0 = time.perf_counter()
         if paged_on:
-            profile, sample = estimate_profile_for_shard(db, las, cfg,
-                                                         return_windows=True)
+            profile, sample = estimate_profile_for_shard(
+                db, las, cfg, start, end, pile_ranges=clean, return_windows=True)
         else:
-            profile = estimate_profile_for_shard(db, las, cfg)
+            profile = estimate_profile_for_shard(db, las, cfg, start, end,
+                                                 pile_ranges=clean)
         stats.profile_s = time.perf_counter() - t0
-    ladder = TierLadder.from_config(profile, cfg.consensus, device=dev,
-                                    route=cfg.dp_route)
+    ladder = TierLadder.from_config(profile, cfg.consensus, max_kmers=cfg.max_kmers,
+                                    rescue_max_kmers=cfg.rescue_max_kmers,
+                                    overflow_rescue=cfg.overflow_rescue,
+                                    device=dev, route=cfg.dp_route)
     w, adv = cfg.consensus.w, cfg.consensus.adv
     B = cfg.batch_size
     min_depth = cfg.consensus.dbg.min_depth
-    rescue_tiers = {i for i, t in enumerate(cfg.consensus.tiers) if t[1] <= 1}
+    rescue_tiers = ({i for i, t in enumerate(cfg.consensus.tiers) if t[1] <= 1}
+                    if cfg.end_trim else set())
     if paged_on:
         t0 = time.perf_counter()
-        families = run_families(db, las, cfg, sample)
+        families = run_families(db, las, cfg, sample, start, end, clean)
         stats.profile_s += time.perf_counter() - t0
+        buckets = None
         shapes = [BatchShape(depth=f.depth, seg_len=cfg.seg_len, wlen=w)
                   for f in families]
+        labels = [f.describe() for f in families]
         cap_pages = [B * f.budget for f in families]
     else:
         families = None
-        shapes = [BatchShape(depth=cfg.depth, seg_len=cfg.seg_len, wlen=w)]
+        buckets = dense_buckets(cfg)
+        shapes = [BatchShape(depth=d, seg_len=ln, wlen=w) for d, ln in buckets]
+        labels = [f"D{d}xL{ln}" for d, ln in buckets]
     nb = len(shapes)
 
     pending: dict[int, _PendingRead] = {}
@@ -489,9 +711,14 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
     nrows = [0] * nb
     npages = [0] * nb
     first_seen: list[int | None] = [None] * nb   # n_reads at the oldest row
+    # (handle, rid, widx, take) of each ladder call in flight, oldest first
+    inflight: deque = deque()
+    dispatcher = None
+    qfh = None
 
     def finalize_read(r: int, pr: _PendingRead) -> None:
-        _trim_rescue_ends(pr, rescue_tiers, stats)
+        if rescue_tiers:
+            _trim_rescue_ends(pr, rescue_tiers, stats)
         ready[r] = stitch_results([x for x in pr.results if x is not None],
                                   cfg.consensus)
         del pending[r]
@@ -522,22 +749,8 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
         fit = int(np.searchsorted(np.cumsum(pages), cap_pages[bi], side="right"))
         return max(min(take, fit), 1)
 
-    def run_batch(bi: int, take: int) -> None:
-        seqs, lens, nsg, rid, widx, _ = pop_rows(bi, take)
-        batch = WindowBatch(seqs=seqs, lens=lens, nsegs=nsg, shape=shapes[bi],
-                            read_ids=rid, wstarts=widx * adv)
-        if paged_on:
-            batch = paging.pack_paged(batch, families[bi], target_rows=B)
-            stats.pad_cells += int(batch.pool.size)
-        else:
-            batch = pad_batch(batch, B)
-            stats.pad_cells += int(batch.seqs.size)
-        stats.used_cells += int(lens.sum())
-        stats.h2d_bytes += sum(int(a.nbytes) for a in upload_arrays(batch))
-        t0 = time.perf_counter()
-        out = solve_ladder(batch, ladder)
-        stats.ladder_s += time.perf_counter() - t0
-        stats.n_batches += 1
+    def scatter(out: dict, rid, widx, take: int) -> None:
+        """One fetched batch's rows into their pending reads."""
         stats.n_topm_overflow += int(out["m_ovf"][:take].sum())
         for i in range(take):
             r, wj = int(rid[i]), int(widx[i])
@@ -555,6 +768,42 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
             if pr.n_done == pr.n_windows:
                 finalize_read(r, pr)
 
+    def drain(to_depth: int) -> None:
+        """Fetch the oldest calls until ``to_depth`` stay in flight, and
+        scatter them."""
+        n_pop = len(inflight) - to_depth
+        if n_pop <= 0:
+            return
+        entries = [inflight.popleft() for _ in range(n_pop)]
+        t0 = time.perf_counter()
+        outs = fetch_many([e[0] for e in entries])
+        stats.device_s += time.perf_counter() - t0
+        for (h, rid, widx, take), out in zip(entries, outs):
+            stats.solve_s += h.solve_s
+            scatter(out, rid, widx, take)
+
+    def submit_batch(bi: int, take: int) -> None:
+        seqs, lens, nsg, rid, widx, _ = pop_rows(bi, take)
+        batch = WindowBatch(seqs=seqs, lens=lens, nsegs=nsg, shape=shapes[bi],
+                            read_ids=rid, wstarts=widx * adv)
+        if paged_on:
+            batch = paging.pack_paged(batch, families[bi], target_rows=B)
+            stats.pad_cells += int(batch.pool.size)
+        else:
+            batch = pad_batch(batch, B)
+            stats.pad_cells += int(batch.seqs.size)
+        stats.used_cells += int(lens.sum())
+        stats.h2d_bytes += sum(int(a.nbytes) for a in upload_arrays(batch))
+        t0 = time.perf_counter()
+        handle = solve_ladder_async(batch, ladder, dispatcher)
+        stats.ladder_s += time.perf_counter() - t0
+        stats.n_batches += 1
+        stats.batches_by_bucket[labels[bi]] = stats.batches_by_bucket.get(labels[bi], 0) + 1
+        inflight.append((handle, rid, widx, take))
+        stats.peak_inflight = max(stats.peak_inflight, len(inflight))
+        if len(inflight) >= cfg.max_inflight:
+            drain(cfg.max_inflight // 2)
+
     def run_batches(final: bool) -> None:
         for bi in range(nb):
             # a partial flush once the bucket's oldest row has waited too
@@ -568,7 +817,9 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
                 take = min(B, nrows[bi])
                 if paged_on:
                     take = paged_take(bi, take)
-                run_batch(bi, take)
+                submit_batch(bi, take)
+        if final:
+            drain(0)
 
     emit_idx = 0
 
@@ -583,69 +834,132 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
             yield r, frags, stats
             emit_idx += 1
 
-    blocks = (iter_pile_blocks_threaded(db, las, cfg, cfg.feeder_threads, qvr)
-              if cfg.feeder_threads else iter_pile_blocks(db, las, cfg, qvr))
-    while True:
-        t0 = time.perf_counter()
-        blk = next(blocks, None)
-        stats.windowing_s += time.perf_counter() - t0
-        if blk is None:
-            break
-        aread, a_bases, seqs, lens, nsegs = blk
-        stats.n_reads += 1
-        stats.bases_in += len(a_bases)
-        nwin = len(nsegs)
-        stats.n_windows += nwin
-        order.append(aread)
-        if nwin == 0:
-            ready[aread] = []
-        else:
-            pr = pending[aread] = _PendingRead(aread, nwin)
-            widx = np.arange(nwin, dtype=np.int64)
-            shallow = nsegs < min_depth
-            for wj in np.nonzero(shallow)[0]:
-                pr.results[int(wj)] = (int(wj) * adv, w, None)
-            pr.n_done += int(shallow.sum())
-            stats.n_skipped_shallow += int(shallow.sum())
-            keep = ~shallow
-            seqs, lens, nsegs, widx = seqs[keep], lens[keep], nsegs[keep], widx[keep]
-            rid = np.full(len(nsegs), aread, dtype=np.int64)
-            if not len(nsegs):
-                if pr.n_done == pr.n_windows:
-                    finalize_read(aread, pr)
-            elif paged_on:
-                # family router: the smallest (depth, pages) family that
-                # holds each window; rows keep only the family's depth
-                pgs = paging.window_pages(lens, cfg.page_len)
-                assign = paging.assign_family(families, nsegs, pgs)
-                for bi in range(nb):
-                    sel = np.nonzero(assign == bi)[0]
-                    if len(sel):
-                        Df = families[bi].depth
-                        push(bi, (seqs[sel, :Df], lens[sel, :Df], nsegs[sel],
-                                  rid[sel], widx[sel], pgs[sel]))
+    def monster(aread: int, n_overlaps: int) -> bool:
+        """The monster-pile guard, asked once per pile before it is
+        windowed: True = contain it."""
+        if not (cfg.max_pile_overlaps and n_overlaps > cfg.max_pile_overlaps):
+            return False
+        stats.n_monster_piles += 1
+        return True
+
+    def block_iter(s, e):
+        kw = dict(start=s, end=e, monster=monster, prof=prof)
+        if cfg.feeder_threads:
+            return iter_pile_blocks_threaded(db, las, cfg, cfg.feeder_threads, qvr, **kw)
+        return iter_pile_blocks(db, las, cfg, qvr, **kw)
+
+    def segmented():
+        # clean byte segments stream through the feeders; each contained
+        # pile rides along as a marker in byte order
+        for seg in report.segments:
+            if seg[0] == "clean":
+                yield from block_iter(seg[1], seg[2])
             else:
-                push(0, (seqs, lens, nsegs, rid, widx,
-                         np.zeros(len(nsegs), np.int64)))
-        run_batches(final=False)
+                yield seg
+
+    bad_reads = db.bad_reads
+    blocks = segmented() if clean is not None else block_iter(start, end)
+    if cfg.max_inflight > 1:
+        dispatcher = LadderDispatcher(dev)
+    try:
+        while True:
+            t0 = time.perf_counter()
+            blk = next(blocks, None)
+            stats.windowing_s += time.perf_counter() - t0
+            if blk is None:
+                break
+            if isinstance(blk[0], str):
+                # a contained pile: its read is emitted uncorrected
+                _, q_aread, q_off, q_kind, q_detail = blk
+                stats.n_quarantined += 1
+                if cfg.quarantine_path is not None:
+                    if qfh is None:
+                        qfh = open(cfg.quarantine_path, "at")
+                    qfh.write(json.dumps(dict(path=las.path, aread=q_aread,
+                                              offset=int(q_off), kind=q_kind,
+                                              detail=q_detail)) + "\n")
+                    qfh.flush()
+                if (q_aread is not None and 0 <= q_aread < len(db.reads)
+                        and q_aread not in bad_reads):
+                    a = db.read_bases(int(q_aread))
+                    stats.n_reads += 1
+                    stats.bases_in += len(a)
+                    order.append(int(q_aread))
+                    ready[int(q_aread)] = [a]
+                yield from emit_ready()
+                continue
+            aread, a_bases, seqs, lens, nsegs = blk
+            stats.n_reads += 1
+            stats.bases_in += len(a_bases)
+            nwin = len(nsegs)
+            stats.n_windows += nwin
+            order.append(aread)
+            if nwin == 0:
+                ready[aread] = []
+            else:
+                pr = pending[aread] = _PendingRead(aread, nwin)
+                widx = np.arange(nwin, dtype=np.int64)
+                shallow = nsegs < min_depth
+                for wj in np.nonzero(shallow)[0]:
+                    pr.results[int(wj)] = (int(wj) * adv, w, None)
+                pr.n_done += int(shallow.sum())
+                stats.n_skipped_shallow += int(shallow.sum())
+                keep = ~shallow
+                seqs, lens, nsegs, widx = seqs[keep], lens[keep], nsegs[keep], widx[keep]
+                rid = np.full(len(nsegs), aread, dtype=np.int64)
+                if not len(nsegs):
+                    if pr.n_done == pr.n_windows:
+                        finalize_read(aread, pr)
+                else:
+                    if paged_on:
+                        # family router: the smallest (depth, pages) family
+                        # that holds each window
+                        pgs = paging.window_pages(lens, cfg.page_len)
+                        assign = paging.assign_family(families, nsegs, pgs)
+                    else:
+                        pgs = np.zeros(len(nsegs), np.int64)
+                        assign = route_dense(buckets, nsegs, lens)
+                    for bi in range(nb):
+                        sel = np.nonzero(assign == bi)[0]
+                        if len(sel):
+                            Db, Lb = shapes[bi].depth, shapes[bi].seg_len
+                            push(bi, (seqs[sel, :Db, :Lb], lens[sel, :Db], nsegs[sel],
+                                      rid[sel], widx[sel], pgs[sel]))
+            run_batches(final=False)
+            yield from emit_ready()
+        run_batches(final=True)
         yield from emit_ready()
-    run_batches(final=True)
-    yield from emit_ready()
+    finally:
+        if dispatcher is not None:
+            dispatcher.close()
+        if qfh is not None:
+            qfh.close()
+    stats.stage_profile = prof.summary()
     stats.wall_s = time.perf_counter() - t_start
 
 
 def correct_to_fasta(db_path: str, las_path: str, out_path,
                      cfg: PipelineConfig | None = None,
+                     start: int | None = None, end: int | None = None,
                      profile: ErrorProfile | None = None) -> PipelineStats:
-    """Run the pipeline and write the corrected fragments as FASTA
-    (``-`` = stdout); records are named ``read<id>/<fragment>``."""
+    """Run the pipeline over ``[start, end)`` of the LAS and write the
+    corrected fragments as FASTA (``-`` = stdout); records are named
+    ``read<id>/<fragment>``. Under the quarantine policy the sidecar
+    defaults to ``<out>.quarantine.jsonl`` and starts fresh."""
     cfg = cfg or PipelineConfig()
+    if cfg.ingest_policy == "quarantine":
+        if cfg.quarantine_path is None and isinstance(out_path, str) and out_path != "-":
+            cfg = replace(cfg, quarantine_path=out_path + ".quarantine.jsonl")
+        if cfg.quarantine_path and os.path.exists(cfg.quarantine_path):
+            os.remove(cfg.quarantine_path)
     t0 = time.perf_counter()
-    db = read_db(db_path)
+    # only the strict policy aborts on a corrupt DB read record; quarantine
+    # contains it through db.bad_reads, and off trusts the input
+    db = read_db(db_path, strict=cfg.ingest_policy == "strict")
     las = LasFile(las_path)
     stats = PipelineStats()
     recs = []
-    for rid, frags, st in correct_shard(db, las, cfg, profile=profile):
+    for rid, frags, st in correct_shard(db, las, cfg, start, end, profile=profile):
         stats = st
         for fi, f in enumerate(frags):
             recs.append(FastaRecord(f"read{rid}/{fi}", ints_to_seq(f)))

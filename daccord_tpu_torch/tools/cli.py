@@ -1,21 +1,38 @@
 """Command line of the port.
 
     python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT [-E EPROF]
-        [-b BATCH] [-t THREADS] [--no-native] [--qv-track NAME]
-        [--device cuda|cpu] [--paged on|off|auto] [--page-len N]
-        [--dp fused|scan]
+        [--eprof-only] [-J i,n | --block I] [-w W] [-a ADV] [-k K]
+        [--depth D] [--seg-len L] [-M M] [--candidates N] [--max-err F]
+        [--overflow-rescue] [--no-end-trim] [--profile-sample N]
+        [--ingest-policy strict|quarantine|off] [--quarantine PATH]
+        [--max-pile-overlaps N] [--stats PATH] [-b BATCH] [-t THREADS]
+        [--no-native] [--qv-track NAME] [--device cuda|cpu]
+        [--paged on|off|auto] [--page-len N] [--dp fused|scan]
+        [--max-inflight N] [--depth-buckets LIST]
 
-``-E`` reads the error profile from EPROF when the file exists, and otherwise
-estimates it and writes it there; the file is the JSON of
-``ErrorProfile.save``, the same as the JAX package's ``daccord -E``, so a
-profile made by either package drives the other. ``--paged`` ships batches
-as a page pool and page table (``kernels/paging.py``) instead of the dense
-tile, and ``--dp`` picks the heaviest-path route; neither changes the FASTA.
-Piles are windowed by the port's host library (``native/``), on ``-t``
-threads ahead of the batching loop when ``-t`` is above 0; ``--no-native``
-windows them in numpy instead, with the same FASTA. ``--qv-track`` names the
-intrinsic-QV track that joins the depth ranking (``inqual``; ignored when
-the DB has none). A JSON line of run statistics goes to stderr.
+The flags and defaults of the JAX package's ``daccord`` that this port
+covers keep their meaning there (``daccord_tpu/tools/cli.py``). ``-E`` reads
+the error profile from EPROF when the file exists, and otherwise estimates
+it (under the run's ingest policy) and writes it there; the file is the JSON
+of ``ErrorProfile.save``, the same as the JAX package's, so a profile made by
+either package drives the other. ``-J i,n`` corrects shard i of n
+aread-aligned byte ranges of the LAS, ``--block I`` the piles of DB block I.
+``--ingest-policy`` validates every LAS record header (and the DB's .idx)
+first: ``strict`` exits non-zero with each issue's kind, byte offset and
+pile; ``quarantine`` emits each corrupt pile's read uncorrected and records
+it in the sidecar (``--quarantine``, default ``OUT.quarantine.jsonl``);
+``off`` trusts the input. A pile of more than ``--max-pile-overlaps``
+overlaps is contained the same way.
+
+Port-only flags: ``--device``; ``--paged`` ships batches as a page pool and
+page table (``kernels/paging.py``) instead of the dense tile, ``--dp`` picks
+the heaviest-path route, ``--max-inflight`` the ladder calls in flight (1 =
+solve each batch on the pipeline's thread) and ``--depth-buckets`` the dense
+sub-depth buckets ('' = one bucket); none of these changes the FASTA beyond
+ROADMAP's drift bound. Piles are windowed by the port's host library
+(``native/``), on ``-t`` threads ahead of the batching loop when ``-t`` is
+above 0; ``--no-native`` windows them in numpy instead, with the same FASTA.
+A JSON line of run statistics goes to stderr (and to ``--stats``).
 """
 
 from __future__ import annotations
@@ -25,24 +42,82 @@ import json
 import os
 import sys
 
-from ..formats.dazzdb import read_db
-from ..formats.las import LasFile
+from ..formats.dazzdb import db_blocks, read_db
+from ..formats.ingest import IngestError, scan_with_db
+from ..formats.las import LasFile, range_for_areads, shard_ranges
+from ..oracle.consensus import ConsensusConfig
+from ..oracle.dbg import DBGParams
 from ..oracle.profile import ErrorProfile
-from ..runtime.pipeline import PipelineConfig, correct_to_fasta, estimate_profile_for_shard
+from ..runtime.pipeline import (INGEST_POLICIES, PipelineConfig, correct_to_fasta,
+                                estimate_profile_for_shard)
+
+USAGE = ("usage: python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT "
+         "[-E EPROF] [--eprof-only] [-J i,n | --block I] [-w W] [-a ADV] [-k K] "
+         "[--depth D] [--seg-len L] [-M M] [--candidates N] [--max-err F] "
+         "[--overflow-rescue] [--no-end-trim] [--profile-sample N] "
+         "[--ingest-policy strict|quarantine|off] [--quarantine PATH] "
+         "[--max-pile-overlaps N] [--stats PATH] [-b BATCH] [-t THREADS] "
+         "[--no-native] [--qv-track NAME] [--device cuda|cpu] "
+         "[--paged on|off|auto] [--page-len N] [--dp fused|scan] "
+         "[--max-inflight N] [--depth-buckets LIST]")
 
 
-def daccord_run(argv=None):
-    """Parse the ``daccord`` arguments and run the correction; returns the
-    run's PipelineStats and the parsed arguments."""
+def _parser() -> argparse.ArgumentParser:
+    defaults = PipelineConfig()
     p = argparse.ArgumentParser(prog="daccord",
                                 description="Correct long reads: DB + LAS -> FASTA")
     p.add_argument("db")
     p.add_argument("las")
     p.add_argument("-o", "--out", default="-", help="output FASTA ('-' = stdout)")
+    p.add_argument("-w", type=int, default=40, help="window size")
+    p.add_argument("-a", type=int, default=10, help="window advance")
+    p.add_argument("-k", type=int, default=8,
+                   help="base k-mer size; the escalation ladder becomes "
+                        "(k,2,2),(k+2,2,2),(k+4,2,2),(k,1,1)")
+    p.add_argument("--depth", type=int, default=defaults.depth,
+                   help="max segments per window")
+    p.add_argument("--seg-len", type=int, default=defaults.seg_len,
+                   help="max segment length")
+    p.add_argument("-M", "--max-kmers", type=int, default=defaults.max_kmers,
+                   help="tier-0 top-M active set (k-mers per window)")
+    p.add_argument("--candidates", type=int, default=3, metavar="N",
+                   help="DBG paths rescored per window")
+    p.add_argument("--max-err", type=float, default=0.3,
+                   help="reject a window consensus above this mean edit rate "
+                        "against its segments")
+    p.add_argument("--overflow-rescue", action="store_true",
+                   help="re-solve windows whose top-M cap bound at the rescue "
+                        "active-set size")
+    p.add_argument("--no-end-trim", action="store_true",
+                   help="keep rescue-tier solutions at read ends")
+    p.add_argument("--profile-sample", type=int,
+                   default=defaults.profile_sample_piles, metavar="N",
+                   help="piles sampled by the error-profile pass")
     p.add_argument("-E", "--eprof", default=None, metavar="PATH",
                    help="error profile JSON: read when it exists, else "
                         "estimated and written here")
-    p.add_argument("-b", "--batch", type=int, default=2048,
+    p.add_argument("--eprof-only", action="store_true",
+                   help="estimate the error profile, write it to -E, and exit")
+    p.add_argument("--block", type=int, default=None, metavar="I",
+                   help="correct only the piles of DB block I (1-based); "
+                        "mutually exclusive with -J")
+    p.add_argument("-J", default=None, metavar="i,n",
+                   help="correct shard i of n (aread-aligned LAS byte ranges)")
+    p.add_argument("--ingest-policy", choices=INGEST_POLICIES,
+                   default=defaults.ingest_policy,
+                   help="strict: exit with the structured report of every "
+                        "corrupt record; quarantine: emit each corrupt pile's "
+                        "read uncorrected and record it in the sidecar; off: "
+                        "trust the input")
+    p.add_argument("--quarantine", default=None, metavar="PATH",
+                   help="quarantine sidecar jsonl (default OUT.quarantine.jsonl)")
+    p.add_argument("--max-pile-overlaps", type=int,
+                   default=defaults.max_pile_overlaps, metavar="N",
+                   help="contain a pile of more overlaps than this (read "
+                        "emitted uncorrected) before windowing it; 0 = off")
+    p.add_argument("--stats", default=None, metavar="PATH",
+                   help="also write the run statistics JSON here")
+    p.add_argument("-b", "--batch", type=int, default=defaults.batch_size,
                    help="windows per ladder call")
     p.add_argument("-t", "--threads", type=int, default=0,
                    help="pile windowing threads ahead of the batching loop "
@@ -62,60 +137,172 @@ def daccord_run(argv=None):
                         "of dense [B, D, L] tiles, gathered on the device; "
                         "byte-identical FASTA. 'auto' = on for cuda")
     p.add_argument("--page-len", type=int, default=16, metavar="N",
-                   help="paged page length in bases (must divide the "
-                        "segment length, 64)")
+                   help="paged page length in bases (must divide --seg-len)")
     p.add_argument("--dp", choices=("fused", "scan"), default="fused",
                    help="heaviest-path route: 'fused' (DP + backtrack in one "
                         "kernel) or 'scan' (DP kernel writing the score and "
                         "pointer stacks, backtrack in torch); bit-identical")
-    args = p.parse_args(argv)
+    p.add_argument("--max-inflight", type=int, default=defaults.max_inflight,
+                   metavar="N",
+                   help="ladder calls in flight on the dispatcher thread; "
+                        "1 = solve each batch on the pipeline's thread")
+    p.add_argument("--depth-buckets", default=",".join(map(str, defaults.depth_buckets)),
+                   metavar="LIST",
+                   help="dense sub-depth buckets below --depth, comma-"
+                        "separated ('' = one bucket)")
+    return p
+
+
+def _check(args) -> None:
+    """The argument checks that need no file, before any work."""
+    if args.block is not None and args.J is not None:
+        raise SystemExit("--block and -J are mutually exclusive")
+    k = args.k
+    if not (4 <= k <= 11):  # k+4 must still pack into int32 k-mer codes
+        raise SystemExit(f"-k {k}: supported range is 4..11")
+    if k + 4 > min(args.w, args.seg_len - 1):
+        raise SystemExit(f"escalated k {k + 4} (from -k {k}) needs window size > "
+                         f"{k + 4} and --seg-len > {k + 5}")
+    if args.max_kmers <= 0:
+        raise SystemExit("-M: the device ladder needs a positive top-M cap")
     if args.threads < 0 or (args.threads and args.no_native):
         raise SystemExit("-t needs the host library: give -t 0 with --no-native")
-
-    cfg = PipelineConfig(batch_size=args.batch, device=args.device,
-                         paged=args.paged, page_len=args.page_len,
-                         dp_route=args.dp, use_native=not args.no_native,
-                         feeder_threads=args.threads,
-                         qv_track=args.qv_track or None)
-    if args.paged != "off" and (args.page_len <= 0
-                                or cfg.seg_len % args.page_len):
+    if args.paged != "off" and (args.page_len <= 0 or args.seg_len % args.page_len):
         raise SystemExit(f"--page-len {args.page_len} must be positive and "
-                         f"divide the segment length {cfg.seg_len}")
-    prof = None
-    if args.eprof and os.path.exists(args.eprof):
-        prof = ErrorProfile.load(args.eprof)
-    elif args.eprof:
-        prof = estimate_profile_for_shard(read_db(args.db), LasFile(args.las), cfg)
-        prof.save(args.eprof)
-    return correct_to_fasta(args.db, args.las, args.out, cfg, profile=prof), args
+                         f"divide --seg-len {args.seg_len}")
+    if args.max_inflight < 1:
+        raise SystemExit("--max-inflight must be at least 1")
+    if args.eprof_only and not args.eprof:
+        raise SystemExit("--eprof-only requires -E/--eprof PATH")
 
 
-def daccord_main(argv=None) -> int:
-    stats, args = daccord_run(argv)
-    print(json.dumps({
+def _byte_range(args) -> tuple[int | None, int | None]:
+    """The LAS byte range ``-J`` or ``--block`` selects (None, None: all)."""
+    if args.block is not None:
+        blocks = db_blocks(args.db)
+        if not (1 <= args.block <= len(blocks)):
+            raise SystemExit(f"--block {args.block}: DB has {len(blocks)} blocks")
+        return range_for_areads(args.las, *blocks[args.block - 1])
+    if args.J is None:
+        return None, None
+    try:
+        i, n = (int(x) for x in args.J.split(","))
+    except ValueError:
+        raise SystemExit(f"bad -J {args.J}: expected i,n") from None
+    if not (0 <= i < n):
+        raise SystemExit(f"bad -J {args.J}")
+    return shard_ranges(args.las, n)[i]
+
+
+def _estimate_validated(args, cfg: PipelineConfig, start, end) -> ErrorProfile:
+    """The ``-E`` pre-estimation under the run's ingest policy: strict raises
+    the structured report, quarantine samples clean piles only."""
+    db = read_db(args.db, strict=cfg.ingest_policy == "strict")
+    las = LasFile(args.las)
+    clean = None
+    if cfg.ingest_policy != "off":
+        rep = scan_with_db(db, las, start, end)
+        if rep.issues:
+            if cfg.ingest_policy == "strict":
+                raise rep.error()
+            clean = rep.pile_ranges
+    return estimate_profile_for_shard(db, las, cfg, start, end, pile_ranges=clean)
+
+
+def daccord_run(argv=None):
+    """Parse the ``daccord`` arguments and run the correction; returns the
+    run's PipelineStats (None after ``--eprof-only``) and the parsed
+    arguments. An ingest integrity failure exits with the structured report
+    (kind, byte offset and pile of each issue), never a traceback."""
+    args = _parser().parse_args(argv)
+    _check(args)
+    k = args.k
+    try:
+        buckets = tuple(int(x) for x in args.depth_buckets.split(",") if x.strip())
+    except ValueError:
+        raise SystemExit(f"bad --depth-buckets {args.depth_buckets!r}") from None
+    ccfg = ConsensusConfig(w=args.w, adv=args.a,
+                           tiers=((k, 2, 2), (k + 2, 2, 2), (k + 4, 2, 2), (k, 1, 1)),
+                           dbg=DBGParams(n_candidates=args.candidates,
+                                         max_err=args.max_err))
+    cfg = PipelineConfig(consensus=ccfg, batch_size=args.batch, depth=args.depth,
+                         seg_len=args.seg_len, max_kmers=args.max_kmers,
+                         overflow_rescue=args.overflow_rescue,
+                         profile_sample_piles=args.profile_sample,
+                         device=args.device, max_inflight=args.max_inflight,
+                         depth_buckets=buckets, paged=args.paged,
+                         page_len=args.page_len, dp_route=args.dp,
+                         use_native=not args.no_native,
+                         feeder_threads=args.threads,
+                         qv_track=args.qv_track or None,
+                         end_trim=not args.no_end_trim,
+                         ingest_policy=args.ingest_policy,
+                         quarantine_path=args.quarantine,
+                         max_pile_overlaps=args.max_pile_overlaps)
+    try:
+        start, end = _byte_range(args)
+        prof = None
+        if args.eprof and os.path.exists(args.eprof) and not args.eprof_only:
+            prof = ErrorProfile.load(args.eprof)
+        elif args.eprof:
+            prof = _estimate_validated(args, cfg, start, end)
+            prof.save(args.eprof)
+            if args.eprof_only:
+                return None, args
+        stats = correct_to_fasta(args.db, args.las, args.out, cfg, start, end,
+                                 profile=prof)
+    except IngestError as ex:
+        # under quarantine a surviving failure comes from a path that needs
+        # the aread index (-J/--block), which a corrupt LAS cannot provide
+        hint = ("(rerun with --ingest-policy quarantine to contain the corrupt "
+                "piles instead)" if args.ingest_policy == "strict" else
+                "(byte-range sharding needs the aread index, which cannot be "
+                "built over a corrupt LAS: repair the file or run unsharded)")
+        raise SystemExit(f"daccord: {ex}\n{hint}") from None
+    return stats, args
+
+
+def stats_record(stats, args) -> dict:
+    """The run statistics as one JSON-ready dict."""
+    return {
         "reads": stats.n_reads, "windows": stats.n_windows,
         "solved": stats.n_solved, "skipped_shallow": stats.n_skipped_shallow,
         "topm_overflow": stats.n_topm_overflow,
         "end_trimmed": stats.n_end_trimmed, "fragments": stats.n_fragments,
-        "bases_out": stats.bases_out, "batches": stats.n_batches,
+        "bases_in": stats.bases_in, "bases_out": stats.bases_out,
+        "batches": stats.n_batches, "batches_by_bucket": stats.batches_by_bucket,
         "tiers": {str(k): v for k, v in sorted(stats.tier_histogram.items())},
-        "profile_s": round(stats.profile_s, 3),
+        "quarantined": stats.n_quarantined, "ingest_issues": stats.n_ingest_issues,
+        "monster_piles": stats.n_monster_piles,
+        "ingest_s": round(stats.ingest_s, 3), "profile_s": round(stats.profile_s, 3),
         "windowing_s": round(stats.windowing_s, 3),
-        "ladder_s": round(stats.ladder_s, 3), "wall_s": round(stats.wall_s, 3),
+        "ladder_s": round(stats.ladder_s, 3), "device_s": round(stats.device_s, 3),
+        "solve_s": round(stats.solve_s, 3),
+        "wall_s": round(stats.wall_s, 3), "stages": stats.stage_profile,
         "paged": stats.paged, "pad_waste": round(stats.pad_waste, 4),
         "h2d_bytes": stats.h2d_bytes, "dp": args.dp,
+        "max_inflight": args.max_inflight, "peak_inflight": stats.peak_inflight,
         "native_host": stats.native_host, "threads": args.threads,
-        "qv_ranked": stats.qv_ranked, "device": args.device}), file=sys.stderr)
+        "qv_ranked": stats.qv_ranked, "device": args.device}
+
+
+def daccord_main(argv=None) -> int:
+    stats, args = daccord_run(argv)
+    if stats is None:
+        print(json.dumps({"eprof": args.eprof}), file=sys.stderr)
+        return 0
+    line = stats_record(stats, args)
+    print(json.dumps(line), file=sys.stderr)
+    if args.stats:
+        with open(args.stats, "wt") as fh:
+            json.dump(line, fh, indent=1)
     return 0
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] != "daccord":
-        print("usage: python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT "
-              "[-E EPROF] [-b BATCH] [-t THREADS] [--no-native] [--qv-track NAME] "
-              "[--device cuda|cpu] [--paged on|off|auto] [--page-len N] "
-              "[--dp fused|scan]", file=sys.stderr)
+        print(USAGE, file=sys.stderr)
         return 2
     return daccord_main(argv[1:])
 

@@ -3,6 +3,7 @@
     python -m daccord_tpu_torch.tools.wall_ab A_ROOT B_ROOT \\
         [--paged off|on] [--dp fused|scan] [--turns ABBA]
         [--sim GENOME,COVERAGE,READLEN[,SEED]] [--b-args "-t 8"]
+        [--ab-args "-t 8"] [--switch-interval S]
 
 Makes a simulated dataset (by default ``chip_smoke.py``'s: 20 kb genome,
 20x, 2 kb reads, seed 42) and its error profile once, then runs the
@@ -10,9 +11,14 @@ Makes a simulated dataset (by default ``chip_smoke.py``'s: 20 kb genome,
 directories that hold a ``daccord_tpu_torch`` package) in a fresh process
 per turn, in the order of ``--turns``, so that host noise falls on both
 sides alike. ``--b-args`` adds flags to B's command line only (flags that
-A's does not know, such as ``-t``). Prints the card's name and power limit,
-one JSON line per turn (wall, windows/s, host windowing and device ladder
-seconds) and whether the FASTA outputs agree.
+A's does not know, such as ``-t``, or a setting to compare on one tree,
+such as ``--max-inflight 1``); ``--ab-args`` adds flags to both, and
+``--switch-interval`` sets the interpreter's thread switch interval of
+both runs (how long a thread waits before it forces the GIL from another).
+Prints the card's name and power limit, one JSON line per turn (wall,
+windows/s, host windowing, ladder dispatch and, where the checkout has
+them, the ingest scan, the wall blocked in fetch and the ladder calls' own
+wall) and whether the FASTA outputs agree.
 """
 
 from __future__ import annotations
@@ -31,12 +37,17 @@ import torch
 RUN = """
 import json, sys, torch
 from daccord_tpu_torch.tools.cli import daccord_run
-stats, _ = daccord_run(sys.argv[1:])
+if float(sys.argv[1]) > 0:
+    sys.setswitchinterval(float(sys.argv[1]))
+stats, _ = daccord_run(sys.argv[2:])
 torch.cuda.synchronize()
 print("STATS " + json.dumps(dict(
     wall_s=stats.wall_s, windows_per_s=stats.windows_per_sec(),
     bases_per_s=stats.bases_per_sec(), windowing_s=stats.windowing_s,
-    ladder_s=stats.ladder_s, n_windows=stats.n_windows, n_batches=stats.n_batches)))
+    ladder_s=stats.ladder_s, device_s=getattr(stats, "device_s", None),
+    solve_s=getattr(stats, "solve_s", None), switch_interval=sys.getswitchinterval(),
+    ingest_s=getattr(stats, "ingest_s", None), n_windows=stats.n_windows,
+    n_batches=stats.n_batches)))
 """
 
 
@@ -64,6 +75,11 @@ def main(argv=None) -> int:
                     metavar="GENOME,COVERAGE,READLEN[,SEED]")
     ap.add_argument("--b-args", default="", metavar="FLAGS",
                     help="flags added to B's daccord command line only")
+    ap.add_argument("--ab-args", default="", metavar="FLAGS",
+                    help="flags added to both daccord command lines")
+    ap.add_argument("--switch-interval", type=float, default=0.0, metavar="S",
+                    help="the interpreter's thread switch interval in both "
+                         "runs (sys.setswitchinterval; 0 = Python's default)")
     args = ap.parse_args(argv)
     sim_cfg = sim_config(ap, args.sim)
     if not torch.cuda.is_available():
@@ -89,9 +105,11 @@ def main(argv=None) -> int:
         for i, tag in enumerate(args.turns):
             out = os.path.join(tmp, f"out_{i}_{tag}.fasta")
             res = subprocess.run(
-                [sys.executable, "-c", RUN, d["db"], d["las"], "-o", out, "-E", eprof,
+                [sys.executable, "-c", RUN, str(args.switch_interval), d["db"],
+                 d["las"], "-o", out, "-E", eprof,
                  "-b", "2048", "--device", "cuda", "--paged", args.paged,
-                 "--dp", args.dp, *(shlex.split(args.b_args) if tag == "B" else [])],
+                 "--dp", args.dp, *shlex.split(args.ab_args),
+                 *(shlex.split(args.b_args) if tag == "B" else [])],
                 cwd=roots[tag], env={**os.environ, "PYTHONPATH": roots[tag]},
                 capture_output=True, text=True)
             if res.returncode != 0:

@@ -217,3 +217,42 @@ def test_gather_windows_rebuilds_the_dense_tile(cuda):
                                   for a in (pb.pool, pb.table, pb.lens)),
                                 page_len=16, seg_len=L)
     assert torch.equal(got.cpu(), torch.as_tensor(seqs))
+
+
+@pytest.mark.cuda
+def test_dispatcher_stream_matches_sync_run(cuda, tmp_path):
+    """The ladder calls on the dispatcher's own stream (``max_inflight``
+    8, the results copied into pinned memory behind an event) write the
+    FASTA the synchronous run (``max_inflight`` 1) writes, byte for byte, and
+    a failing call re-raises at ``fetch``."""
+    from daccord_tpu_torch.kernels import tiers
+    from daccord_tpu_torch.runtime.pipeline import PipelineConfig, correct_to_fasta
+    from daccord_tpu_torch.sim import SimConfig, make_dataset
+
+    d = make_dataset(str(tmp_path), SimConfig(genome_len=1000, coverage=20,
+                                              read_len_mean=500, seed=7))
+    texts = []
+    for mi in (1, 8):
+        out = str(tmp_path / f"inflight{mi}.fasta")
+        st = correct_to_fasta(d["db"], d["las"], out,
+                              PipelineConfig(batch_size=64, max_inflight=mi))
+        assert st.peak_inflight == mi and st.n_solved > 0
+        with open(out) as fh:
+            texts.append(fh.read())
+    assert texts[0] == texts[1]
+
+    class Boom(RuntimeError):
+        pass
+
+    def boom(batch, ladder):
+        raise Boom("ladder call failed")
+
+    lad = tiers.TierLadder.from_numpy({8: np.zeros((37, 56), np.float32)},
+                                      [dict(k=8)], device=cuda)
+    real, tiers._ladder_packed = tiers._ladder_packed, boom
+    try:
+        with tiers.LadderDispatcher(cuda) as disp:
+            with pytest.raises(Boom):
+                tiers.fetch(tiers.solve_ladder_async(None, lad, disp))
+    finally:
+        tiers._ladder_packed = real

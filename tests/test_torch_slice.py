@@ -37,20 +37,33 @@ def _dataset(root: str):
                                         read_len_mean=1500, seed=3))
 
 
+def _record(batch, out, sink):
+    for i in range(batch.size):
+        if batch.read_ids[i] < 0 or batch.nsegs[i] == 0:
+            continue
+        seq = (bytes(np.asarray(out["cons"][i][: out["cons_len"][i]]))
+               if out["solved"][i] else None)
+        sink[(int(batch.read_ids[i]), int(batch.wstarts[i]))] = seq
+
+
 def _capture_windows(monkeypatch, module, attr, sink):
     """Record every (read, window start) -> consensus a pipeline scatters,
-    by wrapping the ladder entry the pipeline calls."""
+    by wrapping the ladder entry the pipeline calls: the JAX package's
+    ``solve_tiered(batch, ladder)``, the port's ``fetch_many(handles)``
+    (each handle carries its batch)."""
     real = getattr(module, attr)
 
-    def wrapped(batch, ladder, *a, **kw):
-        out = real(batch, ladder, *a, **kw)
-        for i in range(batch.size):
-            if batch.read_ids[i] < 0 or batch.nsegs[i] == 0:
-                continue
-            seq = (bytes(np.asarray(out["cons"][i][: out["cons_len"][i]]))
-                   if out["solved"][i] else None)
-            sink[(int(batch.read_ids[i]), int(batch.wstarts[i]))] = seq
-        return out
+    if attr == "fetch_many":
+        def wrapped(handles):
+            outs = real(handles)
+            for h, out in zip(handles, outs):
+                _record(h.batch, out, sink)
+            return outs
+    else:
+        def wrapped(batch, ladder, *a, **kw):
+            out = real(batch, ladder, *a, **kw)
+            _record(batch, out, sink)
+            return out
 
     monkeypatch.setattr(module, attr, wrapped)
 
@@ -63,7 +76,7 @@ def test_slice_matches_jax_pipeline(tmp_path_factory, monkeypatch):
 
     jax_w, port_w = {}, {}
     _capture_windows(monkeypatch, jax_tiers, "solve_tiered", jax_w)
-    _capture_windows(monkeypatch, port_pipeline, "solve_ladder", port_w)
+    _capture_windows(monkeypatch, port_pipeline, "fetch_many", port_w)
 
     jax_out, port_out = f"{root}/jax.fasta", f"{root}/port.fasta"
     js = jax_correct_to_fasta(d["db"], d["las"], jax_out,

@@ -144,6 +144,8 @@ def test_port_imports_no_jax():
         "import daccord_tpu_torch.tools.cli\n"
         "import daccord_tpu_torch.native, daccord_tpu_torch.native.api\n"
         "import daccord_tpu_torch.tools.wall_ab, daccord_tpu_torch.tools.host_calls\n"
+        "import daccord_tpu_torch.formats.ingest, daccord_tpu_torch.utils.aio\n"
+        "import daccord_tpu_torch.utils.obs\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'daccord_tpu' or m.startswith('daccord_tpu.'))\n"
         "assert not bad, bad\n"
