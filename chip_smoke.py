@@ -6,12 +6,12 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA -> exit 1;
-2. build the three kernels ``daccord_tpu_torch/csrc/{dp_backtrack,
-   heaviest_path,gather_pages}.cu`` for sm_90a, one nvcc each, all started
-   together, with the build seconds and ptxas' register/shared-memory
-   report, and beside them the host library ``daccord_tpu_torch/native/
-   dazz_native.cpp`` with g++ (its seconds, the g++ version and the host's
-   usable CPUs);
+2. build the five kernels ``daccord_tpu_torch/csrc/{dp_backtrack,
+   heaviest_path,gather_pages,rescore,position_weights}.cu`` for sm_90a, one
+   nvcc each, all started together, with the build seconds and ptxas'
+   register/shared-memory report, and beside them the host library
+   ``daccord_tpu_torch/native/dazz_native.cpp`` with g++ (its seconds, the
+   g++ version and the host's usable CPUs);
 3. feeder phase, the first 40 piles of the 20 kb / 20x simulated dataset:
    the host library's windows are byte-equal to the numpy feeder's, and
    three feeders' windows/s (the numpy feeder and the host library on one
@@ -33,7 +33,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    peak device memory and the pinned host memory in flight. The two 20 kb
    FASTA outputs are compared (the drift bound of ROADMAP's parity
    invariant), and all three are scored against the simulation's truth
-   (they must beat the raw reads);
+   (they must beat the raw reads). Every run is supervised
+   (``runtime/supervisor.py``) with the shadow audit at its default 1/64;
+   each prints the audit's host wall and its share of the run's wall;
 4b. the slice's checks on the 20 kb set, each a ``daccord`` run with the
    counts set to 0 before it: ``--max-inflight 1`` and a second deque run
    write the first deque run's FASTA byte for byte (their walls on one
@@ -56,16 +58,31 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the same function, that call's time:
    - ``dp_backtrack`` (fused DP + backtrack) and ``heaviest_path`` (the DP
      alone) at every ladder shape (M, P), on inputs ``prep_batch`` made, at
-     B=2048 and at the mean batch the phase-4 run gave that shape;
+     B=2048 and at the mean batch the phase-4 run gave that shape; and both
+     at M=512 (the wide layout, B=256);
    - ``gather_pages`` once per shape family of the paged run, on a paged
      batch packed from the real windows routed to that family;
+   - ``rescore`` on tier 0's candidates of the B real windows (and at the
+     mean batch the run gave it), and ``position_weights`` on the
+     occurrence counts ``prep_batch`` made at every ladder shape, beside
+     ``torch.matmul`` of the same product;
 6. one 2048-window batch: the gathered paged tile is bit-equal to the dense
    tile; the scan-route ladder, the paged ladder and the ladder with the
    plain DP are bit-equal to the fused-route ladder on the card; the same
-   batch on the CPU differs from the card's on at most 0.5% of windows.
-   Beside it, one ladder call's time split into tier 0's prep, DP kernel
-   and rescore, and the device's busy share of the call under
-   ``torch.profiler``.
+   batch through the CPU ladder is bit-equal to the card's. Beside it, one
+   ladder call's time split into tier 0's prep, DP kernel and rescore, and
+   the device kernels and busy share of the call under ``torch.profiler``,
+   with the kernels and with PR 5's torch rescore and ``torch.matmul`` in
+   their place;
+7. supervisor phase, ``daccord`` runs on the first quarter of the 20 kb
+   set at ``-b 512`` under ``DACCORD_FAULT``: ``device_lost`` with
+   ``--failover-backend cpu``, ``fetch_hang``, ``dispatch_error``,
+   ``device_oom`` and ``sdc`` (audit rate 1/4) each write the clean run's
+   FASTA byte for byte; ``device_lost`` with the default (native) failover
+   stays within the drift bound; a real trap of the DP kernel in a child
+   process fails over to the CPU ladder and writes the clean FASTA; an
+   audit of every window of a clean run (the first eighth) logs no
+   ``sup_sdc``.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``daccord_tpu``.
@@ -91,10 +108,16 @@ F32_FLOP_S = 67e12           # H100 SXM float32 outside the tensor cores
 DATASET = dict(genome_len=20_000, coverage=20, read_len_mean=2_000, seed=42)
 BIG_DATASET = dict(genome_len=100_000, coverage=30, read_len_mean=5_000, seed=43)
 FEEDER_PILES = 40            # piles the feeder phase windows through each route
-KERNELS = ("dp_backtrack", "heaviest_path", "gather_pages")
+KERNELS = ("dp_backtrack", "heaviest_path", "gather_pages", "rescore", "position_weights")
+# rescore and position_weights replace no Pallas kernel: the XLA steps of the
+# JAX package they compute
 REPLACES = {"dp_backtrack": "daccord_tpu/kernels/pallas_window.py:129",
             "heaviest_path": "daccord_tpu/kernels/pallas_dp.py:36",
-            "gather_pages": "daccord_tpu/kernels/pallas_window.py:96"}
+            "gather_pages": "daccord_tpu/kernels/pallas_window.py:96",
+            "rescore": "none (XLA): daccord_tpu/kernels/window_kernel.py:381",
+            "position_weights": "none (XLA): daccord_tpu/kernels/window_kernel.py:286"}
+SUP_SHARD = "0,4"            # the supervisor phase's prefix of the 20 kb set
+SUP_B = 512
 
 
 def log(*a) -> None:
@@ -247,13 +270,21 @@ def dp_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[dict]:
     from daccord_tpu_torch.kernels import dp_backtrack, heaviest_path
     from daccord_tpu_torch.kernels.window_kernel import prep_batch
 
+    from dataclasses import replace
+
     rows = []
     shapes = []
     for p in ladder.params:
         if (p.max_kmers, p.positions) not in [(s.max_kmers, s.positions) for s in shapes]:
             shapes.append(p)
+    # the wide layout (M > 256: two threads a column, the bits sharing their
+    # shared memory with the score rows and pointer stack), at B=256
+    wide = replace(ladder.params[0], max_kmers=512)
+    shapes.append(wide)
     tseqs, tlens, tnsegs = (torch.as_tensor(a, device=dev) for a in (seqs, lens, nsegs))
     for p in shapes:
+        if p is wide:
+            tseqs, tlens, tnsegs = tseqs[:256], tlens[:256], tnsegs[:256]
         M, P, C, CL = p.max_kmers, p.positions, p.n_candidates, p.cons_len
         t_lo, t_hi = p.t_range
         T = t_hi - t_lo + 1
@@ -284,6 +315,101 @@ def dp_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[dict]:
                             full["plain_ms"], full["bound_ms"], full["by"],
                             timed_by="/".join(sorted({r["how"] for r in res.values()})),
                             path=path))
+    return rows
+
+
+def rescore_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[dict]:
+    """``rescore`` on tier 0's candidates of the real windows (the DP
+    kernel's), at B and at the mean batch the run gave it: bit-equal to the
+    plain version, timed beside it and its bound (the window tiles,
+    candidates and lengths read once, the rows written once, against ~17
+    64-bit word operations a (candidate, segment base, word) at the f32
+    rate)."""
+    from daccord_tpu_torch.kernels import dp_backtrack, rescore
+    from daccord_tpu_torch.kernels.window_kernel import prep_batch
+    from daccord_tpu_torch.tools.timing import event_ms, kernel_ms
+
+    p = ladder.params[0]
+    t_lo, t_hi = p.t_range
+    tseqs, tlens, tnsegs = (torch.as_tensor(a, device=dev) for a in (seqs, lens, nsegs))
+    g = prep_batch(tseqs, tlens, tnsegs, ladder.tables[p.k], p)
+    cand, clen, ok = dp_backtrack.dp_backtrack_batch(
+        g["adjW"], g["W"].transpose(1, 2).contiguous(), g["score0"], g["snk_ok"], g["sel"],
+        k=p.k, cons_len=p.cons_len, n_candidates=p.n_candidates, t_lo=t_lo, t_hi=t_hi)
+    ins = (tseqs, tlens, tnsegs, cand.to(torch.int8), clen, ok)
+    C, CL = p.n_candidates, p.cons_len
+    res = {}
+    for Bx in dict.fromkeys((ins[0].shape[0], path_b.get((C, CL)))):
+        if Bx is None:
+            continue
+        xs = tuple(t[:Bx] for t in ins)
+        got = rescore.rescore_pick(*xs, p)
+        ref = rescore.rescore_pick_plain(*xs, p)
+        torch.cuda.synchronize()
+        for key in ref:
+            if not torch.equal(got[key], ref[key]):
+                raise AssertionError(f"rescore B={Bx}: kernel {key} differs from plain")
+        ms, how = kernel_ms(lambda: rescore.rescore_pick(*xs, p), "rescore_kernel", 20)
+        plain_ms = event_ms(lambda: rescore.rescore_pick_plain(*xs, p), 3)
+        words = -(-CL // 64)
+        ops = C * int(xs[1].clamp(min=0).sum()) * 17 * words
+        bms, by = bound(nbytes(*xs, *got.values()), ops)
+        log(f"kernel rescore C={C} CL={CL} B={Bx}: bit-equal to plain, kernel {ms:.4f} ms "
+            f"({how}), plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by}); solved "
+            f"{int(got['solved'].sum())}")
+        res[Bx] = dict(ms=ms, how=how, plain_ms=plain_ms, bound_ms=bms, by=by)
+    full = res[ins[0].shape[0]]
+    pb = path_b.get((C, CL))
+    path = None if pb is None else (pb, res[pb]["ms"], res[pb]["plain_ms"], res[pb]["bound_ms"])
+    return [row(f"rescore[C={C},CL={CL}]", "rescore", (C, CL), 0.0, full["ms"],
+                full["plain_ms"], full["bound_ms"], full["by"],
+                timed_by="/".join(sorted({r["how"] for r in res.values()})), path=path)]
+
+
+def weights_kernel_phase(ladder, seqs, lens, nsegs, dev) -> list[dict]:
+    """``position_weights`` at every ladder shape (M, P) on the occurrence
+    counts ``prep_batch`` made from the real windows: bit-equal to the plain
+    version on the card and on the CPU, timed beside it, its bound (occ read
+    once and W written once, against 2 f32 operations a term) and
+    ``torch.matmul`` of the same product."""
+    from daccord_tpu_torch.kernels import position_weights as pw
+    from daccord_tpu_torch.kernels import window_kernel
+    from daccord_tpu_torch.tools.timing import event_ms, kernel_ms
+
+    tseqs, tlens, tnsegs = (torch.as_tensor(a, device=dev) for a in (seqs, lens, nsegs))
+    seen, rows = set(), []
+    for p in ladder.params:
+        if (p.max_kmers, p.positions) in seen:
+            continue
+        seen.add((p.max_kmers, p.positions))
+        grabbed = []
+        real = window_kernel.position_weights
+        window_kernel.position_weights = lambda occ, ol: grabbed.append((occ, ol)) or real(occ, ol)
+        try:
+            window_kernel.prep_batch(tseqs, tlens, tnsegs, ladder.tables[p.k], p)
+        finally:
+            window_kernel.position_weights = real
+        occ, ol = grabbed[0]
+        got = pw.position_weights(occ, ol)
+        ref = pw.position_weights_plain(occ, ol)
+        torch.cuda.synchronize()
+        cpu = pw.position_weights(occ.cpu(), ol.cpu())
+        if not (torch.equal(got, ref) and torch.equal(got.cpu(), cpu)):
+            raise AssertionError(f"position_weights M={p.max_kmers}: kernel differs from "
+                                 f"plain (card or CPU)")
+        B, M, O = occ.shape
+        P = ol.shape[0]
+        ms, how = kernel_ms(lambda: pw.position_weights(occ, ol), "position_weights_kernel", 20)
+        plain_ms = event_ms(lambda: pw.position_weights_plain(occ, ol), 3)
+        lib_ms, lib_how = kernel_ms(lambda: torch.matmul(occ, ol.t()), None, 20)
+        diff = float((torch.matmul(occ, ol.t()) - got).abs().max())
+        bms, by = bound(nbytes(occ, ol, got), 2 * B * M * P * O)
+        log(f"kernel position_weights M={M} P={P} O={O} B={B}: bit-equal to plain on the "
+            f"card and on the CPU, kernel {ms:.4f} ms ({how}), plain {plain_ms:.4f} ms, "
+            f"torch.matmul {lib_ms:.4f} ms ({lib_how}; max |diff| {diff:.3g}), bound "
+            f"{bms:.6f} ms ({by})")
+        rows.append(row(f"position_weights[M={M},P={P}]", "position_weights", (M, P), 0.0,
+                        ms, plain_ms, bms, by, lib_ms, timed_by=how))
     return rows
 
 
@@ -350,11 +476,26 @@ def gather_kernel_phase(seqs, lens, nsegs, families, page_len: int, dev) -> list
     return rows
 
 
+def profile_call(call) -> tuple[float, int, float]:
+    """One call under ``torch.profiler``: (wall ms, device kernels, device
+    busy ms); kernels 0 when the profiler records no device events."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall_ms, len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
 def ladder_breakdown(ladder, seqs, lens, nsegs) -> None:
     """Where one B-window ladder call goes: tier 0's three stages timed with
-    CUDA events, the whole call, and the device's busy share of the call
-    from a ``torch.profiler`` trace (kernel time over the call's wall)."""
-    from daccord_tpu_torch.kernels import dp_backtrack
+    CUDA events, the whole call, and the device kernels and busy share of
+    the call from a ``torch.profiler`` trace; then the same call with PR 5's
+    design in place of the two new kernels (the torch rescore, W by
+    ``torch.matmul``), timed and counted the same way, in turns."""
+    from daccord_tpu_torch.kernels import dp_backtrack, rescore, window_kernel
     from daccord_tpu_torch.kernels.tiers import ladder_core
     from daccord_tpu_torch.kernels.window_kernel import prep_batch, rescore_pick
     from daccord_tpu_torch.tools.timing import event_ms
@@ -373,26 +514,44 @@ def ladder_breakdown(ladder, seqs, lens, nsegs) -> None:
     dp_ms = event_ms(lambda: dp_backtrack.dp_backtrack_batch(*ins, **kw), 5)
     resc_ms = event_ms(lambda: rescore_pick(seqs, lens, nsegs, cand, clen, ok, p), 5)
     tables = tuple(ladder.tables[q.k] for q in ladder.params)
-    call = lambda: ladder_core(seqs, lens, nsegs, tables, tuple(ladder.params))
+    call = lambda: ladder_core(seqs, lens, nsegs, tables, tuple(ladder.params))  # noqa: E731
     ladder_ms = event_ms(call, 3)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    log(f"ladder breakdown, B={seqs.shape[0]}: tier-0 prep {prep_ms:.3f} ms, "
-        f"dp_backtrack {dp_ms:.3f} ms, rescore {resc_ms:.3f} ms; whole ladder "
-        f"call {ladder_ms:.3f} ms")
-    if kernels:
-        log(f"ladder call under torch.profiler: wall {wall_ms:.3f} ms, "
-            f"{len(kernels)} device kernels, device busy {busy_ms:.3f} ms "
-            f"({busy_ms / wall_ms:.4f} of the wall)")
-    else:
-        log("ladder call under torch.profiler: no device events (busy share not measured)")
+    log(f"ladder breakdown, B={seqs.shape[0]}: tier-0 prep {prep_ms:.3f} ms (W by the "
+        f"position_weights kernel), dp_backtrack {dp_ms:.3f} ms, rescore kernel "
+        f"{resc_ms:.3f} ms; whole ladder call {ladder_ms:.3f} ms")
+
+    def pr5_design():
+        # the rescore in torch and W by cuBLAS, as before this change
+        return (("rescore_pick", rescore.rescore_pick_plain),
+                ("position_weights", lambda occ, o: torch.matmul(occ, o.t())))
+
+    def with_design(design, fn):
+        saved = {name: getattr(window_kernel, name) for name, _ in design}
+        for name, f in design:
+            setattr(window_kernel, name, f)
+        try:
+            return fn()
+        finally:
+            for name, f in saved.items():
+                setattr(window_kernel, name, f)
+
+    old_ms = with_design(pr5_design(), lambda: event_ms(call, 3))
+    resc_old_ms = event_ms(lambda: rescore.rescore_pick_plain(seqs, lens, nsegs, cand, clen,
+                                                              ok, p), 3)
+    turns = []
+    for tag in ("kernels", "pr5", "pr5", "kernels"):
+        design = pr5_design() if tag == "pr5" else ()
+        turns.append((tag, with_design(design, lambda: profile_call(call))))
+    log(f"ladder call, PR 5's design (torch rescore {resc_old_ms:.3f} ms, W by "
+        f"torch.matmul): whole call {old_ms:.3f} ms")
+    for tag, (wall_ms, n, busy_ms) in turns:
+        if n:
+            log(f"ladder call under torch.profiler, {tag}: wall {wall_ms:.3f} ms, {n} "
+                f"device kernels, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.4f} "
+                f"of the wall)")
+        else:
+            log(f"ladder call under torch.profiler, {tag}: wall {wall_ms:.3f} ms, no "
+                f"device events (launches not measured)")
 
 
 def daccord(argv: list[str], counters) -> tuple:
@@ -459,6 +618,9 @@ def log_run(tag: str, stats, launched: dict) -> None:
         f"({else_s(stats) / w:.4f}); pad waste {stats.pad_waste:.4f}, H2D "
         f"{stats.h2d_bytes} bytes ({stats.h2d_bytes / n:.0f} per batch)")
     log(f"daccord {tag}: feeder stage profile {json.dumps(stats.stage_profile)}")
+    log(f"daccord {tag}: supervisor {json.dumps(stats.sup_counters)}, degraded "
+        f"{stats.degraded}; shadow audit (rate 1/64) audit_s {stats.audit_s:.4f} s, "
+        f"{stats.audit_s / w:.4f} of the wall")
     for name, (total, by_shape, windows) in launched.items():
         shapes = ", ".join(f"{k}: {v}" for k, v in sorted(by_shape.items()))
         log(f"daccord {tag}: {name} launches {total} ({shapes})")
@@ -624,6 +786,135 @@ def slice_checks(d: dict, eprof: str, dense: tuple, counters, tmp: str) -> None:
     log("-J 0,3 + -J 1,3 + -J 2,3 concatenated == the unsharded FASTA, byte for byte")
 
 
+TRAP_RUN = """
+import json, os, sys
+from daccord_tpu_torch.kernels import window_kernel
+from daccord_tpu_torch.tools.cli import daccord_run
+
+real, calls = window_kernel.prep_batch, [0]
+
+
+def prep(seqs, lens, nsegs, ol, p):
+    g = real(seqs, lens, nsegs, ol, p)
+    if g["adjW"].is_cuda:
+        calls[0] += 1
+        if calls[0] == int(os.environ["TRAP_AT"]):
+            g["adjW"][0, 0, 0] = 1.0   # no bit holds it: the DP kernel traps
+    return g
+
+
+window_kernel.prep_batch = prep
+stats, _ = daccord_run(sys.argv[1:])
+print("STATS " + json.dumps(dict(degraded=stats.degraded, reason=stats.fallback_reason,
+                                 counters=stats.sup_counters, n_solved=stats.n_solved)))
+"""
+
+
+def supervisor_phase(d: dict, eprof: str, counters, tmp: str) -> None:
+    """Phase 7: ``daccord`` on the first quarter of the 20 kb set at ``-b
+    512`` under each ``DACCORD_FAULT`` kind, against the clean run of the
+    same shard; the native failover; a real kernel trap in a child process;
+    an audit of every window."""
+    base = [d["db"], d["las"], "-E", eprof, "-b", str(SUP_B), "--device", DEVICE,
+            "--paged", "off", "--dp", "fused"]
+
+    def run(tag: str, spec, *extra, shard=SUP_SHARD):
+        out = os.path.join(tmp, f"sup_{tag}.fasta")
+        ev = os.path.join(tmp, f"sup_{tag}.events.jsonl")
+        env = {"DACCORD_COMPCACHE": os.path.join(tmp, f"cc_{tag}"),
+               "DACCORD_SUP_BACKOFF_S": "0.05"}
+        saved = {k: os.environ.get(k) for k in (*env, "DACCORD_FAULT")}
+        os.environ.update(env)
+        os.environ.pop("DACCORD_FAULT", None)
+        if spec:
+            os.environ["DACCORD_FAULT"] = spec
+        try:
+            stats, _ = daccord([*base, "-J", shard, "-o", out, "--events", ev, *extra],
+                               counters)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        from daccord_tpu_torch.tools.eventcheck import validate_events
+
+        errs = validate_events(ev, strict=True)
+        if errs:
+            raise AssertionError(f"supervisor {tag}: events fail eventcheck: {errs[:3]}")
+        with open(ev) as fh:
+            recs = [json.loads(x) for x in fh]
+        chain = [f"{r['state_from']}>{r['state_to']}" for r in recs
+                 if r["event"] == "sup_state"]
+        return out, stats, recs, chain
+
+    def text(path: str) -> str:
+        with open(path) as fh:
+            return fh.read()
+
+    clean_out, clean_st, _, _ = run("clean", None, "--audit-rate", "0")
+    ops = 2 * clean_st.n_batches
+    log(f"supervisor phase, -J {SUP_SHARD} -b {SUP_B}: clean run {clean_st.n_windows} "
+        f"windows, {clean_st.n_batches} batches, wall {clean_st.wall_s:.3f} s")
+    cases = (("device_lost, --failover-backend cpu", f"device_lost:{ops // 2}",
+              ("--failover-backend", "cpu", "--audit-rate", "0"),
+              lambda st: st.degraded and "device_lost" in st.fallback_reason),
+             ("fetch_hang", "fetch_hang:3", ("--audit-rate", "0"),
+              lambda st: not st.degraded and st.sup_counters["timeouts"] == 1),
+             ("dispatch_error", "dispatch_error:4", ("--audit-rate", "0"),
+              lambda st: not st.degraded and st.sup_counters["retries"] == 1),
+             ("device_oom", "device_oom:5", ("--audit-rate", "0"),
+              lambda st: not st.degraded and st.n_capacity_events >= 1),
+             ("sdc", "sdc:3", ("--audit-rate", "0.25"),
+              lambda st: not st.degraded and st.sup_counters["sdc_detected"] == 1))
+    for i, (tag, spec, extra, ok) in enumerate(cases):
+        out, st, _, chain = run(f"case{i}", spec, *extra)
+        if text(out) != text(clean_out):
+            raise AssertionError(f"supervisor {tag} ({spec}): FASTA differs from the clean run")
+        if not ok(st):
+            raise AssertionError(f"supervisor {tag} ({spec}): unexpected outcome "
+                                 f"{st.sup_counters}, degraded {st.degraded}")
+        log(f"supervisor {tag} ({spec}): FASTA byte-identical to the clean run; wall "
+            f"{st.wall_s:.3f} s; transitions {' '.join(chain)}; counters "
+            f"{json.dumps(st.sup_counters)}; capacity events {st.n_capacity_events}, "
+            f"ratchet {st.governor_ratchet}, audit_s {st.audit_s:.3f}")
+
+    # auto is the native engine on cuda (a CPU rehearsal names it)
+    auto = () if DEVICE == "cuda" else ("--failover-backend", "native")
+    out, st, recs, chain = run("native", f"device_lost:{ops // 2}", "--audit-rate", "0", *auto)
+    fb = [r["fallback"] for r in recs if r["event"] == "sup_failover"]
+    if not st.degraded or fb != ["native-ladder"]:
+        raise AssertionError(f"supervisor native failover: degraded {st.degraded}, {fb}")
+    log(f"supervisor device_lost, default (native) failover: "
+        f"{within_drift(records(out), records(clean_out), 'native failover')}; wall "
+        f"{st.wall_s:.3f} s; transitions {' '.join(chain)}")
+
+    trap_out = os.path.join(tmp, "sup_trap.fasta")
+    res = subprocess.run(
+        [sys.executable, "-c", TRAP_RUN, *base, "-J", SUP_SHARD, "-o", trap_out,
+         "--failover-backend", "cpu", "--audit-rate", "0"],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "TRAP_AT": "4", "DACCORD_COMPCACHE": os.path.join(tmp, "cc_trap")})
+    if "STATS " not in res.stdout:
+        raise AssertionError(f"the trapped run did not finish:\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-3000:]}")
+    tstats = json.loads(res.stdout.split("STATS ", 1)[1].splitlines()[0])
+    if not tstats["degraded"] or text(trap_out) != text(clean_out):
+        raise AssertionError(f"the trapped run: {tstats}; FASTA identical "
+                             f"{text(trap_out) == text(clean_out)}")
+    log(f"supervisor, a real trap of dp_backtrack in a child process (exit "
+        f"{res.returncode}): failed over ({tstats['reason']}), FASTA byte-identical to "
+        f"the clean run; counters {json.dumps(tstats['counters'])}")
+
+    small_out, _, _, _ = run("clean16", None, "--audit-rate", "0", shard="0,16")
+    out, st, recs, _ = run("audit1", None, "--audit-rate", "1", shard="0,16")
+    if any(r["event"] == "sup_sdc" for r in recs) or text(out) != text(small_out):
+        raise AssertionError("an audit of every window of a clean run found a divergence")
+    log(f"supervisor --audit-rate 1 on -J 0,16 ({st.n_windows} windows): no sup_sdc in "
+        f"{st.sup_counters['audits']} audited batches, FASTA byte-identical; audit_s "
+        f"{st.audit_s:.3f} s of a {st.wall_s:.3f} s wall")
+
+
 def fasta_drift(a: str, b: str) -> tuple[int, int, int, int]:
     """(records of ``a``, records of ``b`` identical to them, bases of ``a``,
     bases of ``b``)."""
@@ -646,7 +937,7 @@ def main() -> int:
     from daccord_tpu_torch.formats.dazzdb import read_db
     from daccord_tpu_torch.formats.las import LasFile
     from daccord_tpu_torch.kernels import (dp_backtrack, gather_pages, heaviest_path,
-                                           nvcc, paging)
+                                           nvcc, paging, position_weights, rescore)
     from daccord_tpu_torch.kernels.tensorize import BatchShape, WindowBatch
     from daccord_tpu_torch.kernels.tiers import (TierLadder, ladder_core,
                                                  ladder_core_paged, pack_result,
@@ -687,7 +978,7 @@ def main() -> int:
         for line in nvcc.logs.get(name, "").splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
-    counters = (dp_backtrack, heaviest_path, gather_pages)
+    counters = (dp_backtrack, heaviest_path, gather_pages, rescore, position_weights)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t0 = time.perf_counter()
@@ -744,9 +1035,14 @@ def main() -> int:
         dense_launch = runs["dense fused"][2]
         paged_launch = runs["paged scan"][2]
         for run_launched, name in ((dense_launch, "dp_backtrack"),
+                                   (dense_launch, "rescore"),
+                                   (dense_launch, "position_weights"),
                                    (paged_launch, "heaviest_path"),
                                    (paged_launch, "gather_pages"),
-                                   (runs["100 kb dense fused"][2], "dp_backtrack")):
+                                   (paged_launch, "rescore"),
+                                   (paged_launch, "position_weights"),
+                                   (runs["100 kb dense fused"][2], "dp_backtrack"),
+                                   (runs["100 kb dense fused"][2], "rescore")):
             if run_launched[name][0] <= 0:
                 raise AssertionError(f"the main path never launched the {name} kernel")
         if not runs["paged scan"][1].paged:
@@ -778,6 +1074,9 @@ def main() -> int:
                   "heaviest_path": mean_batches(paged_launch, "heaviest_path")}
         rows = dp_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b)
         rows += gather_kernel_phase(seqs, lens, nsegs, families, cfg.page_len, dev)
+        rows += rescore_kernel_phase(ladder, seqs, lens, nsegs, dev,
+                                     mean_batches(dense_launch, "rescore"))
+        rows += weights_kernel_phase(ladder, seqs, lens, nsegs, dev)
 
         # ---- 6. one batch through every route -------------------------------
         tseqs, tlens, tnsegs = (torch.as_tensor(a[:B], device=dev)
@@ -819,17 +1118,25 @@ def main() -> int:
         ladder_breakdown(ladder, tseqs, tlens, tnsegs)
 
         cpu = tuple(t.cpu() for t in tables)
-        ref = unpack_result(pack_result(ladder_core(
-            tseqs.cpu(), tlens.cpu(), tnsegs.cpu(), cpu, params)).numpy(),
-            params[0].cons_len)
+        cpu_packed = pack_result(ladder_core(tseqs.cpu(), tlens.cpu(), tnsegs.cpu(), cpu,
+                                             params))
+        ref = unpack_result(cpu_packed.numpy(), params[0].cons_len)
         differ = int(sum(
             (res["solved"][i] != ref["solved"][i])
             or (res["solved"][i] and (res["cons_len"][i] != ref["cons_len"][i]
                                       or res["cons"][i].tobytes() != ref["cons"][i].tobytes()))
             for i in range(B)))
-        log(f"same batch on the CPU: {differ}/{B} windows differ")
-        if differ > 0.005 * B:
-            raise AssertionError(f"card and CPU ladders differ on {differ} windows")
+        same_bits = torch.equal(cpu_packed, kern.cpu())
+        log(f"same batch through the CPU ladder: {differ}/{B} windows differ; packed "
+            f"results (cons, cons_len, err, tier, top-M flag) bit-equal: {same_bits}")
+        if differ or not same_bits:
+            raise AssertionError(f"card and CPU ladders differ ({differ} windows; "
+                                 f"bit-equal {same_bits})")
+
+        # ---- 7. the supervisor ----------------------------------------------
+        t0 = time.perf_counter()
+        supervisor_phase(d, eprof, counters, tmp)
+        log(f"supervisor phase: {time.perf_counter() - t0:.1f} s")
 
         for tag, (out, _, _, ds) in runs.items():
             t0 = time.perf_counter()
@@ -844,7 +1151,8 @@ def main() -> int:
 
     for r in rows:
         kernel = r.pop("kernel")
-        run_launched = dense_launch if kernel == "dp_backtrack" else paged_launch
+        run_launched = (paged_launch if kernel in ("heaviest_path", "gather_pages")
+                        else dense_launch)
         r["launches"] = run_launched[kernel][1].get(r.pop("key"), 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_by", "path_B",

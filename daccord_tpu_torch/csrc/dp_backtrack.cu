@@ -54,28 +54,45 @@ struct FusedConfig {
     static constexpr int THREADS = S * MP;    // one window a block
     static constexpr int ZS = S * (U + 4);    // one term buffer
     static constexpr int WARPS = THREADS / 32;
+    static constexpr bool OVERLAY = MP > 256; // the wide windows' layout
 };
 
 // Shared memory of one block, in bytes from its start: 4-byte arrays first,
-// then the uint16 pointer stack, then bytes.
+// then the uint16 pointer stack, then bytes. With ``overlay`` (the wide
+// windows, M > 256) the adjacency bits share their bytes with the score rows
+// and the pointer stack: the bits are read only into registers before the
+// DP, and at M=1024 the three together would not fit the SM (130 + 68 + 84
+// KB of its 227 KB).
 struct FusedLayout {
     int z, n, bits, esc, sel, kpath, rv, ri, tb, pst, snk, chosen, total;
 };
 
-__host__ __device__ inline FusedLayout fused_layout(int ZS, int M, int P, int T)
+__host__ __device__ inline FusedLayout fused_layout(int ZS, int M, int P, int T,
+                                                    bool overlay = false)
 {
     FusedLayout L;
     int o = 0;
     L.z = o;      o += 4 * 2 * ZS;                // [2][ZS] f32
     L.n = o;      o += 4 * 2 * ZS;                // [2][ZS] f32
-    L.bits = o;   o += 4 * bits_words(M * M);
-    L.esc = o;    o += 4 * T * M;                 // [T][M] f32, rows t_lo..t_hi
+    if (overlay) {
+        const int bits = 4 * bits_words(M * M);
+        const int rows = 4 * T * M + 2 * P * M;
+        L.bits = o;
+        L.esc = o;                                // [T][M] f32, rows t_lo..t_hi
+        L.pst = o + 4 * T * M;                    // [P][M] u16
+        o += ((bits > rows ? bits : rows) + 3) & ~3;
+    } else {
+        L.bits = o;   o += 4 * bits_words(M * M);
+        L.esc = o;    o += 4 * T * M;             // [T][M] f32, rows t_lo..t_hi
+    }
     L.sel = o;    o += 4 * M;                     // [M] i32
     L.kpath = o;  o += 4 * P;                     // [P] i32
     L.rv = o;     o += 4 * 32;                    // [32] f32, per-warp maxima
     L.ri = o;     o += 4 * 32;                    // [32] i32, their indices
     L.tb = o;     o += 4;                         // i32
-    L.pst = o;    o += 2 * P * M;                 // [P][M] u16
+    if (!overlay) {
+        L.pst = o; o += 2 * P * M;                // [P][M] u16
+    }
     L.snk = o;    o += M;                         // [M] u8
     L.chosen = o; o += M;                         // [M] u8
     L.total = o;
@@ -114,7 +131,7 @@ dp_backtrack_kernel(
     using F = FusedConfig<S, U, K>;
     extern __shared__ __align__(16) unsigned char smem[];
     const int T = t_hi - t_lo + 1;
-    const FusedLayout L = fused_layout(F::ZS, M, P, T);
+    const FusedLayout L = fused_layout(F::ZS, M, P, T, F::OVERLAY);
     float* Z = reinterpret_cast<float*>(smem + L.z);
     float* N = reinterpret_cast<float*>(smem + L.n);
     unsigned* bits = reinterpret_cast<unsigned*>(smem + L.bits);
@@ -141,6 +158,7 @@ dp_backtrack_kernel(
     __syncthreads();
     unsigned cw[U / 32];
     column_bits<U>(bits, M, s * U, v, cw);
+    if (F::OVERLAY) __syncthreads();          // the bits' bytes are reused below
 
     const float* w = wt + (size_t)b * P * M;
     const int zv = zpad<U>(v);
@@ -255,7 +273,7 @@ static int launch(const void* adjW, const void* wt, const void* s0, const void* 
                   cudaStream_t stream)
 {
     using F = FusedConfig<S, U, K>;
-    const size_t smem = fused_layout(F::ZS, M, P, t_hi - t_lo + 1).total;
+    const size_t smem = fused_layout(F::ZS, M, P, t_hi - t_lo + 1, F::OVERLAY).total;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             dp_backtrack_kernel<S, U, K>,
@@ -277,13 +295,20 @@ extern "C" int dp_backtrack_launch(
 {
     if (B == 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    // the split follows from M alone: two threads a column, one window a block
+    // the split follows from M alone: two threads a column up to M=512, one
+    // above (a block holds at most 1024 threads), one window a block
     if (M <= 64)
         return launch<2, 32, 2>(adjW, wt, s0, snk, sel, cand, clen, ok, B, M, P,
                                 C, CL, k, t_lo, t_hi, st);
     if (M <= 256)
         return launch<2, 128, 4>(adjW, wt, s0, snk, sel, cand, clen, ok, B, M, P,
                                  C, CL, k, t_lo, t_hi, st);
+    if (M <= 512)
+        return launch<2, 256, 4>(adjW, wt, s0, snk, sel, cand, clen, ok, B, M, P,
+                                 C, CL, k, t_lo, t_hi, st);
+    if (M <= 1024)
+        return launch<1, 1024, 4>(adjW, wt, s0, snk, sel, cand, clen, ok, B, M, P,
+                                  C, CL, k, t_lo, t_hi, st);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -134,9 +134,12 @@ extern "C" int heaviest_path_launch(
     float* sc = (float*)scores;
     int32_t* pt = (int32_t*)ptrs;
     cudaStream_t st = (cudaStream_t)stream;
-    // the split follows from M alone: two threads a column, one window a block
+    // the split follows from M alone: two threads a column up to M=512, one
+    // above (a block holds at most 1024 threads), one window a block
     if (M <= 64) return launch<2, 32, 2>(a, w, s, sc, pt, B, M, P, st);
     if (M <= 256) return launch<2, 128, 4>(a, w, s, sc, pt, B, M, P, st);
+    if (M <= 512) return launch<2, 256, 4>(a, w, s, sc, pt, B, M, P, st);
+    if (M <= 1024) return launch<1, 1024, 4>(a, w, s, sc, pt, B, M, P, st);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -10,6 +10,8 @@ import io
 from dataclasses import dataclass
 from typing import Iterable, Iterator
 
+from ..utils import aio
+
 
 @dataclass
 class FastaRecord:
@@ -44,7 +46,7 @@ def read_fasta(path_or_file) -> Iterator[FastaRecord]:
 
 def write_fasta(path_or_file, records: Iterable[FastaRecord | tuple], width: int = 80) -> None:
     own = isinstance(path_or_file, (str, bytes))
-    fh: io.TextIOBase = open(path_or_file, "wt") if own else path_or_file
+    fh: io.TextIOBase = aio.open_output(path_or_file, "wt") if own else path_or_file
     try:
         for rec in records:
             if isinstance(rec, tuple):

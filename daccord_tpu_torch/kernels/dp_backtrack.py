@@ -16,7 +16,8 @@ batch the path gives each shape).
 
 The kernel reads the adjacency as bits: ``adjW`` must hold only +0.0 and
 -1e30 (what ``prep_batch`` makes), and any other value traps the kernel,
-which leaves the CUDA context unusable. It takes M up to ``MAX_M``.
+which leaves the CUDA context unusable. It takes M up to ``MAX_M`` where
+its shared memory (:func:`fused_smem`) fits a block.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from . import nvcc as _nvcc
 
 NEG = -1e30
 PAD = 4
-MAX_M = 256          # the kernel's widest window (csrc/dp_backtrack.cu)
+MAX_M = 1024         # the kernels' widest window: one thread a column
+SMEM_MAX = 232_448   # shared memory one block may take on sm_90 (227 KB)
 
 #: kernel launches since the count was last set to 0, in all and by (M, P),
 #: and the windows those launches took, by (M, P)
@@ -65,6 +67,51 @@ def _load():
         lib.dp_backtrack_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _split(M: int) -> tuple[int, int]:
+    """(S, U) of the kernels' launch for width M (``dp_*_launch`` in the
+    sources): S threads a column, U predecessors a thread."""
+    for top, su in ((64, (2, 32)), (256, (2, 128)), (512, (2, 256)), (1024, (1, 1024))):
+        if M <= top:
+            return su
+    raise ValueError(f"M={M} exceeds the kernels' {MAX_M}")
+
+
+def _bits_words(n_el: int) -> int:
+    q = max((n_el + 31) // 32 - 1, 0)
+    return q + (q >> 6) + 1
+
+
+def fused_smem(M: int, P: int, T: int) -> int:
+    """Bytes of shared memory a block of ``csrc/dp_backtrack.cu`` takes
+    (its ``fused_layout``): the term buffers, the adjacency bits, the T
+    admissible score rows and the uint16 pointer stack (the bits sharing
+    their bytes with the last two above M=256), the codes and the walk."""
+    S, U = _split(M)
+    zs = 4 * 2 * 2 * S * (U + 4)
+    bits = 4 * _bits_words(M * M)
+    rows = 4 * T * M + 2 * P * M
+    big = (max(bits, rows) + 3) & ~3 if S * U > 256 else bits + rows
+    return zs + big + 4 * M + 4 * P + 4 * 32 * 2 + 4 + 2 * M
+
+
+def scan_smem(M: int) -> int:
+    """Bytes of shared memory a block of ``csrc/heaviest_path.cu`` takes."""
+    S, U = _split(M)
+    return 4 * 4 * S * (U + 4) + 4 * _bits_words(M * M)
+
+
+def check_width(M: int, P: int, T: int, route: str = "fused") -> None:
+    """Raise when the route's kernel cannot take a window of top-M ``M`` and
+    P DP steps (T admissible end steps): M above ``MAX_M``, or shared
+    memory above ``SMEM_MAX``."""
+    if M > MAX_M:
+        raise ValueError(f"top-M {M} exceeds the kernels' {MAX_M}")
+    need = fused_smem(M, P, T) if route == "fused" else scan_smem(M)
+    if need > SMEM_MAX:
+        raise ValueError(f"top-M {M} with {P} DP steps needs {need} bytes of shared "
+                         f"memory a block, above the card's {SMEM_MAX}")
 
 
 def _check(adjW, wt, s0, snk_ok, sel, cons_len, t_lo, t_hi):
@@ -105,8 +152,7 @@ def dp_backtrack_batch(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
                                   t_lo=t_lo, t_hi=t_hi)
     if dev.type != "cuda":
         raise ValueError(f"dp_backtrack: no kernel for device {dev}")
-    if M > MAX_M:
-        raise ValueError(f"dp_backtrack: M={M} exceeds the kernel's {MAX_M}")
+    check_width(M, P, t_hi - t_lo + 1, "fused")
     if not all(t.is_contiguous() for t in (adjW, wt, s0, snk_ok, sel)):
         raise ValueError("dp_backtrack: inputs must be contiguous")
     C, CL = n_candidates, cons_len
@@ -208,38 +254,37 @@ def candidates_backtrack(scores: torch.Tensor, ptrs: torch.Tensor,
     final = torch.where(t_ok & snk_ok[:, None, :], scores, neg)
     flat_idx = (iota_t * M + iota_v).expand(B, P, M)
 
-    rows = torch.arange(B, device=dev)
     iota_cl = torch.arange(CL, device=dev)
     shifts = torch.clamp(2 * (k - 1 - iota_cl), 0, 30)
     tail_t = torch.clamp(iota_cl - k + 1, 0, P - 1)
     chosen = torch.zeros((B, M), dtype=torch.bool, device=dev)
-    cands, clens, oks = [], [], []
+    tbs, vbs, mxs = [], [], []
     for _ in range(C):
         fmask = torch.where(chosen[:, None, :], neg, final)
         mx = fmask.amax(dim=(1, 2))                          # [B]
         idx = torch.where(fmask == mx[:, None, None], flat_idx,
                           torch.full_like(flat_idx, P * M)).amin(dim=(1, 2))
-        t_best = idx // M
-        v_best = idx % M
-        chosen = chosen | (iota_v[0] == v_best[:, None])
+        tbs.append(idx // M)
+        vbs.append(idx % M)
+        mxs.append(mx)
+        chosen = chosen | (iota_v[0] == vbs[-1][:, None])
+    t_best = torch.stack(tbs, dim=1)                         # [B, C]
+    v_best = torch.stack(vbs, dim=1)
 
-        # ---- backtrack: walk the pointer stack from t = P-1 down to 0 -----
-        kpath = torch.empty((B, P), dtype=i32, device=dev)
-        node = torch.zeros_like(v_best)
-        for i in range(P):
-            t = P - 1 - i
-            forced = torch.where(t_best == t, v_best, node).clamp(0, M - 1)
-            kpath[:, t] = sel[rows, forced]
-            ptr_val = ptrs[rows, t, forced].to(forced.dtype)
-            node = torch.where((t <= t_best) & (t > 0), ptr_val, forced)
+    # ---- backtrack of all C candidates at once: walk the pointer stack from
+    # t = P-1 down to 0 ---------------------------------------------------
+    kpath = torch.empty((B, C, P), dtype=sel.dtype, device=dev)
+    node = torch.zeros_like(v_best)
+    for i in range(P):
+        t = P - 1 - i
+        forced = torch.where(t_best == t, v_best, node).clamp(0, M - 1)
+        kpath[:, :, t] = torch.gather(sel, 1, forced)
+        ptr_val = torch.gather(ptrs[:, t, :], 1, forced).to(forced.dtype)
+        node = torch.where((t <= t_best) & (t > 0), ptr_val, forced)
 
-        first = kpath[:, :1]
-        head = torch.bitwise_right_shift(first, shifts) & 3   # codes are >= 0
-        tail = kpath[:, tail_t] & 3
-        base = torch.where(iota_cl < k, head, tail)
-        cands.append(torch.where(iota_cl[None, :] < (t_best + k)[:, None],
-                                 base, torch.full_like(base, PAD)))
-        clens.append((t_best + k).to(i32))
-        oks.append(mx > NEG / 2)
-    return (torch.stack(cands, dim=1).to(i32), torch.stack(clens, dim=1),
-            torch.stack(oks, dim=1))
+    first = kpath[:, :, :1]
+    head = torch.bitwise_right_shift(first, shifts) & 3      # codes are >= 0
+    tail = kpath[:, :, tail_t] & 3
+    base = torch.where(iota_cl < k, head, tail)
+    cand = torch.where(iota_cl < (t_best + k)[:, :, None], base, torch.full_like(base, PAD))
+    return cand.to(i32), (t_best + k).to(i32), torch.stack(mxs, dim=1) > NEG / 2

@@ -13,7 +13,8 @@ of the fused kernel's plain version.
 by (M, P), ``windows_by_shape`` counts the windows of those launches.
 
 Like ``dp_backtrack``'s kernel, it reads the adjacency as bits: any value
-of ``adjW`` other than +0.0 and -1e30 traps it. It takes M up to ``MAX_M``.
+of ``adjW`` other than +0.0 and -1e30 traps it. It takes M up to
+``dp_backtrack.MAX_M``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import threading
 import torch
 
 from . import nvcc as _nvcc
-from .dp_backtrack import MAX_M, heaviest_path_plain
+from .dp_backtrack import check_width, heaviest_path_plain
 
 #: kernel launches since the count was last set to 0, in all and by (M, P),
 #: and the windows those launches took, by (M, P)
@@ -71,8 +72,7 @@ def heaviest_path_batch(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor):
         return heaviest_path_plain(adjW, wt, s0)
     if dev.type != "cuda":
         raise ValueError(f"heaviest_path: no kernel for device {dev}")
-    if M > MAX_M:
-        raise ValueError(f"heaviest_path: M={M} exceeds the kernel's {MAX_M}")
+    check_width(M, P, 1, "scan")
     if not all(t.is_contiguous() for t in (adjW, wt, s0)):
         raise ValueError("heaviest_path: inputs must be contiguous")
     lib = _load()

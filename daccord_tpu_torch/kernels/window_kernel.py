@@ -5,14 +5,15 @@ axis in place of ``vmap``. One batch solve has three stages:
 
 - graph construction (:func:`prep_batch`): k-mer extraction, frequency
   filtering and top-M compaction, (k+1)-mer edge support, the OffsetLikely
-  position weights as one f32 matmul, and the source/sink anchors;
+  position weights summed in one fixed order (``kernels.position_weights``,
+  the kernel on CUDA), and the source/sink anchors;
 - the heaviest path, C candidate end states and their backtrack: on the
   fused route the hand-written kernel ``kernels.dp_backtrack``, on the scan
   route the hand-written DP kernel ``kernels.heaviest_path`` then the torch
   backtrack (on the CPU, each kernel's plain version);
 - the Myers bit-parallel rescore of the candidates against the window's
-  segments (:func:`edit_distance_myers`) and the acceptance rule
-  (:func:`rescore_pick`).
+  segments and the acceptance rule (``kernels.rescore.rescore_pick``, the
+  kernel on CUDA).
 
 Semantics follow the JAX package, tie-breaking included: k-mers kept in
 code-sorted order, the lowest index among equal counts in the top-M choice,
@@ -27,6 +28,8 @@ import torch
 
 from . import dp_backtrack as _dp
 from . import heaviest_path as _hp
+from .position_weights import position_weights
+from .rescore import edit_distance_myers, rescore_pick  # noqa: F401 (re-exported)
 
 NEG = -1e30
 PAD = 4
@@ -171,101 +174,12 @@ def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
            & sel_valid[:, :, None] & sel_valid[:, None, :])
 
     # ---- position weights --------------------------------------------------
-    W = torch.matmul(occ, ol.t())                           # [B, M, P] f32
+    W = position_weights(occ, ol)                           # [B, M, P] f32
     neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
     adjW = torch.where(adj, torch.zeros((), dtype=torch.float32, device=dev), neg)
     score0 = torch.where(src_ok & sel_valid, W[:, :, 0], neg)
     return dict(sel=sel.to(torch.int32), adjW=adjW, W=W, score0=score0,
                 snk_ok=snk_ok, m_overflow=m_overflow)
-
-
-def edit_distance_myers(cand: torch.Tensor, cand_len: torch.Tensor,
-                        seg: torch.Tensor, seg_len: torch.Tensor) -> torch.Tensor:
-    """Exact unit-cost edit distance of cand[..., :cand_len] vs
-    seg[..., :seg_len], batched over the leading axes (they broadcast).
-
-    Myers/Hyyrö bit-parallel DP with the whole DP column in ONE int64 word.
-    Carries and left shifts only move bits upward, so every bit at or below
-    cand_len-1 is exact; the word is masked to the low CL bits after each step
-    so the addition never overflows, which needs CL <= 62. One step per
-    segment base; PAD (4) matches nothing."""
-    CL = cand.shape[-1]
-    if CL > 62:
-        raise ValueError(f"Myers rescore holds one int64 word: CL={CL} > 62")
-    L = seg.shape[-1]
-    dev = cand.device
-    shape = torch.broadcast_shapes(cand.shape[:-1], seg.shape[:-1])
-    i64 = torch.int64
-    pos = torch.arange(CL, device=dev)
-    valid = pos < cand_len[..., None]
-    bit = torch.bitwise_left_shift(torch.ones((), dtype=i64, device=dev), pos)
-    c64 = cand.to(i64)
-    zero = torch.zeros((), dtype=i64, device=dev)
-    peq = torch.stack([torch.where(valid & (c64 == c), bit, zero).sum(-1)
-                       for c in range(4)] + [torch.zeros_like(cand_len, dtype=i64)],
-                      dim=-1)                               # [..., 5]; PAD -> 0
-    n = cand_len.to(i64)
-    one = torch.ones((), dtype=i64, device=dev)
-    full = (1 << CL) - 1
-    vp = (torch.bitwise_left_shift(one, n) - 1).expand(shape).clone()
-    vn = torch.zeros(shape, dtype=i64, device=dev)
-    hb = torch.bitwise_left_shift(one, (n - 1).clamp(min=0)).expand(shape)
-    score = n.expand(shape).clone()
-    res = score.clone()                                     # seg_len == 0
-    peq = peq.expand(shape + (5,))
-    sl = seg_len.expand(shape)
-    s64 = seg.to(i64).expand(shape + (L,))
-    for i in range(L):
-        e = torch.gather(peq, -1, s64[..., i : i + 1])[..., 0]
-        x = e | vn
-        a = x & vp
-        d0 = ((vp + a) ^ vp) | x
-        hn = vp & d0
-        hp = vn | ~(vp | d0)
-        up = (hp & hb) != 0
-        dn = (hn & hb) != 0
-        score = score + up.to(i64) - dn.to(i64)
-        x2 = (torch.bitwise_left_shift(hp, 1) | 1) & full
-        h2 = torch.bitwise_left_shift(hn, 1) & full
-        vn = x2 & d0
-        vp = (h2 | ~(x2 | d0)) & full
-        res = torch.where(sl == i + 1, score, res)
-    return torch.where(n == 0, sl.to(i64), res)
-
-
-def rescore_pick(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
-                 cand: torch.Tensor, clen: torch.Tensor, ok: torch.Tensor,
-                 p: KernelParams) -> dict:
-    """Myers-rescore the C candidates of each window against its segments and
-    accept the argmin (the first on ties) — the tail of every solve.
-
-    seqs [B, D, L] int8, lens [B, D], nsegs [B], cand [B, C, CL] int8,
-    clen [B, C] i32, ok [B, C] bool."""
-    B, C, CL = cand.shape
-    dev = cand.device
-    seg_total = lens.sum(dim=1).clamp(min=1).to(torch.float32)       # [B]
-    dists = edit_distance_myers(cand[:, :, None, :], clen[:, :, None],
-                                seqs[:, None, :, :], lens[:, None, :])  # [B,C,D]
-    dists = torch.where(lens[:, None, :] > 0, dists, torch.zeros_like(dists))
-    errs = dists.sum(dim=2).to(torch.int32).to(torch.float32) / seg_total[:, None]
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
-    errs = torch.where(ok, errs, inf)
-    # argmin, the lowest index among equal errors (an all-inf row gives 0)
-    ar_c = torch.arange(C, device=dev)
-    ci = torch.where(errs == errs.amin(dim=1, keepdim=True), ar_c,
-                     torch.full_like(ar_c, C)).amin(dim=1)
-    rows = torch.arange(B, device=dev)
-    best_err = errs[rows, ci]
-    best_cons = cand[rows, ci]
-    best_len = torch.where(ok[rows, ci], clen[rows, ci], torch.zeros_like(ci, dtype=clen.dtype))
-    any_path = ok.any(dim=1)
-    max_err = torch.tensor(p.max_err, dtype=torch.float32, device=dev)
-    solved = any_path & (best_err <= max_err) & (nsegs >= p.min_depth)
-    return dict(cons=torch.where(solved[:, None], best_cons,
-                                 torch.full_like(best_cons, PAD)).to(torch.int8),
-                cons_len=torch.where(solved, best_len, torch.zeros_like(best_len)),
-                err=torch.where(any_path, best_err, inf),
-                solved=solved)
 
 
 def solve_batch_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,

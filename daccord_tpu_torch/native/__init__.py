@@ -1,7 +1,8 @@
 """The port's C++ host library: build with g++ and load with ctypes.
 
 ``native/dazz_native.cpp`` (the columnar LAS loader, the pile windowing, the
-2-bit decode, the stitch splice and the exact distances) compiles with
+2-bit decode, the stitch splice, the exact distances and the window-consensus
+engine ``solve_windows``) compiles with
 ``g++ -O3 -march=native`` into ``daccord_tpu_torch/_build/`` at first use.
 The file name carries a hash of the source, the flags and the host CPU (the
 ``model name`` and ``flags`` lines of ``/proc/cpuinfo``): a library built
@@ -116,5 +117,11 @@ def load() -> ctypes.CDLL:
         lib.align_map.argtypes = [p, c.c_int32, p, c.c_int32, p]
         lib.infix_distance.restype = c.c_int64
         lib.infix_distance.argtypes = [p, c.c_int32, p, c.c_int32]
+        lib.solve_windows.restype = c.c_int
+        lib.solve_windows.argtypes = (
+            [p] * 3 + [c.c_int32] * 3        # seqs, lens, nsegs, B, D, L
+            + [p] * 8 + [c.c_int32] * 7      # tables .. tier_M, n_tiers .. min_depth
+            + [c.c_float] * 2 + [c.c_int32]  # max_err, count_frac, n_threads
+            + [p] * 5)                       # cons, cons_len, errs, tiers, movf
         _lib = lib
         return lib

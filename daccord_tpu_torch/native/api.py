@@ -166,3 +166,83 @@ def _n_tiles(abpos: np.ndarray, aepos: np.ndarray, tspace: int) -> np.ndarray:
     ab = abpos.astype(np.int64)
     ae = aepos.astype(np.int64)
     return np.where(ae > ab, (ae - 1) // tspace - ab // tspace + 1, 0)
+
+
+class NativeLadder:
+    """Pre-packed tier tables and parameters for the host library's window
+    consensus engine (``solve_windows``): the port's copy of
+    ``daccord_tpu/native/api.py NativeLadder`` without the homopolymer
+    rescue. Build once a run, call :meth:`solve` a batch.
+
+    ``max_kmers=0`` is the full-graph oracle semantics (no truncation,
+    ``m_ovf`` all False); ``max_kmers > 0`` mirrors the device ladder's top-M
+    compaction, the min_count <= 1 rescue tiers at ``rescue_max_kmers``.
+    ``ol_tables``: k -> ``OffsetLikely``; ``cfg``: ``ConsensusConfig``."""
+
+    def __init__(self, ol_tables: dict, cfg, max_kmers: int = 0,
+                 rescue_max_kmers: int = 256, _share=None):
+        self.cfg = cfg
+        d = cfg.dbg
+        tiers = list(cfg.tiers)
+        if _share is not None:
+            # caps-only variant: the packed tables are shared with the donor
+            for f in ("tables", "table_off", "tier_k", "tier_minc",
+                      "tier_eminc", "tier_P", "tier_O"):
+                setattr(self, f, getattr(_share, f))
+        else:
+            tabs, offs = [], [0]
+            for k, _, _ in tiers:
+                t = np.ascontiguousarray(ol_tables[k].table, dtype=np.float32)
+                tabs.append(t.reshape(-1))
+                offs.append(offs[-1] + t.size)
+            self.tables = np.concatenate(tabs)
+            self.table_off = np.asarray(offs[:-1], dtype=np.int64)
+            self.tier_k = np.asarray([t[0] for t in tiers], dtype=np.int32)
+            self.tier_minc = np.asarray([t[1] for t in tiers], dtype=np.int32)
+            self.tier_eminc = np.asarray([t[2] for t in tiers], dtype=np.int32)
+            self.tier_P = np.asarray([ol_tables[t[0]].P for t in tiers], dtype=np.int32)
+            self.tier_O = np.asarray([ol_tables[t[0]].O for t in tiers], dtype=np.int32)
+        self.tier_M = np.asarray(
+            [0 if max_kmers <= 0 else (rescue_max_kmers if t[1] <= 1 else max_kmers)
+             for t in tiers], dtype=np.int32)
+        self.n_tiers = len(tiers)
+        self.CL = cfg.w + d.len_slack
+        self._d = d
+
+    def with_caps(self, max_kmers: int, rescue_max_kmers: int = 256) -> "NativeLadder":
+        """Caps-only variant sharing this ladder's packed tables."""
+        return NativeLadder(None, self.cfg, max_kmers, rescue_max_kmers, _share=self)
+
+    def solve(self, batch, n_threads: int = 1) -> dict:
+        """The tier ladder over a dense batch: cons [B, CL] int8, cons_len,
+        err, solved, tier, m_ovf (the ``solve_ladder`` dict)."""
+        lib = load()
+        d = self._d
+        seqs = np.ascontiguousarray(batch.seqs, dtype=np.int8)
+        lens = np.ascontiguousarray(batch.lens, dtype=np.int32)
+        nsegs = np.ascontiguousarray(batch.nsegs, dtype=np.int32)
+        B, D, L = seqs.shape
+        cons = np.empty((B, self.CL), dtype=np.int8)
+        cons_len = np.empty(B, dtype=np.int32)
+        errs = np.empty(B, dtype=np.float32)
+        tiers_out = np.empty(B, dtype=np.int32)
+        movf = np.empty(B, dtype=np.uint8)
+        rc = lib.solve_windows(
+            _ptr(seqs), _ptr(lens), _ptr(nsegs), B, D, L,
+            _ptr(self.tables), _ptr(self.table_off), _ptr(self.tier_k),
+            _ptr(self.tier_minc), _ptr(self.tier_eminc), _ptr(self.tier_P),
+            _ptr(self.tier_O), _ptr(self.tier_M), self.n_tiers,
+            self.cfg.w, d.anchor_slack, d.end_slack, d.len_slack,
+            d.n_candidates, d.min_depth, d.max_err, d.count_frac, int(n_threads),
+            _ptr(cons), _ptr(cons_len), _ptr(errs), _ptr(tiers_out), _ptr(movf))
+        if rc != 0:
+            raise RuntimeError(f"solve_windows failed: {rc}")
+        return dict(cons=cons, cons_len=cons_len, err=errs, solved=tiers_out >= 0,
+                    tier=tiers_out, m_ovf=movf.astype(bool))
+
+
+def solve_windows_native(batch, ol_tables: dict, cfg, n_threads: int = 1,
+                         max_kmers: int = 0, rescue_max_kmers: int = 256) -> dict:
+    """The host library's tier ladder over one dense batch; a one-shot
+    :class:`NativeLadder` (callers making many calls hold one instead)."""
+    return NativeLadder(ol_tables, cfg, max_kmers, rescue_max_kmers).solve(batch, n_threads)

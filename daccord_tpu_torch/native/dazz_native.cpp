@@ -1,5 +1,6 @@
-// The port's host library: the feeder half of the JAX package's C++ host
-// library, copied into the port so that the port builds and loads its own.
+// The port's host library: the feeder half and the window-consensus engine
+// of the JAX package's C++ host library, copied into the port so that the
+// port builds and loads its own.
 //
 // - las_scan / las_load: the columnar LAS loader (two passes: totals, then
 //   caller-allocated columns; 1- or 2-byte trace points by tspace).
@@ -10,6 +11,9 @@
 // - suffix_prefix: the stitch splice (best suffix(a) x prefix(b)).
 // - decode_reads: 2-bit .bps batch decode.
 // - edit_distance_sum, align_map, infix_distance: exact unit-cost distances.
+// - solve_windows: the tier ladder over a batch of windows on the host, the
+//   supervisor's native failover engine (the homopolymer rescue of the JAX
+//   library is not copied).
 //
 // A plain C ABI for ctypes, built with g++ by daccord_tpu_torch/native. The
 // realignment replicates the numpy align_path of daccord_tpu_torch/oracle/
@@ -18,9 +22,15 @@
 // write byte-identical windows.
 
 #include <algorithm>
+#include <atomic>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <limits>
+#include <thread>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -606,6 +616,540 @@ int64_t infix_distance(const int8_t* a, int32_t n, const int8_t* b,
     if (score < best) best = score;
   }
   return best;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Native window-consensus engine: C++ replica of the oracle spec
+// (oracle/dbg.py window_consensus + oracle/consensus.py solve_window tier
+// ladder — the reference's handleWindow/DebruijnGraph<k> per SURVEY.md §3.3;
+// reference file:line pending backfill, mount empty). Full-graph semantics
+// (no top-M cap), same thresholds, same tie-breaks (candidate order = score
+// desc then flat index asc, matching the oracle's stable argsort; DP argmax
+// keeps the lowest u). Float accumulation is sequential f32, which can
+// differ from numpy's blocked BLAS reductions in the last ulp — parity is
+// asserted at the consensus-sequence level (tests/test_native.py).
+//
+// Consumes the pipeline's WindowBatch tensor layout directly:
+// seqs [B, D, L] int8 (PAD-filled), lens [B, D] i32, nsegs [B] i32.
+
+namespace dbgc {
+
+constexpr float NEGF = -1e30f;
+
+static int band_for(int n, int m) {  // the one band formula (spec + fast)
+  int band = std::abs(n - m) + std::max(16, std::max(n, m) >> 2);
+  return std::max(band, std::abs(n - m) + 1);
+}
+
+// oracle.align.edit_distance replica: banded unit-cost DP, int32, band
+// derived exactly as the spec does (NOT verify-retried — the banded value IS
+// the spec the kernel parity tests are calibrated against).
+static int32_t edit_distance_spec(const int8_t* a, int n, const int8_t* b,
+                                  int m) {
+  if (n == 0) return m;
+  if (m == 0) return n;
+  const int band = band_for(n, m);
+  static thread_local std::vector<int32_t> pv, cv;
+  pv.resize(m + 1);
+  cv.resize(m + 1);
+  int32_t* prev = pv.data();
+  int32_t* cur = cv.data();
+  const int32_t BIG = 1 << 30;
+  for (int j = 0; j <= m; ++j) prev[j] = j;
+  for (int i = 1; i <= n; ++i) {
+    const int lo = std::max(1, i - band);
+    const int hi = std::min(m, i + band);
+    cur[lo - 1] = (lo == 1) ? i : BIG;
+    int32_t run = cur[lo - 1];
+    const int8_t ai = a[i - 1];
+    for (int j = lo; j <= hi; ++j) {
+      const int32_t sub = prev[j - 1] + (b[j - 1] != ai);
+      const int32_t del = prev[j] + 1;
+      int32_t best = sub < del ? sub : del;
+      ++run;
+      if (best < run) run = best;
+      cur[j] = run;
+    }
+    if (hi < m) cur[hi + 1] = BIG;  // next row reads prev[hi+1]
+    std::swap(prev, cur);
+  }
+  return prev[m];
+}
+
+// Myers/Hyyrö bit-parallel exact edit distance for candidate rescoring,
+// n <= 64 (cand_len <= wlen + len_slack = 48): one uint64 word of VP/VN,
+// ~15 bitwise ops per segment char. Formulation mirrors the device kernel's
+// _edit_distance_myers (window_kernel.py), which is bit-parity-tested
+// against the exact anti-diagonal DP. The SPEC the oracle defines is the
+// BANDED distance (edit_distance_spec above), which equals the exact
+// distance whenever exact <= band — always true for real candidate/segment
+// pairs at these lengths; rare junk pairs (and any out-of-alphabet bytes)
+// fall back to the banded replica so native == oracle stays bit-exact.
+
+struct MyersCand {   // per-candidate precompute, reused across all segments
+  uint64_t peq[5];
+  uint64_t vp_init, hb;
+  int n;
+  bool ok;
+};
+
+static void myers_prep(const int8_t* a, int n, MyersCand& mc) {
+  mc.n = n;
+  mc.ok = n > 0 && n <= 64;
+  if (!mc.ok) return;
+  for (int c = 0; c < 5; ++c) mc.peq[c] = 0;
+  for (int i = 0; i < n; ++i) {
+    const uint8_t c = (uint8_t)a[i];
+    if (c > 4) { mc.ok = false; return; }   // out-of-alphabet: spec path
+    mc.peq[c] |= 1ull << i;
+  }
+  mc.vp_init = (n == 64) ? ~0ull : ((1ull << n) - 1);
+  mc.hb = 1ull << (n - 1);
+}
+
+static int32_t edit_distance_fast(const MyersCand& mc, const int8_t* a,
+                                  const int8_t* b, int m, bool b_checked) {
+  const int n = mc.n;
+  if (!mc.ok || m == 0) return edit_distance_spec(a, n, b, m);
+  if (!b_checked)   // callers that pre-validate their segments skip the scan
+    for (int j = 0; j < m; ++j)
+      if ((uint8_t)b[j] > 4) return edit_distance_spec(a, n, b, m);
+  uint64_t vp = mc.vp_init;
+  uint64_t vn = 0;
+  int32_t score = n;
+  const uint64_t hb = mc.hb;
+  for (int j = 0; j < m; ++j) {
+    const uint64_t eq = mc.peq[(uint8_t)b[j]];
+    const uint64_t x = eq | vn;
+    const uint64_t ad = x & vp;
+    const uint64_t s = vp + ad;
+    const uint64_t d0 = (s ^ vp) | x;
+    const uint64_t hn = vp & d0;
+    const uint64_t hp = vn | ~(vp | d0);
+    score += (hp & hb) ? 1 : ((hn & hb) ? -1 : 0);
+    const uint64_t x2 = (hp << 1) | 1ull;   // D[0,j] = j carry-in
+    const uint64_t h2 = hn << 1;
+    vn = x2 & d0;
+    vp = h2 | ~(x2 | d0);
+  }
+  if (score <= band_for(n, m)) return score;  // banded spec == exact here
+  return edit_distance_spec(a, n, b, m);
+}
+
+struct TierSpec {
+  int32_t k, min_count, edge_min_count, P, O;
+  int32_t max_kmers;   // 0 = unbounded (full graph); > 0 mirrors the device
+                       // ladder's top-M compaction (count desc, smaller code
+                       // wins ties — lax.top_k semantics), measured a
+                       // beneficial noise filter (BASELINE.md r3 top-M table)
+  const float* table;  // [P][O]
+};
+
+struct Scratch {
+  std::vector<int64_t> codes, codes1, kept;
+  std::vector<int32_t> offs, order;       // per-occurrence offset; sort order
+  std::vector<uint8_t> flags;             // per-occurrence start/end bits
+  std::vector<int32_t> kid_off, kid_cnt;  // per-kept-id slice into occ_*
+  std::vector<int32_t> occ_o;             // dedup'd offsets, o-ascending
+  std::vector<float> occ_c;               // counts at those offsets
+  std::vector<uint8_t> src_ok, snk_ok;
+  std::vector<int32_t> in_off, in_u;      // CSR incoming-edge lists
+  std::vector<std::pair<int32_t, int32_t>> edges;
+  std::vector<float> W, score;
+  std::vector<int32_t> ptr;
+  std::vector<std::pair<float, int32_t>> ends;
+  std::vector<int32_t> path;
+  std::vector<int8_t> cand, best;
+  std::vector<int32_t> seen;
+  // top-M compaction temporaries (swap targets; kept here so ALL per-thread
+  // scratch lives in one audited struct)
+  std::vector<int32_t> sel, off2, cnt2, occ_o2;
+  std::vector<int64_t> kept2;
+  std::vector<float> occ_c2;
+  std::vector<uint8_t> src2, snk2;
+  std::vector<int32_t> radix_i;    // LSD radix alternate buffers
+  std::vector<int64_t> radix_v;
+};
+
+// LSD radix sort core, 8-bit digits over the low ``bits`` key bits.
+// Grouping order is key-ascending and the sort is stable — the only
+// properties the callers need (within-run order is irrelevant downstream:
+// offsets re-sort per run, anchor flags OR). ~4x std::sort on the 16-bit
+// k=8 codes that dominate (ARCHITECTURE.md "Native engine cost anatomy").
+// One templated core; KeyFn maps an element to its int64 key.
+template <class T, class KeyFn>
+static void radix_sort_core(std::vector<T>& v, int bits, std::vector<T>& alt,
+                            KeyFn key) {
+  const int n = (int)v.size();
+  alt.resize(n);
+  T* src = v.data();
+  T* dst = alt.data();
+  const int passes = (bits + 7) / 8;
+  for (int p = 0; p < passes; ++p) {
+    int32_t hist[257] = {0};
+    const int shift = 8 * p;
+    for (int i = 0; i < n; ++i)
+      ++hist[((key(src[i]) >> shift) & 0xFF) + 1];
+    for (int b = 0; b < 256; ++b) hist[b + 1] += hist[b];
+    for (int i = 0; i < n; ++i)
+      dst[hist[(key(src[i]) >> shift) & 0xFF]++] = src[i];
+    std::swap(src, dst);
+  }
+  if (src != v.data())
+    std::memcpy(v.data(), src, (size_t)n * sizeof(T));
+}
+
+static void radix_sort_idx(std::vector<int32_t>& order,
+                           const std::vector<int64_t>& keys, int bits,
+                           std::vector<int32_t>& alt) {
+  radix_sort_core(order, bits, alt,
+                  [&keys](int32_t i) { return keys[i]; });
+}
+
+static void radix_sort_vals(std::vector<int64_t>& v, int bits,
+                            std::vector<int64_t>& alt) {
+  radix_sort_core(v, bits, alt, [](int64_t x) { return x; });
+}
+
+// one window, one tier. Returns 0 solved (cons/err written), else -1.
+// *movf is set when the top-M cap truncated the surviving k-mer set.
+static int try_tier(const int8_t* seqs, const int32_t* lens, int nseg, int L,
+                    const TierSpec& ts, int wlen, int anchor_slack,
+                    int end_slack, int len_slack, int n_candidates,
+                    float max_err, float count_frac, Scratch& S,
+                    int8_t* cons_out, int32_t* cons_len, float* err_out,
+                    uint8_t* movf) {
+  const int k = ts.k;
+  const int O = ts.O;
+  // ---- 1. per-occurrence k-mers/(k+1)-mers with offsets + anchor flags ----
+  S.codes.clear();
+  S.codes1.clear();
+  S.offs.clear();
+  S.flags.clear();
+  int64_t seg_total = 0;
+  for (int j = 0; j < nseg; ++j) {
+    const int len = lens[j];
+    seg_total += len;
+    const int8_t* seg = seqs + (size_t)j * L;
+    const int nk = len - k + 1;
+    if (nk <= 0) continue;  // oracle: segments shorter than k skip entirely
+    int64_t code = 0;
+    for (int p = 0; p < k - 1; ++p) code = code * 4 + seg[p];
+    const int64_t mask = ((int64_t)1 << (2 * k)) - 1;
+    for (int o = 0; o < nk; ++o) {
+      code = ((code << 2) | seg[o + k - 1]) & mask;
+      S.codes.push_back(code);
+      S.offs.push_back(o);
+      S.flags.push_back((o <= anchor_slack ? 1 : 0) |
+                        (o >= nk - 1 - end_slack ? 2 : 0));
+    }
+    const int nk1 = len - k;
+    if (nk1 > 0) {
+      const int64_t mask1 = ((int64_t)1 << (2 * (k + 1))) - 1;
+      int64_t c1 = 0;
+      for (int p = 0; p < k; ++p) c1 = c1 * 4 + seg[p];
+      for (int o = 0; o < nk1; ++o) {
+        c1 = ((c1 << 2) | seg[o + k]) & mask1;
+        S.codes1.push_back(c1);
+      }
+    }
+  }
+  if (S.codes.empty()) return -1;  // "empty"
+
+  // ---- 2. frequency filter -> kept ids (ascending code order) ------------
+  const int novl_occ = (int)S.codes.size();
+  S.order.resize(novl_occ);
+  for (int i = 0; i < novl_occ; ++i) S.order[i] = i;
+  radix_sort_idx(S.order, S.codes, 2 * k, S.radix_i);
+  const int thresh =
+      std::max(ts.min_count, (int)std::ceil(count_frac * nseg));
+  S.kept.clear();
+  S.kid_off.clear();
+  S.kid_cnt.clear();
+  S.occ_o.clear();
+  S.occ_c.clear();
+  S.src_ok.clear();
+  S.snk_ok.clear();
+  for (int i = 0; i < novl_occ;) {
+    int e = i + 1;
+    while (e < novl_occ && S.codes[S.order[e]] == S.codes[S.order[i]]) ++e;
+    if (e - i >= thresh) {
+      S.kept.push_back(S.codes[S.order[i]]);
+      S.kid_off.push_back((int)S.occ_o.size());
+      uint8_t s_ok = 0, e_ok = 0;
+      // dedup occurrence offsets ascending (order within a code run is
+      // occurrence order; offsets repeat across segments) — counts merge
+      static thread_local std::vector<int32_t> tmp;
+      tmp.clear();
+      for (int q = i; q < e; ++q) {
+        const int occ_idx = S.order[q];
+        int o = S.offs[occ_idx];
+        if (o < 0) o = 0;
+        if (o > O - 1) o = O - 1;
+        tmp.push_back(o);
+        s_ok |= (S.flags[occ_idx] & 1);
+        e_ok |= (S.flags[occ_idx] & 2) ? 1 : 0;
+      }
+      std::sort(tmp.begin(), tmp.end());
+      for (size_t q = 0; q < tmp.size();) {
+        size_t r = q + 1;
+        while (r < tmp.size() && tmp[r] == tmp[q]) ++r;
+        S.occ_o.push_back(tmp[q]);
+        S.occ_c.push_back((float)(r - q));
+        q = r;
+      }
+      S.src_ok.push_back(s_ok);
+      S.snk_ok.push_back(e_ok);
+      S.kid_cnt.push_back(e - i);
+    }
+    i = e;
+  }
+  if (S.kept.empty()) return -1;  // "allfiltered"
+  S.kid_off.push_back((int)S.occ_o.size());
+
+  // ---- 2a. top-M compaction (device-ladder semantics) --------------------
+  if (ts.max_kmers > 0 && (int)S.kept.size() > ts.max_kmers) {
+    const int nk0 = (int)S.kept.size();
+    S.sel.resize(nk0);
+    for (int i = 0; i < nk0; ++i) S.sel[i] = i;
+    std::partial_sort(S.sel.begin(), S.sel.begin() + ts.max_kmers,
+                      S.sel.end(),
+                      [&](int a, int b) {
+                        if (S.kid_cnt[a] != S.kid_cnt[b])
+                          return S.kid_cnt[a] > S.kid_cnt[b];
+                        return a < b;   // lax.top_k: lower index wins ties
+                      });
+    S.sel.resize(ts.max_kmers);
+    std::sort(S.sel.begin(), S.sel.end());  // kept must stay code-ascending
+    S.kept2.clear(); S.off2.clear(); S.cnt2.clear();
+    S.occ_o2.clear(); S.occ_c2.clear(); S.src2.clear(); S.snk2.clear();
+    for (int id : S.sel) {
+      S.kept2.push_back(S.kept[id]);
+      S.off2.push_back((int)S.occ_o2.size());
+      for (int q = S.kid_off[id]; q < S.kid_off[id + 1]; ++q) {
+        S.occ_o2.push_back(S.occ_o[q]);
+        S.occ_c2.push_back(S.occ_c[q]);
+      }
+      S.cnt2.push_back(S.kid_cnt[id]);
+      S.src2.push_back(S.src_ok[id]);
+      S.snk2.push_back(S.snk_ok[id]);
+    }
+    S.off2.push_back((int)S.occ_o2.size());
+    S.kept.swap(S.kept2); S.kid_off.swap(S.off2); S.kid_cnt.swap(S.cnt2);
+    S.occ_o.swap(S.occ_o2); S.occ_c.swap(S.occ_c2);
+    S.src_ok.swap(S.src2); S.snk_ok.swap(S.snk2);
+    *movf = 1;
+  }
+  const int nk = (int)S.kept.size();
+
+  // ---- 2b. edges from (k+1)-mer support ----------------------------------
+  radix_sort_vals(S.codes1, 2 * (k + 1), S.radix_v);
+  S.edges.clear();
+  const int64_t mask_k = ((int64_t)1 << (2 * k)) - 1;
+  const size_t n1 = S.codes1.size();
+  for (size_t i = 0; i < n1;) {
+    size_t e = i + 1;
+    while (e < n1 && S.codes1[e] == S.codes1[i]) ++e;
+    if ((int)(e - i) >= ts.edge_min_count) {
+      const int64_t c1 = S.codes1[i];
+      const int64_t pref = c1 >> 2;
+      const int64_t suff = c1 & mask_k;
+      auto pi = std::lower_bound(S.kept.begin(), S.kept.end(), pref);
+      auto si = std::lower_bound(S.kept.begin(), S.kept.end(), suff);
+      if (pi != S.kept.end() && *pi == pref && si != S.kept.end() &&
+          *si == suff)
+        S.edges.emplace_back((int32_t)(si - S.kept.begin()),
+                             (int32_t)(pi - S.kept.begin()));  // (v, u)
+    }
+    i = e;
+  }
+  if (S.edges.empty()) return -1;  // "noedges"
+  // CSR incoming lists, u ascending per v (argmax-first tie-break), dedup'd
+  std::sort(S.edges.begin(), S.edges.end());
+  S.edges.erase(std::unique(S.edges.begin(), S.edges.end()), S.edges.end());
+  S.in_off.assign(nk + 1, 0);
+  for (auto& vu : S.edges) S.in_off[vu.first + 1]++;
+  for (int v = 0; v < nk; ++v) S.in_off[v + 1] += S.in_off[v];
+  S.in_u.resize(S.edges.size());
+  {
+    static thread_local std::vector<int32_t> cursor;
+    cursor.assign(nk, 0);
+    for (auto& vu : S.edges)
+      S.in_u[S.in_off[vu.first] + cursor[vu.first]++] = vu.second;
+  }
+
+  // ---- 3. position weights W[nk][P] (sparse occ x table) -----------------
+  const int P = std::min(ts.P, wlen - k + 1 + len_slack);
+  if (P <= 0) return -1;
+  S.W.assign((size_t)nk * P, 0.0f);
+  for (int id = 0; id < nk; ++id) {
+    float* wrow = S.W.data() + (size_t)id * P;
+    for (int p = 0; p < P; ++p) {
+      const float* trow = ts.table + (size_t)p * O;
+      float acc = 0.0f;
+      for (int q = S.kid_off[id]; q < S.kid_off[id + 1]; ++q)
+        acc += S.occ_c[q] * trow[S.occ_o[q]];
+      wrow[p] = acc;
+    }
+  }
+
+  // ---- 4. heaviest path DP ----------------------------------------------
+  S.score.assign((size_t)P * nk, NEGF);
+  S.ptr.assign((size_t)P * nk, -1);
+  for (int v = 0; v < nk; ++v)
+    if (S.src_ok[v]) S.score[v] = S.W[(size_t)v * P + 0];
+  for (int t = 1; t < P; ++t) {
+    const float* sp = S.score.data() + (size_t)(t - 1) * nk;
+    float* st = S.score.data() + (size_t)t * nk;
+    int32_t* pt = S.ptr.data() + (size_t)t * nk;
+    for (int v = 0; v < nk; ++v) {
+      float best = NEGF;
+      int32_t bu = -1;
+      for (int q = S.in_off[v]; q < S.in_off[v + 1]; ++q) {
+        const int u = S.in_u[q];
+        if (sp[u] > best) {
+          best = sp[u];
+          bu = u;
+        }
+      }
+      if (best > NEGF / 2) {
+        st[v] = best + S.W[(size_t)v * P + t];
+        pt[v] = bu;
+      }
+    }
+  }
+
+  // ---- 5. candidates: sort (score desc, flat idx asc), rescore -----------
+  bool segs_ok = true;   // alphabet check hoisted out of the rescore loop
+  for (int j = 0; j < nseg && segs_ok; ++j) {
+    const int8_t* sb = seqs + (size_t)j * L;
+    for (int q = 0; q < lens[j]; ++q)
+      if ((uint8_t)sb[q] > 4) { segs_ok = false; break; }
+  }
+  const int t_lo = std::max(0, wlen - k - len_slack);
+  const int t_hi = std::min(P - 1, wlen - k + len_slack);
+  if (t_hi < t_lo) return -1;
+  S.ends.clear();
+  for (int t = t_lo; t <= t_hi; ++t)
+    for (int v = 0; v < nk; ++v) {
+      const float s = S.snk_ok[v] ? S.score[(size_t)t * nk + v] : NEGF;
+      S.ends.emplace_back(s, (t - t_lo) * nk + v);
+    }
+  const size_t topn = std::min(S.ends.size(), (size_t)(4 * n_candidates));
+  std::partial_sort(S.ends.begin(), S.ends.begin() + topn, S.ends.end(),
+                    [](const std::pair<float, int32_t>& a,
+                       const std::pair<float, int32_t>& b) {
+                      if (a.first != b.first) return a.first > b.first;
+                      return a.second < b.second;
+                    });
+  double best_err = 1e300;
+  int best_len = -1;
+  S.seen.clear();
+  int n_cand = 0;
+  for (size_t ei = 0; ei < topn; ++ei) {
+    const float s = S.ends[ei].first;
+    if (s <= NEGF / 2 || n_cand >= n_candidates) break;
+    const int t = t_lo + S.ends[ei].second / nk;
+    const int v = S.ends[ei].second % nk;
+    if (std::find(S.seen.begin(), S.seen.end(), v) != S.seen.end()) continue;
+    S.seen.push_back(v);
+    S.path.resize(t + 1);
+    int cur = v;
+    for (int tt = t; tt >= 0; --tt) {
+      S.path[tt] = cur;
+      if (tt > 0) cur = S.ptr[(size_t)tt * nk + cur];
+    }
+    S.cand.resize(k + t);
+    const int64_t first = S.kept[S.path[0]];
+    for (int j = 0; j < k; ++j)
+      S.cand[j] = (int8_t)((first >> (2 * (k - 1 - j))) & 3);
+    for (int tt = 1; tt <= t; ++tt)
+      S.cand[k + tt - 1] = (int8_t)(S.kept[S.path[tt]] & 3);
+    ++n_cand;
+    MyersCand mc;
+    myers_prep(S.cand.data(), (int)S.cand.size(), mc);
+    int64_t tot = 0;
+    for (int j = 0; j < nseg; ++j)
+      tot += edit_distance_fast(mc, S.cand.data(),
+                                seqs + (size_t)j * L, lens[j], segs_ok);
+    const double err = (double)tot / (double)std::max<int64_t>(seg_total, 1);
+    if (err < best_err) {
+      best_err = err;
+      best_len = (int)S.cand.size();
+      S.best = S.cand;
+    }
+  }
+  if (best_len < 0) return -1;           // "nopath"
+  if (best_err > max_err) return -1;     // "badscore"
+  // winner only, written once: cons_out keeps its PAD fill past best_len
+  // even when an earlier tier or a longer losing candidate was evaluated
+  std::memcpy(cons_out, S.best.data(), best_len);
+  *cons_len = best_len;
+  *err_out = (float)best_err;
+  return 0;
+}
+
+}  // namespace dbgc
+
+extern "C" {
+
+// Batched tier-ladder consensus over the WindowBatch tensor layout.
+// cons [B, CL] (CL = wlen + len_slack, PAD-filled), cons_lens/errs/tiers [B];
+// tier = -1 unsolved (err left at +inf); movf_out [B] = 1 when any attempted
+// tier's top-M cap truncated the k-mer set (tier_M[i] = 0 disables the cap
+// for that tier -> full-graph oracle semantics). n_threads > 1 splits windows
+// across std::threads (engine is stateless per window; scratch thread_local).
+int solve_windows(const int8_t* seqs, const int32_t* lens,
+                  const int32_t* nsegs, int32_t B, int32_t D, int32_t L,
+                  const float* tables, const int64_t* table_off,
+                  const int32_t* tier_k, const int32_t* tier_minc,
+                  const int32_t* tier_eminc, const int32_t* tier_P,
+                  const int32_t* tier_O, const int32_t* tier_M,
+                  int32_t n_tiers, int32_t wlen,
+                  int32_t anchor_slack, int32_t end_slack, int32_t len_slack,
+                  int32_t n_candidates, int32_t min_depth, float max_err,
+                  float count_frac, int32_t n_threads, int8_t* cons,
+                  int32_t* cons_lens, float* errs, int32_t* tiers_out,
+                  uint8_t* movf_out) {
+  const int CL = wlen + len_slack;
+  std::vector<dbgc::TierSpec> ts(n_tiers);
+  for (int i = 0; i < n_tiers; ++i)
+    ts[i] = {tier_k[i], tier_minc[i], tier_eminc[i], tier_P[i], tier_O[i],
+             tier_M[i], tables + table_off[i]};
+  std::atomic<int32_t> next(0);
+  auto worker = [&]() {
+    dbgc::Scratch S;
+    for (;;) {
+      const int b = next.fetch_add(1);
+      if (b >= B) return;
+      int8_t* c = cons + (size_t)b * CL;
+      std::memset(c, PAD, CL);
+      cons_lens[b] = 0;
+      errs[b] = std::numeric_limits<float>::infinity();
+      tiers_out[b] = -1;
+      movf_out[b] = 0;
+      if (nsegs[b] < min_depth) continue;  // oracle: "depth" for every tier
+      for (int ti = 0; ti < n_tiers; ++ti) {
+        if (dbgc::try_tier(seqs + (size_t)b * D * L, lens + (size_t)b * D,
+                           nsegs[b], L, ts[ti], wlen, anchor_slack, end_slack,
+                           len_slack, n_candidates, max_err, count_frac, S, c,
+                           &cons_lens[b], &errs[b], &movf_out[b]) == 0) {
+          tiers_out[b] = ti;
+          break;
+        }
+      }
+    }
+  };
+  if (n_threads <= 1) {
+    worker();
+  } else {
+    std::vector<std::thread> pool;
+    for (int i = 0; i < n_threads; ++i) pool.emplace_back(worker);
+    for (auto& th : pool) th.join();
+  }
+  return 0;
 }
 
 }  // extern "C"

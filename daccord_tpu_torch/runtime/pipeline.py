@@ -38,7 +38,17 @@ in this order:
   (``kernels/tiers.py LadderDispatcher``) and queued; once ``max_inflight``
   are queued, the oldest half is fetched and scattered to their reads, so
   the host windows, scatters and stitches while the card solves.
-  ``max_inflight=1`` solves each batch on the pipeline's thread;
+  ``max_inflight=1`` solves each batch on the pipeline's thread. A fetched
+  batch scatters into its reads' result arrays as array ops, one slice per
+  read;
+- the device supervisor (``supervise``, ``runtime/supervisor.py``) wraps
+  every dispatch and fetch: deadlines, retries, the capacity governor's
+  bisect on an out-of-memory error, failover of the calls in flight to the
+  ``failover_backend`` engine on device loss, and the shadow audit of a
+  seeded sample of each fetched batch on the CPU ladder. The host-memory
+  watermark is checked once per pile block and the monster-pile guard once
+  per pile (``runtime/governor.py``); ``DACCORD_FAULT`` injects the faults
+  of ``runtime/faults.py``;
 - end-trim: prefix/suffix runs of windows solved only by a low-confidence
   rescue tier (min_count <= 1) count as unsolved, because read ends have
   thin piles and such windows carry near-raw error rates;
@@ -66,7 +76,7 @@ from ..formats.ingest import scan_with_db
 from ..formats.las import _HDR_SIZE, LasFile, index_las
 from ..kernels import paging
 from ..kernels.tensorize import BatchShape, WindowBatch, pad_batch, tensorize_windows
-from ..kernels.tiers import (LadderDispatcher, TierLadder, fetch_many,
+from ..kernels.tiers import (LadderDispatcher, TierLadder, fetch, fetch_many,
                              solve_ladder_async, upload_arrays)
 from ..native.api import ColumnarLas, process_pile_native
 from ..oracle.consensus import ConsensusConfig, estimate_profile_two_pass, stitch_results
@@ -75,10 +85,11 @@ from ..oracle.windows import cut_windows, refine_overlap
 from ..utils import aio
 from ..utils.bases import ints_to_seq
 from ..utils.device import resolve_device
-from ..utils.obs import StageProfile
+from ..utils.obs import JsonlLogger, StageProfile, Tracer, WindowLedger
 
 
 INGEST_POLICIES = ("strict", "quarantine", "off")
+FAILOVER_BACKENDS = ("auto", "native", "cpu")
 
 
 @dataclass
@@ -131,6 +142,33 @@ class PipelineConfig:
                                  # overlaps is contained (read emitted
                                  # uncorrected) before it is windowed;
                                  # 0 = off
+    supervise: bool = True       # wrap every ladder dispatch and fetch in
+                                 # the device supervisor
+                                 # (runtime/supervisor.py): deadlines,
+                                 # retries, the governor, failover, the
+                                 # shadow audit
+    events_path: str | None = None   # supervisor/event jsonl; None = share
+                                 # log_path's logger
+    log_path: str | None = None  # jsonl event log ('-' = stderr)
+    ledger_path: str | None = None   # per-window outcome ledger jsonl
+    failover_backend: str = "auto"   # degraded engine on declared device
+                                 # loss: 'cpu' (the port's own ladder on
+                                 # the CPU, byte-exact with the card: W in
+                                 # one order on both), 'native' (the host
+                                 # library's ladder), 'auto' = cpu for a
+                                 # cpu primary, native on cuda
+    failback: bool = False       # a background re-probe may route
+                                 # dispatches back to a revived card
+    audit_rate: float | None = None  # shadow audit: the fraction of each
+                                 # fetched batch's windows solved again on
+                                 # the CPU ladder and compared byte for
+                                 # byte. None = env DACCORD_AUDIT_RATE
+                                 # (default 1/64); 0 = off. A divergence
+                                 # re-solves the whole batch on that
+                                 # reference, so the rate never changes
+                                 # output bytes
+    native_threads: int = 0      # threads of the native failover engine
+                                 # (0 = every usable CPU)
 
 
 @dataclass
@@ -178,6 +216,22 @@ class PipelineStats:
                                  # max_inflight=1)
     stage_profile: dict = field(default_factory=dict)  # StageProfile.summary()
                                  # of the feeder stages
+    degraded: bool = False       # the supervisor failed over mid-run (the
+                                 # run completed on the fallback engine)
+    fallback_reason: str | None = None
+    n_capacity_events: int = 0   # capacity-classified ladder ops (governor
+                                 # ladder engagements)
+    n_backpressure: int = 0      # host-memory watermark force-flushes
+    batch_effective: int | None = None   # the smallest ratcheted width when
+                                 # the governor engaged, else batch_size
+                                 # (None = unsupervised run)
+    governor_ratchet: dict = field(default_factory=dict)  # shape key ->
+                                 # ratcheted width, entries of this run
+    audit_s: float = 0.0         # host wall of the shadow audit's solves
+    sup_counters: dict = field(default_factory=dict)  # the supervisor's
+                                 # counters (dispatch, fetch, retries,
+                                 # timeouts, probes, degraded_solves,
+                                 # audits, sdc_detected, ...)
     wall_s: float = 0.0
 
     @property
@@ -593,37 +647,50 @@ def iter_pile_blocks_threaded(db: DazzDB, las: LasFile, cfg: PipelineConfig,
 
 
 class _PendingRead:
-    __slots__ = ("aread", "n_windows", "results", "n_done", "tiers")
+    """One read's window results as arrays, filled batch by batch: the
+    consensus rows, their lengths, whether each window solved and by which
+    tier (-1: unsolved)."""
+
+    __slots__ = ("aread", "n_windows", "n_done", "cons", "cons_len", "solved",
+                 "tiers")
 
     def __init__(self, aread: int, n_windows: int):
         self.aread = aread
         self.n_windows = n_windows
-        self.results: list = [None] * n_windows
         self.n_done = 0
+        self.cons: np.ndarray | None = None     # [n, CL] int8, at the first scatter
+        self.cons_len = np.zeros(n_windows, dtype=np.int32)
+        self.solved = np.zeros(n_windows, dtype=bool)
         self.tiers = np.full(n_windows, -1, dtype=np.int32)
+
+    def results(self, w: int, adv: int) -> list:
+        """(wstart, wlen, consensus or None) of every window, in order."""
+        return [(j * adv, w, self.cons[j, :self.cons_len[j]] if ok else None)
+                for j, ok in enumerate(self.solved.tolist())]
 
 
 def _trim_rescue_ends(pr: _PendingRead, rescue_tiers: set, stats: PipelineStats) -> None:
-    """Null out prefix/suffix runs of rescue-tier-solved windows (the
-    end-trim of the module docstring). Scanning skips over already-unsolved windows
-    and stops at the first window solved by a confident tier."""
-    res = pr.results
-
-    def sweep(idxs) -> None:
-        for j in idxs:
-            ws, wl, seq = res[j]
-            if seq is None:
-                continue
-            t = int(pr.tiers[j])
-            if t not in rescue_tiers:
-                return
-            res[j] = (ws, wl, None)
-            stats.n_solved -= 1
-            stats.n_end_trimmed += 1
-            stats.tier_histogram[t] = stats.tier_histogram.get(t, 0) - 1
-
-    sweep(range(pr.n_windows))
-    sweep(range(pr.n_windows - 1, -1, -1))
+    """Unsolve the prefix and suffix runs of rescue-tier-solved windows (the
+    end-trim of the module docstring): each sweep skips over unsolved
+    windows and stops at the first window a confident tier solved."""
+    confident = pr.solved & ~np.isin(pr.tiers, list(rescue_tiers))
+    if confident.any():
+        first = int(np.argmax(confident))
+        last = pr.n_windows - 1 - int(np.argmax(confident[::-1]))
+        trim = np.zeros(pr.n_windows, dtype=bool)
+        trim[:first] = True
+        trim[last + 1:] = True
+        trim &= pr.solved
+    else:
+        trim = pr.solved.copy()
+    n = int(trim.sum())
+    if not n:
+        return
+    for t, c in zip(*np.unique(pr.tiers[trim], return_counts=True)):
+        stats.tier_histogram[int(t)] = stats.tier_histogram.get(int(t), 0) - int(c)
+    pr.solved[trim] = False
+    stats.n_solved -= n
+    stats.n_end_trimmed += n
 
 
 def _check_config(cfg: PipelineConfig) -> None:
@@ -638,6 +705,52 @@ def _check_config(cfg: PipelineConfig) -> None:
     if cfg.max_pile_overlaps < 0:
         raise ValueError(f"max_pile_overlaps={cfg.max_pile_overlaps}: 0 (off) "
                          "or a positive budget")
+    if cfg.failover_backend not in FAILOVER_BACKENDS:
+        raise ValueError(f"failover_backend={cfg.failover_backend!r}: expected "
+                         + "|".join(FAILOVER_BACKENDS))
+
+
+def _native_wide_rescue(wide, b, out: dict, nt: int) -> None:
+    """The overflow rescue on the native engine, with the device ladder's
+    semantics (``kernels/tiers.py ladder_core``): windows whose top-M cap
+    bound re-solve at the rescue active-set size, and the wide result
+    replaces the capped one wherever it solves."""
+    idx = np.nonzero(out["m_ovf"])[0]
+    sub = replace(b, seqs=b.seqs[idx], lens=b.lens[idx], nsegs=b.nsegs[idx],
+                  read_ids=b.read_ids[idx], wstarts=b.wstarts[idx])
+    res = wide.solve(sub, n_threads=nt)
+    take = res["solved"]
+    ti = idx[take]
+    for key in ("cons", "cons_len", "err", "tier"):
+        out[key][ti] = res[key][take]
+    out["solved"][ti] = True
+    out["m_ovf"][ti] = res["m_ovf"][take]
+
+
+def _build_native_fallback(profile: ErrorProfile, cfg: PipelineConfig):
+    """The supervisor's native failover engine: the host library's tier
+    ladder at the run's top-M caps (``native/api.py NativeLadder``), which
+    no CUDA fault can reach. It agrees with the card within ROADMAP's drift
+    bound, not byte for byte (its DP sums in its own order)."""
+    from ..native.api import NativeLadder
+    from ..oracle.consensus import make_offset_likely
+
+    nt = cfg.native_threads if cfg.native_threads > 0 else len(os.sched_getaffinity(0))
+    nladder = NativeLadder(make_offset_likely(profile, cfg.consensus), cfg.consensus,
+                           max_kmers=cfg.max_kmers,
+                           rescue_max_kmers=cfg.rescue_max_kmers)
+    wide = (nladder.with_caps(cfg.rescue_max_kmers, cfg.rescue_max_kmers)
+            if cfg.overflow_rescue and 0 < cfg.max_kmers < cfg.rescue_max_kmers
+            else None)
+
+    def solve(b):
+        out = nladder.solve(b, n_threads=nt)
+        if wide is not None and out["m_ovf"].any():
+            _native_wide_rescue(wide, b, out, nt)
+        return out
+
+    solve.__name__ = "native-ladder"
+    return solve
 
 
 def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
@@ -647,13 +760,41 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
     whole file); yields (aread, fragments, stats) in input order. Under the
     strict ingest policy a corrupt range raises ``IngestError`` before any
     pile is windowed."""
+    from .faults import FaultPlan
+    from .governor import GovernorConfig, check_host_pressure
+
     dev = resolve_device(cfg.device)
     paged_on = paged_enabled(cfg, dev)
     _check_config(cfg)
     stats = PipelineStats(paged=paged_on, native_host=cfg.use_native)
     prof = StageProfile(threads=max(1, cfg.feeder_threads))
     t_start = time.perf_counter()
+    log = JsonlLogger(cfg.log_path)
+    ev_log = JsonlLogger(cfg.events_path) if cfg.events_path else log
+    ev_log.log("shard_start", start=int(start or 0),
+               end=int(-1 if end is None else end), pid=os.getpid())
+    tracer = Tracer(ev_log)
+    ledger = WindowLedger(cfg.ledger_path) if cfg.ledger_path else None
+    # one fault plan for the whole range: the supervisor consumes the device
+    # kinds, the guards below host_rss and monster_pile
+    plan = FaultPlan.from_env()
+    gov_cfg = GovernorConfig.from_env()
+    try:
+        yield from _correct_range(db, las, cfg, start, end, profile, dev, paged_on,
+                                  stats, prof, t_start, log, ev_log, tracer, ledger,
+                                  plan, gov_cfg, check_host_pressure)
+    finally:
+        tracer.unwind()
+        if ledger is not None:
+            ledger.close()
+        if ev_log is not log:
+            ev_log.close()
+        log.close()
 
+
+def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof,
+                   t_start, log, ev_log, tracer, ledger, plan, gov_cfg,
+                   check_host_pressure):
     report = None
     if cfg.ingest_policy != "off":
         t0 = time.perf_counter()
@@ -678,13 +819,18 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
             profile = estimate_profile_for_shard(db, las, cfg, start, end,
                                                  pile_ranges=clean)
         stats.profile_s = time.perf_counter() - t0
-    ladder = TierLadder.from_config(profile, cfg.consensus, max_kmers=cfg.max_kmers,
-                                    rescue_max_kmers=cfg.rescue_max_kmers,
-                                    overflow_rescue=cfg.overflow_rescue,
-                                    device=dev, route=cfg.dp_route)
+
+    def make_ladder(device):
+        return TierLadder.from_config(profile, cfg.consensus, max_kmers=cfg.max_kmers,
+                                      rescue_max_kmers=cfg.rescue_max_kmers,
+                                      overflow_rescue=cfg.overflow_rescue,
+                                      device=device, route=cfg.dp_route)
+
+    ladder = make_ladder(dev)
     w, adv = cfg.consensus.w, cfg.consensus.adv
     B = cfg.batch_size
     min_depth = cfg.consensus.dbg.min_depth
+    tier_ks = [t[0] for t in cfg.consensus.tiers]
     rescue_tiers = ({i for i, t in enumerate(cfg.consensus.tiers) if t[1] <= 1}
                     if cfg.end_trim else set())
     if paged_on:
@@ -703,6 +849,52 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
         labels = [f"D{d}xL{ln}" for d, ln in buckets]
     nb = len(shapes)
 
+    dispatcher = LadderDispatcher(dev) if cfg.max_inflight > 1 else None
+    dispatch_fn = lambda b: solve_ladder_async(b, ladder, dispatcher)   # noqa: E731
+    fetch_fn, fetch_many_fn = fetch, fetch_many
+    sup = None
+    if cfg.supervise:
+        from ..kernels.tiers import audit_reference, solve_ladder
+        from ..utils.obs import device_alive
+        from .supervisor import DeviceSupervisor, SupervisorConfig
+
+        sup_cfg = SupervisorConfig.from_env(**({"failback": True} if cfg.failback else {}))
+        host_ladder: list = []
+
+        def cpu_ladder() -> TierLadder:
+            # built from the profile's numpy tables, never copied off the
+            # card: a poisoned CUDA context cannot be read from
+            if not host_ladder:
+                host_ladder.append(make_ladder("cpu"))
+            return host_ladder[0]
+
+        def fallback_factory():
+            kind = cfg.failover_backend
+            if kind == "auto":
+                kind = "cpu" if dev.type == "cpu" else "native"
+            if kind == "native":
+                return _build_native_fallback(profile, cfg)
+            host = cpu_ladder()
+
+            def cpu_fb(b):
+                return solve_ladder(b, host)
+
+            cpu_fb.__name__ = "cpu-ladder"
+            return cpu_fb
+
+        sup = DeviceSupervisor(
+            dispatch_fn, fetch_fn, fallback_factory=fallback_factory,
+            log=ev_log, cfg=sup_cfg, faults=plan,
+            probe_fn=lambda: device_alive(sup_cfg.probe_timeout_s, str(dev)),
+            describe="cpu-ladder" if dev.type == "cpu" else "device-ladder",
+            fingerprint_prefix=f"{dev.type}:", inline=dev.type == "cpu",
+            governor_cfg=gov_cfg, tracer=tracer,
+            # the reference is the card's own ladder on the CPU, byte-exact
+            # with the card; the native engine would not be
+            audit_ref_factory=lambda: audit_reference(cpu_ladder()),
+            audit_rate=cfg.audit_rate)
+        dispatch_fn, fetch_fn, fetch_many_fn = sup.dispatch, sup.fetch, sup.fetch_many
+
     pending: dict[int, _PendingRead] = {}
     order: list[int] = []
     ready: dict[int, list[np.ndarray]] = {}
@@ -711,16 +903,15 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
     nrows = [0] * nb
     npages = [0] * nb
     first_seen: list[int | None] = [None] * nb   # n_reads at the oldest row
-    # (handle, rid, widx, take) of each ladder call in flight, oldest first
+    # (handle, rid, widx, take, nsegs, dispatch time) of each ladder call in
+    # flight, oldest first
     inflight: deque = deque()
-    dispatcher = None
     qfh = None
 
     def finalize_read(r: int, pr: _PendingRead) -> None:
         if rescue_tiers:
             _trim_rescue_ends(pr, rescue_tiers, stats)
-        ready[r] = stitch_results([x for x in pr.results if x is not None],
-                                  cfg.consensus)
+        ready[r] = stitch_results(pr.results(w, adv), cfg.consensus)
         del pending[r]
 
     def push(bi: int, cols: tuple) -> None:
@@ -749,24 +940,39 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
         fit = int(np.searchsorted(np.cumsum(pages), cap_pages[bi], side="right"))
         return max(min(take, fit), 1)
 
-    def scatter(out: dict, rid, widx, take: int) -> None:
-        """One fetched batch's rows into their pending reads."""
-        stats.n_topm_overflow += int(out["m_ovf"][:take].sum())
-        for i in range(take):
-            r, wj = int(rid[i]), int(widx[i])
+    def scatter(out: dict, rid, widx, take: int, nsegs_b, wall: float) -> None:
+        """One fetched batch's rows into their pending reads, as array ops
+        over each read's run of rows (a read's rows are contiguous in a
+        batch: they are pushed together)."""
+        solved = np.asarray(out["solved"][:take], dtype=bool)
+        tier = np.where(solved, np.asarray(out["tier"][:take]), -1).astype(np.int32)
+        cl = np.asarray(out["cons_len"][:take])
+        cons = np.asarray(out["cons"][:take])
+        stats.n_topm_overflow += int(np.asarray(out["m_ovf"][:take]).sum())
+        stats.n_solved += int(solved.sum())
+        for t, c in zip(*np.unique(tier[solved], return_counts=True)):
+            stats.tier_histogram[int(t)] = stats.tier_histogram.get(int(t), 0) + int(c)
+        rid = rid[:take]
+        cuts = np.flatnonzero(rid[1:] != rid[:-1]) + 1
+        for a, b in zip(np.r_[0, cuts], np.r_[cuts, take]):
+            r = int(rid[a])
             pr = pending[r]
-            solved = bool(out["solved"][i])
-            seq = (np.asarray(out["cons"][i][: out["cons_len"][i]], dtype=np.int8)
-                   if solved else None)
-            pr.results[wj] = (wj * adv, w, seq)
-            pr.n_done += 1
-            if solved:
-                t = int(out["tier"][i])
-                stats.n_solved += 1
-                pr.tiers[wj] = t
-                stats.tier_histogram[t] = stats.tier_histogram.get(t, 0) + 1
+            wj = widx[a:b]
+            if pr.cons is None:
+                pr.cons = np.full((pr.n_windows, cons.shape[1]), 4, dtype=np.int8)
+            pr.cons[wj, :cons.shape[1]] = cons[a:b]
+            pr.cons_len[wj] = cl[a:b]
+            pr.solved[wj] = solved[a:b]
+            pr.tiers[wj] = tier[a:b]
+            pr.n_done += int(b - a)
             if pr.n_done == pr.n_windows:
                 finalize_read(r, pr)
+        if ledger is not None:
+            for i in range(take):
+                t = int(tier[i])
+                ledger.record(int(rid[i]), int(widx[i]), w, int(nsegs_b[i]), t,
+                              tier_ks[t] if t >= 0 else -1, bool(solved[i]), "full",
+                              rescued=t >= 1, wall_s=wall)
 
     def drain(to_depth: int) -> None:
         """Fetch the oldest calls until ``to_depth`` stay in flight, and
@@ -776,11 +982,13 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
             return
         entries = [inflight.popleft() for _ in range(n_pop)]
         t0 = time.perf_counter()
-        outs = fetch_many([e[0] for e in entries])
+        outs = fetch_many_fn([e[0] for e in entries])
         stats.device_s += time.perf_counter() - t0
-        for (h, rid, widx, take), out in zip(entries, outs):
-            stats.solve_s += h.solve_s
-            scatter(out, rid, widx, take)
+        now = time.perf_counter()
+        for (h, rid, widx, take, nsegs_b, t_d), out in zip(entries, outs):
+            stats.solve_s += getattr(getattr(h, "inner", h), "solve_s", 0.0)
+            scatter(out, rid, widx, take, nsegs_b, now - t_d)
+            log.log("batch", windows=int(take), solved=int(np.sum(out["solved"][:take])))
 
     def submit_batch(bi: int, take: int) -> None:
         seqs, lens, nsg, rid, widx, _ = pop_rows(bi, take)
@@ -795,11 +1003,11 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
         stats.used_cells += int(lens.sum())
         stats.h2d_bytes += sum(int(a.nbytes) for a in upload_arrays(batch))
         t0 = time.perf_counter()
-        handle = solve_ladder_async(batch, ladder, dispatcher)
+        handle = dispatch_fn(batch)
         stats.ladder_s += time.perf_counter() - t0
         stats.n_batches += 1
         stats.batches_by_bucket[labels[bi]] = stats.batches_by_bucket.get(labels[bi], 0) + 1
-        inflight.append((handle, rid, widx, take))
+        inflight.append((handle, rid, widx, take, nsg, time.perf_counter()))
         stats.peak_inflight = max(stats.peak_inflight, len(inflight))
         if len(inflight) >= cfg.max_inflight:
             drain(cfg.max_inflight // 2)
@@ -836,10 +1044,15 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
 
     def monster(aread: int, n_overlaps: int) -> bool:
         """The monster-pile guard, asked once per pile before it is
-        windowed: True = contain it."""
-        if not (cfg.max_pile_overlaps and n_overlaps > cfg.max_pile_overlaps):
+        windowed: True = contain it (the budget, or an injected
+        ``monster_pile`` fault)."""
+        injected = plan is not None and plan.monster_check()
+        budget = cfg.max_pile_overlaps
+        if not injected and not (budget and n_overlaps > budget):
             return False
         stats.n_monster_piles += 1
+        ev_log.log("governor.monster", aread=int(aread), overlaps=int(n_overlaps),
+                   budget=int(budget or 0), injected=injected)
         return True
 
     def block_iter(s, e):
@@ -859,8 +1072,7 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
 
     bad_reads = db.bad_reads
     blocks = segmented() if clean is not None else block_iter(start, end)
-    if cfg.max_inflight > 1:
-        dispatcher = LadderDispatcher(dev)
+    bp_latched = None
     try:
         while True:
             t0 = time.perf_counter()
@@ -868,13 +1080,41 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
             stats.windowing_s += time.perf_counter() - t0
             if blk is None:
                 break
+            # host-memory watermark, once per pile block: pressure
+            # force-flushes the partial buckets (hard: and every call in
+            # flight). Flush cadence changes no window's bytes. Real
+            # pressure latches per level until it clears
+            level, rss_mb, injected = check_host_pressure(plan, gov_cfg)
+            if not injected:
+                if level is None:
+                    bp_latched = None
+                elif level == "soft" and bp_latched == "hard":
+                    bp_latched, level = "soft", None
+                elif bp_latched == level:
+                    level = None
+            if level is not None:
+                stats.n_backpressure += 1
+                ev_log.log("governor.backpressure", level=level, rss_mb=round(rss_mb, 1),
+                           injected=injected, pool=0, inflight=len(inflight))
+                run_batches(final=False)
+                for bi in range(nb):
+                    while nrows[bi]:
+                        take = min(B, nrows[bi])
+                        submit_batch(bi, paged_take(bi, take) if paged_on else take)
+                if level == "hard":
+                    drain(0)
+                yield from emit_ready()
+                if not injected:
+                    bp_latched = level
             if isinstance(blk[0], str):
                 # a contained pile: its read is emitted uncorrected
                 _, q_aread, q_off, q_kind, q_detail = blk
                 stats.n_quarantined += 1
+                ev_log.log("ingest.quarantine", kind=q_kind, offset=int(q_off),
+                           aread=-1 if q_aread is None else int(q_aread))
                 if cfg.quarantine_path is not None:
                     if qfh is None:
-                        qfh = open(cfg.quarantine_path, "at")
+                        qfh = aio.open_output(cfg.quarantine_path, "at", domain="sidecar")
                     qfh.write(json.dumps(dict(path=las.path, aread=q_aread,
                                               offset=int(q_off), kind=q_kind,
                                               detail=q_detail)) + "\n")
@@ -900,10 +1140,13 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
                 pr = pending[aread] = _PendingRead(aread, nwin)
                 widx = np.arange(nwin, dtype=np.int64)
                 shallow = nsegs < min_depth
-                for wj in np.nonzero(shallow)[0]:
-                    pr.results[int(wj)] = (int(wj) * adv, w, None)
-                pr.n_done += int(shallow.sum())
-                stats.n_skipped_shallow += int(shallow.sum())
+                n_sh = int(shallow.sum())
+                pr.n_done += n_sh
+                stats.n_skipped_shallow += n_sh
+                if ledger is not None:
+                    for wj in np.nonzero(shallow)[0]:
+                        ledger.record(aread, int(wj), w, int(nsegs[wj]), -1, -1, False,
+                                      "skip", rescued=False, wall_s=0.0)
                 keep = ~shallow
                 seqs, lens, nsegs, widx = seqs[keep], lens[keep], nsegs[keep], widx[keep]
                 rid = np.full(len(nsegs), aread, dtype=np.int64)
@@ -932,10 +1175,28 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
     finally:
         if dispatcher is not None:
             dispatcher.close()
+        if sup is not None:
+            sup.close()
         if qfh is not None:
             qfh.close()
     stats.stage_profile = prof.summary()
     stats.wall_s = time.perf_counter() - t_start
+    if sup is not None:
+        # the governor's rung solves block the host at dispatch time,
+        # outside the drain's fetch timer
+        stats.device_s += sup.gov_device_s
+        stats.degraded = sup.failed_over
+        stats.fallback_reason = sup.fail_reason
+        gov = sup.governor
+        stats.n_capacity_events = gov.counters["classify"]
+        stats.governor_ratchet = gov.active_state()
+        stats.batch_effective = (min(stats.governor_ratchet.values())
+                                 if stats.governor_ratchet else cfg.batch_size)
+        stats.audit_s = sup.audit_s
+        stats.sup_counters = dict(sup.counters)
+        ev_log.log("sup_done", state=sup.state, degraded=sup.failed_over,
+                   audit_s=round(sup.audit_s, 4), **sup.counters,
+                   **{f"gov_{k}": v for k, v in gov.counters.items()})
 
 
 def correct_to_fasta(db_path: str, las_path: str, out_path,
@@ -944,14 +1205,26 @@ def correct_to_fasta(db_path: str, las_path: str, out_path,
                      profile: ErrorProfile | None = None) -> PipelineStats:
     """Run the pipeline over ``[start, end)`` of the LAS and write the
     corrected fragments as FASTA (``-`` = stdout); records are named
-    ``read<id>/<fragment>``. Under the quarantine policy the sidecar
-    defaults to ``<out>.quarantine.jsonl`` and starts fresh."""
+    ``read<id>/<fragment>``. The data kinds of ``DACCORD_FAULT`` corrupt the
+    inputs first (as in the JAX package). Under the quarantine policy the
+    sidecar defaults to ``<out>.quarantine.jsonl`` and starts fresh, as a
+    ledger does."""
+    from .faults import maybe_apply_data_faults
+
     cfg = cfg or PipelineConfig()
+    fired = maybe_apply_data_faults(las_path=las_path, db_path=db_path)
+    if fired and cfg.events_path:
+        with JsonlLogger(cfg.events_path) as fl:
+            for f in fired:
+                fl.log("ingest.fault", kind=f["kind"], path=f["path"],
+                       record=f["record"], offset=f.get("offset", -1))
     if cfg.ingest_policy == "quarantine":
         if cfg.quarantine_path is None and isinstance(out_path, str) and out_path != "-":
             cfg = replace(cfg, quarantine_path=out_path + ".quarantine.jsonl")
         if cfg.quarantine_path and os.path.exists(cfg.quarantine_path):
             os.remove(cfg.quarantine_path)
+    if cfg.ledger_path and os.path.exists(cfg.ledger_path):
+        os.remove(cfg.ledger_path)
     t0 = time.perf_counter()
     # only the strict policy aborts on a corrupt DB read record; quarantine
     # contains it through db.bad_reads, and off trusts the input

@@ -8,7 +8,9 @@
         [--max-pile-overlaps N] [--stats PATH] [-b BATCH] [-t THREADS]
         [--no-native] [--qv-track NAME] [--device cuda|cpu]
         [--paged on|off|auto] [--page-len N] [--dp fused|scan]
-        [--max-inflight N] [--depth-buckets LIST]
+        [--max-inflight N] [--depth-buckets LIST] [--no-supervise]
+        [--failover-backend auto|native|cpu] [--failback] [--audit-rate F]
+        [--events PATH] [--log PATH] [--ledger PATH] [--native-threads N]
 
 The flags and defaults of the JAX package's ``daccord`` that this port
 covers keep their meaning there (``daccord_tpu/tools/cli.py``). ``-E`` reads
@@ -32,7 +34,16 @@ sub-depth buckets ('' = one bucket); none of these changes the FASTA beyond
 ROADMAP's drift bound. Piles are windowed by the port's host library
 (``native/``), on ``-t`` threads ahead of the batching loop when ``-t`` is
 above 0; ``--no-native`` windows them in numpy instead, with the same FASTA.
-A JSON line of run statistics goes to stderr (and to ``--stats``).
+The supervisor (``runtime/supervisor.py``) wraps every ladder call, as in
+the JAX package: deadlines, retries, the capacity governor, failover on
+device loss (``--failover-backend``: ``cpu`` is the port's own ladder on the
+CPU, byte-equal to the card; ``native`` the host library's ladder; ``auto``
+native on cuda) and the shadow audit (``--audit-rate``, default
+``DACCORD_AUDIT_RATE`` or 1/64). ``DACCORD_FAULT`` injects the JAX
+package's faults (``runtime/faults.py``); ``--events`` records the
+supervisor's transitions (lint: ``python -m
+daccord_tpu_torch.tools.eventcheck``). A JSON line of run statistics goes to
+stderr (and to ``--stats``).
 """
 
 from __future__ import annotations
@@ -59,7 +70,9 @@ USAGE = ("usage: python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT "
          "[--max-pile-overlaps N] [--stats PATH] [-b BATCH] [-t THREADS] "
          "[--no-native] [--qv-track NAME] [--device cuda|cpu] "
          "[--paged on|off|auto] [--page-len N] [--dp fused|scan] "
-         "[--max-inflight N] [--depth-buckets LIST]")
+         "[--max-inflight N] [--depth-buckets LIST] [--no-supervise] "
+         "[--failover-backend auto|native|cpu] [--failback] [--audit-rate F] "
+         "[--events PATH] [--log PATH] [--ledger PATH] [--native-threads N]")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -150,6 +163,36 @@ def _parser() -> argparse.ArgumentParser:
                    metavar="LIST",
                    help="dense sub-depth buckets below --depth, comma-"
                         "separated ('' = one bucket)")
+    p.add_argument("--native-threads", type=int, default=0,
+                   help="threads of the native engine (the native failover); "
+                        "0 = every usable CPU; independent of -t")
+    p.add_argument("--log", default=None, help="jsonl event log path ('-' = stderr)")
+    p.add_argument("--ledger", default=None, metavar="PATH",
+                   help="per-window outcome ledger jsonl (window identity, "
+                        "length, depth, tier reached, rescue membership, "
+                        "batch turnaround)")
+    p.add_argument("--events", default=None, metavar="PATH",
+                   help="supervisor events jsonl (state transitions, cold-"
+                        "shape heartbeats, retries, failover; schema: "
+                        "tools/eventcheck.py). Default: share --log")
+    p.add_argument("--no-supervise", action="store_true",
+                   help="disable the device supervisor (watchdog deadlines, "
+                        "retry, mid-run failover to the degraded engine)")
+    p.add_argument("--failover-backend", choices=("auto", "native", "cpu"),
+                   default="auto",
+                   help="degraded-mode engine on declared device loss (auto: "
+                        "the port's own ladder on the CPU for a cpu run, the "
+                        "native host-library ladder on cuda; cpu: the port's "
+                        "ladder on the CPU, byte-equal to the card)")
+    p.add_argument("--failback", action="store_true",
+                   help="let a background re-probe route dispatches back to "
+                        "a revived card")
+    p.add_argument("--audit-rate", type=float, default=None, metavar="F",
+                   help="sampled shadow verification: fraction of windows "
+                        "per fetched batch re-solved on the trusted host "
+                        "ladder and compared byte-for-byte (default: env "
+                        "DACCORD_AUDIT_RATE or 1/64; 0 disables). Changes "
+                        "detection latency only, never output bytes")
     return p
 
 
@@ -165,6 +208,35 @@ def _check(args) -> None:
                          f"{k + 4} and --seg-len > {k + 5}")
     if args.max_kmers <= 0:
         raise SystemExit("-M: the device ladder needs a positive top-M cap")
+    if args.device == "cuda":
+        # the DP kernels' widest window and their shared memory, checked at
+        # every tier's shape before any work (tiers with min_count 1 run at
+        # the rescue width 256)
+        from ..kernels.dp_backtrack import check_width
+        from ..kernels.window_kernel import KernelParams
+
+        for kk, mc in ((k, 2), (k + 2, 2), (k + 4, 2), (k, 1)):
+            p = KernelParams(k=kk, wlen=args.w, max_kmers=256 if mc <= 1 else args.max_kmers)
+            t_lo, t_hi = p.t_range
+            try:
+                check_width(p.max_kmers, p.positions, t_hi - t_lo + 1, args.dp)
+            except ValueError as e:
+                raise SystemExit(f"-M {args.max_kmers} -w {args.w}: {e}") from None
+        from ..kernels.rescore import MAX_CL
+
+        if args.w + 8 > MAX_CL:
+            raise SystemExit(f"-w {args.w}: the rescore kernel takes consensus "
+                             f"lengths up to {MAX_CL} (w + 8)")
+    if args.native_threads < 0:
+        raise SystemExit("--native-threads must be 0 (all CPUs) or positive")
+    if args.audit_rate is not None and not 0.0 <= args.audit_rate <= 1.0:
+        raise SystemExit("--audit-rate must be within [0, 1]")
+    from ..runtime.faults import FaultPlan
+
+    try:
+        FaultPlan.from_env()
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     if args.threads < 0 or (args.threads and args.no_native):
         raise SystemExit("-t needs the host library: give -t 0 with --no-native")
     if args.paged != "off" and (args.page_len <= 0 or args.seg_len % args.page_len):
@@ -238,7 +310,13 @@ def daccord_run(argv=None):
                          end_trim=not args.no_end_trim,
                          ingest_policy=args.ingest_policy,
                          quarantine_path=args.quarantine,
-                         max_pile_overlaps=args.max_pile_overlaps)
+                         max_pile_overlaps=args.max_pile_overlaps,
+                         supervise=not args.no_supervise,
+                         events_path=args.events, log_path=args.log,
+                         ledger_path=args.ledger,
+                         failover_backend=args.failover_backend,
+                         failback=args.failback, audit_rate=args.audit_rate,
+                         native_threads=args.native_threads)
     try:
         start, end = _byte_range(args)
         prof = None
@@ -283,7 +361,13 @@ def stats_record(stats, args) -> dict:
         "h2d_bytes": stats.h2d_bytes, "dp": args.dp,
         "max_inflight": args.max_inflight, "peak_inflight": stats.peak_inflight,
         "native_host": stats.native_host, "threads": args.threads,
-        "qv_ranked": stats.qv_ranked, "device": args.device}
+        "qv_ranked": stats.qv_ranked, "device": args.device,
+        "degraded": stats.degraded, "fallback_reason": stats.fallback_reason,
+        "capacity_events": stats.n_capacity_events,
+        "backpressure": stats.n_backpressure,
+        "batch_effective": stats.batch_effective,
+        "governor_ratchet": stats.governor_ratchet,
+        "audit_s": round(stats.audit_s, 4), "supervisor": stats.sup_counters}
 
 
 def daccord_main(argv=None) -> int:

@@ -47,7 +47,10 @@ print("STATS " + json.dumps(dict(
     ladder_s=stats.ladder_s, device_s=getattr(stats, "device_s", None),
     solve_s=getattr(stats, "solve_s", None), switch_interval=sys.getswitchinterval(),
     ingest_s=getattr(stats, "ingest_s", None), n_windows=stats.n_windows,
-    n_batches=stats.n_batches)))
+    n_batches=stats.n_batches, profile_s=stats.profile_s,
+    audit_s=getattr(stats, "audit_s", None),
+    else_s=stats.wall_s - (getattr(stats, "ingest_s", 0.0) or 0.0) - stats.windowing_s
+    - stats.ladder_s - (getattr(stats, "device_s", 0.0) or 0.0) - stats.profile_s)))
 """
 
 

@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
-(``dp_backtrack``, ``heaviest_path``, ``gather_pages``) have no CPU form.
-Each test skips without a card.
+(``dp_backtrack``, ``heaviest_path``, ``gather_pages``, ``rescore``,
+``position_weights``) have no CPU form. Each test skips without a card.
 
 This file imports neither jax nor ``daccord_tpu``, so it also runs on a
 machine without JAX; there the JAX-configuring ``tests/conftest.py`` is left
@@ -9,6 +9,7 @@ out:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -17,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from daccord_tpu_torch.kernels import dp_backtrack, gather_pages, heaviest_path, paging
+from daccord_tpu_torch.kernels import (dp_backtrack, gather_pages, heaviest_path, paging,
+                                       position_weights, rescore)
 from daccord_tpu_torch.kernels.window_kernel import KernelParams
 
 
@@ -93,6 +95,17 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         dp_backtrack.dp_backtrack_batch(adjW.transpose(1, 2), wt, s0, snk, sel, **kw)
     with pytest.raises(ValueError, match="on cpu"):
         dp_backtrack.dp_backtrack_batch(adjW, wt.cpu(), s0, snk, sel, **kw)
+    # the widest window the kernels take is MAX_M = 1024; a wider one, or one
+    # whose score rows and pointer stack do not fit a block, is refused
+    # before any launch
+    wide = make_inputs(0, 1, dp_backtrack.MAX_M + 1, 41, cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        dp_backtrack.dp_backtrack_batch(*wide, **kw)
+    with pytest.raises(ValueError, match="exceeds"):
+        heaviest_path.heaviest_path_batch(*wide[:3])
+    long = make_inputs(0, 1, 1024, 101, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        dp_backtrack.dp_backtrack_batch(*long, **dict(kw, cons_len=108, t_hi=92))
 
 
 @pytest.mark.cuda
@@ -133,7 +146,127 @@ def test_kernels_match_plain_off_the_ladder_widths(cuda, M, shift):
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     with pytest.raises(ValueError, match="exceeds"):
-        heaviest_path.heaviest_path_batch(*make_inputs(0, 1, 260, 4, cuda)[:3])
+        heaviest_path.heaviest_path_batch(*make_inputs(0, 1, 1030, 4, cuda)[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 133])
+@pytest.mark.parametrize("M", [257, 384, 512, 1024])
+def test_wide_kernels_match_plain(cuda, M, B):
+    """Top-M above 256: two threads a column up to 512, one above, the
+    adjacency bits sharing their shared memory with the fused kernel's
+    score rows and pointer stack."""
+    p = KernelParams(k=8, max_kmers=M)
+    t_lo, t_hi = p.t_range
+    args = make_inputs(seed=M + B, B=B, M=M, P=p.positions, device=cuda)
+    kw = dict(k=8, cons_len=p.cons_len, n_candidates=p.n_candidates,
+              t_lo=t_lo, t_hi=t_hi)
+    got = dp_backtrack.dp_backtrack_batch(*args, **kw)
+    ref = dp_backtrack.dp_backtrack_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("cand", "clen", "ok"), got, ref):
+        assert torch.equal(g, r), name
+    got = heaviest_path.heaviest_path_batch(*args[:3])
+    ref = dp_backtrack.heaviest_path_plain(*args[:3])
+    torch.cuda.synchronize()
+    for name, g, r in zip(("scores", "ptrs"), got, ref):
+        assert torch.equal(g, r), name
+
+
+def rescore_inputs(seed: int, B: int, C: int, CL: int, D: int, L: int):
+    """Windows of noisy copies of their first candidate (tests/
+    test_torch_rescore.py holds the plain version to JAX on such inputs)."""
+    rng = np.random.default_rng(seed)
+    cand = np.full((B, C, CL), 4, np.int8)
+    clen = np.zeros((B, C), np.int32)
+    ok = rng.random((B, C)) < 0.8
+    ok[1] = False
+    seqs = np.full((B, D, L), 4, np.int8)
+    lens = np.zeros((B, D), np.int32)
+    for b in range(B):
+        for c in range(C):
+            n = int(rng.integers(max(CL - 12, 0), CL + 1))
+            cand[b, c, :n] = rng.integers(0, 4, n)
+            clen[b, c] = n
+        clen[b, 0] = 0 if b == 2 else clen[b, 0]
+        for d in range(0 if b == 0 else int(rng.integers(1, D + 1))):
+            n = int(clen[b, 0])
+            m = 0 if d == 1 else int(rng.integers(max(n - 6, 0), min(L, n + 6) + 1))
+            src = np.resize(cand[b, 0, :max(n, 1)], m)
+            seqs[b, d, :m] = np.where(rng.random(m) < 0.12, rng.integers(0, 4, m), src)
+            lens[b, d] = m
+    nsegs = (lens > 0).sum(axis=1).astype(np.int32)
+    return seqs, lens, nsegs, cand, clen, ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("CL,L,D,C", [(48, 64, 32, 3), (63, 64, 32, 3), (64, 80, 16, 3),
+                                      (72, 80, 40, 5), (130, 140, 8, 2)])
+def test_rescore_kernel_matches_plain(cuda, CL, L, D, C):
+    """One launch == the torch rescore, bit for bit, across one, two and
+    three 64-bit words, more segments than a warp's lanes, and windows with
+    no ok candidate, an empty candidate or no segment."""
+    B = 300
+    host = rescore_inputs(CL + D, B, C, CL, D, L)
+    args = [torch.as_tensor(a, device=cuda) for a in host]
+    p = KernelParams(wlen=CL - 8, max_err=0.16)
+    before = rescore.launches
+    got = rescore.rescore_pick(*args, p)
+    assert rescore.launches == before + 1
+    ref = rescore.rescore_pick_plain(*args, p)
+    torch.cuda.synchronize()
+    for key in ("cons", "cons_len", "err", "solved"):
+        assert got[key].dtype == ref[key].dtype and torch.equal(got[key], ref[key]), key
+    assert 0 < int(got["solved"].sum()) < B
+    cpu = rescore.rescore_pick(*(torch.as_tensor(a) for a in host), p)
+    assert all(torch.equal(got[k].cpu(), cpu[k]) for k in cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,O,P", [(2048, 64, 56, 41), (133, 256, 56, 41), (5, 7, 90, 5)])
+def test_position_weights_kernel_matches_the_cpu(cuda, B, M, O, P):
+    """The fixed-order W on the card == the plain W on the CPU, bit for bit,
+    with table values down to subnormal size (no flush to zero)."""
+    rng = np.random.default_rng(B + M)
+    occ = np.where(rng.random((B, M, O)) < 0.15,
+                   rng.integers(1, 9, (B, M, O)), 0).astype(np.float32)
+    ol = (rng.random((P, O)) * 10.0 ** rng.integers(-44, 0, (P, O))).astype(np.float32)
+    before = position_weights.launches
+    got = position_weights.position_weights(torch.as_tensor(occ, device=cuda),
+                                            torch.as_tensor(ol, device=cuda))
+    assert position_weights.launches == before + 1
+    ref = position_weights.position_weights(torch.as_tensor(occ), torch.as_tensor(ol))
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_ladder_on_the_card_equals_the_cpu_ladder(cuda, tmp_path):
+    """With W in one order on both sides, a whole ladder call on the card
+    gives the CPU ladder's packed result, bit for bit."""
+    from daccord_tpu_torch.formats.dazzdb import read_db
+    from daccord_tpu_torch.formats.las import LasFile
+    from daccord_tpu_torch.kernels.tiers import TierLadder, ladder_core, pack_result
+    from daccord_tpu_torch.runtime.pipeline import (PipelineConfig,
+                                                    estimate_profile_for_shard,
+                                                    iter_pile_blocks)
+    from daccord_tpu_torch.sim import SimConfig, make_dataset
+
+    d = make_dataset(str(tmp_path), SimConfig(genome_len=3000, coverage=20,
+                                              read_len_mean=1000, seed=3))
+    db, las = read_db(d["db"]), LasFile(d["las"])
+    cfg = PipelineConfig(device="cpu")
+    prof = estimate_profile_for_shard(db, las, cfg)
+    blocks = [(s[n >= 3], ln[n >= 3], n[n >= 3]) for _, _, s, ln, n in
+              iter_pile_blocks(db, las, cfg)]
+    seqs, lens, nsegs = (np.concatenate([b[i] for b in blocks])[:512] for i in range(3))
+    packed = []
+    for dev in ("cpu", cuda):
+        lad = TierLadder.from_config(prof, cfg.consensus, device=dev)
+        tables = tuple(lad.tables[p.k] for p in lad.params)
+        packed.append(pack_result(ladder_core(
+            *(torch.as_tensor(a, device=dev) for a in (seqs, lens, nsegs)),
+            tables, tuple(lad.params))).cpu())
+    assert torch.equal(packed[0], packed[1])
 
 
 TRAP = """
@@ -256,3 +389,59 @@ def test_dispatcher_stream_matches_sync_run(cuda, tmp_path):
                 tiers.fetch(tiers.solve_ladder_async(None, lad, disp))
     finally:
         tiers._ladder_packed = real
+
+
+TRAP_RUN = """
+import json, os, sys
+from daccord_tpu_torch.kernels import window_kernel
+from daccord_tpu_torch.tools.cli import daccord_run
+
+real, calls = window_kernel.prep_batch, [0]
+
+
+def prep(seqs, lens, nsegs, ol, p):
+    g = real(seqs, lens, nsegs, ol, p)
+    if g["adjW"].is_cuda:
+        calls[0] += 1
+        if calls[0] == 3:
+            g["adjW"][0, 0, 0] = 1.0   # no bit holds it: the DP kernel traps
+    return g
+
+
+window_kernel.prep_batch = prep
+stats, _ = daccord_run(sys.argv[1:])
+print("STATS " + json.dumps(dict(degraded=stats.degraded, reason=stats.fallback_reason)))
+"""
+
+
+@pytest.mark.cuda
+def test_real_trap_fails_over_to_the_cpu_ladder(cuda, tmp_path):
+    """A trapped DP kernel poisons its process's CUDA context (in a child
+    process here): the supervisor maps the error to device loss at once,
+    fails over to the port's ladder on the CPU, replays the calls in flight
+    and writes the clean run's FASTA byte for byte."""
+    from daccord_tpu_torch.formats.dazzdb import read_db
+    from daccord_tpu_torch.formats.las import LasFile
+    from daccord_tpu_torch.runtime.pipeline import PipelineConfig, estimate_profile_for_shard
+    from daccord_tpu_torch.sim import SimConfig, make_dataset
+    from daccord_tpu_torch.tools.cli import daccord_run
+
+    d = make_dataset(str(tmp_path), SimConfig(genome_len=3000, coverage=15,
+                                              read_len_mean=800, seed=5))
+    eprof = str(tmp_path / "e.json")
+    estimate_profile_for_shard(read_db(d["db"]), LasFile(d["las"]),
+                               PipelineConfig(device="cpu")).save(eprof)
+    args = [d["db"], d["las"], "-E", eprof, "-b", "64", "--audit-rate", "0"]
+    clean = str(tmp_path / "clean.fasta")
+    daccord_run([*args, "-o", clean])
+    out = str(tmp_path / "trap.fasta")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", TRAP_RUN, *args, "-o", out,
+                          "--failover-backend", "cpu"], cwd=root, capture_output=True,
+                         text=True, timeout=600,
+                         env={**os.environ, "DACCORD_COMPCACHE": str(tmp_path / "cc")})
+    assert "STATS " in res.stdout, res.stdout[-2000:] + res.stderr[-3000:]
+    st = json.loads(res.stdout.split("STATS ", 1)[1].splitlines()[0])
+    assert st["degraded"] and "injected" not in st["reason"], st
+    with open(out) as a, open(clean) as b:
+        assert a.read() == b.read()

@@ -72,7 +72,7 @@ def base(tmp_path_factory):
     eprof = os.path.join(root, "eprof.json")
     pipeline.estimate_profile_for_shard(read_db(d["db"]), LasFile(d["las"]), cfg).save(eprof)
     windows: dict = {}
-    real = pipeline.fetch_many
+    real, real_one = pipeline.fetch_many, pipeline.fetch
 
     def capture(handles):
         outs = real(handles)
@@ -80,9 +80,14 @@ def base(tmp_path_factory):
             _record(windows, h.batch, out)
         return outs
 
+    def capture_one(h):
+        # the supervisor fetches a drain of one call alone
+        return capture([h])[0]
+
     out = os.path.join(root, "inflight1.fasta")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pipeline, "fetch_many", capture)
+        mp.setattr(pipeline, "fetch", capture_one)
         stats = correct_to_fasta(d["db"], d["las"], out, cfg,
                                  profile=ErrorProfile.load(eprof))
     return dict(d=d, root=root, eprof=eprof, cfg=cfg, out=out, stats=stats,
@@ -140,10 +145,12 @@ def test_dispatcher_error_reraises_from_fetch(base, monkeypatch):
         h = tiers.solve_ladder_async(None, lad, disp)
         with pytest.raises(Boom):
             tiers.fetch(h)
+    # unsupervised: the supervisor would retry the call and then fail over
+    # (tests/test_torch_supervisor.py)
     with pytest.raises(Boom):
         correct_to_fasta(base["d"]["db"], base["d"]["las"],
                          os.path.join(base["root"], "boom.fasta"),
-                         PipelineConfig(device="cpu", batch_size=B),
+                         PipelineConfig(device="cpu", batch_size=B, supervise=False),
                          profile=ErrorProfile.load(base["eprof"]))
     assert not [t for t in threading.enumerate() if t.name == "ladder-dispatcher"]
 

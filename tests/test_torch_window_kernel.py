@@ -146,6 +146,9 @@ def test_port_imports_no_jax():
         "import daccord_tpu_torch.tools.wall_ab, daccord_tpu_torch.tools.host_calls\n"
         "import daccord_tpu_torch.formats.ingest, daccord_tpu_torch.utils.aio\n"
         "import daccord_tpu_torch.utils.obs\n"
+        "import daccord_tpu_torch.kernels.rescore, daccord_tpu_torch.kernels.position_weights\n"
+        "import daccord_tpu_torch.runtime.faults, daccord_tpu_torch.runtime.governor\n"
+        "import daccord_tpu_torch.runtime.supervisor, daccord_tpu_torch.tools.eventcheck\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'daccord_tpu' or m.startswith('daccord_tpu.'))\n"
         "assert not bad, bad\n"
