@@ -72,8 +72,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    batch through the CPU ladder is bit-equal to the card's. Beside it, one
    ladder call's time split into tier 0's prep, DP kernel and rescore, and
    the device kernels and busy share of the call under ``torch.profiler``,
-   with the kernels and with PR 5's torch rescore and ``torch.matmul`` in
-   their place;
+   with the kernels and with the torch rescore and ``torch.matmul`` in
+   their place (the design before the two kernels);
 7. supervisor phase, ``daccord`` runs on the first quarter of the 20 kb
    set at ``-b 512`` under ``DACCORD_FAULT``: ``device_lost`` with
    ``--failover-backend cpu``, ``fetch_hang``, ``dispatch_error``,
@@ -492,8 +492,8 @@ def profile_call(call) -> tuple[float, int, float]:
 def ladder_breakdown(ladder, seqs, lens, nsegs) -> None:
     """Where one B-window ladder call goes: tier 0's three stages timed with
     CUDA events, the whole call, and the device kernels and busy share of
-    the call from a ``torch.profiler`` trace; then the same call with PR 5's
-    design in place of the two new kernels (the torch rescore, W by
+    the call from a ``torch.profiler`` trace; then the same call with the
+    design before the two new kernels (the torch rescore, W by
     ``torch.matmul``), timed and counted the same way, in turns."""
     from daccord_tpu_torch.kernels import dp_backtrack, rescore, window_kernel
     from daccord_tpu_torch.kernels.tiers import ladder_core
@@ -520,8 +520,8 @@ def ladder_breakdown(ladder, seqs, lens, nsegs) -> None:
         f"position_weights kernel), dp_backtrack {dp_ms:.3f} ms, rescore kernel "
         f"{resc_ms:.3f} ms; whole ladder call {ladder_ms:.3f} ms")
 
-    def pr5_design():
-        # the rescore in torch and W by cuBLAS, as before this change
+    def torch_design():
+        # the rescore in torch and W by cuBLAS, as before the two kernels
         return (("rescore_pick", rescore.rescore_pick_plain),
                 ("position_weights", lambda occ, o: torch.matmul(occ, o.t())))
 
@@ -535,14 +535,14 @@ def ladder_breakdown(ladder, seqs, lens, nsegs) -> None:
             for name, f in saved.items():
                 setattr(window_kernel, name, f)
 
-    old_ms = with_design(pr5_design(), lambda: event_ms(call, 3))
+    old_ms = with_design(torch_design(), lambda: event_ms(call, 3))
     resc_old_ms = event_ms(lambda: rescore.rescore_pick_plain(seqs, lens, nsegs, cand, clen,
                                                               ok, p), 3)
     turns = []
-    for tag in ("kernels", "pr5", "pr5", "kernels"):
-        design = pr5_design() if tag == "pr5" else ()
+    for tag in ("kernels", "torch", "torch", "kernels"):
+        design = torch_design() if tag == "torch" else ()
         turns.append((tag, with_design(design, lambda: profile_call(call))))
-    log(f"ladder call, PR 5's design (torch rescore {resc_old_ms:.3f} ms, W by "
+    log(f"ladder call, torch design (torch rescore {resc_old_ms:.3f} ms, W by "
         f"torch.matmul): whole call {old_ms:.3f} ms")
     for tag, (wall_ms, n, busy_ms) in turns:
         if n:
