@@ -232,8 +232,8 @@ def max_err(got, ref) -> float:
 def row(name: str, kernel: str, key, err: float, ms: float, plain_ms: float,
         bms: float, by: str, library_ms=None, timed_by: str = "profiler",
         path=None) -> dict:
-    """One kernel's record; ``path``, for the DP kernels, is the same
-    kernel's (B, ms, plain ms, bound ms) at the batch the path gave it."""
+    """One kernel's record; ``path`` is the same kernel's (B, ms, plain ms,
+    bound ms) at the mean batch the path gave it."""
     pb, pms, pplain, pbound = path if path else (None,) * 4
     return dict(name=name, kernel=kernel, key=key, route="cuda",
                 source=source(kernel), replaces=REPLACES[kernel], max_abs_err=err,
@@ -366,11 +366,12 @@ def rescore_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[d
                 timed_by="/".join(sorted({r["how"] for r in res.values()})), path=path)]
 
 
-def weights_kernel_phase(ladder, seqs, lens, nsegs, dev) -> list[dict]:
+def weights_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[dict]:
     """``position_weights`` at every ladder shape (M, P) on the occurrence
-    counts ``prep_batch`` made from the real windows: bit-equal to the plain
-    version on the card and on the CPU, timed beside it, its bound (occ read
-    once and W written once, against 2 f32 operations a term) and
+    counts ``prep_batch`` made from the real windows, at B and at the mean
+    batch the run gave the shape (``path_b[(M, P)]``): bit-equal to the
+    plain version on the card and on the CPU, timed beside it, its bound
+    (occ read once and W written once, against 2 f32 operations a term) and
     ``torch.matmul`` of the same product."""
     from daccord_tpu_torch.kernels import position_weights as pw
     from daccord_tpu_torch.kernels import window_kernel
@@ -389,27 +390,42 @@ def weights_kernel_phase(ladder, seqs, lens, nsegs, dev) -> list[dict]:
             window_kernel.prep_batch(tseqs, tlens, tnsegs, ladder.tables[p.k], p)
         finally:
             window_kernel.position_weights = real
-        occ, ol = grabbed[0]
-        got = pw.position_weights(occ, ol)
-        ref = pw.position_weights_plain(occ, ol)
-        torch.cuda.synchronize()
-        cpu = pw.position_weights(occ.cpu(), ol.cpu())
-        if not (torch.equal(got, ref) and torch.equal(got.cpu(), cpu)):
-            raise AssertionError(f"position_weights M={p.max_kmers}: kernel differs from "
-                                 f"plain (card or CPU)")
-        B, M, O = occ.shape
+        occ_all, ol = grabbed[0]
+        Bn, M, O = occ_all.shape
         P = ol.shape[0]
-        ms, how = kernel_ms(lambda: pw.position_weights(occ, ol), "position_weights_kernel", 20)
-        plain_ms = event_ms(lambda: pw.position_weights_plain(occ, ol), 3)
-        lib_ms, lib_how = kernel_ms(lambda: torch.matmul(occ, ol.t()), None, 20)
-        diff = float((torch.matmul(occ, ol.t()) - got).abs().max())
-        bms, by = bound(nbytes(occ, ol, got), 2 * B * M * P * O)
-        log(f"kernel position_weights M={M} P={P} O={O} B={B}: bit-equal to plain on the "
-            f"card and on the CPU, kernel {ms:.4f} ms ({how}), plain {plain_ms:.4f} ms, "
-            f"torch.matmul {lib_ms:.4f} ms ({lib_how}; max |diff| {diff:.3g}), bound "
-            f"{bms:.6f} ms ({by})")
+        pb = path_b.get((M, P))
+        res = {}
+        for Bx in dict.fromkeys((Bn, pb)):
+            if Bx is None:
+                continue
+            occ = occ_all[:Bx]
+            got = pw.position_weights(occ, ol)
+            ref = pw.position_weights_plain(occ, ol)
+            torch.cuda.synchronize()
+            cpu = pw.position_weights(occ.cpu(), ol.cpu())
+            if not (torch.equal(got, ref) and torch.equal(got.cpu(), cpu)):
+                raise AssertionError(f"position_weights M={M} B={Bx}: kernel differs "
+                                     f"from plain (card or CPU)")
+            ms, how = kernel_ms(lambda: pw.position_weights(occ, ol),
+                                "position_weights_kernel", 20)
+            plain_ms = event_ms(lambda: pw.position_weights_plain(occ, ol), 3)
+            lib_ms, lib_how = kernel_ms(lambda: torch.matmul(occ, ol.t()), None, 20)
+            diff = float((torch.matmul(occ, ol.t()) - got).abs().max())
+            bms, by = bound(nbytes(occ, ol, got), 2 * Bx * M * P * O)
+            log(f"kernel position_weights M={M} P={P} O={O} B={Bx}: bit-equal to plain "
+                f"on the card and on the CPU, kernel {ms:.4f} ms ({how}), plain "
+                f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms ({lib_how}; max |diff| "
+                f"{diff:.3g}), bound {bms:.6f} ms ({by})")
+            res[Bx] = dict(ms=ms, how=how, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms,
+                           by=by)
+        full = res[Bn]
+        path = None if pb is None else (pb, res[pb]["ms"], res[pb]["plain_ms"],
+                                        res[pb]["bound_ms"])
         rows.append(row(f"position_weights[M={M},P={P}]", "position_weights", (M, P), 0.0,
-                        ms, plain_ms, bms, by, lib_ms, timed_by=how))
+                        full["ms"], full["plain_ms"], full["bound_ms"], full["by"],
+                        full["lib_ms"],
+                        timed_by="/".join(sorted({r["how"] for r in res.values()})),
+                        path=path))
     return rows
 
 
@@ -554,10 +570,11 @@ def ladder_breakdown(ladder, seqs, lens, nsegs) -> None:
                 f"device events (launches not measured)")
 
 
-def daccord(argv: list[str], counters) -> tuple:
+def daccord(argv: list[str], counters, on_card: bool = True) -> tuple:
     """One in-process ``daccord`` run with every kernel's launch counts set
     to 0 just before and read just after: (stats, {kernel: (launches,
-    launches by shape)})."""
+    launches by shape)}). With ``on_card`` a run whose supervisor failed
+    over, moving work off the card, raises."""
     for mod in counters:
         mod.launches = 0
         mod.launches_by_shape.clear()
@@ -566,6 +583,9 @@ def daccord(argv: list[str], counters) -> tuple:
 
     stats, _ = daccord_run(argv)
     torch.cuda.synchronize()
+    if on_card and (stats.degraded or stats.sup_counters.get("degraded_solves")):
+        raise AssertionError(f"daccord {' '.join(argv)}: the supervisor failed over "
+                             f"({stats.fallback_reason})")
     return stats, {mod.__name__.rsplit(".", 1)[1]: (
         mod.launches, dict(mod.launches_by_shape),
         dict(getattr(mod, "windows_by_shape", {}))) for mod in counters}
@@ -830,7 +850,7 @@ def supervisor_phase(d: dict, eprof: str, counters, tmp: str) -> None:
             os.environ["DACCORD_FAULT"] = spec
         try:
             stats, _ = daccord([*base, "-J", shard, "-o", out, "--events", ev, *extra],
-                               counters)
+                               counters, on_card=not spec)
         finally:
             for k, v in saved.items():
                 if v is None:
@@ -1076,7 +1096,8 @@ def main() -> int:
         rows += gather_kernel_phase(seqs, lens, nsegs, families, cfg.page_len, dev)
         rows += rescore_kernel_phase(ladder, seqs, lens, nsegs, dev,
                                      mean_batches(dense_launch, "rescore"))
-        rows += weights_kernel_phase(ladder, seqs, lens, nsegs, dev)
+        rows += weights_kernel_phase(ladder, seqs, lens, nsegs, dev,
+                                     mean_batches(dense_launch, "position_weights"))
 
         # ---- 6. one batch through every route -------------------------------
         tseqs, tlens, tnsegs = (torch.as_tensor(a[:B], device=dev)

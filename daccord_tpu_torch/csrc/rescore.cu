@@ -24,18 +24,22 @@
 // lengths once and writes a row; the work is ~17 64-bit logic/add ops a
 // (candidate, segment base, word). Both are a few microseconds at B=2048.
 //
-// Design: one block a window, one warp a candidate (C <= 32), the segments
-// across the warp's lanes (lane l takes segments l, l + 32, ...). The
-// window's tile, lengths and candidates are copied into shared memory once;
-// each lane builds its candidate's four match masks in registers, runs its
-// segments, and the warp sums its lanes' distances with shuffles. Thread 0
-// then takes the argmin and the accept test, and the block writes the row.
+// Design: one block a window, min(C, RS_WARPS) warps, warp w taking
+// candidates w, w + RS_WARPS, ..., the segments across the warp's lanes
+// (lane l takes segments l, l + 32, ...). The window's tile, lengths and
+// candidates are copied into shared memory once; each lane builds its
+// candidate's four match masks in registers, runs its segments, and the warp
+// sums its lanes' distances with shuffles. Thread 0 then takes the argmin and
+// the accept test, and the block writes the row. The block is at most
+// RS_WARPS * 32 threads (__launch_bounds__), so the eight-word form's
+// registers (~160 a thread) fit the register file at any C.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #define PAD_BASE 4
+#define RS_WARPS 8
 
 __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
@@ -45,7 +49,7 @@ __device__ __forceinline__ uint64_t low_ones(int k)
 }
 
 template <int NW>
-__global__ void rescore_kernel(
+__global__ void __launch_bounds__(RS_WARPS * 32) rescore_kernel(
     const int8_t* __restrict__ seqs,    // [B, D, L]
     const int32_t* __restrict__ lens,   // [B, D]
     const int32_t* __restrict__ nsegs,  // [B]
@@ -73,91 +77,92 @@ __global__ void rescore_kernel(
     for (int i = tid; i < D; i += blockDim.x) len_s[i] = lens[(size_t)b * D + i];
     __syncthreads();
 
-    const int c = tid >> 5;
     const int lane = tid & 31;
-    const int n = clen[(size_t)b * C + c];
-    const int8_t* cc = cand_s + c * CL;
+    for (int c = tid >> 5; c < C; c += blockDim.x >> 5) {
+        const int n = clen[(size_t)b * C + c];
+        const int8_t* cc = cand_s + c * CL;
 
-    // match masks of the candidate's first n bases, one per base value
-    uint64_t pa[NW], pc[NW], pg[NW], pt[NW], vp0[NW];
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-        uint64_t a = 0, cm = 0, g = 0, t = 0;
-        for (int j = 0; j < 64; ++j) {
-            const int i = w * 64 + j;
-            if (i < n && i < CL) {
-                const int x = cc[i];
-                const uint64_t bit = 1ull << j;
-                a |= x == 0 ? bit : 0ull;
-                cm |= x == 1 ? bit : 0ull;
-                g |= x == 2 ? bit : 0ull;
-                t |= x == 3 ? bit : 0ull;
-            }
-        }
-        pa[w] = a;
-        pc[w] = cm;
-        pg[w] = g;
-        pt[w] = t;
-        vp0[w] = low_ones(n - 64 * w);
-    }
-    const int hw = (n - 1) >> 6;           // word and bit of the last row
-    const int hbit = (n - 1) & 63;
-
-    int sum = 0;
-    for (int d = lane; d < D; d += 32) {
-        const int m = len_s[d];
-        if (m <= 0) continue;
-        if (n == 0) {
-            sum += m;
-            continue;
-        }
-        const int8_t* sg = seg_s + d * L;
-        uint64_t vp[NW], vn[NW];
+        // match masks of the candidate's first n bases, one per base value
+        uint64_t pa[NW], pc[NW], pg[NW], pt[NW], vp0[NW];
 #pragma unroll
         for (int w = 0; w < NW; ++w) {
-            vp[w] = vp0[w];
-            vn[w] = 0;
+            uint64_t a = 0, cm = 0, g = 0, t = 0;
+            for (int j = 0; j < 64; ++j) {
+                const int i = w * 64 + j;
+                if (i < n && i < CL) {
+                    const int x = cc[i];
+                    const uint64_t bit = 1ull << j;
+                    a |= x == 0 ? bit : 0ull;
+                    cm |= x == 1 ? bit : 0ull;
+                    g |= x == 2 ? bit : 0ull;
+                    t |= x == 3 ? bit : 0ull;
+                }
+            }
+            pa[w] = a;
+            pc[w] = cm;
+            pg[w] = g;
+            pt[w] = t;
+            vp0[w] = low_ones(n - 64 * w);
         }
-        int score = n;
-        for (int i = 0; i < m; ++i) {
-            const int x = sg[i];
-            uint64_t carry = 0, hp_in = 1ull, hn_in = 0;
-            int up = 0, dn = 0;
+        const int hw = (n - 1) >> 6;           // word and bit of the last row
+        const int hbit = (n - 1) & 63;
+
+        int sum = 0;
+        for (int d = lane; d < D; d += 32) {
+            const int m = len_s[d];
+            if (m <= 0) continue;
+            if (n == 0) {
+                sum += m;
+                continue;
+            }
+            const int8_t* sg = seg_s + d * L;
+            uint64_t vp[NW], vn[NW];
 #pragma unroll
             for (int w = 0; w < NW; ++w) {
-                const uint64_t e = x == 0 ? pa[w] : x == 1 ? pc[w] : x == 2 ? pg[w]
-                                 : x == 3 ? pt[w] : 0ull;
-                const uint64_t X = e | vn[w];
-                const uint64_t A = X & vp[w];
-                const uint64_t t1 = vp[w] + A;
-                const uint64_t s = t1 + carry;
-                carry = (uint64_t)((t1 < vp[w]) | (s < t1));
-                const uint64_t d0 = (s ^ vp[w]) | X;
-                const uint64_t hn = vp[w] & d0;
-                const uint64_t hp = vn[w] | ~(vp[w] | d0);
-                if (w == hw) {
-                    up = (int)((hp >> hbit) & 1ull);
-                    dn = (int)((hn >> hbit) & 1ull);
-                }
-                const uint64_t x2 = (hp << 1) | hp_in;
-                const uint64_t h2 = (hn << 1) | hn_in;
-                hp_in = hp >> 63;
-                hn_in = hn >> 63;
-                vn[w] = x2 & d0;
-                vp[w] = h2 | ~(x2 | d0);
+                vp[w] = vp0[w];
+                vn[w] = 0;
             }
-            score += up - dn;
-        }
-        sum += score;
-    }
+            int score = n;
+            for (int i = 0; i < m; ++i) {
+                const int x = sg[i];
+                uint64_t carry = 0, hp_in = 1ull, hn_in = 0;
+                int up = 0, dn = 0;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-        int total = 0;
-        for (int d = 0; d < D; ++d) total += len_s[d];
-        total = total < 1 ? 1 : total;
-        err_s[c] = ok[(size_t)b * C + c]
-                 ? __fdiv_rn(__int2float_rn(sum), __int2float_rn(total)) : INFINITY;
+                for (int w = 0; w < NW; ++w) {
+                    const uint64_t e = x == 0 ? pa[w] : x == 1 ? pc[w] : x == 2 ? pg[w]
+                                     : x == 3 ? pt[w] : 0ull;
+                    const uint64_t X = e | vn[w];
+                    const uint64_t A = X & vp[w];
+                    const uint64_t t1 = vp[w] + A;
+                    const uint64_t s = t1 + carry;
+                    carry = (uint64_t)((t1 < vp[w]) | (s < t1));
+                    const uint64_t d0 = (s ^ vp[w]) | X;
+                    const uint64_t hn = vp[w] & d0;
+                    const uint64_t hp = vn[w] | ~(vp[w] | d0);
+                    if (w == hw) {
+                        up = (int)((hp >> hbit) & 1ull);
+                        dn = (int)((hn >> hbit) & 1ull);
+                    }
+                    const uint64_t x2 = (hp << 1) | hp_in;
+                    const uint64_t h2 = (hn << 1) | hn_in;
+                    hp_in = hp >> 63;
+                    hn_in = hn >> 63;
+                    vn[w] = x2 & d0;
+                    vp[w] = h2 | ~(x2 | d0);
+                }
+                score += up - dn;
+            }
+            sum += score;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (lane == 0) {
+            int total = 0;
+            for (int d = 0; d < D; ++d) total += len_s[d];
+            total = total < 1 ? 1 : total;
+            err_s[c] = ok[(size_t)b * C + c]
+                     ? __fdiv_rn(__int2float_rn(sum), __int2float_rn(total)) : INFINITY;
+        }
     }
     __syncthreads();
     if (tid == 0) {
@@ -198,7 +203,7 @@ static int launch(const void* seqs, const void* lens, const void* nsegs, const v
             rescore_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    rescore_kernel<NW><<<B, 32 * C, smem, stream>>>(
+    rescore_kernel<NW><<<B, 32 * (C < RS_WARPS ? C : RS_WARPS), smem, stream>>>(
         (const int8_t*)seqs, (const int32_t*)lens, (const int32_t*)nsegs,
         (const int8_t*)cand, (const int32_t*)clen, (const uint8_t*)ok, (int8_t*)cons,
         (int32_t*)cons_len, (float*)err, (uint8_t*)solved, D, L, C, CL, min_depth,
@@ -213,7 +218,7 @@ extern "C" int rescore_launch(
     void* stream)
 {
     if (B == 0) return 0;
-    if (C < 1 || C > 32 || CL < 1) return (int)cudaErrorInvalidValue;
+    if (C < 1 || CL < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const int nw = (CL + 63) / 64;
     if (nw <= 1)

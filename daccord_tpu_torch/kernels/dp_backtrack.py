@@ -167,7 +167,7 @@ def dp_backtrack_batch(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
         B, M, P, C, CL, k, t_lo, t_hi, stream)
     if rc != 0:
         msg = lib.dp_backtrack_error_string(rc).decode()
-        raise RuntimeError(f"dp_backtrack launch failed (B={B}, M={M}, P={P}): "
+        raise _nvcc.KernelError(f"dp_backtrack launch failed (B={B}, M={M}, P={P}): "
                            f"{msg} ({rc})")
     with _count_lock:
         launches += 1

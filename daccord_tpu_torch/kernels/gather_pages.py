@@ -101,7 +101,7 @@ def gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
                                  B, PPW, N, PL, width, stream)
     if rc != 0:
         msg = lib.gather_pages_error_string(rc).decode()
-        raise RuntimeError(f"gather_pages launch failed (B={B}, PPW={PPW}, "
+        raise _nvcc.KernelError(f"gather_pages launch failed (B={B}, PPW={PPW}, "
                            f"PL={PL}): {msg} ({rc})")
     with _count_lock:
         launches += 1

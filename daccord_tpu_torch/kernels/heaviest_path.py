@@ -84,7 +84,7 @@ def heaviest_path_batch(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor):
                                   stream)
     if rc != 0:
         msg = lib.heaviest_path_error_string(rc).decode()
-        raise RuntimeError(f"heaviest_path launch failed (B={B}, M={M}, P={P}): "
+        raise _nvcc.KernelError(f"heaviest_path launch failed (B={B}, M={M}, P={P}): "
                            f"{msg} ({rc})")
     with _count_lock:
         launches += 1

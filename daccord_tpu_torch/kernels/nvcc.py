@@ -5,8 +5,8 @@ plain C interface, loaded with ctypes, in ``daccord_tpu_torch/_build/``. The
 library's file name carries a hash of the source, the headers beside it
 (``csrc/*.cuh``) and the flags, so an unchanged kernel loads at once and a
 changed one rebuilds. :func:`build_many` starts one nvcc per source, all at
-the same time. A missing toolkit or a failed build raises: nothing falls
-back.
+the same time. A missing toolkit or a failed build raises :class:`KernelError`:
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -29,13 +29,20 @@ logs: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel failed to build, or its launch failed: the same call fails
+    the same way again. The supervisor raises it to the caller; it neither
+    retries nor fails over, unless the message names an error that poisoned
+    the CUDA context (``runtime.supervisor.is_device_lost_error``)."""
+
+
 def nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the port's kernels are built with the "
+    raise KernelError("nvcc not found: the port's kernels are built with the "
                        "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
@@ -85,7 +92,7 @@ def build_many(names) -> dict[str, tuple[str, float]]:
         os.replace(tmp, path)
         out[name] = (path, secs)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return out
 
 

@@ -91,7 +91,7 @@ def position_weights(occ: torch.Tensor, ol: torch.Tensor) -> torch.Tensor:
                                      B * M, P, O, stream)
     if rc != 0:
         msg = lib.position_weights_error_string(rc).decode()
-        raise RuntimeError(f"position_weights launch failed (B={B}, M={M}, P={P}, "
+        raise _nvcc.KernelError(f"position_weights launch failed (B={B}, M={M}, P={P}, "
                            f"O={O}): {msg} ({rc})")
     with _count_lock:
         launches += 1

@@ -31,6 +31,7 @@ PAD = 4
 WORD = 62            # bits of the DP column an int64 word holds in the plain
                      # version: the sum of two 62-bit words never overflows
 MAX_CL = 512         # the kernel's longest candidate (eight 64-bit words)
+SMEM_MAX = 232_448   # shared memory one block may take on sm_90 (227 KB)
 
 #: kernel launches since the count was last set to 0, in all and by (C, CL),
 #: and the windows those launches took, by (C, CL)
@@ -53,6 +54,23 @@ def _load():
         lib.rescore_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def check_shape(D: int, L: int, C: int, CL: int) -> None:
+    """Raise ``ValueError`` naming the limit when the kernel cannot take a
+    window of D segments of L bases and C candidates of CL bases: CL up to
+    ``MAX_CL``, any C >= 1, and the window's tile and candidates in one
+    block's shared memory."""
+    if not 1 <= CL <= MAX_CL:
+        raise ValueError(f"rescore: consensus length {CL} outside 1..{MAX_CL}")
+    if C < 1:
+        raise ValueError(f"rescore: {C} candidates; at least 1")
+    a16 = lambda x: (x + 15) & ~15   # noqa: E731
+    need = a16(D * L) + a16(C * CL) + 4 * D + 4 * C + 8
+    if need > SMEM_MAX:
+        raise ValueError(f"rescore: {D} segments of {L} and {C} candidates of {CL} "
+                         f"need {need} bytes of shared memory a block, above the "
+                         f"card's {SMEM_MAX}")
 
 
 def edit_distance_myers(cand: torch.Tensor, cand_len: torch.Tensor,
@@ -206,9 +224,7 @@ def rescore_pick(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
             raise TypeError(f"rescore: {name} is {t.dtype}, expected {dt}")
         if not t.is_contiguous():
             raise ValueError(f"rescore: {name} must be contiguous")
-    if CL > MAX_CL or not 1 <= C <= 32:
-        raise ValueError(f"rescore: CL={CL} (at most {MAX_CL}) and C={C} "
-                         f"(1..32) are what the kernel takes")
+    check_shape(D, L, C, CL)
     lib = _load()
     cons = torch.empty((B, CL), dtype=torch.int8, device=dev)
     cons_len = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -222,7 +238,7 @@ def rescore_pick(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
         ctypes.c_float(p.max_err), stream)
     if rc != 0:
         msg = lib.rescore_error_string(rc).decode()
-        raise RuntimeError(f"rescore launch failed (B={B}, D={D}, L={L}, C={C}, "
+        raise _nvcc.KernelError(f"rescore launch failed (B={B}, D={D}, L={L}, C={C}, "
                            f"CL={CL}): {msg} ({rc})")
     with _count_lock:
         launches += 1

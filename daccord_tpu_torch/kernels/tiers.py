@@ -384,25 +384,24 @@ def solve_ladder(batch, ladder: TierLadder) -> dict:
     return fetch(solve_ladder_async(batch, ladder))
 
 
-def audit_reference(ladder: TierLadder):
-    """The shadow audit's trusted reference: ``ladder`` on the CPU, through
-    the kernels' plain versions, one call per audited sample.
+def audit_reference(host: TierLadder):
+    """The shadow audit's trusted reference and the ``cpu`` failover engine:
+    ``host``, a ladder on the CPU, through the kernels' plain versions.
 
     The port's counterpart of the JAX package's ``audit_reference``: the
     eager ladder compacts every escalation tier to the rows that need it,
     so each sampled row pays only its own escalation, and windows solve
     independently, so a sample's rows get the bytes the whole batch would.
     With W summed in one order on both sides (``kernels.position_weights``)
-    the CPU ladder is byte-equal to the card's. A ladder on the card is
-    copied to the CPU here, so build the reference before the card can
-    fail, or pass a CPU ladder."""
-    host = ladder if ladder.device.type == "cpu" else dataclasses.replace(
-        ladder, tables={k: t.cpu() for k, t in ladder.tables.items()})
+    the CPU ladder is byte-equal to the card's."""
+    if host.device.type != "cpu":
+        raise ValueError(f"audit_reference: the ladder is on {host.device}; "
+                         f"build it on the CPU, where no CUDA fault reaches it")
 
     def _ref(b):
         if hasattr(b, "to_dense"):
             b = b.to_dense()
         return solve_ladder(b, host)
 
-    _ref.__name__ = "host-ladder"
+    _ref.__name__ = "cpu-ladder"
     return _ref

@@ -854,7 +854,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
     fetch_fn, fetch_many_fn = fetch, fetch_many
     sup = None
     if cfg.supervise:
-        from ..kernels.tiers import audit_reference, solve_ladder
+        from ..kernels.tiers import audit_reference
         from ..utils.obs import device_alive
         from .supervisor import DeviceSupervisor, SupervisorConfig
 
@@ -874,13 +874,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                 kind = "cpu" if dev.type == "cpu" else "native"
             if kind == "native":
                 return _build_native_fallback(profile, cfg)
-            host = cpu_ladder()
-
-            def cpu_fb(b):
-                return solve_ladder(b, host)
-
-            cpu_fb.__name__ = "cpu-ladder"
-            return cpu_fb
+            return audit_reference(cpu_ladder())
 
         sup = DeviceSupervisor(
             dispatch_fn, fetch_fn, fallback_factory=fallback_factory,

@@ -32,7 +32,12 @@ device-side assert, an uncorrectable ECC error, and every later call on that
 context) is device loss at once: no retry on this process can succeed. An
 out-of-memory error (``torch.cuda.OutOfMemoryError``) is the capacity class,
 which the governor (``runtime/governor.py``) walks down its bisect ladder
-and which never spends the transient retry budget. The ladder dispatcher
+and which never spends the transient retry budget. A kernel that fails to
+build, refuses its arguments or fails to launch without poisoning the
+context (``kernels.nvcc.KernelError``, ``ValueError``, ``TypeError``) is
+deterministic: it is raised to the caller, with no retry and no failover,
+since it would fail the same way again and a failover would hide the
+kernel. The ladder dispatcher
 (``kernels/tiers.py``) raises a call's error again at ``fetch``, and the
 supervisor classifies it there.
 
@@ -62,6 +67,7 @@ import threading
 import time
 from dataclasses import dataclass
 
+from ..kernels.nvcc import KernelError
 from ..utils.obs import env_float as _env_float
 from .faults import (FaultCompileStall, FaultDeviceLost, FaultDeviceOOM,
                      FaultDispatchError, FaultHang, FaultPlan)
@@ -100,9 +106,9 @@ TRUST_QUARANTINED = "QUARANTINED"
 _DEVICE_LOST_MARKERS = ("unspecified launch failure", "illegal memory access",
                         "illegal instruction", "device-side assert",
                         "uncorrectable ECC", "ECC error", "misaligned address",
-                        "hardware stack error", "launch failed",
-                        "an illegal address", "CUDA error: unknown error",
-                        "GPU is lost", "device is unavailable")
+                        "hardware stack error", "an illegal address",
+                        "CUDA error: unknown error", "GPU is lost",
+                        "device is unavailable")
 
 
 class DeviceLostError(RuntimeError):
@@ -115,8 +121,9 @@ class WatchdogTimeout(RuntimeError):
 
 def is_device_lost_error(exc: BaseException) -> bool:
     """True when ``exc`` is a CUDA error after which no call of this
-    process can reach the card (launch failures, traps, illegal accesses,
-    device-side asserts, uncorrectable ECC errors, a poisoned context)."""
+    process can reach the card (an unspecified launch failure, a trap, an
+    illegal access, a device-side assert, an uncorrectable ECC error, and
+    any later call on the poisoned context)."""
     if isinstance(exc, (DeviceLostError, FaultDeviceLost)):
         return True
     msg = str(exc)
@@ -375,9 +382,11 @@ class DeviceSupervisor:
         """Run one logical op with deadline classification and retry/probe.
         ``make_args(attempt)`` builds the arguments per attempt (a retried
         fetch re-dispatches its retained batch). Raises
-        :class:`DeviceLostError` when the op cannot be salvaged and
+        :class:`DeviceLostError` when the op cannot be salvaged,
         :class:`CapacityError` when it is memory-classified (the caller
-        routes it to the governor, never the transient retry ladder)."""
+        routes it to the governor, never the transient retry ladder) and a
+        deterministic error (a kernel's build, arguments or launch) as it
+        is."""
         cfg = self.cfg
         injected: BaseException | None = None
         if self.faults is not None:
@@ -457,6 +466,10 @@ class DeviceSupervisor:
                     reason = f"{op} error: {type(e).__name__}: {e}"
                     self._transition(SUSPECT, reason=reason[:200])
                     raise DeviceLostError(reason[:200]) from e
+                if isinstance(e, (KernelError, ValueError, TypeError)):
+                    # deterministic: the same call fails the same way on
+                    # every retry, and a failover would hide the kernel
+                    raise
                 err = e
                 cls = "transient"
                 reason = f"{op} error: {type(e).__name__}: {e}"

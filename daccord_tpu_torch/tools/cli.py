@@ -208,6 +208,8 @@ def _check(args) -> None:
                          f"{k + 4} and --seg-len > {k + 5}")
     if args.max_kmers <= 0:
         raise SystemExit("-M: the device ladder needs a positive top-M cap")
+    if args.candidates < 1:
+        raise SystemExit(f"--candidates {args.candidates}: at least 1")
     if args.device == "cuda":
         # the DP kernels' widest window and their shared memory, checked at
         # every tier's shape before any work (tiers with min_count 1 run at
@@ -222,11 +224,14 @@ def _check(args) -> None:
                 check_width(p.max_kmers, p.positions, t_hi - t_lo + 1, args.dp)
             except ValueError as e:
                 raise SystemExit(f"-M {args.max_kmers} -w {args.w}: {e}") from None
-        from ..kernels.rescore import MAX_CL
+        from ..kernels.rescore import check_shape
 
-        if args.w + 8 > MAX_CL:
-            raise SystemExit(f"-w {args.w}: the rescore kernel takes consensus "
-                             f"lengths up to {MAX_CL} (w + 8)")
+        try:
+            check_shape(args.depth, args.seg_len, args.candidates,
+                        KernelParams(wlen=args.w).cons_len)
+        except ValueError as e:
+            raise SystemExit(f"-w {args.w} --candidates {args.candidates} --depth "
+                             f"{args.depth} --seg-len {args.seg_len}: {e}") from None
     if args.native_threads < 0:
         raise SystemExit("--native-threads must be 0 (all CPUs) or positive")
     if args.audit_rate is not None and not 0.0 <= args.audit_rate <= 1.0:

@@ -201,11 +201,13 @@ def rescore_inputs(seed: int, B: int, C: int, CL: int, D: int, L: int):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("CL,L,D,C", [(48, 64, 32, 3), (63, 64, 32, 3), (64, 80, 16, 3),
-                                      (72, 80, 40, 5), (130, 140, 8, 2)])
+                                      (72, 80, 40, 5), (130, 140, 8, 2), (256, 264, 12, 32),
+                                      (512, 520, 8, 32), (48, 64, 32, 11)])
 def test_rescore_kernel_matches_plain(cuda, CL, L, D, C):
-    """One launch == the torch rescore, bit for bit, across one, two and
-    three 64-bit words, more segments than a warp's lanes, and windows with
-    no ok candidate, an empty candidate or no segment."""
+    """One launch == the torch rescore, bit for bit, across one to eight
+    64-bit words, more segments than a warp's lanes, more candidates than a
+    block's warps, and windows with no ok candidate, an empty candidate or
+    no segment."""
     B = 300
     host = rescore_inputs(CL + D, B, C, CL, D, L)
     args = [torch.as_tensor(a, device=cuda) for a in host]
@@ -223,7 +225,8 @@ def test_rescore_kernel_matches_plain(cuda, CL, L, D, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,M,O,P", [(2048, 64, 56, 41), (133, 256, 56, 41), (5, 7, 90, 5)])
+@pytest.mark.parametrize("B,M,O,P", [(2048, 64, 56, 41), (133, 256, 56, 41), (5, 7, 90, 5),
+                                     (4, 33, 30, 20), (3, 9, 20, 100)])
 def test_position_weights_kernel_matches_the_cpu(cuda, B, M, O, P):
     """The fixed-order W on the card == the plain W on the CPU, bit for bit,
     with table values down to subnormal size (no flush to zero)."""
@@ -445,3 +448,40 @@ def test_real_trap_fails_over_to_the_cpu_ladder(cuda, tmp_path):
     assert st["degraded"] and "injected" not in st["reason"], st
     with open(out) as a, open(clean) as b:
         assert a.read() == b.read()
+
+
+@pytest.mark.cuda
+def test_kernel_launch_error_raises_through_the_supervisor(cuda, tmp_path, monkeypatch):
+    """A launch the card refuses without poisoning the context (a W table
+    too large for one block's shared memory) raises ``KernelError`` through
+    the supervisor: no probe, no retry, no failover, and the card runs the
+    next launch."""
+    from daccord_tpu_torch.kernels.nvcc import KernelError
+    from daccord_tpu_torch.kernels.tensorize import BatchShape, WindowBatch
+    from daccord_tpu_torch.runtime.supervisor import DeviceSupervisor, SupervisorConfig
+    from daccord_tpu_torch.utils.obs import NullLogger
+
+    monkeypatch.setenv("DACCORD_COMPCACHE", str(tmp_path / "cc"))
+    occ = torch.ones((2, 4, 300), device=cuda)
+    ol = torch.ones((300, 300), device=cuda)        # 352 KB of shared memory
+    batch = WindowBatch(seqs=np.zeros((2, 2, 8), np.int8), lens=np.zeros((2, 2), np.int32),
+                        nsegs=np.zeros(2, np.int32),
+                        shape=BatchShape(depth=2, seg_len=8, wlen=8),
+                        read_ids=np.arange(2, dtype=np.int64),
+                        wstarts=np.zeros(2, np.int64))
+    probes, built = [], []
+    sup = DeviceSupervisor(
+        lambda b: position_weights.position_weights(occ, ol),
+        lambda h: torch.cuda.synchronize() or h,
+        fallback_factory=lambda: built.append(1) or (lambda b: b),
+        log=NullLogger(), cfg=SupervisorConfig(), faults=None,
+        probe_fn=lambda: probes.append(1) or True)
+    try:
+        with pytest.raises(KernelError, match="position_weights launch failed"):
+            sup.fetch(sup.dispatch(batch))
+    finally:
+        sup.close()
+    assert not sup.failed_over and not built and not probes
+    got = position_weights.position_weights(occ[:, :, :56].contiguous(),
+                                            ol[:41, :56].contiguous())
+    assert torch.equal(got.cpu(), torch.full((2, 4, 41), 56.0))

@@ -27,6 +27,7 @@ import daccord_tpu_torch.runtime.governor as port_governor
 import daccord_tpu_torch.runtime.supervisor as port_supervisor
 import daccord_tpu_torch.utils.obs as port_obs
 from daccord_tpu.tools.eventcheck import validate_events as jax_validate
+from daccord_tpu_torch.kernels.nvcc import KernelError
 from daccord_tpu_torch.tools.eventcheck import validate_events
 
 PACKAGES = {"jax": (jax_tensorize, jax_faults, jax_governor, jax_supervisor, jax_obs),
@@ -321,6 +322,53 @@ def test_poisoned_context_is_device_loss(tmp_path, monkeypatch):
     assert chain[-3:] == [("HEALTHY", "SUSPECT"), ("SUSPECT", "LOST"),
                           ("LOST", "DEGRADED")]
     assert validate_events(ev, strict=True) == []
+
+
+@pytest.mark.parametrize("where", ["dispatch", "fetch"])
+@pytest.mark.parametrize("exc", [
+    KernelError("rescore launch failed (B=8, D=32, L=64, C=3, CL=48): too many "
+                "resources requested for launch (701)"),
+    KernelError("nvcc failed to build daccord_tpu_torch/csrc/rescore.cu:\nerror"),
+    ValueError("rescore: CL=600 outside 1..512"),
+    TypeError("rescore: seqs is torch.int32, expected torch.int8")],
+    ids=["launch", "build", "arguments", "dtype"])
+def test_kernel_errors_raise_without_retry_or_failover(tmp_path, monkeypatch, where, exc):
+    """A kernel that fails to build, refuses its arguments or fails to launch
+    without poisoning the context fails the same way again: the supervisor
+    raises it as it is, with no probe, no retry and no failover, so no run
+    finishes with its work moved off the card."""
+    monkeypatch.setenv("DACCORD_COMPCACHE", str(tmp_path / "cc"))
+    probes, built = [], []
+    ev = os.path.join(str(tmp_path), "kernel.events.jsonl")
+
+    def bad(batch):
+        raise exc
+
+    ok = lambda b: b   # noqa: E731
+    sup = port_supervisor.DeviceSupervisor(
+        bad if where == "dispatch" else ok, bad if where == "fetch" else ok,
+        fallback_factory=lambda: built.append(1) or (lambda b: {"engine": "fallback"}),
+        log=port_obs.JsonlLogger(ev), cfg=port_supervisor.SupervisorConfig(),
+        faults=None, probe_fn=lambda: probes.append(1) or True)
+    with pytest.raises(type(exc)) as ei:
+        sup.fetch(sup.dispatch(_mini_batch(port_tensorize)))
+    assert ei.value is exc
+    assert not sup.failed_over and not built and not probes
+    assert sup.counters["retries"] == 0
+    assert not any(e["event"] in ("sup_failover", "sup_retry") for e in _events(ev))
+    assert not port_supervisor.is_device_lost_error(exc)
+
+
+def test_sticky_error_at_a_launch_is_device_loss():
+    """A launch that reports an error of an earlier kernel which poisoned the
+    context is device loss, whatever raised it."""
+    lost = port_supervisor.is_device_lost_error
+    assert lost(KernelError("rescore launch failed (B=8, D=32, L=64, C=3, CL=48): "
+                            "unspecified launch failure (719)"))
+    assert lost(KernelError("gather_pages launch failed (B=8, PPW=4, PL=16): an "
+                            "illegal memory access was encountered (700)"))
+    assert not lost(KernelError("position_weights launch failed (B=8, M=64, P=41, "
+                                "O=56): invalid argument (1)"))
 
 
 def test_eventcheck_matches_jax(tmp_path):

@@ -124,6 +124,28 @@ def test_rescore_wrapper_checks_its_inputs():
         rescore_pick(seqs, lens[:, :3], nsegs, cand, clen, ok, p)
 
 
+def test_rescore_kernel_limits_are_refused_before_any_work():
+    """The kernel takes any C and CL up to MAX_CL while the window fits one
+    block's shared memory; ``daccord --device cuda`` refuses other widths,
+    and a top-M the DP kernels cannot take, at its argument check."""
+    from daccord_tpu_torch.kernels import rescore
+    from daccord_tpu_torch.tools import cli
+
+    rescore.check_shape(32, 64, 32, rescore.MAX_CL)
+    rescore.check_shape(64, 256, 64, 64)
+    for args, why in (((32, 64, 3, rescore.MAX_CL + 1), "outside"),
+                      ((32, 64, 0, 48), "at least 1"),
+                      ((512, 512, 3, 48), "shared memory")):
+        with pytest.raises(ValueError, match=why):
+            rescore.check_shape(*args)
+    for bad, why in ((["-w", "600"], "-w 600"),
+                     (["--candidates", "0"], "at least 1"),
+                     (["--depth", "512", "--seg-len", "512"], "shared memory"),
+                     (["-M", "1025"], "exceeds the kernels' 1024")):
+        with pytest.raises(SystemExit, match=why):
+            cli.main(["daccord", "no.db", "no.las", "--device", "cuda", *bad])
+
+
 def weight_inputs(seed: int, B: int, M: int, O: int, P: int):
     """Occurrence counts like prep_batch's (small integers, mostly zero) and
     an OffsetLikely-like table with values down to subnormal size."""
