@@ -34,8 +34,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    FASTA outputs are compared (the drift bound of ROADMAP's parity
    invariant), and all three are scored against the simulation's truth
    (they must beat the raw reads). Every run is supervised
-   (``runtime/supervisor.py``) with the shadow audit at its default 1/64;
-   each prints the audit's host wall and its share of the run's wall;
+   (``runtime/supervisor.py``) with the shadow audit at its default 1/64,
+   its samples solved in the audit worker process
+   (``runtime/audit_worker.py``); each prints the audit's wall on the
+   pipeline's thread (``audit_s``), the worker's own solve wall
+   (``audit_worker_s``), the wait for the worker's start
+   (``audit_warm_s``) and their shares of the run's wall, fails if the
+   audit was disabled, and is run again at audit rate 0, which must write
+   the same FASTA byte for byte (its wall on the line). Then the 100 kb run
+   with the worker as one process of 1 and of 2 torch threads, and as the
+   default two processes of 1;
 4b. the slice's checks on the 20 kb set, each a ``daccord`` run with the
    counts set to 0 before it: ``--max-inflight 1`` and a second deque run
    write the first deque run's FASTA byte for byte (their walls on one
@@ -63,9 +71,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    - ``gather_pages`` once per shape family of the paged run, on a paged
      batch packed from the real windows routed to that family;
    - ``rescore`` on tier 0's candidates of the B real windows (and at the
-     mean batch the run gave it), and ``position_weights`` on the
-     occurrence counts ``prep_batch`` made at every ladder shape, beside
-     ``torch.matmul`` of the same product;
+     mean batch the run gave it), and ``position_weights`` on the kept
+     k-mer index of each position ``prep_batch`` made at every ladder shape,
+     beside ``torch.matmul`` of the counts and the table;
 6. one 2048-window batch: the gathered paged tile is bit-equal to the dense
    tile; the scan-route ladder, the paged ladder and the ladder with the
    plain DP are bit-equal to the fused-route ladder on the card; the same
@@ -367,12 +375,13 @@ def rescore_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[d
 
 
 def weights_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[dict]:
-    """``position_weights`` at every ladder shape (M, P) on the occurrence
-    counts ``prep_batch`` made from the real windows, at B and at the mean
-    batch the run gave the shape (``path_b[(M, P)]``): bit-equal to the
-    plain version on the card and on the CPU, timed beside it, its bound
-    (occ read once and W written once, against 2 f32 operations a term) and
-    ``torch.matmul`` of the same product."""
+    """``position_weights`` at every ladder shape (M, P) on the kept k-mer
+    index of each position ``prep_batch`` made from the real windows, at B
+    and at the mean batch the run gave the shape (``path_b[(M, P)]``):
+    bit-equal to the plain version on the card and on the CPU, timed beside
+    it, its bound (kid and ol read once and W written once, against 2 f32
+    operations a nonzero count and column: the terms this data needs) and
+    ``torch.matmul`` of the f32 counts and the table."""
     from daccord_tpu_torch.kernels import position_weights as pw
     from daccord_tpu_torch.kernels import window_kernel
     from daccord_tpu_torch.tools.timing import event_ms, kernel_ms
@@ -385,37 +394,41 @@ def weights_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[d
         seen.add((p.max_kmers, p.positions))
         grabbed = []
         real = window_kernel.position_weights
-        window_kernel.position_weights = lambda occ, ol: grabbed.append((occ, ol)) or real(occ, ol)
+        window_kernel.position_weights = (
+            lambda kid, ol, M: grabbed.append((kid, ol, M)) or real(kid, ol, M))
         try:
             window_kernel.prep_batch(tseqs, tlens, tnsegs, ladder.tables[p.k], p)
         finally:
             window_kernel.position_weights = real
-        occ_all, ol = grabbed[0]
-        Bn, M, O = occ_all.shape
-        P = ol.shape[0]
+        kid_all, ol, M = grabbed[0]
+        Bn = kid_all.shape[0]
+        P, O = ol.shape
         pb = path_b.get((M, P))
         res = {}
         for Bx in dict.fromkeys((Bn, pb)):
             if Bx is None:
                 continue
-            occ = occ_all[:Bx]
-            got = pw.position_weights(occ, ol)
-            ref = pw.position_weights_plain(occ, ol)
+            kid = kid_all[:Bx]
+            got = pw.position_weights(kid, ol, M)
+            ref = pw.position_weights_plain(kid, ol, M)
             torch.cuda.synchronize()
-            cpu = pw.position_weights(occ.cpu(), ol.cpu())
+            cpu = pw.position_weights(kid.cpu(), ol.cpu(), M)
             if not (torch.equal(got, ref) and torch.equal(got.cpu(), cpu)):
                 raise AssertionError(f"position_weights M={M} B={Bx}: kernel differs "
                                      f"from plain (card or CPU)")
-            ms, how = kernel_ms(lambda: pw.position_weights(occ, ol),
+            ms, how = kernel_ms(lambda: pw.position_weights(kid, ol, M),
                                 "position_weights_kernel", 20)
-            plain_ms = event_ms(lambda: pw.position_weights_plain(occ, ol), 3)
+            plain_ms = event_ms(lambda: pw.position_weights_plain(kid, ol, M), 3)
+            occ = pw.occurrence_counts(kid, M, O)
             lib_ms, lib_how = kernel_ms(lambda: torch.matmul(occ, ol.t()), None, 20)
             diff = float((torch.matmul(occ, ol.t()) - got).abs().max())
-            bms, by = bound(nbytes(occ, ol, got), 2 * Bx * M * P * O)
+            nnz = int((occ != 0).sum())
+            bms, by = bound(nbytes(kid, ol, got), 2 * nnz * P)
             log(f"kernel position_weights M={M} P={P} O={O} B={Bx}: bit-equal to plain "
                 f"on the card and on the CPU, kernel {ms:.4f} ms ({how}), plain "
                 f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms ({lib_how}; max |diff| "
-                f"{diff:.3g}), bound {bms:.6f} ms ({by})")
+                f"{diff:.3g}), bound {bms:.6f} ms ({by}; {nnz} nonzero counts of "
+                f"{occ.numel()})")
             res[Bx] = dict(ms=ms, how=how, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms,
                            by=by)
         full = res[Bn]
@@ -512,6 +525,7 @@ def ladder_breakdown(ladder, seqs, lens, nsegs) -> None:
     design before the two new kernels (the torch rescore, W by
     ``torch.matmul``), timed and counted the same way, in turns."""
     from daccord_tpu_torch.kernels import dp_backtrack, rescore, window_kernel
+    from daccord_tpu_torch.kernels.position_weights import occurrence_counts
     from daccord_tpu_torch.kernels.tiers import ladder_core
     from daccord_tpu_torch.kernels.window_kernel import prep_batch, rescore_pick
     from daccord_tpu_torch.tools.timing import event_ms
@@ -539,7 +553,8 @@ def ladder_breakdown(ladder, seqs, lens, nsegs) -> None:
     def torch_design():
         # the rescore in torch and W by cuBLAS, as before the two kernels
         return (("rescore_pick", rescore.rescore_pick_plain),
-                ("position_weights", lambda occ, o: torch.matmul(occ, o.t())))
+                ("position_weights", lambda kid, o, M: torch.matmul(
+                    occurrence_counts(kid, M, o.shape[1]), o.t())))
 
     def with_design(design, fn):
         saved = {name: getattr(window_kernel, name) for name, _ in design}
@@ -586,6 +601,9 @@ def daccord(argv: list[str], counters, on_card: bool = True) -> tuple:
     if on_card and (stats.degraded or stats.sup_counters.get("degraded_solves")):
         raise AssertionError(f"daccord {' '.join(argv)}: the supervisor failed over "
                              f"({stats.fallback_reason})")
+    if stats.audit_disabled:
+        raise AssertionError(f"daccord {' '.join(argv)}: audit.disabled "
+                             f"({stats.audit_disabled})")
     return stats, {mod.__name__.rsplit(".", 1)[1]: (
         mod.launches, dict(mod.launches_by_shape),
         dict(getattr(mod, "windows_by_shape", {}))) for mod in counters}
@@ -639,8 +657,7 @@ def log_run(tag: str, stats, launched: dict) -> None:
         f"{stats.h2d_bytes} bytes ({stats.h2d_bytes / n:.0f} per batch)")
     log(f"daccord {tag}: feeder stage profile {json.dumps(stats.stage_profile)}")
     log(f"daccord {tag}: supervisor {json.dumps(stats.sup_counters)}, degraded "
-        f"{stats.degraded}; shadow audit (rate 1/64) audit_s {stats.audit_s:.4f} s, "
-        f"{stats.audit_s / w:.4f} of the wall")
+        f"{stats.degraded}; {audit_text(stats)}")
     for name, (total, by_shape, windows) in launched.items():
         shapes = ", ".join(f"{k}: {v}" for k, v in sorted(by_shape.items()))
         log(f"daccord {tag}: {name} launches {total} ({shapes})")
@@ -648,6 +665,15 @@ def log_run(tag: str, stats, launched: dict) -> None:
             means = ", ".join(f"{k}: {windows[k] / n:.1f}"
                               for k, n in sorted(by_shape.items()) if n)
             log(f"daccord {tag}: {name} mean windows per launch ({means})")
+
+
+def audit_text(stats) -> str:
+    w = stats.wall_s
+    return (f"shadow audit (rate 1/64) audit_s {stats.audit_s:.4f} s, "
+            f"{stats.audit_s / w:.4f} of the wall; audit_worker_s "
+            f"{stats.audit_worker_s:.4f} s ({stats.audit_worker_s / w:.4f}); audit_warm_s "
+            f"{stats.audit_warm_s:.4f} s ({stats.audit_warm_s / w:.4f}; the worker's start "
+            f"{json.dumps({k: round(v, 3) for k, v in stats.audit_worker_start.items()})})")
 
 
 def records(path: str) -> dict:
@@ -804,6 +830,74 @@ def slice_checks(d: dict, eprof: str, dense: tuple, counters, tmp: str) -> None:
         if "".join(parts) != fh.read() or not all(parts):
             raise AssertionError("-J 0,3 + 1,3 + 2,3 differ from the unsharded FASTA")
     log("-J 0,3 + -J 1,3 + -J 2,3 concatenated == the unsharded FASTA, byte for byte")
+
+
+def reference_cost(big: dict, eprof: str) -> None:
+    """The audit reference (the CPU ladder) on 32 and 256 real windows of
+    the 100 kb set, on 1 and 2 torch threads in this process: its host
+    seconds a call (the median of 3 after one warm-up), what a worker pays a
+    sample."""
+    import functools
+
+    from daccord_tpu_torch.formats.dazzdb import read_db
+    from daccord_tpu_torch.formats.las import LasFile
+    from daccord_tpu_torch.kernels.tensorize import BatchShape, WindowBatch
+    from daccord_tpu_torch.kernels.tiers import TierLadder, audit_reference
+    from daccord_tpu_torch.oracle.profile import ErrorProfile
+    from daccord_tpu_torch.runtime.pipeline import PipelineConfig
+
+    cfg = PipelineConfig(device="cpu")
+    ref = audit_reference(functools.partial(
+        TierLadder.from_config, ErrorProfile.load(eprof), cfg.consensus, device="cpu")())
+    seqs, lens, nsegs = real_windows(read_db(big["db"]), LasFile(big["las"]), cfg, 256)
+    n0 = torch.get_num_threads()
+    try:
+        for threads in (1, 2):
+            torch.set_num_threads(threads)
+            for n in (32, 256):
+                b = WindowBatch(seqs=seqs[:n], lens=lens[:n], nsegs=nsegs[:n],
+                                shape=BatchShape(depth=cfg.depth, seg_len=cfg.seg_len),
+                                read_ids=np.zeros(n, np.int64), wstarts=np.zeros(n, np.int64))
+                ref(b)
+                secs = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    ref(b)
+                    secs.append(time.perf_counter() - t0)
+                s = float(np.median(secs))
+                log(f"audit reference (CPU ladder), {n} windows on {threads} torch "
+                    f"thread{'s' if threads > 1 else ''}: {s:.4f} s a call, "
+                    f"{s / n * 1e3:.3f} ms a window")
+    finally:
+        torch.set_num_threads(n0)
+
+
+def audit_workers_phase(big: dict, eprof: str, nthreads: int, counters, tmp: str,
+                        clean: dict) -> None:
+    """The 100 kb run with the audit worker as one process of 1 torch
+    thread, one of 2, and the default (two processes of 1), after the main
+    run: each FASTA the main run's, and the audit's walls beside the run's."""
+    from daccord_tpu_torch.runtime.pipeline import PipelineConfig
+    from daccord_tpu_torch.tools import cli
+
+    reference_cost(big, eprof)
+    real = cli.PipelineConfig
+    for procs, threads in ((1, 1), (1, 2), (2, 1)):
+        out = os.path.join(tmp, f"big_audit_{procs}x{threads}.fasta")
+        cli.PipelineConfig = lambda **kw: PipelineConfig(audit_workers=procs,
+                                                         audit_threads=threads, **kw)
+        try:
+            st, _ = daccord([big["db"], big["las"], "-o", out, "-E", eprof, "-b", str(B),
+                             "--device", DEVICE, "--paged", "off", "--dp", "fused",
+                             "-t", str(nthreads)], counters)
+        finally:
+            cli.PipelineConfig = real
+        if records(out) != clean:
+            raise AssertionError(f"audit worker {procs} x {threads}: FASTA differs")
+        log(f"100 kb dense fused, audit worker {procs} process{'es' if procs > 1 else ''} "
+            f"x {threads} torch thread{'s' if threads > 1 else ''}: wall {st.wall_s:.3f} s, "
+            f"solve_s {st.solve_s:.3f}, device_s {st.device_s:.3f}; {audit_text(st)}; "
+            f"FASTA byte-identical")
 
 
 TRAP_RUN = """
@@ -1052,6 +1146,16 @@ def main() -> int:
                 raise AssertionError(f"daccord {tag} did not window through the "
                                      f"host library")
             runs[tag] = (out, stats, launched, ds)
+            out0 = out + ".audit0"
+            st0, _ = daccord([ds["db"], ds["las"], "-o", out0, "-E", ep, "-b", str(B),
+                              "--device", dev.type, "--audit-rate", "0", *args], counters)
+            with open(out, "rb") as a, open(out0, "rb") as b0:
+                if a.read() != b0.read():
+                    raise AssertionError(f"daccord {tag}: the audited FASTA differs from "
+                                         f"the run at audit rate 0")
+            log(f"daccord {tag}: FASTA byte-identical at audit rate 0 (wall {st0.wall_s:.3f} "
+                f"s against {stats.wall_s:.3f} s at 1/64; solve_s {st0.solve_s:.3f}, "
+                f"device_s {st0.device_s:.3f}, else {else_s(st0):.3f})")
         dense_launch = runs["dense fused"][2]
         paged_launch = runs["paged scan"][2]
         for run_launched, name in ((dense_launch, "dp_backtrack"),
@@ -1073,6 +1177,9 @@ def main() -> int:
             f"({n_rec - same} differ), bases {bases_a} vs {bases_b}")
         if same < 0.95 * n_rec or abs(bases_a - bases_b) > 0.005 * bases_a:
             raise AssertionError("the paged scan run drifted past the parity bound")
+
+        audit_workers_phase(big, big_eprof, nthreads, counters, tmp,
+                            records(runs["100 kb dense fused"][0]))
 
         # ---- 4b. the slice's checks -----------------------------------------
         t0 = time.perf_counter()

@@ -210,17 +210,14 @@ def heaviest_path_plain(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
     s = s0
     scores = [s]
     ptrs = [torch.zeros((B, M), dtype=torch.int32, device=dev)]
-    iota_u = torch.arange(M, dtype=torch.int32, device=dev).view(1, M, 1)
     neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
     for t in range(1, P):
-        cand3 = s[:, :, None] + adjW                        # [B, u, v]
-        best = cand3.amax(dim=1)                            # [B, v]
-        # explicit first-max tie-break: the lowest u reaching the max
-        best_u = torch.where(cand3 == best[:, None, :], iota_u,
-                             torch.full_like(iota_u, M)).amin(dim=1)
+        # the max over u and the lowest u reaching it (torch.max returns the
+        # first maximal index; no value is NaN)
+        best, best_u = (s[:, :, None] + adjW).max(dim=1)    # [B, v]
         s = torch.where(best > NEG / 2, best + wt[:, t, :], neg)
         scores.append(s)
-        ptrs.append(best_u)
+        ptrs.append(best_u.to(torch.int32))
     return torch.stack(scores, dim=1), torch.stack(ptrs, dim=1)
 
 

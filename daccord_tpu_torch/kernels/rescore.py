@@ -31,7 +31,6 @@ PAD = 4
 WORD = 62            # bits of the DP column an int64 word holds in the plain
                      # version: the sum of two 62-bit words never overflows
 MAX_CL = 512         # the kernel's longest candidate (eight 64-bit words)
-SMEM_MAX = 232_448   # shared memory one block may take on sm_90 (227 KB)
 
 #: kernel launches since the count was last set to 0, in all and by (C, CL),
 #: and the windows those launches took, by (C, CL)
@@ -59,18 +58,12 @@ def _load():
 def check_shape(D: int, L: int, C: int, CL: int) -> None:
     """Raise ``ValueError`` naming the limit when the kernel cannot take a
     window of D segments of L bases and C candidates of CL bases: CL up to
-    ``MAX_CL``, any C >= 1, and the window's tile and candidates in one
-    block's shared memory."""
+    ``MAX_CL`` and any C >= 1 (the window's tile stays in global memory and
+    registers, so D and L are free)."""
     if not 1 <= CL <= MAX_CL:
         raise ValueError(f"rescore: consensus length {CL} outside 1..{MAX_CL}")
     if C < 1:
         raise ValueError(f"rescore: {C} candidates; at least 1")
-    a16 = lambda x: (x + 15) & ~15   # noqa: E731
-    need = a16(D * L) + a16(C * CL) + 4 * D + 4 * C + 8
-    if need > SMEM_MAX:
-        raise ValueError(f"rescore: {D} segments of {L} and {C} candidates of {CL} "
-                         f"need {need} bytes of shared memory a block, above the "
-                         f"card's {SMEM_MAX}")
 
 
 def edit_distance_myers(cand: torch.Tensor, cand_len: torch.Tensor,

@@ -87,6 +87,11 @@ class TierLadder:
         # pack_result stores tier+1 in 5 bits next to the overflow flag
         if len(params) >= 31:
             raise ValueError(f"{len(params)} tiers: too deep for the packed-result layout")
+        for k, t in tables.items():
+            # the W kernel skips zero counts, which keeps the plain sum's
+            # bits only while every product of a zero count is +-0
+            if not np.isfinite(np.asarray(t)).all():
+                raise ValueError(f"OffsetLikely table of k={k} holds a non-finite value")
         return cls(params=[KernelParams(**p) for p in params],
                    tables={int(k): torch.as_tensor(np.array(t, dtype=np.float32),
                                                    device=dev)

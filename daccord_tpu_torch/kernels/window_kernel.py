@@ -100,7 +100,6 @@ def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
     dev = seqs.device
     npos = L - k + 1
     SENT = 4**k
-    P, O = ol.shape
     N = D * npos
     if N < M:
         raise ValueError(f"prep_batch: {N} k-mer positions cannot fill the "
@@ -145,11 +144,6 @@ def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
     pos = torch.arange(npos, device=dev).view(1, 1, npos).expand(B, D, npos)
     m_hit = kid >= 0
     hb, hk, hp = row[m_hit], kid[m_hit], pos[m_hit]
-    o_idx = hp.clamp(max=O - 1)
-    occ = torch.zeros((B * M * O,), dtype=torch.float32, device=dev)
-    occ.index_add_(0, (hb * M + hk) * O + o_idx,
-                   torch.ones_like(o_idx, dtype=torch.float32))
-    occ = occ.view(B, M, O)
 
     src_ok = torch.zeros((B * M,), dtype=torch.int32, device=dev)
     src_ok.index_add_(0, hb * M + hk, (hp <= p.anchor_slack).to(torch.int32))
@@ -174,7 +168,7 @@ def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
            & sel_valid[:, :, None] & sel_valid[:, None, :])
 
     # ---- position weights --------------------------------------------------
-    W = position_weights(occ, ol)                           # [B, M, P] f32
+    W = position_weights(kid, ol, M)                        # [B, M, P] f32
     neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
     adjW = torch.where(adj, torch.zeros((), dtype=torch.float32, device=dev), neg)
     score0 = torch.where(src_ok & sel_valid, W[:, :, 0], neg)

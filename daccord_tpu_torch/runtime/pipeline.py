@@ -60,6 +60,7 @@ how many batches are in flight, never changes a window's result.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import sys
@@ -167,6 +168,15 @@ class PipelineConfig:
                                  # re-solves the whole batch on that
                                  # reference, so the rate never changes
                                  # output bytes
+    audit_worker: bool | None = None   # solve the audit's samples in a
+                                 # process of its own (runtime/
+                                 # audit_worker.py), sent at dispatch and
+                                 # compared at fetch; None = on cuda only
+                                 # (on the CPU no card waits on the
+                                 # pipeline's thread)
+    audit_workers: int = 2       # processes of the audit worker (each
+                                 # sample goes to the next in turn)
+    audit_threads: int = 1       # torch threads of each
     native_threads: int = 0      # threads of the native failover engine
                                  # (0 = every usable CPU)
 
@@ -227,7 +237,20 @@ class PipelineStats:
                                  # (None = unsupervised run)
     governor_ratchet: dict = field(default_factory=dict)  # shape key ->
                                  # ratcheted width, entries of this run
-    audit_s: float = 0.0         # host wall of the shadow audit's solves
+    audit_s: float = 0.0         # host wall of the shadow audit on the
+                                 # pipeline's thread: the solves, or with
+                                 # the audit worker the sample's send, the
+                                 # wait for rows not yet back and the compare
+    audit_worker_s: float = 0.0  # the audit worker's own solve wall (its
+                                 # process; not on the pipeline's thread)
+    audit_warm_s: float = 0.0    # wall the pipeline waited for the audit
+                                 # worker's start (spawn, imports, ladder,
+                                 # its first solve of each batch shape)
+    audit_worker_start: dict = field(default_factory=dict)  # that start's
+                                 # walls in the slowest worker (boot_s,
+                                 # import_s, build_s, warm_s)
+    audit_disabled: str | None = None   # why the audit stopped mid-run
+                                 # (``audit.disabled``), else None
     sup_counters: dict = field(default_factory=dict)  # the supervisor's
                                  # counters (dispatch, fetch, retries,
                                  # timeouts, probes, degraded_solves,
@@ -779,11 +802,17 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
     # kinds, the guards below host_rss and monster_pile
     plan = FaultPlan.from_env()
     gov_cfg = GovernorConfig.from_env()
+    worker = None
     try:
+        worker = _start_audit_worker(cfg, dev, ev_log, stats)
         yield from _correct_range(db, las, cfg, start, end, profile, dev, paged_on,
                                   stats, prof, t_start, log, ev_log, tracer, ledger,
-                                  plan, gov_cfg, check_host_pressure)
+                                  plan, gov_cfg, check_host_pressure, worker)
     finally:
+        if worker is not None:
+            stats.audit_worker_s = worker.worker_s
+            stats.audit_worker_start = dict(worker.startup)
+            worker.close()
         tracer.unwind()
         if ledger is not None:
             ledger.close()
@@ -792,9 +821,31 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
         log.close()
 
 
+def _start_audit_worker(cfg: PipelineConfig, dev, ev_log, stats: PipelineStats):
+    """The audit worker of a supervised, audited run (started first, so its
+    imports overlap the ingest scan, the profile and the windowing), or
+    None. A worker that cannot start logs ``audit.disabled``; the run goes
+    on without the audit."""
+    from ..utils.obs import env_float
+
+    rate = cfg.audit_rate if cfg.audit_rate is not None else env_float(
+        "DACCORD_AUDIT_RATE", 1.0 / 64.0)
+    use = cfg.audit_worker if cfg.audit_worker is not None else dev.type == "cuda"
+    if not (cfg.supervise and rate > 0.0 and use):
+        return None
+    from .audit_worker import AuditWorker
+
+    try:
+        return AuditWorker(threads=cfg.audit_threads, procs=cfg.audit_workers)
+    except Exception as e:
+        ev_log.log("audit.disabled", error=str(e)[:200])
+        stats.audit_disabled = str(e)[:200]
+        return None
+
+
 def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof,
                    t_start, log, ev_log, tracer, ledger, plan, gov_cfg,
-                   check_host_pressure):
+                   check_host_pressure, worker):
     report = None
     if cfg.ingest_policy != "off":
         t0 = time.perf_counter()
@@ -820,13 +871,14 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                                                  pile_ranges=clean)
         stats.profile_s = time.perf_counter() - t0
 
-    def make_ladder(device):
-        return TierLadder.from_config(profile, cfg.consensus, max_kmers=cfg.max_kmers,
-                                      rescue_max_kmers=cfg.rescue_max_kmers,
-                                      overflow_rescue=cfg.overflow_rescue,
-                                      device=device, route=cfg.dp_route)
+    # picklable, so the audit worker builds the same ladder in its process
+    make_ladder = functools.partial(TierLadder.from_config, profile, cfg.consensus,
+                                    max_kmers=cfg.max_kmers,
+                                    rescue_max_kmers=cfg.rescue_max_kmers,
+                                    overflow_rescue=cfg.overflow_rescue,
+                                    route=cfg.dp_route)
 
-    ladder = make_ladder(dev)
+    ladder = make_ladder(device=dev)
     w, adv = cfg.consensus.w, cfg.consensus.adv
     B = cfg.batch_size
     min_depth = cfg.consensus.dbg.min_depth
@@ -865,8 +917,11 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
             # built from the profile's numpy tables, never copied off the
             # card: a poisoned CUDA context cannot be read from
             if not host_ladder:
-                host_ladder.append(make_ladder("cpu"))
+                host_ladder.append(make_ladder(device="cpu"))
             return host_ladder[0]
+
+        if worker is not None:
+            worker.build(functools.partial(make_ladder, device="cpu"), shapes)
 
         def fallback_factory():
             kind = cfg.failover_backend
@@ -886,7 +941,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
             # the reference is the card's own ladder on the CPU, byte-exact
             # with the card; the native engine would not be
             audit_ref_factory=lambda: audit_reference(cpu_ladder()),
-            audit_rate=cfg.audit_rate)
+            audit_rate=cfg.audit_rate, audit_worker=worker)
         dispatch_fn, fetch_fn, fetch_many_fn = sup.dispatch, sup.fetch, sup.fetch_many
 
     pending: dict[int, _PendingRead] = {}
@@ -1187,6 +1242,8 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         stats.batch_effective = (min(stats.governor_ratchet.values())
                                  if stats.governor_ratchet else cfg.batch_size)
         stats.audit_s = sup.audit_s
+        stats.audit_warm_s = sup.audit_warm_s
+        stats.audit_disabled = stats.audit_disabled or sup.audit_disabled
         stats.sup_counters = dict(sup.counters)
         ev_log.log("sup_done", state=sup.state, degraded=sup.failed_over,
                    audit_s=round(sup.audit_s, 4), **sup.counters,

@@ -52,7 +52,11 @@ revived card.
 on the trusted reference (``kernels.tiers.audit_reference``: the card's own
 ladder on the CPU) and compared byte for byte; a divergence logs
 ``sup_sdc`` and re-solves the whole batch on the reference, so the audit
-rate changes detection latency, never output bytes.
+rate changes detection latency, never output bytes. With an
+``audit_worker`` (``runtime/audit_worker.py``, the default on the card) the
+sample is drawn and sent to that process when the batch is dispatched, and
+its rows are compared when the batch is fetched; without one (the CPU
+default) the sample is solved in this process at fetch time.
 
 The mesh parts of the JAX module (the partial-mesh rung, per-member
 attribution and the persisted trust registry) are left out: on one card a
@@ -231,7 +235,7 @@ class _SupHandle:
     dispatch time; fetch returns it directly, even after a later
     failover."""
 
-    __slots__ = ("inner", "batch", "key", "degraded", "result")
+    __slots__ = ("inner", "batch", "key", "degraded", "result", "audit")
 
     def __init__(self, inner, batch, key: str, degraded: bool = False,
                  result=None):
@@ -240,6 +244,7 @@ class _SupHandle:
         self.key = key
         self.degraded = degraded
         self.result = result
+        self.audit = None     # (rows, ticket) of a sample sent to the audit worker
 
 
 def shape_key(batch, fp_prefix: str) -> str:
@@ -269,14 +274,18 @@ class DeviceSupervisor:
     ``inline=True`` runs ops on the caller's thread with no watchdog (a
     CPU ladder cannot hang the way a card can). ``probe_fn`` answers
     whether the device is alive (default :func:`utils.obs.device_alive` on
-    cuda). ``audit_ref_factory`` builds the shadow audit's reference;
-    ``audit_rate`` None reads ``DACCORD_AUDIT_RATE`` (default 1/64)."""
+    cuda). ``audit_ref_factory`` builds the shadow audit's in-process
+    reference; ``audit_rate`` None reads ``DACCORD_AUDIT_RATE`` (default
+    1/64). ``audit_worker`` (an ``AuditWorker`` whose ladder is built)
+    solves the samples in its own process; the in-process reference then
+    only re-solves a batch found divergent. The caller closes the worker."""
 
     def __init__(self, dispatch_fn, fetch_fn, *, fallback_factory=None, log=None, cfg: SupervisorConfig | None = None,
                  faults: FaultPlan | None = None, probe_fn=None, describe: str = "",
                  fingerprint_prefix: str = "", inline: bool = False,
                  governor_cfg: GovernorConfig | None = None, tracer=None,
-                 audit_ref_factory=None, audit_rate: float | None = None):
+                 audit_ref_factory=None, audit_rate: float | None = None,
+                 audit_worker=None):
         from ..utils.obs import NullLogger, Tracer
 
         self._dispatch_fn = dispatch_fn
@@ -316,8 +325,15 @@ class DeviceSupervisor:
         self._audit_rate = (max(0.0, float(audit_rate))
                             if audit_ref_factory is not None else 0.0)
         self._audit_ref = None
+        self._worker = audit_worker if self._audit_rate > 0.0 else None
         self._n_audit = 0          # audited-batch ordinal, seeds the sampler
-        self.audit_s = 0.0         # host wall of the shadow solves
+        self.audit_s = 0.0         # host wall of the audit on this process:
+                                   # the shadow solves, or with a worker the
+                                   # sample's send, the wait for rows not
+                                   # yet back, and the compare
+        self.audit_warm_s = 0.0    # wall waiting for the worker's start
+                                   # (spawn, imports, ladder build)
+        self.audit_disabled: str | None = None   # why the audit stopped
         self._audit_warmed: set[tuple] = set()
         self._trust: dict[int, dict] = {}
         self._trust_strikes_max = max(1, int(_env_float("DACCORD_TRUST_STRIKES", 2)))
@@ -631,7 +647,10 @@ class DeviceSupervisor:
         self._seen_shapes.add(key)
         if fresh:
             self._record_compile(key, time.time() - t_d)
-        return _SupHandle(inner, batch, key)
+        h = _SupHandle(inner, batch, key)
+        if self._worker is not None:
+            self._audit_send(h)
+        return h
 
     def _record_compile(self, key: str, wall_s: float) -> None:
         """Record a cold shape's first dispatch wall in the registry (the
@@ -657,6 +676,7 @@ class DeviceSupervisor:
             return h.result
         self.counters["fetch"] += 1
         if h.degraded or self.state in (LOST, DEGRADED):
+            self._audit_drop(h)
             return self._degraded_solve(h.batch, "fetch")
         try:
             out = self._guarded("fetch", self._fetch_fn,
@@ -666,11 +686,13 @@ class DeviceSupervisor:
         except CapacityError as e:
             # the OOM surfaced at the fetch: the retained batch re-solves
             # down the ladder
+            self._audit_drop(h)
             gh = self._gov_dispatch(h.batch, h.key, reason=str(e))
             if gh.result is not None:
                 return gh.result
             return self._degraded_solve(h.batch, "fetch")
         except DeviceLostError as e:
+            self._audit_drop(h)
             self._engage_fallback(str(e))
             return self._degraded_solve(h.batch, "fetch")
 
@@ -694,7 +716,10 @@ class DeviceSupervisor:
             if spec is not None:
                 self._corrupt_rows(out, range(int(out["cons"].shape[0])))
         if self._audit_rate > 0.0 and self._audit_ref_factory is not None:
-            out = self._audit(h, out)
+            if h.audit is not None:
+                out = self._audit_remote(h, out)
+            elif self._worker is None:
+                out = self._audit(h, out)
         return out
 
     @staticmethod
@@ -727,11 +752,18 @@ class DeviceSupervisor:
                 with self.tracer.span("audit.build"):
                     self._audit_ref = self._audit_ref_factory()
             except Exception as e:
-                self.log.log("audit.disabled", error=str(e)[:200])
-                self._audit_rate = 0.0
+                self._audit_off(e)
                 self._audit_ref_factory = None
                 return None
         return self._audit_ref
+
+    def _audit_off(self, e: BaseException) -> None:
+        """Stop auditing for the rest of the run (a defense, not a
+        dependency): ``audit.disabled`` with the error."""
+        self.log.log("audit.disabled", error=str(e)[:200])
+        self.audit_disabled = str(e)[:200]
+        self._audit_rate = 0.0
+        self._worker = None
 
     def _audit_sample(self, B: int) -> list[int]:
         """The seeded row sample of one audited batch: ``max(1,
@@ -746,14 +778,18 @@ class DeviceSupervisor:
 
     @staticmethod
     def _take_rows(batch, rows):
-        """Row-subset copy of a batch (dense first)."""
+        """Row-subset copy of a batch, dense (a paged batch unpacks only
+        those rows: its pool is shared, its table rows are not)."""
         import dataclasses
 
         import numpy as np
 
-        if hasattr(batch, "to_dense"):
-            batch = batch.to_dense()
         idx = np.asarray(rows, dtype=np.int64)
+        if hasattr(batch, "to_dense"):
+            return dataclasses.replace(
+                batch, table=batch.table[idx], lens=batch.lens[idx],
+                nsegs=batch.nsegs[idx], read_ids=batch.read_ids[idx],
+                wstarts=batch.wstarts[idx]).to_dense()
         return dataclasses.replace(
             batch, seqs=batch.seqs[idx], lens=batch.lens[idx],
             nsegs=batch.nsegs[idx], read_ids=batch.read_ids[idx],
@@ -775,6 +811,75 @@ class DeviceSupervisor:
             return False
         return bool(np.array_equal(np.asarray(dev["cons"])[i, :nd_],
                                    np.asarray(ref["cons"])[j, :nr_]))
+
+    def _audit_send(self, h: _SupHandle) -> None:
+        """At dispatch: draw the batch's sample (the ordinal in dispatch
+        order, which is fetch order) and send its rows to the worker."""
+        B = int(h.batch.size)
+        if B <= 0:
+            return
+        t0 = time.time()
+        rows = self._audit_sample(B)
+        self._n_audit += 1
+        try:
+            h.audit = (rows, self._worker.submit(self._take_rows(h.batch, rows)))
+        except Exception as e:
+            self._audit_off(e)
+        self.audit_s += time.time() - t0
+
+    def _audit_drop(self, h: _SupHandle) -> None:
+        """The batch will not be compared (it re-solves elsewhere)."""
+        if h.audit is not None and self._worker is not None:
+            self._worker.discard(h.audit[1])
+        h.audit = None
+
+    def _audit_remote(self, h: _SupHandle, out: dict):
+        """At fetch: wait for the worker's rows of ``h``'s sample and compare
+        them byte for byte; a divergence re-solves the whole batch on the
+        in-process reference, as :meth:`_audit` does."""
+        from .audit_worker import AuditWorkerError
+
+        rows, ticket = h.audit
+        h.audit = None
+        worker = self._worker
+        if worker is None:
+            return out          # disabled since the batch was dispatched
+        try:
+            if not worker.ready:
+                with self.tracer.span("audit.warm"):
+                    self.audit_warm_s += worker.wait_ready(self.op_deadline_s)
+            t0 = time.time()
+            with self.tracer.span("audit", rows=len(rows)):
+                ref = worker.result(ticket, self.op_deadline_s)
+        except AuditWorkerError as e:
+            self._audit_off(e)
+            return out
+        self.counters["audits"] += 1
+        divergent = [i for j, i in enumerate(rows)
+                     if not self._rows_equal(out, ref, i, j)]
+        if divergent:
+            out = self._audit_diverged(h, out, rows, divergent)
+        self.audit_s += time.time() - t0
+        return out
+
+    def _audit_diverged(self, h, out: dict, rows: list, divergent: list):
+        """``sup_sdc``, the whole batch re-solved on the in-process
+        reference (synchronous: rare, and the caller must not see the
+        corrupt rows), and a trust strike."""
+        import numpy as np
+
+        B = int(np.asarray(out["cons"]).shape[0])
+        self.counters["sdc_detected"] += 1
+        self.log.log("sup_sdc", key=h.key, rows=int(B), sampled=len(rows),
+                     divergent=len(divergent), row=int(divergent[0]), culprit=-1)
+        eng = self._audit_engine()
+        if eng is not None:
+            batch = h.batch
+            dense = batch.to_dense() if hasattr(batch, "to_dense") else batch
+            with self.tracer.span("audit.resolve", rows=int(B)):
+                out = eng(dense)
+        self._trust_strike(-1, "shadow audit divergence")
+        return out
 
     def _audit(self, h, out: dict):
         """Shadow-verify a seeded sample of ``out``'s rows against the
@@ -806,17 +911,9 @@ class DeviceSupervisor:
             ref = eng(sample)
         divergent = [i for j, i in enumerate(rows)
                      if not self._rows_equal(out, ref, i, j)]
-        if not divergent:
-            self.audit_s += time.time() - t0
-            return out
-        self.counters["sdc_detected"] += 1
-        self.log.log("sup_sdc", key=h.key, rows=int(B), sampled=len(rows),
-                     divergent=len(divergent), row=int(divergent[0]), culprit=-1)
-        dense = batch.to_dense() if hasattr(batch, "to_dense") else batch
-        with self.tracer.span("audit.resolve", rows=int(B)):
-            out = eng(dense)
+        if divergent:
+            out = self._audit_diverged(h, out, rows, divergent)
         self.audit_s += time.time() - t0
-        self._trust_strike(-1, "shadow audit divergence")
         return out
 
     def _trust_strike(self, orig: int, reason: str) -> None:

@@ -224,11 +224,16 @@ def _check(args) -> None:
                 check_width(p.max_kmers, p.positions, t_hi - t_lo + 1, args.dp)
             except ValueError as e:
                 raise SystemExit(f"-M {args.max_kmers} -w {args.w}: {e}") from None
+        from ..kernels import position_weights
         from ..kernels.rescore import check_shape
 
         try:
             check_shape(args.depth, args.seg_len, args.candidates,
                         KernelParams(wlen=args.w).cons_len)
+            for kk in (k, k + 2, k + 4):
+                # the OffsetLikely tables are w + 16 offsets wide
+                position_weights.check_shape(args.depth, args.seg_len - kk + 1,
+                                             args.w + 16)
         except ValueError as e:
             raise SystemExit(f"-w {args.w} --candidates {args.candidates} --depth "
                              f"{args.depth} --seg-len {args.seg_len}: {e}") from None

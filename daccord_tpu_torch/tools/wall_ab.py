@@ -17,8 +17,9 @@ such as ``--max-inflight 1``); ``--ab-args`` adds flags to both, and
 both runs (how long a thread waits before it forces the GIL from another).
 Prints the card's name and power limit, one JSON line per turn (wall,
 windows/s, host windowing, ladder dispatch and, where the checkout has
-them, the ingest scan, the wall blocked in fetch and the ladder calls' own
-wall) and whether the FASTA outputs agree.
+them, the ingest scan, the wall blocked in fetch, the ladder calls' own wall and
+the shadow audit's walls) and whether every turn's FASTA equals the
+first's.
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ print("STATS " + json.dumps(dict(
     ingest_s=getattr(stats, "ingest_s", None), n_windows=stats.n_windows,
     n_batches=stats.n_batches, profile_s=stats.profile_s,
     audit_s=getattr(stats, "audit_s", None),
+    audit_worker_s=getattr(stats, "audit_worker_s", None),
+    audit_warm_s=getattr(stats, "audit_warm_s", None),
     else_s=stats.wall_s - (getattr(stats, "ingest_s", 0.0) or 0.0) - stats.windowing_s
     - stats.ladder_s - (getattr(stats, "device_s", 0.0) or 0.0) - stats.profile_s)))
 """
@@ -104,7 +107,7 @@ def main(argv=None) -> int:
         eprof = os.path.join(tmp, "eprof.json")
         estimate_profile_for_shard(read_db(d["db"]), LasFile(d["las"]),
                                    PipelineConfig(device="cpu")).save(eprof)
-        outs = {}
+        outs = []
         for i, tag in enumerate(args.turns):
             out = os.path.join(tmp, f"out_{i}_{tag}.fasta")
             res = subprocess.run(
@@ -119,9 +122,9 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"turn {i} ({tag}) failed:\n{res.stdout}{res.stderr}")
             stats = json.loads(res.stdout.split("STATS ", 1)[1].splitlines()[0])
             print(json.dumps({"turn": i, "side": tag, **stats}), flush=True)
-            outs.setdefault(tag, out)
-        same = filecmp.cmp(outs["A"], outs["B"], shallow=False) if len(outs) == 2 else None
-        print(f"FASTA of A and B identical: {same}")
+            outs.append(out)
+        same = all(filecmp.cmp(outs[0], o, shallow=False) for o in outs[1:])
+        print(f"FASTA of every turn identical: {same}")
     return 0
 
 

@@ -225,20 +225,57 @@ def test_rescore_kernel_matches_plain(cuda, CL, L, D, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,M,O,P", [(2048, 64, 56, 41), (133, 256, 56, 41), (5, 7, 90, 5),
-                                     (4, 33, 30, 20), (3, 9, 20, 100)])
-def test_position_weights_kernel_matches_the_cpu(cuda, B, M, O, P):
-    """The fixed-order W on the card == the plain W on the CPU, bit for bit,
-    with table values down to subnormal size (no flush to zero)."""
-    rng = np.random.default_rng(B + M)
-    occ = np.where(rng.random((B, M, O)) < 0.15,
-                   rng.integers(1, 9, (B, M, O)), 0).astype(np.float32)
+@pytest.mark.parametrize("B", [2048, 615])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_rescore_kernel_matches_plain_at_path_batches(cuda, B, shift):
+    """Tier 0's shape (C=3, CL=48, D=32, L=64) at B=2048 and the path's
+    batch, with the tile 16-byte aligned (vector loads) and one byte off
+    (byte loads)."""
+    host = rescore_inputs(B + shift, B, 3, 48, 32, 64)
+    args = [torch.as_tensor(a, device=cuda) for a in host]
+    buf = torch.empty(args[0].numel() + shift, dtype=torch.int8, device=cuda)
+    args[0] = buf[shift:].view(args[0].shape).copy_(args[0])
+    p = KernelParams(wlen=40, max_err=0.16)
+    got = rescore.rescore_pick(*args, p)
+    ref = rescore.rescore_pick_plain(*args, p)
+    torch.cuda.synchronize()
+    for key in ("cons", "cons_len", "err", "solved"):
+        assert torch.equal(got[key], ref[key]), key
+    assert 0 < int(got["solved"].sum()) < B
+
+
+def kid_inputs(seed: int, B: int, M: int, D: int, npos: int, O: int, P: int):
+    """prep_batch's kept index of each k-mer position (most unkept, so most
+    counts are zero, and one k-mer at one offset in every segment) and a
+    table with values down to subnormal size (no flush to zero)."""
+    rng = np.random.default_rng(seed)
+    kid = np.where(rng.random((B, D, npos)) < 0.6, -1,
+                   rng.integers(0, M, (B, D, npos))).astype(np.int64)
+    kid[:, :, min(3, npos - 1)] = M - 1
     ol = (rng.random((P, O)) * 10.0 ** rng.integers(-44, 0, (P, O))).astype(np.float32)
+    return kid, ol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,D,npos,O,P", [(2048, 64, 32, 57, 56, 41), (133, 64, 32, 57, 56, 41),
+                                            (2048, 256, 32, 57, 56, 41),
+                                            (133, 256, 32, 57, 56, 41), (5, 7, 3, 95, 90, 5),
+                                            (4, 33, 4, 31, 30, 20), (3, 9, 2, 21, 20, 100),
+                                            (2, 5, 2, 30, 20, 150), (3, 1024, 40, 53, 56, 41)])
+def test_position_weights_kernel_matches_the_cpu(cuda, B, M, D, npos, O, P):
+    """The W kernel on the card == the plain W on the card and on the CPU,
+    bit for bit, at the ladder's shapes at B=2048 and the escalation tiers'
+    batch, and at widths with one to five column slices and two or three
+    offset chunks."""
+    kid, ol = kid_inputs(B + M, B, M, D, npos, O, P)
+    tk, tol = torch.as_tensor(kid, device=cuda), torch.as_tensor(ol, device=cuda)
     before = position_weights.launches
-    got = position_weights.position_weights(torch.as_tensor(occ, device=cuda),
-                                            torch.as_tensor(ol, device=cuda))
+    got = position_weights.position_weights(tk, tol, M)
     assert position_weights.launches == before + 1
-    ref = position_weights.position_weights(torch.as_tensor(occ), torch.as_tensor(ol))
+    plain = position_weights.position_weights_plain(tk, tol, M)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    ref = position_weights.position_weights(torch.as_tensor(kid), torch.as_tensor(ol), M)
     assert torch.equal(got.cpu(), ref)
 
 
@@ -462,8 +499,8 @@ def test_kernel_launch_error_raises_through_the_supervisor(cuda, tmp_path, monke
     from daccord_tpu_torch.utils.obs import NullLogger
 
     monkeypatch.setenv("DACCORD_COMPCACHE", str(tmp_path / "cc"))
-    occ = torch.ones((2, 4, 300), device=cuda)
-    ol = torch.ones((300, 300), device=cuda)        # 352 KB of shared memory
+    kid = torch.zeros((2, 4, 300), dtype=torch.int64, device=cuda)
+    ol = torch.ones((300, 300), device=cuda)        # 462 KB of shared memory
     batch = WindowBatch(seqs=np.zeros((2, 2, 8), np.int8), lens=np.zeros((2, 2), np.int32),
                         nsegs=np.zeros(2, np.int32),
                         shape=BatchShape(depth=2, seg_len=8, wlen=8),
@@ -471,7 +508,7 @@ def test_kernel_launch_error_raises_through_the_supervisor(cuda, tmp_path, monke
                         wstarts=np.zeros(2, np.int64))
     probes, built = [], []
     sup = DeviceSupervisor(
-        lambda b: position_weights.position_weights(occ, ol),
+        lambda b: position_weights.position_weights(kid, ol, 4),
         lambda h: torch.cuda.synchronize() or h,
         fallback_factory=lambda: built.append(1) or (lambda b: b),
         log=NullLogger(), cfg=SupervisorConfig(), faults=None,
@@ -482,6 +519,8 @@ def test_kernel_launch_error_raises_through_the_supervisor(cuda, tmp_path, monke
     finally:
         sup.close()
     assert not sup.failed_over and not built and not probes
-    got = position_weights.position_weights(occ[:, :, :56].contiguous(),
-                                            ol[:41, :56].contiguous())
+    # segment d holds k-mer d at each of 56 positions: a count of 1 at every
+    # offset of row d
+    kid = torch.arange(4, device=cuda).view(1, 4, 1).expand(2, 4, 56).contiguous()
+    got = position_weights.position_weights(kid, ol[:41, :56].contiguous(), 4)
     assert torch.equal(got.cpu(), torch.full((2, 4, 41), 56.0))

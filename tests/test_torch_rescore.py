@@ -125,35 +125,54 @@ def test_rescore_wrapper_checks_its_inputs():
 
 
 def test_rescore_kernel_limits_are_refused_before_any_work():
-    """The kernel takes any C and CL up to MAX_CL while the window fits one
-    block's shared memory; ``daccord --device cuda`` refuses other widths,
-    and a top-M the DP kernels cannot take, at its argument check."""
+    """The rescore kernel takes any C and CL up to MAX_CL at any D and L (its
+    tile stays in global memory and registers); the W kernel counts in 16
+    bits. ``daccord --device cuda`` refuses other widths, a window whose
+    counts could overflow, and a top-M the DP kernels cannot take, at its
+    argument check."""
+    from daccord_tpu_torch.kernels import position_weights as pw
     from daccord_tpu_torch.kernels import rescore
     from daccord_tpu_torch.tools import cli
 
     rescore.check_shape(32, 64, 32, rescore.MAX_CL)
     rescore.check_shape(64, 256, 64, 64)
+    rescore.check_shape(512, 512, 3, 48)
+    pw.check_shape(32, 57, 56)
+    pw.check_shape(1024, 57, 56)
     for args, why in (((32, 64, 3, rescore.MAX_CL + 1), "outside"),
-                      ((32, 64, 0, 48), "at least 1"),
-                      ((512, 512, 3, 48), "shared memory")):
+                      ((32, 64, 0, 48), "at least 1")):
         with pytest.raises(ValueError, match=why):
             rescore.check_shape(*args)
+    with pytest.raises(ValueError, match="above the kernel's 65535"):
+        pw.check_shape(512, 505, 56)
     for bad, why in ((["-w", "600"], "-w 600"),
                      (["--candidates", "0"], "at least 1"),
-                     (["--depth", "512", "--seg-len", "512"], "shared memory"),
+                     (["--depth", "512", "--seg-len", "512"], "above the kernel's 65535"),
                      (["-M", "1025"], "exceeds the kernels' 1024")):
         with pytest.raises(SystemExit, match=why):
             cli.main(["daccord", "no.db", "no.las", "--device", "cuda", *bad])
 
 
-def weight_inputs(seed: int, B: int, M: int, O: int, P: int):
-    """Occurrence counts like prep_batch's (small integers, mostly zero) and
-    an OffsetLikely-like table with values down to subnormal size."""
+def weight_inputs(seed: int, B: int, M: int, O: int, P: int, D: int = 32):
+    """prep_batch's kept index of each k-mer position (-1 for about a third,
+    the kept k-mers clustered at a few offsets as real windows hold them)
+    and an OffsetLikely-like table with values down to subnormal size."""
     rng = np.random.default_rng(seed)
-    occ = np.where(rng.random((B, M, O)) < 0.15,
-                   rng.integers(1, 9, (B, M, O)), 0).astype(np.float32)
+    npos = O + 1
+    kid = rng.integers(0, M, (B, D, npos))
+    kid = np.where(rng.random((B, D, npos)) < 0.35, -1, kid).astype(np.int64)
     ol = (rng.random((P, O)) * 10.0 ** rng.integers(-40, 0, (P, O))).astype(np.float32)
-    return occ, ol
+    return kid, ol
+
+
+def counts(kid: np.ndarray, M: int, O: int) -> np.ndarray:
+    """occ [B, M, O] of ``kid`` by a numpy loop (offsets from O-1 on count at
+    O-1)."""
+    B, D, npos = kid.shape
+    occ = np.zeros((B, M, O), np.float32)
+    b, d, i = np.nonzero(kid >= 0)
+    np.add.at(occ, (b, kid[b, d, i], np.minimum(i, O - 1)), 1.0)
+    return occ
 
 
 @pytest.mark.parametrize("B,M,O,P", [(3, 64, 56, 41), (2, 256, 56, 41), (2, 7, 90, 5)])
@@ -161,8 +180,9 @@ def test_position_weights_fixed_order(B, M, O, P):
     """The plain W is the ascending-o f32 sum of rounded products (a numpy
     loop in that order gives the same bits) and within f32 rounding of the
     float64 product."""
-    occ, ol = weight_inputs(B * M, B, M, O, P)
-    got = position_weights(torch.as_tensor(occ), torch.as_tensor(ol)).numpy()
+    kid, ol = weight_inputs(B * M, B, M, O, P)
+    occ = counts(kid, M, O)
+    got = position_weights(torch.as_tensor(kid), torch.as_tensor(ol), M).numpy()
     want = np.zeros((B, M, P), np.float32)
     for o in range(O):
         want = (want + (occ[:, :, o, None] * ol[None, None, :, o]).astype(np.float32)
@@ -170,7 +190,7 @@ def test_position_weights_fixed_order(B, M, O, P):
     np.testing.assert_array_equal(got, want)
     exact = np.einsum("bmo,po->bmp", occ.astype(np.float64), ol.astype(np.float64))
     np.testing.assert_allclose(got, exact, rtol=O * 2.0 ** -23, atol=1e-38)
-    assert torch.equal(position_weights_plain(torch.as_tensor(occ), torch.as_tensor(ol)),
+    assert torch.equal(position_weights_plain(torch.as_tensor(kid), torch.as_tensor(ol), M),
                        torch.as_tensor(got))
 
 
