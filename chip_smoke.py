@@ -36,14 +36,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (they must beat the raw reads). Every run is supervised
    (``runtime/supervisor.py``) with the shadow audit at its default 1/64,
    its samples solved in the audit worker process
-   (``runtime/audit_worker.py``); each prints the audit's wall on the
-   pipeline's thread (``audit_s``), the worker's own solve wall
-   (``audit_worker_s``), the wait for the worker's start
-   (``audit_warm_s``) and their shares of the run's wall, fails if the
-   audit was disabled, and is run again at audit rate 0, which must write
-   the same FASTA byte for byte (its wall on the line). Then the 100 kb run
-   with the worker as one process of 1 and of 2 torch threads, and as the
-   default two processes of 1;
+   (``runtime/audit_worker.py``) once it has started and on the pipeline's
+   thread before; each prints the audit's wall on the pipeline's thread
+   (``audit_s``), the worker's own solve wall (``audit_worker_s``), how
+   many audits ran on the pipeline's thread and their warm-up
+   (``audit_warm_s``), the worker's start walls and the shares of the
+   run's wall, fails if the audit was disabled, and is run again at audit
+   rate 0, which must write the same FASTA byte for byte (its wall on the
+   line). Then the reference's own cost: the CPU ladder on 32 and 256
+   windows on 1 and 2 torch threads;
 4b. the slice's checks on the 20 kb set, each a ``daccord`` run with the
    counts set to 0 before it: ``--max-inflight 1`` and a second deque run
    write the first deque run's FASTA byte for byte (their walls on one
@@ -417,7 +418,7 @@ def weights_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[d
                 raise AssertionError(f"position_weights M={M} B={Bx}: kernel differs "
                                      f"from plain (card or CPU)")
             ms, how = kernel_ms(lambda: pw.position_weights(kid, ol, M),
-                                "position_weights_kernel", 20)
+                                "position_weights", 20)
             plain_ms = event_ms(lambda: pw.position_weights_plain(kid, ol, M), 3)
             occ = pw.occurrence_counts(kid, M, O)
             lib_ms, lib_how = kernel_ms(lambda: torch.matmul(occ, ol.t()), None, 20)
@@ -671,9 +672,11 @@ def audit_text(stats) -> str:
     w = stats.wall_s
     return (f"shadow audit (rate 1/64) audit_s {stats.audit_s:.4f} s, "
             f"{stats.audit_s / w:.4f} of the wall; audit_worker_s "
-            f"{stats.audit_worker_s:.4f} s ({stats.audit_worker_s / w:.4f}); audit_warm_s "
-            f"{stats.audit_warm_s:.4f} s ({stats.audit_warm_s / w:.4f}; the worker's start "
-            f"{json.dumps({k: round(v, 3) for k, v in stats.audit_worker_start.items()})})")
+            f"{stats.audit_worker_s:.4f} s ({stats.audit_worker_s / w:.4f}); "
+            f"{stats.audit_local} of {stats.sup_counters.get('audits', 0)} audits on the "
+            f"pipeline's thread (before the worker was ready), their warm-up audit_warm_s "
+            f"{stats.audit_warm_s:.4f} s ({stats.audit_warm_s / w:.4f}); the worker's start "
+            f"{json.dumps({k: round(v, 3) for k, v in stats.audit_worker_start.items()})}")
 
 
 def records(path: str) -> dict:
@@ -870,34 +873,6 @@ def reference_cost(big: dict, eprof: str) -> None:
                     f"{s / n * 1e3:.3f} ms a window")
     finally:
         torch.set_num_threads(n0)
-
-
-def audit_workers_phase(big: dict, eprof: str, nthreads: int, counters, tmp: str,
-                        clean: dict) -> None:
-    """The 100 kb run with the audit worker as one process of 1 torch
-    thread, one of 2, and the default (two processes of 1), after the main
-    run: each FASTA the main run's, and the audit's walls beside the run's."""
-    from daccord_tpu_torch.runtime.pipeline import PipelineConfig
-    from daccord_tpu_torch.tools import cli
-
-    reference_cost(big, eprof)
-    real = cli.PipelineConfig
-    for procs, threads in ((1, 1), (1, 2), (2, 1)):
-        out = os.path.join(tmp, f"big_audit_{procs}x{threads}.fasta")
-        cli.PipelineConfig = lambda **kw: PipelineConfig(audit_workers=procs,
-                                                         audit_threads=threads, **kw)
-        try:
-            st, _ = daccord([big["db"], big["las"], "-o", out, "-E", eprof, "-b", str(B),
-                             "--device", DEVICE, "--paged", "off", "--dp", "fused",
-                             "-t", str(nthreads)], counters)
-        finally:
-            cli.PipelineConfig = real
-        if records(out) != clean:
-            raise AssertionError(f"audit worker {procs} x {threads}: FASTA differs")
-        log(f"100 kb dense fused, audit worker {procs} process{'es' if procs > 1 else ''} "
-            f"x {threads} torch thread{'s' if threads > 1 else ''}: wall {st.wall_s:.3f} s, "
-            f"solve_s {st.solve_s:.3f}, device_s {st.device_s:.3f}; {audit_text(st)}; "
-            f"FASTA byte-identical")
 
 
 TRAP_RUN = """
@@ -1178,8 +1153,7 @@ def main() -> int:
         if same < 0.95 * n_rec or abs(bases_a - bases_b) > 0.005 * bases_a:
             raise AssertionError("the paged scan run drifted past the parity bound")
 
-        audit_workers_phase(big, big_eprof, nthreads, counters, tmp,
-                            records(runs["100 kb dense fused"][0]))
+        reference_cost(big, big_eprof)
 
         # ---- 4b. the slice's checks -----------------------------------------
         t0 = time.perf_counter()

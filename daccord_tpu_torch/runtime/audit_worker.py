@@ -34,6 +34,12 @@ import time
 import numpy as np
 
 
+#: torch threads of the worker: on an 8-core H100 host one thread ran a
+#: 100 kb run's audits with less waiting than two beside the feeder's eight
+#: threads (PERF.md, the audit's findings)
+THREADS = 1
+
+
 class AuditWorkerError(RuntimeError):
     """The audit worker died, failed to build its reference or gave no
     verdict in time."""
@@ -156,60 +162,49 @@ def _main(req, res, threads: int, parent: int, t_spawn: float) -> None:
 
 
 class AuditWorker:
-    """The parent's side: start ``procs`` worker processes, send each the
-    ladder to build, deal the samples out to them in turn, and collect the
-    verdicts by ticket.
+    """The parent's side: start the process, send it the ladder to build and
+    the samples to solve, and collect its verdicts by ticket.
 
-    ``worker_s`` sums the workers' own solve walls, ``calls`` their
-    reference calls; ``startup`` holds the slowest worker's start walls;
-    ``leaked`` is what of jax or ``daccord_tpu`` a worker had imported when
-    it built its reference (nothing, or the port is not standalone)."""
+    ``worker_s`` sums the worker's own solve wall, ``calls`` its reference
+    calls; ``startup`` holds its start walls once it is ready; ``leaked``
+    is what of jax or ``daccord_tpu`` it had imported when it built its
+    reference (nothing, or the port is not standalone)."""
 
-    def __init__(self, threads: int = 1, procs: int = 1):
+    def __init__(self, threads: int = THREADS):
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")
-        self._reqs, self._conns, self._procs = [], [], []
-        for i in range(max(1, int(procs))):
-            req = ctx.Queue()
-            conn, child_end = ctx.Pipe(duplex=False)
-            proc = ctx.Process(target=_main,
-                               args=(req, child_end, threads, os.getpid(), time.time()),
-                               name=f"daccord-audit-{i}", daemon=True)
-            proc.start()
-            child_end.close()
-            self._reqs.append(req)
-            self._conns.append(conn)
-            self._procs.append(proc)
+        self._req = ctx.Queue()
+        self._res, child_end = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=_main,
+                                 args=(self._req, child_end, threads, os.getpid(),
+                                       time.time()),
+                                 name="daccord-audit", daemon=True)
+        self._proc.start()
+        child_end.close()
         self._tickets = itertools.count()
         self._done: dict[int, dict] = {}
         self._dropped: set[int] = set()
-        self._ready = 0
+        self.ready = False
         self.leaked: list[str] = []
-        self.startup: dict = {}       # start walls of the slowest worker: boot
-                                      # (interpreter, main module), import,
-                                      # ladder build, warm-up solves
+        self.startup: dict = {}       # boot (interpreter, main module),
+                                      # import, ladder build, warm-up solves
         self.error: str | None = None
         self.worker_s = 0.0
         self.calls = 0
 
-    @property
-    def ready(self) -> bool:
-        return self._ready == len(self._procs)
-
     def build(self, ladder_factory, shapes=()) -> None:
         """Send the zero-argument, picklable callable that builds the CPU
         ladder (``functools.partial(TierLadder.from_config, ...,
-        device="cpu")``) and the batch shapes whose first solve each worker
+        device="cpu")``) and the batch shapes whose first solve the worker
         pays before it reports ready."""
-        for req in self._reqs:
-            req.put(("build", ladder_factory, list(shapes)))
+        self._req.put(("build", ladder_factory, list(shapes)))
 
     def submit(self, sample) -> int:
-        """Queue one dense sample with the next worker; returns its ticket.
-        Never blocks: the queue's own thread writes it to the pipe."""
+        """Queue one dense sample; returns its ticket. Never blocks: the
+        queue's own thread writes it to the pipe."""
         t = next(self._tickets)
-        self._reqs[t % len(self._reqs)].put(("solve", t, sample))
+        self._req.put(("solve", t, sample))
         return t
 
     def discard(self, ticket: int) -> None:
@@ -220,11 +215,9 @@ class AuditWorker:
     def _take(self, msg) -> None:
         kind = msg[0]
         if kind == "ready":
-            self._ready += 1
-            self.leaked = sorted(set(self.leaked) | set(msg[1]))
-            if msg[2].get("boot_s", 0.0) + msg[2].get("import_s", 0.0) >= (
-                    self.startup.get("boot_s", 0.0) + self.startup.get("import_s", 0.0)):
-                self.startup = dict(msg[2])
+            self.ready = True
+            self.leaked = list(msg[1])
+            self.startup = dict(msg[2])
         elif kind == "done":
             _, done, secs, calls = msg
             self.worker_s += secs
@@ -238,24 +231,21 @@ class AuditWorker:
             self.error = msg[1]
 
     def _drain(self, timeout: float) -> None:
-        """Take every message that arrives within ``timeout``; raise when a
-        worker is gone."""
-        from multiprocessing.connection import wait
+        """Take every message that arrives within ``timeout``; note a
+        worker that is gone."""
+        try:
+            while self._res.poll(timeout):
+                self._take(self._res.recv())
+                timeout = 0
+        except (EOFError, OSError):
+            pass
+        if not self._proc.is_alive() and self.error is None:
+            self.error = f"the audit worker exited (code {self._proc.exitcode})"
 
-        for conn in wait(self._conns, timeout):
-            try:
-                while conn.poll(0):
-                    self._take(conn.recv())
-            except (EOFError, OSError):
-                pass
-        for proc in self._procs:
-            if not proc.is_alive() and self.error is None:
-                self.error = f"the audit worker exited (code {proc.exitcode})"
-
-    def _wait(self, until, deadline_s: float) -> float:
-        """Receive messages until ``until()`` holds; the seconds waited.
-        Raises :class:`AuditWorkerError` when a worker reported an error,
-        exited or stayed silent past ``deadline_s``."""
+    def _wait(self, until, deadline_s: float) -> None:
+        """Receive messages until ``until()`` holds. Raises
+        :class:`AuditWorkerError` when the worker reported an error, exited
+        or stayed silent past ``deadline_s``."""
         t0 = time.perf_counter()
         while not until():
             if self.error is not None:
@@ -264,12 +254,19 @@ class AuditWorker:
             if left <= 0:
                 raise AuditWorkerError(f"no answer within {deadline_s:.0f} s")
             self._drain(min(left, 0.5))
-        return time.perf_counter() - t0
 
-    def wait_ready(self, deadline_s: float) -> float:
-        """Block until every worker has built its reference; the seconds
-        waited."""
-        return self._wait(lambda: self.ready, deadline_s)
+    def poll_ready(self) -> bool:
+        """Whether the reference is built, without waiting; raises
+        :class:`AuditWorkerError` when the worker failed."""
+        if not self.ready:
+            self._drain(0)
+        if self.error is not None and not self.ready:
+            raise AuditWorkerError(self.error)
+        return self.ready
+
+    def wait_ready(self, deadline_s: float) -> None:
+        """Block until the reference is built."""
+        self._wait(lambda: self.ready, deadline_s)
 
     def result(self, ticket: int, deadline_s: float) -> dict:
         """The reference rows of ``ticket``'s sample (numpy, the keys of
@@ -278,20 +275,17 @@ class AuditWorker:
         return self._done.pop(ticket)
 
     def close(self) -> None:
-        """Stop the workers (killed if they do not stop within two seconds)
-        and release their queues."""
-        for req, proc in zip(self._reqs, self._procs):
-            if proc.is_alive():
-                try:
-                    req.put(("stop",))
-                except (ValueError, OSError):
-                    pass
-        for proc in self._procs:
-            proc.join(2.0)
-            if proc.is_alive():
-                proc.kill()
-                proc.join(5.0)
-        for req, conn in zip(self._reqs, self._conns):
-            req.close()
-            req.cancel_join_thread()
-            conn.close()
+        """Stop the worker (killed if it does not stop within two seconds)
+        and release its queue."""
+        if self._proc.is_alive():
+            try:
+                self._req.put(("stop",))
+            except (ValueError, OSError):
+                pass
+            self._proc.join(2.0)
+            if self._proc.is_alive():
+                self._proc.kill()
+                self._proc.join(5.0)
+        self._req.close()
+        self._req.cancel_join_thread()
+        self._res.close()

@@ -170,13 +170,10 @@ class PipelineConfig:
                                  # output bytes
     audit_worker: bool | None = None   # solve the audit's samples in a
                                  # process of its own (runtime/
-                                 # audit_worker.py), sent at dispatch and
-                                 # compared at fetch; None = on cuda only
-                                 # (on the CPU no card waits on the
-                                 # pipeline's thread)
-    audit_workers: int = 2       # processes of the audit worker (each
-                                 # sample goes to the next in turn)
-    audit_threads: int = 1       # torch threads of each
+                                 # audit_worker.py) once it has started,
+                                 # sent at dispatch and compared at fetch;
+                                 # None = on cuda only (on the CPU no card
+                                 # waits on the pipeline's thread)
     native_threads: int = 0      # threads of the native failover engine
                                  # (0 = every usable CPU)
 
@@ -238,17 +235,22 @@ class PipelineStats:
     governor_ratchet: dict = field(default_factory=dict)  # shape key ->
                                  # ratcheted width, entries of this run
     audit_s: float = 0.0         # host wall of the shadow audit on the
-                                 # pipeline's thread: the solves, or with
-                                 # the audit worker the sample's send, the
-                                 # wait for rows not yet back and the compare
+                                 # pipeline's thread: its own solves (every
+                                 # sample without the worker, those drawn
+                                 # before it was ready with it), the sends
+                                 # to the worker, the wait for its rows not
+                                 # yet back and the compares
     audit_worker_s: float = 0.0  # the audit worker's own solve wall (its
                                  # process; not on the pipeline's thread)
-    audit_warm_s: float = 0.0    # wall the pipeline waited for the audit
-                                 # worker's start (spawn, imports, ladder,
-                                 # its first solve of each batch shape)
-    audit_worker_start: dict = field(default_factory=dict)  # that start's
-                                 # walls in the slowest worker (boot_s,
-                                 # import_s, build_s, warm_s)
+    audit_warm_s: float = 0.0    # wall of the in-process reference's
+                                 # first solve at each shape (not in
+                                 # audit_s)
+    audit_local: int = 0         # batches audited on the pipeline's thread
+                                 # (before the worker was ready, or with no
+                                 # worker)
+    audit_worker_start: dict = field(default_factory=dict)  # the worker's
+                                 # start walls (boot_s, import_s, build_s,
+                                 # warm_s); empty if it never got ready
     audit_disabled: str | None = None   # why the audit stopped mid-run
                                  # (``audit.disabled``), else None
     sup_counters: dict = field(default_factory=dict)  # the supervisor's
@@ -836,7 +838,7 @@ def _start_audit_worker(cfg: PipelineConfig, dev, ev_log, stats: PipelineStats):
     from .audit_worker import AuditWorker
 
     try:
-        return AuditWorker(threads=cfg.audit_threads, procs=cfg.audit_workers)
+        return AuditWorker()
     except Exception as e:
         ev_log.log("audit.disabled", error=str(e)[:200])
         stats.audit_disabled = str(e)[:200]
@@ -1243,6 +1245,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                                  if stats.governor_ratchet else cfg.batch_size)
         stats.audit_s = sup.audit_s
         stats.audit_warm_s = sup.audit_warm_s
+        stats.audit_local = sup.audits_local
         stats.audit_disabled = stats.audit_disabled or sup.audit_disabled
         stats.sup_counters = dict(sup.counters)
         ev_log.log("sup_done", state=sup.state, degraded=sup.failed_over,

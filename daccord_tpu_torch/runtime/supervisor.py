@@ -54,9 +54,11 @@ ladder on the CPU) and compared byte for byte; a divergence logs
 ``sup_sdc`` and re-solves the whole batch on the reference, so the audit
 rate changes detection latency, never output bytes. With an
 ``audit_worker`` (``runtime/audit_worker.py``, the default on the card) the
-sample is drawn and sent to that process when the batch is dispatched, and
-its rows are compared when the batch is fetched; without one (the CPU
-default) the sample is solved in this process at fetch time.
+sample is drawn when the batch is dispatched and, once the worker has
+started, sent to that process; its rows are compared when the batch is
+fetched. Samples drawn before the worker is ready (its start takes
+seconds), and every sample without a worker (the CPU default), are solved
+in this process at fetch time.
 
 The mesh parts of the JAX module (the partial-mesh rung, per-member
 attribution and the persisted trust registry) are left out: on one card a
@@ -65,6 +67,7 @@ culprit is never attributed (-1) and trust strikes live for the run.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import random
 import threading
@@ -244,7 +247,8 @@ class _SupHandle:
         self.key = key
         self.degraded = degraded
         self.result = result
-        self.audit = None     # (rows, ticket) of a sample sent to the audit worker
+        self.audit = None     # (rows, worker ticket or None): the sample
+                              # drawn at dispatch
 
 
 def shape_key(batch, fp_prefix: str) -> str:
@@ -276,9 +280,10 @@ class DeviceSupervisor:
     whether the device is alive (default :func:`utils.obs.device_alive` on
     cuda). ``audit_ref_factory`` builds the shadow audit's in-process
     reference; ``audit_rate`` None reads ``DACCORD_AUDIT_RATE`` (default
-    1/64). ``audit_worker`` (an ``AuditWorker`` whose ladder is built)
-    solves the samples in its own process; the in-process reference then
-    only re-solves a batch found divergent. The caller closes the worker."""
+    1/64). ``audit_worker`` (an ``AuditWorker`` asked to build its ladder)
+    solves the samples in its own process once it is ready; the in-process
+    reference solves those drawn before, and re-solves a batch found
+    divergent. The caller closes the worker."""
 
     def __init__(self, dispatch_fn, fetch_fn, *, fallback_factory=None, log=None, cfg: SupervisorConfig | None = None,
                  faults: FaultPlan | None = None, probe_fn=None, describe: str = "",
@@ -331,8 +336,10 @@ class DeviceSupervisor:
                                    # the shadow solves, or with a worker the
                                    # sample's send, the wait for rows not
                                    # yet back, and the compare
-        self.audit_warm_s = 0.0    # wall waiting for the worker's start
-                                   # (spawn, imports, ladder build)
+        self.audit_warm_s = 0.0    # wall of the in-process reference's
+                                   # first solve at each shape (not in
+                                   # audit_s)
+        self.audits_local = 0      # batches audited in this process
         self.audit_disabled: str | None = None   # why the audit stopped
         self._audit_warmed: set[tuple] = set()
         self._trust: dict[int, dict] = {}
@@ -716,10 +723,13 @@ class DeviceSupervisor:
             if spec is not None:
                 self._corrupt_rows(out, range(int(out["cons"].shape[0])))
         if self._audit_rate > 0.0 and self._audit_ref_factory is not None:
-            if h.audit is not None:
-                out = self._audit_remote(h, out)
-            elif self._worker is None:
+            if h.audit is None:
                 out = self._audit(h, out)
+            elif h.audit[1] is None:
+                rows, h.audit = h.audit[0], None
+                out = self._audit_rows(h, out, rows)
+            else:
+                out = self._audit_remote(h, out)
         return out
 
     @staticmethod
@@ -814,29 +824,37 @@ class DeviceSupervisor:
 
     def _audit_send(self, h: _SupHandle) -> None:
         """At dispatch: draw the batch's sample (the ordinal in dispatch
-        order, which is fetch order) and send its rows to the worker."""
+        order, which is fetch order) and, once the worker is ready, send
+        its rows there; before that (its start takes seconds) the sample is
+        solved in this process when the batch is fetched."""
+        from .audit_worker import AuditWorkerError
+
         B = int(h.batch.size)
         if B <= 0:
             return
         t0 = time.time()
         rows = self._audit_sample(B)
         self._n_audit += 1
+        ticket = None
         try:
-            h.audit = (rows, self._worker.submit(self._take_rows(h.batch, rows)))
-        except Exception as e:
+            if self._worker.poll_ready():
+                ticket = self._worker.submit(self._take_rows(h.batch, rows))
+        except AuditWorkerError as e:
             self._audit_off(e)
+        h.audit = (rows, ticket)
         self.audit_s += time.time() - t0
 
     def _audit_drop(self, h: _SupHandle) -> None:
         """The batch will not be compared (it re-solves elsewhere)."""
-        if h.audit is not None and self._worker is not None:
-            self._worker.discard(h.audit[1])
+        ticket = h.audit[1] if h.audit is not None else None
+        if ticket is not None and self._worker is not None:
+            self._worker.discard(ticket)
         h.audit = None
 
     def _audit_remote(self, h: _SupHandle, out: dict):
         """At fetch: wait for the worker's rows of ``h``'s sample and compare
         them byte for byte; a divergence re-solves the whole batch on the
-        in-process reference, as :meth:`_audit` does."""
+        in-process reference, as :meth:`_audit_rows` does."""
         from .audit_worker import AuditWorkerError
 
         rows, ticket = h.audit
@@ -844,11 +862,8 @@ class DeviceSupervisor:
         worker = self._worker
         if worker is None:
             return out          # disabled since the batch was dispatched
+        t0 = time.time()
         try:
-            if not worker.ready:
-                with self.tracer.span("audit.warm"):
-                    self.audit_warm_s += worker.wait_ready(self.op_deadline_s)
-            t0 = time.time()
             with self.tracer.span("audit", rows=len(rows)):
                 ref = worker.result(ticket, self.op_deadline_s)
         except AuditWorkerError as e:
@@ -881,34 +896,63 @@ class DeviceSupervisor:
         self._trust_strike(-1, "shadow audit divergence")
         return out
 
+    @contextlib.contextmanager
+    def _local_threads(self):
+        """Beside the card, the in-process reference runs on the worker's
+        torch thread count: the full intra-op pool, contending with the
+        dispatcher, the feeders and the worker's start, ran a 32-row sample
+        about twice as slow as one thread did on an idle host (PERF.md). A
+        CPU primary keeps its pool."""
+        import torch
+
+        from .audit_worker import THREADS
+
+        n = torch.get_num_threads()
+        cut = not self._inline and n > THREADS
+        if cut:
+            torch.set_num_threads(THREADS)
+        try:
+            yield
+        finally:
+            if cut:
+                torch.set_num_threads(n)
+
     def _audit(self, h, out: dict):
-        """Shadow-verify a seeded sample of ``out``'s rows against the
-        reference. On divergence: ``sup_sdc``, a trust strike, and the
-        WHOLE batch re-solved on the reference, so a detected corruption
-        never reaches the caller."""
+        """Shadow-verify a seeded sample of ``out``'s rows, drawn now,
+        against the in-process reference (:meth:`_audit_rows`)."""
         import numpy as np
 
-        eng = self._audit_engine()
-        if eng is None:
-            return out
-        batch = h.batch
         B = int(np.asarray(out["cons"]).shape[0])
-        if B <= 0:
+        if B <= 0 or self._audit_engine() is None:
             return out
         rows = self._audit_sample(B)
         self._n_audit += 1
+        return self._audit_rows(h, out, rows)
+
+    def _audit_rows(self, h, out: dict, rows: list):
+        """Solve ``rows`` of ``h``'s batch again on the in-process reference
+        and compare them byte for byte. On divergence: ``sup_sdc``, a trust
+        strike, and the WHOLE batch re-solved on the reference, so a
+        detected corruption never reaches the caller."""
+        eng = self._audit_engine()
+        if eng is None:
+            return out
         self.counters["audits"] += 1
-        sample = self._take_rows(batch, rows)
-        shape = tuple(np.asarray(sample.seqs).shape)
-        if shape not in self._audit_warmed:
-            # the first audit at a shape pays the reference's warm-up, once,
-            # under its own span and not under audit_s
-            self._audit_warmed.add(shape)
-            with self.tracer.span("audit.warm", rows=len(rows)):
-                eng(sample)
-        t0 = time.time()
-        with self.tracer.span("audit", rows=len(rows)):
-            ref = eng(sample)
+        self.audits_local += 1
+        sample = self._take_rows(h.batch, rows)
+        shape = tuple(sample.seqs.shape)
+        with self._local_threads():
+            if shape not in self._audit_warmed:
+                # the first audit at a shape pays the reference's warm-up,
+                # once, under its own span and audit_warm_s, not audit_s
+                self._audit_warmed.add(shape)
+                t0 = time.time()
+                with self.tracer.span("audit.warm", rows=len(rows)):
+                    eng(sample)
+                self.audit_warm_s += time.time() - t0
+            t0 = time.time()
+            with self.tracer.span("audit", rows=len(rows)):
+                ref = eng(sample)
         divergent = [i for j, i in enumerate(rows)
                      if not self._rows_equal(out, ref, i, j)]
         if divergent:

@@ -6,7 +6,10 @@ A run audited in the worker writes the FASTA of audit rate 0 and of the
 in-process audit; ``--audit-rate 1`` on a clean run logs no ``sup_sdc``; an
 ``sdc`` fault is caught with the FASTA unchanged; a killed worker logs
 ``audit.disabled`` and the run completes; samples of one shape solved in one
-reference call equal their separate solves.
+reference call equal their separate solves. The supervisor sends samples to
+the worker only once it is ready (before that it solves them itself); the
+``ready`` fixture makes it wait for the worker instead, so that every audit
+of those runs goes through the worker.
 """
 
 import dataclasses
@@ -31,19 +34,53 @@ def base(tmp_path_factory):
     return make_base(str(tmp_path_factory.mktemp("torch_audit_worker")))
 
 
-def test_worker_audit_writes_the_unaudited_and_in_process_fasta(base):
+@pytest.fixture
+def ready(monkeypatch):
+    """The supervisor waits for the worker's start at its first dispatch."""
+    def poll_ready(self):
+        self.wait_ready(300.0)
+        return True
+
+    monkeypatch.setattr(audit_worker.AuditWorker, "poll_ready", poll_ready)
+
+
+def test_worker_audit_writes_the_unaudited_and_in_process_fasta(base, ready):
     inproc = run(base, "port", "inproc", None, audit_rate=0.25)
     worker = run(base, "port", "worker", None, audit_rate=0.25, audit_worker=True)
     assert worker["text"] == base["clean"]["text"] == inproc["text"]
     st = worker["stats"]
     assert st.sup_counters["audits"] == inproc["stats"].sup_counters["audits"] == st.n_batches
+    assert st.audit_local == 0 and inproc["stats"].audit_local == st.n_batches
     assert st.sup_counters["sdc_detected"] == 0 and st.audit_disabled is None
     assert st.audit_worker_s > 0 and inproc["stats"].audit_worker_s == 0
+    assert set(st.audit_worker_start) == {"boot_s", "import_s", "build_s", "warm_s"}
     assert validate_events(worker["ev"], strict=True) == []
     assert not any(r["event"] in ("sup_sdc", "audit.disabled") for r in worker["recs"])
 
 
-def test_worker_audit_of_every_window_finds_nothing(base):
+def test_samples_before_the_worker_is_ready_are_solved_in_process(base, monkeypatch):
+    """The first three dispatches find the worker not ready: their samples
+    are solved on the pipeline's thread, the rest in the worker, and the
+    FASTA is the unaudited run's."""
+    real = audit_worker.AuditWorker.wait_ready
+    calls = []
+
+    def poll_ready(self):
+        calls.append(1)
+        if len(calls) <= 3:
+            return False
+        real(self, 300.0)
+        return True
+
+    monkeypatch.setattr(audit_worker.AuditWorker, "poll_ready", poll_ready)
+    port = run(base, "port", "worker_late", None, audit_rate=0.25, audit_worker=True)
+    st = port["stats"]
+    assert port["text"] == base["clean"]["text"]
+    assert st.audit_local == 3 and st.sup_counters["audits"] == st.n_batches
+    assert st.audit_worker_s > 0 and st.audit_disabled is None
+
+
+def test_worker_audit_of_every_window_finds_nothing(base, ready):
     port = run(base, "port", "worker_audit1", None, audit_rate=1.0, audit_worker=True)
     assert port["text"] == base["clean"]["text"]
     assert not any(r["event"] == "sup_sdc" for r in port["recs"])
@@ -51,7 +88,7 @@ def test_worker_audit_of_every_window_finds_nothing(base):
     assert port["done"][0]["sdc_detected"] == 0
 
 
-def test_worker_catches_sdc_and_the_fasta_does_not_change(base):
+def test_worker_catches_sdc_and_the_fasta_does_not_change(base, ready):
     port = run(base, "port", "worker_sdc", "sdc:2", audit_rate=0.25, audit_worker=True)
     ref = run(base, "port", "inproc_sdc", "sdc:2", audit_rate=0.25)
     assert port["text"] == base["clean"]["text"]
@@ -61,16 +98,15 @@ def test_worker_catches_sdc_and_the_fasta_does_not_change(base):
     assert port["chain"] == ref["chain"] and port["done"] == ref["done"]
 
 
-def test_killed_worker_disables_the_audit_and_the_run_completes(base, monkeypatch):
+def test_killed_worker_disables_the_audit_and_the_run_completes(base, ready, monkeypatch):
     real = audit_worker.AuditWorker.submit
     calls = []
 
     def submit(self, sample):
         calls.append(1)
         if len(calls) == 3:
-            for proc in self._procs:
-                proc.kill()
-                proc.join()
+            self._proc.kill()
+            self._proc.join()
         return real(self, sample)
 
     monkeypatch.setattr(audit_worker.AuditWorker, "submit", submit)
@@ -154,7 +190,7 @@ def test_worker_process_solves_pending_samples_together(base):
         assert w.calls <= 4
     finally:
         w.close()
-    assert not any(p.is_alive() for p in w._procs)
+    assert not w._proc.is_alive()
     ref = audit_reference(_ladder(prof)())
     for t, s in zip(tickets[1:], samples[1:]):
         want = ref(s)
