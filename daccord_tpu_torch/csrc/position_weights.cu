@@ -35,12 +35,11 @@
 // flight while this one's rows are summed, and the first's while ol is
 // transposed. A batch smaller than two windows an SM (the escalation tiers'
 // ~140) takes blocks of 1024 threads, so a window's latency chain (read,
-// count, rows) is split four times finer; larger batches of narrow windows
-// (tier 0's M=64) take a warp a window (position_weights_warp_kernel: no
-// block barrier, eight windows a block at their own phases), and larger
-// batches of wide ones blocks of 256, several an SM. No occ tensor exists
-// in global memory: prep_batch's f32 zero-fill and scatter of B * M * O
-// counts (29 MB at B=2048) left the path with it.
+// count, rows) is split four times finer; larger batches take blocks of
+// 256, several an SM. (A warp a window with no block barrier, tried for
+// tier 0's B=2048, ran 1.4x slower.) No occ tensor exists in global
+// memory: prep_batch's f32 zero-fill and scatter of B * M * O counts
+// (29 MB at B=2048) left the path with it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,70 +135,6 @@ position_weights_kernel(const int64_t* __restrict__ kid,  // [B, D, NPOS]
     }
 }
 
-// The same sum with a warp a window and no block barrier in the loop: the
-// warp counts its window into its own slice of shared memory and then sums
-// all M rows, so a block of NWARP warps has NWARP windows in flight, each at
-// its own phase. For large batches of narrow windows (M * O small enough
-// for NWARP count slices beside olT).
-template <int TP, int NWARP>
-__global__ void __launch_bounds__(NWARP * 32)
-position_weights_warp_kernel(const int64_t* __restrict__ kid,  // [B, D, NPOS]
-                             const float* __restrict__ ol,     // [P, O]
-                             float* __restrict__ W,            // [B, M, P]
-                             int B, int DN, int NPOS, int M, int P, int O, int PS)
-{
-    extern __shared__ __align__(16) uint32_t sm[];
-    float* olT = reinterpret_cast<float*>(sm);     // [O][PS]
-    const int nwords = (M * O + 1) >> 1;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    uint32_t* cnt = sm + (size_t)O * PS + (size_t)warp * nwords;
-    for (int i = threadIdx.x; i < P * O; i += NWARP * 32) {
-        const int p = i / O, o = i - p * O;
-        olT[o * PS + p] = ol[i];
-    }
-    __syncthreads();
-    for (int b = blockIdx.x * NWARP + warp; b < B; b += gridDim.x * NWARP) {
-        for (int i = lane; i < nwords; i += 32) cnt[i] = 0u;
-        __syncwarp();
-        const int64_t* kb = kid + (size_t)b * DN;
-#pragma unroll 8
-        for (int i = lane; i < DN; i += 32) count_one(cnt, kb[i], i, NPOS, M, O);
-        __syncwarp();
-        float* Wb = W + (size_t)b * M * P;
-        for (int m = 0; m < M; ++m) {
-            for (int p0 = 0; p0 < P; p0 += 32 * TP) {
-                float acc[TP];
-#pragma unroll
-                for (int j = 0; j < TP; ++j) acc[j] = 0.0f;
-                for (int o0 = 0; o0 < O; o0 += 32) {
-                    const int o = o0 + lane;
-                    uint32_t c = 0u;
-                    if (o < O) {
-                        const int idx = m * O + o;
-                        c = (cnt[idx >> 1] >> ((idx & 1) << 4)) & 0xffffu;
-                    }
-                    uint32_t nz = __ballot_sync(0xffffffffu, c != 0u);
-                    while (nz) {
-                        const int src = __ffs(nz) - 1;
-                        nz &= nz - 1u;
-                        const float cf = __uint2float_rn(__shfl_sync(0xffffffffu, c, src));
-                        const float* row = olT + (o0 + src) * PS + p0 + lane;
-#pragma unroll
-                        for (int j = 0; j < TP; ++j)
-                            acc[j] = __fadd_rn(acc[j], __fmul_rn(cf, row[32 * j]));
-                    }
-                }
-#pragma unroll
-                for (int j = 0; j < TP; ++j) {
-                    const int p = p0 + lane + 32 * j;
-                    if (p < P) Wb[(size_t)m * P + p] = acc[j];
-                }
-            }
-        }
-        __syncwarp();   // the counts are the warp's next window's
-    }
-}
-
 // blocks of a kernel that fit the card at once
 template <typename K>
 static int card_fit(K kernel, int threads, size_t smem, int* fit)
@@ -213,34 +148,6 @@ static int card_fit(K kernel, int threads, size_t smem, int* fit)
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     *fit = n * per_sm;
     return 0;
-}
-
-constexpr int WPB = 8;           // windows (warps) a block of the warp kernel
-
-template <int TP>
-static int launch_warp(const void* kid, const void* ol, void* W, int B, int D, int NPOS,
-                       int M, int P, int O, void* stream)
-{
-    const int PS = 32 * TP * ((P + 32 * TP - 1) / (32 * TP)) + 1;
-    const size_t smem = 4 * ((size_t)O * PS + (size_t)WPB * (((size_t)M * O + 1) / 2));
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            position_weights_warp_kernel<TP, WPB>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    static size_t fit_smem = 0;
-    static int fit = 0;
-    if (fit == 0 || fit_smem != smem) {
-        const int rc = card_fit(position_weights_warp_kernel<TP, WPB>, WPB * 32, smem, &fit);
-        if (rc) return rc;
-        fit_smem = smem;
-    }
-    const int need = (B + WPB - 1) / WPB;
-    position_weights_warp_kernel<TP, WPB><<<need < fit ? need : fit, WPB * 32, smem,
-                                            (cudaStream_t)stream>>>(
-        (const int64_t*)kid, (const float*)ol, (float*)W, B, D * NPOS, NPOS, M, P, O, PS);
-    return (int)cudaGetLastError();
 }
 
 template <int TP, int THREADS>
@@ -283,7 +190,6 @@ static int launch_tp(const void* kid, const void* ol, void* W, int B, int D, int
         if (e != cudaSuccess) return (int)e;
     }
     if (B < 2 * sms) return launch<TP, 1024>(kid, ol, W, B, D, NPOS, M, P, O, stream);
-    if (M * O <= 64 * 64) return launch_warp<TP>(kid, ol, W, B, D, NPOS, M, P, O, stream);
     return launch<TP, 256>(kid, ol, W, B, D, NPOS, M, P, O, stream);
 }
 

@@ -67,7 +67,6 @@ culprit is never attributed (-1) and trust strikes live for the run.
 
 from __future__ import annotations
 
-import contextlib
 import queue
 import random
 import threading
@@ -896,27 +895,6 @@ class DeviceSupervisor:
         self._trust_strike(-1, "shadow audit divergence")
         return out
 
-    @contextlib.contextmanager
-    def _local_threads(self):
-        """Beside the card, the in-process reference runs on the worker's
-        torch thread count: the full intra-op pool, contending with the
-        dispatcher, the feeders and the worker's start, ran a 32-row sample
-        about twice as slow as one thread did on an idle host (PERF.md). A
-        CPU primary keeps its pool."""
-        import torch
-
-        from .audit_worker import THREADS
-
-        n = torch.get_num_threads()
-        cut = not self._inline and n > THREADS
-        if cut:
-            torch.set_num_threads(THREADS)
-        try:
-            yield
-        finally:
-            if cut:
-                torch.set_num_threads(n)
-
     def _audit(self, h, out: dict):
         """Shadow-verify a seeded sample of ``out``'s rows, drawn now,
         against the in-process reference (:meth:`_audit_rows`)."""
@@ -941,18 +919,17 @@ class DeviceSupervisor:
         self.audits_local += 1
         sample = self._take_rows(h.batch, rows)
         shape = tuple(sample.seqs.shape)
-        with self._local_threads():
-            if shape not in self._audit_warmed:
-                # the first audit at a shape pays the reference's warm-up,
-                # once, under its own span and audit_warm_s, not audit_s
-                self._audit_warmed.add(shape)
-                t0 = time.time()
-                with self.tracer.span("audit.warm", rows=len(rows)):
-                    eng(sample)
-                self.audit_warm_s += time.time() - t0
+        if shape not in self._audit_warmed:
+            # the first audit at a shape pays the reference's warm-up, once,
+            # under its own span and audit_warm_s, not under audit_s
+            self._audit_warmed.add(shape)
             t0 = time.time()
-            with self.tracer.span("audit", rows=len(rows)):
-                ref = eng(sample)
+            with self.tracer.span("audit.warm", rows=len(rows)):
+                eng(sample)
+            self.audit_warm_s += time.time() - t0
+        t0 = time.time()
+        with self.tracer.span("audit", rows=len(rows)):
+            ref = eng(sample)
         divergent = [i for j, i in enumerate(rows)
                      if not self._rows_equal(out, ref, i, j)]
         if divergent:
