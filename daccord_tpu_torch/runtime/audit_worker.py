@@ -170,14 +170,14 @@ class AuditWorker:
     is what of jax or ``daccord_tpu`` it had imported when it built its
     reference (nothing, or the port is not standalone)."""
 
-    def __init__(self, threads: int = THREADS):
+    def __init__(self):
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")
         self._req = ctx.Queue()
         self._res, child_end = ctx.Pipe(duplex=False)
         self._proc = ctx.Process(target=_main,
-                                 args=(self._req, child_end, threads, os.getpid(),
+                                 args=(self._req, child_end, THREADS, os.getpid(),
                                        time.time()),
                                  name="daccord-audit", daemon=True)
         self._proc.start()

@@ -180,7 +180,7 @@ def test_worker_process_solves_pending_samples_together(base):
     imported nothing of jax or ``daccord_tpu``."""
     prof = ErrorProfile.load(base["eprof"])
     samples = _samples(base, 5)
-    w = audit_worker.AuditWorker(threads=1)
+    w = audit_worker.AuditWorker()
     try:
         w.build(_ladder(prof))
         tickets = [w.submit(s) for s in samples]
