@@ -43,8 +43,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (``audit_warm_s``), the worker's start walls and the shares of the
    run's wall, fails if the audit was disabled, and is run again at audit
    rate 0, which must write the same FASTA byte for byte (its wall on the
-   line). Then the reference's own cost: the CPU ladder on 32 and 256
-   windows on 1 and 2 torch threads;
+   line), then with the audit on the pipeline's thread only (no worker)
+   and with the default again. Then the reference's own cost: the CPU
+   ladder on 32 and 256 windows on 1 and 2 torch threads;
 4b. the slice's checks on the 20 kb set, each a ``daccord`` run with the
    counts set to 0 before it: ``--max-inflight 1`` and a second deque run
    write the first deque run's FASTA byte for byte (their walls on one
@@ -668,6 +669,20 @@ def log_run(tag: str, stats, launched: dict) -> None:
             log(f"daccord {tag}: {name} mean windows per launch ({means})")
 
 
+def daccord_with(argv: list[str], counters, **cfg):
+    """:func:`daccord` with ``PipelineConfig`` fields the command line does
+    not set; its stats."""
+    from daccord_tpu_torch.runtime.pipeline import PipelineConfig
+    from daccord_tpu_torch.tools import cli
+
+    real = cli.PipelineConfig
+    cli.PipelineConfig = lambda **kw: PipelineConfig(**cfg, **kw)
+    try:
+        return daccord(argv, counters)[0]
+    finally:
+        cli.PipelineConfig = real
+
+
 def audit_text(stats) -> str:
     w = stats.wall_s
     return (f"shadow audit (rate 1/64) audit_s {stats.audit_s:.4f} s, "
@@ -1131,6 +1146,17 @@ def main() -> int:
             log(f"daccord {tag}: FASTA byte-identical at audit rate 0 (wall {st0.wall_s:.3f} "
                 f"s against {stats.wall_s:.3f} s at 1/64; solve_s {st0.solve_s:.3f}, "
                 f"device_s {st0.device_s:.3f}, else {else_s(st0):.3f})")
+            # the audit without its worker (every sample on the pipeline's
+            # thread, as before the worker), then the default again
+            for label, worker in (("in-process audit only", False), ("default again", None)):
+                st1 = daccord_with([ds["db"], ds["las"], "-o", out0, "-E", ep, "-b", str(B),
+                                    "--device", dev.type, *args], counters,
+                                   audit_worker=worker)
+                with open(out, "rb") as a, open(out0, "rb") as b0:
+                    if a.read() != b0.read():
+                        raise AssertionError(f"daccord {tag}, {label}: FASTA differs")
+                log(f"daccord {tag}, {label}: wall {st1.wall_s:.3f} s, FASTA "
+                    f"byte-identical; {audit_text(st1)}")
         dense_launch = runs["dense fused"][2]
         paged_launch = runs["paged scan"][2]
         for run_launched, name in ((dense_launch, "dp_backtrack"),

@@ -66,6 +66,19 @@ def check_shape(D: int, L: int, C: int, CL: int) -> None:
         raise ValueError(f"rescore: {C} candidates; at least 1")
 
 
+def _broadcast(a: torch.Size, b: torch.Size) -> torch.Size:
+    """The broadcast of two shapes, as ``torch.broadcast_shapes`` gives it;
+    that one imports ``torch.fx``'s symbolic shapes (sympy) at its first
+    call, which took seconds of the audit worker's start."""
+    n = max(len(a), len(b))
+    out = []
+    for x, y in zip((1,) * (n - len(a)) + tuple(a), (1,) * (n - len(b)) + tuple(b)):
+        if x != y and 1 not in (x, y):
+            raise ValueError(f"shapes {tuple(a)} and {tuple(b)} do not broadcast")
+        out.append(y if x == 1 else x)
+    return torch.Size(out)
+
+
 def edit_distance_myers(cand: torch.Tensor, cand_len: torch.Tensor,
                         seg: torch.Tensor, seg_len: torch.Tensor) -> torch.Tensor:
     """Exact unit-cost edit distance of cand[..., :cand_len] vs
@@ -82,7 +95,7 @@ def edit_distance_myers(cand: torch.Tensor, cand_len: torch.Tensor,
     NW = max(1, -(-CL // WORD))
     L = seg.shape[-1]
     dev = cand.device
-    shape = torch.broadcast_shapes(cand.shape[:-1], seg.shape[:-1])
+    shape = _broadcast(cand.shape[:-1], seg.shape[:-1])
     i64 = torch.int64
     mask = (1 << WORD) - 1
     top = WORD - 1
