@@ -275,14 +275,16 @@ class AuditWorker:
         return self._done.pop(ticket)
 
     def close(self) -> None:
-        """Stop the worker (killed if it does not stop within two seconds)
-        and release its queue."""
+        """Stop the worker and release its queue. A worker still starting
+        reads no message until its imports end (seconds), so it is killed
+        at once; a ready one gets ``stop`` and two seconds."""
         if self._proc.is_alive():
-            try:
-                self._req.put(("stop",))
-            except (ValueError, OSError):
-                pass
-            self._proc.join(2.0)
+            if self.ready:
+                try:
+                    self._req.put(("stop",))
+                except (ValueError, OSError):
+                    pass
+                self._proc.join(2.0)
             if self._proc.is_alive():
                 self._proc.kill()
                 self._proc.join(5.0)
