@@ -19,10 +19,12 @@
 // unchanged and keeps +0 as +0; the sum starts at +0 and so never becomes
 // -0. The other terms are added in the same ascending order.
 //
-// What bounds it: one read of kid (B * D * NPOS int64) and one write of W
-// (B * M * P f32), ~52 MB at B=2048, D=32, NPOS=57, M=64, P=41, about 15 us
-// at 3.35 TB/s. The products and adds are 2 * P a nonzero count, a few
-// percent of the dense B * M * O * P.
+// What bounds it: one read of kid and one write of W (B * M * P f32, 21.5 MB
+// at B=2048, M=64, P=41). kid comes as int32 (15 MB at D=32, NPOS=57: it is
+// searchsorted's int32 output, so no pass narrows it); a kept index below
+// M <= 1024 needs 16 bits, so the bound counts 2 bytes a position: ~29 MB,
+// about 8.7 us at 3.35 TB/s. The products and adds are 2 * P a nonzero
+// count, a few percent of the dense B * M * O * P.
 //
 // Design: a block loops over windows (as many blocks as fit the SMs, each
 // transposing ol into shared memory once). For a window it counts occ in
@@ -47,29 +49,29 @@
 constexpr int KREG_POS = 2048;   // kid positions a block holds in registers
 
 template <int THREADS>
-__device__ __forceinline__ void load_kid(long long (&kv)[KREG_POS / THREADS],
-                                         const int64_t* __restrict__ kb, int DN)
+__device__ __forceinline__ void load_kid(int (&kv)[KREG_POS / THREADS],
+                                         const int32_t* __restrict__ kb, int DN)
 {
 #pragma unroll
     for (int j = 0; j < KREG_POS / THREADS; ++j) {
         const int i = threadIdx.x + j * THREADS;
-        kv[j] = i < DN ? kb[i] : -1ll;
+        kv[j] = i < DN ? kb[i] : -1;
     }
 }
 
-__device__ __forceinline__ void count_one(uint32_t* cnt, long long m, int i, int NPOS,
+__device__ __forceinline__ void count_one(uint32_t* cnt, int m, int i, int NPOS,
                                           int M, int O)
 {
     if (m >= 0 && m < M) {
         const int pos = i % NPOS;
-        const int idx = (int)m * O + (pos < O - 1 ? pos : O - 1);
+        const int idx = m * O + (pos < O - 1 ? pos : O - 1);
         atomicAdd(&cnt[idx >> 1], 1u << ((idx & 1) << 4));
     }
 }
 
 template <int TP, int THREADS>   // TP columns a lane, 32 apart
 __global__ void __launch_bounds__(THREADS)
-position_weights_kernel(const int64_t* __restrict__ kid,  // [B, D, NPOS]
+position_weights_kernel(const int32_t* __restrict__ kid,  // [B, D, NPOS]
                         const float* __restrict__ ol,     // [P, O]
                         float* __restrict__ W,            // [B, M, P]
                         int B, int DN, int NPOS, int M, int P, int O, int PS)
@@ -83,7 +85,7 @@ position_weights_kernel(const int64_t* __restrict__ kid,  // [B, D, NPOS]
     const int nwords = (M * O + 1) >> 1;
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
-    long long kv[KREG];
+    int kv[KREG];
     if (blockIdx.x < B) load_kid<THREADS>(kv, kid + (size_t)blockIdx.x * DN, DN);
     // ol read in order (coalesced); the odd row stride keeps the transposed
     // writes in distinct banks
@@ -96,7 +98,7 @@ position_weights_kernel(const int64_t* __restrict__ kid,  // [B, D, NPOS]
         __syncthreads();
 #pragma unroll
         for (int j = 0; j < KREG; ++j) count_one(cnt, kv[j], tid + j * THREADS, NPOS, M, O);
-        const int64_t* kb = kid + (size_t)b * DN;
+        const int32_t* kb = kid + (size_t)b * DN;
         for (int i = tid + KREG_POS; i < DN; i += THREADS) count_one(cnt, kb[i], i, NPOS, M, O);
         __syncthreads();
         if (b + gridDim.x < B) load_kid<THREADS>(kv, kid + (size_t)(b + gridDim.x) * DN, DN);
@@ -174,7 +176,7 @@ static int launch(const void* kid, const void* ol, void* W, int B, int D, int NP
     }
     const int grid = B < fit ? B : fit;
     position_weights_kernel<TP, THREADS><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const int64_t*)kid, (const float*)ol, (float*)W, B, D * NPOS, NPOS, M, P, O, PS);
+        (const int32_t*)kid, (const float*)ol, (float*)W, B, D * NPOS, NPOS, M, P, O, PS);
     return (int)cudaGetLastError();
 }
 

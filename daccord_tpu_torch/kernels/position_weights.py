@@ -68,7 +68,7 @@ def check_shape(D: int, npos: int, O: int) -> None:
 
 
 def occurrence_counts(kid: torch.Tensor, M: int, O: int) -> torch.Tensor:
-    """kid [B, D, NPOS] int64 (-1 = no kept k-mer) -> occ [B, M, O] f32, the
+    """kid [B, D, NPOS] int32 (-1 = no kept k-mer) -> occ [B, M, O] f32, the
     count of positions of each kept k-mer at each offset (positions from
     O-1 on count at O-1)."""
     B, D, npos = kid.shape
@@ -83,7 +83,7 @@ def occurrence_counts(kid: torch.Tensor, M: int, O: int) -> torch.Tensor:
 
 
 def position_weights_plain(kid: torch.Tensor, ol: torch.Tensor, M: int) -> torch.Tensor:
-    """kid [B, D, NPOS] int64, ol [P, O] f32 -> W [B, M, P] f32: the counts of
+    """kid [B, D, NPOS] int32, ol [P, O] f32 -> W [B, M, P] f32: the counts of
     :func:`occurrence_counts` summed over o in ascending order against ol,
     one rounded product and one rounded add a term, zero counts included."""
     P, O = ol.shape
@@ -110,8 +110,8 @@ def position_weights(kid: torch.Tensor, ol: torch.Tensor, M: int) -> torch.Tenso
                          f"and ol {tuple(ol.shape)} [P, O]")
     B, D, npos = kid.shape
     P, O = ol.shape
-    if kid.dtype != torch.int64:
-        raise TypeError(f"position_weights: kid is {kid.dtype}, expected int64")
+    if kid.dtype != torch.int32:
+        raise TypeError(f"position_weights: kid is {kid.dtype}, expected int32")
     if ol.dtype != torch.float32:
         raise TypeError(f"position_weights: ol is {ol.dtype}, expected float32")
     dev = kid.device

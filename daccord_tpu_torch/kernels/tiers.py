@@ -103,6 +103,14 @@ class TierLadder:
     def device(self) -> torch.device:
         return next(iter(self.tables.values())).device
 
+    def spec(self) -> tuple:
+        """The ladder as plain values, ``(tables, params, wide_p0)``: numpy
+        tables by k and the tiers' parameters as dicts, what
+        :meth:`from_numpy` and ``audit.ladder.solve_ladder`` take."""
+        return ({k: t.cpu().numpy() for k, t in self.tables.items()},
+                [dataclasses.asdict(p) for p in self.params],
+                None if self.wide_p0 is None else dataclasses.asdict(self.wide_p0))
+
 
 def ladder_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
                 tables: tuple, params: tuple[KernelParams, ...],

@@ -135,8 +135,9 @@ def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
     m_overflow = (start_counts > 0).sum(dim=1) > M
 
     # ---- occurrences: kept index of every position (-1 = none) -----------
+    # kid in int32 (searchsorted's narrow output), what the W kernel reads
     flat_ids = ids.reshape(B, N)
-    j = torch.searchsorted(sel, flat_ids).clamp(max=M - 1)
+    j = torch.searchsorted(sel, flat_ids, out_int32=True).clamp(max=M - 1)
     hit = (torch.gather(sel, 1, j) == flat_ids) & (flat_ids < SENT)
     kid = torch.where(hit, j, torch.full_like(j, -1)).view(B, D, npos)
 

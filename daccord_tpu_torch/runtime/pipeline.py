@@ -60,7 +60,6 @@ how many batches are in flight, never changes a window's result.
 
 from __future__ import annotations
 
-import functools
 import json
 import os
 import sys
@@ -169,11 +168,11 @@ class PipelineConfig:
                                  # reference, so the rate never changes
                                  # output bytes
     audit_worker: bool | None = None   # solve the audit's samples in a
-                                 # process of its own (runtime/
-                                 # audit_worker.py) once it has started,
-                                 # sent at dispatch and compared at fetch;
-                                 # None = on cuda only (on the CPU no card
-                                 # waits on the pipeline's thread)
+                                 # process of its own (audit/worker.py:
+                                 # the CPU ladder in numpy), sent at
+                                 # dispatch and compared at fetch; None =
+                                 # on cuda only (on the CPU no card waits
+                                 # on the pipeline's thread)
     native_threads: int = 0      # threads of the native failover engine
                                  # (0 = every usable CPU)
 
@@ -235,22 +234,21 @@ class PipelineStats:
     governor_ratchet: dict = field(default_factory=dict)  # shape key ->
                                  # ratcheted width, entries of this run
     audit_s: float = 0.0         # host wall of the shadow audit on the
-                                 # pipeline's thread: its own solves (every
-                                 # sample without the worker, those drawn
-                                 # before it was ready with it), the sends
-                                 # to the worker, the wait for its rows not
-                                 # yet back and the compares
+                                 # pipeline's thread: its own solves
+                                 # without the worker; with it the sends,
+                                 # the wait for its rows not yet back and
+                                 # the compares
     audit_worker_s: float = 0.0  # the audit worker's own solve wall (its
                                  # process; not on the pipeline's thread)
     audit_warm_s: float = 0.0    # wall of the in-process reference's
                                  # first solve at each shape (not in
                                  # audit_s)
     audit_local: int = 0         # batches audited on the pipeline's thread
-                                 # (before the worker was ready, or with no
-                                 # worker)
+                                 # (with no worker)
     audit_worker_start: dict = field(default_factory=dict)  # the worker's
-                                 # start walls (boot_s, import_s, build_s,
-                                 # warm_s); empty if it never got ready
+                                 # start walls (boot_s: the interpreter,
+                                 # import_s: numpy and its ladder); empty
+                                 # if it never got ready
     audit_disabled: str | None = None   # why the audit stopped mid-run
                                  # (``audit.disabled``), else None
     sup_counters: dict = field(default_factory=dict)  # the supervisor's
@@ -835,7 +833,7 @@ def _start_audit_worker(cfg: PipelineConfig, dev, ev_log, stats: PipelineStats):
     use = cfg.audit_worker if cfg.audit_worker is not None else dev.type == "cuda"
     if not (cfg.supervise and rate > 0.0 and use):
         return None
-    from .audit_worker import AuditWorker
+    from ..audit.worker import AuditWorker
 
     try:
         return AuditWorker()
@@ -873,14 +871,13 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                                                  pile_ranges=clean)
         stats.profile_s = time.perf_counter() - t0
 
-    # picklable, so the audit worker builds the same ladder in its process
-    make_ladder = functools.partial(TierLadder.from_config, profile, cfg.consensus,
-                                    max_kmers=cfg.max_kmers,
-                                    rescue_max_kmers=cfg.rescue_max_kmers,
-                                    overflow_rescue=cfg.overflow_rescue,
-                                    route=cfg.dp_route)
+    def make_ladder(device):
+        return TierLadder.from_config(profile, cfg.consensus, max_kmers=cfg.max_kmers,
+                                      rescue_max_kmers=cfg.rescue_max_kmers,
+                                      overflow_rescue=cfg.overflow_rescue,
+                                      device=device, route=cfg.dp_route)
 
-    ladder = make_ladder(device=dev)
+    ladder = make_ladder(dev)
     w, adv = cfg.consensus.w, cfg.consensus.adv
     B = cfg.batch_size
     min_depth = cfg.consensus.dbg.min_depth
@@ -919,11 +916,11 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
             # built from the profile's numpy tables, never copied off the
             # card: a poisoned CUDA context cannot be read from
             if not host_ladder:
-                host_ladder.append(make_ladder(device="cpu"))
+                host_ladder.append(make_ladder("cpu"))
             return host_ladder[0]
 
         if worker is not None:
-            worker.build(functools.partial(make_ladder, device="cpu"), shapes)
+            worker.build(cpu_ladder().spec())
 
         def fallback_factory():
             kind = cfg.failover_backend

@@ -53,12 +53,11 @@ on the trusted reference (``kernels.tiers.audit_reference``: the card's own
 ladder on the CPU) and compared byte for byte; a divergence logs
 ``sup_sdc`` and re-solves the whole batch on the reference, so the audit
 rate changes detection latency, never output bytes. With an
-``audit_worker`` (``runtime/audit_worker.py``, the default on the card) the
-sample is drawn when the batch is dispatched and, once the worker has
-started, sent to that process; its rows are compared when the batch is
-fetched. Samples drawn before the worker is ready (its start takes
-seconds), and every sample without a worker (the CPU default), are solved
-in this process at fetch time.
+``audit_worker`` (``audit/worker.py``, the default on the card) the
+sample is drawn when the batch is dispatched and sent to that process (the
+CPU ladder in numpy, byte-equal to the reference); its rows are compared
+when the batch is fetched. Without a worker (the CPU default) the sample is
+solved in this process at fetch time.
 
 The mesh parts of the JAX module (the partial-mesh rung, per-member
 attribution and the persisted trust registry) are left out: on one card a
@@ -246,8 +245,8 @@ class _SupHandle:
         self.key = key
         self.degraded = degraded
         self.result = result
-        self.audit = None     # (rows, worker ticket or None): the sample
-                              # drawn at dispatch
+        self.audit = None     # (rows, worker ticket): the sample drawn
+                              # at dispatch and sent to the worker
 
 
 def shape_key(batch, fp_prefix: str) -> str:
@@ -279,10 +278,9 @@ class DeviceSupervisor:
     whether the device is alive (default :func:`utils.obs.device_alive` on
     cuda). ``audit_ref_factory`` builds the shadow audit's in-process
     reference; ``audit_rate`` None reads ``DACCORD_AUDIT_RATE`` (default
-    1/64). ``audit_worker`` (an ``AuditWorker`` asked to build its ladder)
-    solves the samples in its own process once it is ready; the in-process
-    reference solves those drawn before, and re-solves a batch found
-    divergent. The caller closes the worker."""
+    1/64). ``audit_worker`` (an ``AuditWorker`` sent its ladder) solves
+    the samples in its own process; the in-process reference re-solves a
+    batch found divergent. The caller closes the worker."""
 
     def __init__(self, dispatch_fn, fetch_fn, *, fallback_factory=None, log=None, cfg: SupervisorConfig | None = None,
                  faults: FaultPlan | None = None, probe_fn=None, describe: str = "",
@@ -724,9 +722,6 @@ class DeviceSupervisor:
         if self._audit_rate > 0.0 and self._audit_ref_factory is not None:
             if h.audit is None:
                 out = self._audit(h, out)
-            elif h.audit[1] is None:
-                rows, h.audit = h.audit[0], None
-                out = self._audit_rows(h, out, rows)
             else:
                 out = self._audit_remote(h, out)
         return out
@@ -823,24 +818,14 @@ class DeviceSupervisor:
 
     def _audit_send(self, h: _SupHandle) -> None:
         """At dispatch: draw the batch's sample (the ordinal in dispatch
-        order, which is fetch order) and, once the worker is ready, send
-        its rows there; before that (its start takes seconds) the sample is
-        solved in this process when the batch is fetched."""
-        from .audit_worker import AuditWorkerError
-
+        order, which is fetch order) and send its rows to the worker."""
         B = int(h.batch.size)
         if B <= 0:
             return
         t0 = time.time()
         rows = self._audit_sample(B)
         self._n_audit += 1
-        ticket = None
-        try:
-            if self._worker.poll_ready():
-                ticket = self._worker.submit(self._take_rows(h.batch, rows))
-        except AuditWorkerError as e:
-            self._audit_off(e)
-        h.audit = (rows, ticket)
+        h.audit = (rows, self._worker.submit(self._take_rows(h.batch, rows)))
         self.audit_s += time.time() - t0
 
     def _audit_drop(self, h: _SupHandle) -> None:
@@ -854,7 +839,7 @@ class DeviceSupervisor:
         """At fetch: wait for the worker's rows of ``h``'s sample and compare
         them byte for byte; a divergence re-solves the whole batch on the
         in-process reference, as :meth:`_audit_rows` does."""
-        from .audit_worker import AuditWorkerError
+        from ..audit.worker import AuditWorkerError
 
         rows, ticket = h.audit
         h.audit = None

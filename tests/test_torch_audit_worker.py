@@ -1,28 +1,28 @@
-"""The shadow audit's worker process (``runtime/audit_worker.py``) on the
-CPU, driven through the supervisor's constructor (``PipelineConfig.
-audit_worker``; the CPU default is the in-process audit).
+"""The shadow audit's worker process (``audit/worker.py``) on the CPU, driven
+through the supervisor's constructor (``PipelineConfig.audit_worker``; the
+CPU default is the in-process audit), against the JAX package's run under
+the same ``DACCORD_FAULT`` spec.
 
 A run audited in the worker writes the FASTA of audit rate 0 and of the
-in-process audit; ``--audit-rate 1`` on a clean run logs no ``sup_sdc``; an
-``sdc`` fault is caught with the FASTA unchanged; a killed worker logs
-``audit.disabled`` and the run completes; samples of one shape solved in one
-reference call equal their separate solves. The supervisor sends samples to
-the worker only once it is ready (before that it solves them itself); the
-``ready`` fixture makes it wait for the worker instead, so that every audit
-of those runs goes through the worker.
+in-process audit, with the JAX run's ``sup_state`` transitions and
+``sup_done`` counters; ``--audit-rate 1`` on a clean run logs no
+``sup_sdc``; an ``sdc`` fault is caught with the FASTA unchanged; a worker
+that is killed, or that fails on its ladder, logs ``audit.disabled`` and
+the run completes; samples of one shape solved in one ladder call equal
+their separate solves and the torch reference's.
 """
 
 import dataclasses
-import functools
 
 import numpy as np
 import pytest
 import torch
 
+from daccord_tpu_torch.audit import ladder as np_ladder
+from daccord_tpu_torch.audit import worker as audit_worker
 from daccord_tpu_torch.kernels.tiers import TierLadder, audit_reference
 from daccord_tpu_torch.oracle.consensus import ConsensusConfig
 from daccord_tpu_torch.oracle.profile import ErrorProfile
-from daccord_tpu_torch.runtime import audit_worker
 from daccord_tpu_torch.runtime.supervisor import DeviceSupervisor
 from daccord_tpu_torch.tools.eventcheck import validate_events
 
@@ -34,71 +34,56 @@ def base(tmp_path_factory):
     return make_base(str(tmp_path_factory.mktemp("torch_audit_worker")))
 
 
-@pytest.fixture
-def ready(monkeypatch):
-    """The supervisor waits for the worker's start at its first dispatch."""
-    def poll_ready(self):
-        self.wait_ready(300.0)
-        return True
-
-    monkeypatch.setattr(audit_worker.AuditWorker, "poll_ready", poll_ready)
+@pytest.fixture(scope="module")
+def jax_clean(base):
+    """The JAX package's clean run (compiles its ladder for the module)."""
+    return run(base, "jax", "clean", None, audit_rate=0)
 
 
-def test_worker_audit_writes_the_unaudited_and_in_process_fasta(base, ready):
+def _same_as_jax(port: dict, ref: dict) -> None:
+    assert port["chain"] == ref["chain"] and port["chain"]
+    assert port["done"] == ref["done"]
+
+
+def test_worker_audit_writes_the_unaudited_in_process_and_jax_runs(base, jax_clean):
     inproc = run(base, "port", "inproc", None, audit_rate=0.25)
     worker = run(base, "port", "worker", None, audit_rate=0.25, audit_worker=True)
+    ref = run(base, "jax", "audit", None, audit_rate=0.25)
     assert worker["text"] == base["clean"]["text"] == inproc["text"]
+    _same_as_jax(worker, ref)
     st = worker["stats"]
     assert st.sup_counters["audits"] == inproc["stats"].sup_counters["audits"] == st.n_batches
     assert st.audit_local == 0 and inproc["stats"].audit_local == st.n_batches
     assert st.sup_counters["sdc_detected"] == 0 and st.audit_disabled is None
     assert st.audit_worker_s > 0 and inproc["stats"].audit_worker_s == 0
-    assert set(st.audit_worker_start) == {"boot_s", "import_s", "build_s", "warm_s"}
+    assert set(st.audit_worker_start) == {"boot_s", "import_s"}
     assert validate_events(worker["ev"], strict=True) == []
     assert not any(r["event"] in ("sup_sdc", "audit.disabled") for r in worker["recs"])
 
 
-def test_samples_before_the_worker_is_ready_are_solved_in_process(base, monkeypatch):
-    """The first three dispatches find the worker not ready: their samples
-    are solved on the pipeline's thread, the rest in the worker, and the
-    FASTA is the unaudited run's."""
-    real = audit_worker.AuditWorker.wait_ready
-    calls = []
-
-    def poll_ready(self):
-        calls.append(1)
-        if len(calls) <= 3:
-            return False
-        real(self, 300.0)
-        return True
-
-    monkeypatch.setattr(audit_worker.AuditWorker, "poll_ready", poll_ready)
-    port = run(base, "port", "worker_late", None, audit_rate=0.25, audit_worker=True)
-    st = port["stats"]
-    assert port["text"] == base["clean"]["text"]
-    assert st.audit_local == 3 and st.sup_counters["audits"] == st.n_batches
-    assert st.audit_worker_s > 0 and st.audit_disabled is None
-
-
-def test_worker_audit_of_every_window_finds_nothing(base, ready):
+def test_worker_audit_of_every_window_finds_nothing(base, jax_clean):
     port = run(base, "port", "worker_audit1", None, audit_rate=1.0, audit_worker=True)
+    ref = run(base, "jax", "audit1", None, audit_rate=1.0)
     assert port["text"] == base["clean"]["text"]
+    _same_as_jax(port, ref)
     assert not any(r["event"] == "sup_sdc" for r in port["recs"])
     assert port["done"][0]["audits"] == port["stats"].n_batches
     assert port["done"][0]["sdc_detected"] == 0
 
 
-def test_worker_catches_sdc_and_the_fasta_does_not_change(base, ready):
+def test_worker_catches_sdc_and_the_fasta_does_not_change(base, jax_clean):
     port = run(base, "port", "worker_sdc", "sdc:2", audit_rate=0.25, audit_worker=True)
-    ref = run(base, "port", "inproc_sdc", "sdc:2", audit_rate=0.25)
+    ref = run(base, "jax", "sdc", "sdc:2", audit_rate=0.25)
     assert port["text"] == base["clean"]["text"]
     assert validate_events(port["ev"], strict=True) == []
     sdc = [r for r in port["recs"] if r["event"] == "sup_sdc"]
     assert len(sdc) == 1 and port["done"][0]["sdc_detected"] == 1
-    assert port["chain"] == ref["chain"] and port["done"] == ref["done"]
+    _same_as_jax(port, ref)
+    assert [(r["state_from"], r["state_to"]) for r in port["recs"]
+            if r["event"] == "trust.state"] == [("TRUSTED", "SUSPECT")]
 
 
-def test_killed_worker_disables_the_audit_and_the_run_completes(base, ready, monkeypatch):
+def test_killed_worker_disables_the_audit_and_the_run_completes(base, monkeypatch):
     real = audit_worker.AuditWorker.submit
     calls = []
 
@@ -106,21 +91,37 @@ def test_killed_worker_disables_the_audit_and_the_run_completes(base, ready, mon
         calls.append(1)
         if len(calls) == 3:
             self._proc.kill()
-            self._proc.join()
+            self._proc.wait()
         return real(self, sample)
 
     monkeypatch.setattr(audit_worker.AuditWorker, "submit", submit)
     port = run(base, "port", "worker_killed", None, audit_rate=0.25, audit_worker=True)
     assert port["text"] == base["clean"]["text"]
     off = [r for r in port["recs"] if r["event"] == "audit.disabled"]
-    assert len(off) == 1 and "exited" in off[0]["error"]
+    assert len(off) == 1 and ("exited" in off[0]["error"] or "reading" in off[0]["error"])
     assert port["stats"].audit_disabled and validate_events(port["ev"], strict=True) == []
     assert port["done"][0]["audits"] < port["stats"].n_batches
 
 
-def _ladder(seed_profile: ErrorProfile):
-    return functools.partial(TierLadder.from_config, seed_profile, ConsensusConfig(),
-                             device="cpu")
+def test_worker_that_fails_on_its_ladder_disables_the_audit(base, monkeypatch):
+    """A ladder the worker cannot solve with (a tier without its table):
+    its error reaches ``audit.disabled``, and the run completes."""
+    real = audit_worker.AuditWorker.build
+
+    def build(self, spec):
+        tables, params, wide = spec
+        real(self, ({}, params, wide))
+
+    monkeypatch.setattr(audit_worker.AuditWorker, "build", build)
+    port = run(base, "port", "worker_bad", None, audit_rate=0.25, audit_worker=True)
+    assert port["text"] == base["clean"]["text"]
+    off = [r for r in port["recs"] if r["event"] == "audit.disabled"]
+    assert len(off) == 1 and "KeyError" in off[0]["error"]
+    assert port["stats"].audit_disabled and port["done"][0]["audits"] == 0
+
+
+def _ladder(prof: ErrorProfile) -> TierLadder:
+    return TierLadder.from_config(prof, ConsensusConfig(), device="cpu")
 
 
 def _samples(base, n: int):
@@ -154,44 +155,53 @@ def _samples(base, n: int):
     return out
 
 
+def _same(got: dict, want: dict) -> bool:
+    return set(got) == set(want) and all(
+        np.array_equal(np.asarray(got[k]), np.asarray(want[k])) for k in want)
+
+
 def test_samples_of_one_shape_in_one_call_equal_their_separate_solves(base):
     prof = ErrorProfile.load(base["eprof"])
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 2))
     try:
-        ref = audit_reference(_ladder(prof)())
+        tl = _ladder(prof)
+        ref = audit_reference(tl)
+        spec = tl.spec()
         samples = _samples(base, 5)
         calls = []
+
+        def solve(s, ln, ns):
+            calls.append(len(ns))
+            return np_ladder.solve_ladder(spec, s, ln, ns)
+
         done, ncalls = audit_worker.solve_grouped(
-            lambda b: calls.append(b.size) or ref(b), list(enumerate(samples)))
+            solve, [(t, (s.seqs, s.lens, s.nsegs)) for t, s in enumerate(samples)])
         assert ncalls == 2 and sorted(calls) == [10, 15]
         for t, got in done:
-            want = ref(samples[t])
-            assert set(got) == set(want)
-            for k in want:
-                assert np.array_equal(got[k], want[k]), (t, k)
+            assert _same(got, ref(samples[t])), t
     finally:
         torch.set_num_threads(n)
 
 
 def test_worker_process_solves_pending_samples_together(base):
-    """The process: every sample queued before its ladder is built is solved
-    in one call per shape, each ticket gets its own rows, and the worker
-    imported nothing of jax or ``daccord_tpu``."""
+    """The process: samples queued with its ladder are solved (one call per
+    shape when they are pending together), each ticket gets its own rows,
+    and the worker imported nothing of jax, ``daccord_tpu`` or torch."""
     prof = ErrorProfile.load(base["eprof"])
+    tl = _ladder(prof)
     samples = _samples(base, 5)
     w = audit_worker.AuditWorker()
     try:
-        w.build(_ladder(prof))
+        w.build(tl.spec())
         tickets = [w.submit(s) for s in samples]
         w.discard(tickets[0])
         got = {t: w.result(t, 300.0) for t in tickets[1:]}
         assert w.ready and w.leaked == [] and w.worker_s > 0
-        assert w.calls <= 4
+        assert 2 <= w.calls <= 5
     finally:
         w.close()
-    assert not w._proc.is_alive()
-    ref = audit_reference(_ladder(prof)())
+    assert w._proc.poll() is not None
+    ref = audit_reference(tl)
     for t, s in zip(tickets[1:], samples[1:]):
-        want = ref(s)
-        assert all(np.array_equal(got[t][k], want[k]) for k in want)
+        assert _same(got[t], ref(s))

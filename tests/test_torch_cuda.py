@@ -250,7 +250,7 @@ def kid_inputs(seed: int, B: int, M: int, D: int, npos: int, O: int, P: int):
     table with values down to subnormal size (no flush to zero)."""
     rng = np.random.default_rng(seed)
     kid = np.where(rng.random((B, D, npos)) < 0.6, -1,
-                   rng.integers(0, M, (B, D, npos))).astype(np.int64)
+                   rng.integers(0, M, (B, D, npos))).astype(np.int32)
     kid[:, :, min(3, npos - 1)] = M - 1
     ol = (rng.random((P, O)) * 10.0 ** rng.integers(-44, 0, (P, O))).astype(np.float32)
     return kid, ol
@@ -499,7 +499,7 @@ def test_kernel_launch_error_raises_through_the_supervisor(cuda, tmp_path, monke
     from daccord_tpu_torch.utils.obs import NullLogger
 
     monkeypatch.setenv("DACCORD_COMPCACHE", str(tmp_path / "cc"))
-    kid = torch.zeros((2, 4, 300), dtype=torch.int64, device=cuda)
+    kid = torch.zeros((2, 4, 300), dtype=torch.int32, device=cuda)
     ol = torch.ones((300, 300), device=cuda)        # 462 KB of shared memory
     batch = WindowBatch(seqs=np.zeros((2, 2, 8), np.int8), lens=np.zeros((2, 2), np.int32),
                         nsegs=np.zeros(2, np.int32),
@@ -521,6 +521,6 @@ def test_kernel_launch_error_raises_through_the_supervisor(cuda, tmp_path, monke
     assert not sup.failed_over and not built and not probes
     # segment d holds k-mer d at each of 56 positions: a count of 1 at every
     # offset of row d
-    kid = torch.arange(4, device=cuda).view(1, 4, 1).expand(2, 4, 56).contiguous()
+    kid = torch.arange(4, dtype=torch.int32, device=cuda).view(1, 4, 1).expand(2, 4, 56).contiguous()
     got = position_weights.position_weights(kid, ol[:41, :56].contiguous(), 4)
     assert torch.equal(got.cpu(), torch.full((2, 4, 41), 56.0))

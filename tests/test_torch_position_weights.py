@@ -21,7 +21,7 @@ def sparse_inputs(seed: int, B: int, D: int, npos: int, M: int, O: int, P: int):
     down to subnormal size, exact zeros and opposite pairs that cancel."""
     rng = np.random.default_rng(seed)
     kid = np.where(rng.random((B, D, npos)) < 0.8, -1,
-                   rng.integers(0, M, (B, D, npos))).astype(np.int64)
+                   rng.integers(0, M, (B, D, npos))).astype(np.int32)
     kid[kid == M - 1] = -1              # a kept k-mer with no occurrence: W = +0
     kid[:, :, 3] = 1                    # one k-mer at one offset in every segment
     mag = rng.random((P, O)) * 10.0 ** rng.integers(-45, 1, (P, O)).astype(np.float64)

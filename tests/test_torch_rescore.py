@@ -160,7 +160,7 @@ def weight_inputs(seed: int, B: int, M: int, O: int, P: int, D: int = 32):
     rng = np.random.default_rng(seed)
     npos = O + 1
     kid = rng.integers(0, M, (B, D, npos))
-    kid = np.where(rng.random((B, D, npos)) < 0.35, -1, kid).astype(np.int64)
+    kid = np.where(rng.random((B, D, npos)) < 0.35, -1, kid).astype(np.int32)
     ol = (rng.random((P, O)) * 10.0 ** rng.integers(-40, 0, (P, O))).astype(np.float32)
     return kid, ol
 
