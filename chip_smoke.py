@@ -35,21 +35,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    invariant), and all three are scored against the simulation's truth
    (they must beat the raw reads). Every run is supervised
    (``runtime/supervisor.py``) with the shadow audit at its default 1/64,
-   its samples solved in the audit worker process
-   (``runtime/audit_worker.py``) once it has started and on the pipeline's
-   thread before; each prints the audit's wall on the pipeline's thread
-   (``audit_s``), the worker's own solve wall (``audit_worker_s``), how
-   many audits ran on the pipeline's thread and their warm-up
-   (``audit_warm_s``), the worker's start walls and the shares of the
+   its samples solved in the audit worker process (``audit/worker.py``:
+   the CPU ladder in numpy, in an interpreter of its own); each prints the
+   audit's wall on the pipeline's thread (``audit_s``), the worker's own
+   solve wall (``audit_worker_s``), its start walls and the shares of the
    run's wall, fails if the audit was disabled, and is run again at audit
    rate 0, which must write the same FASTA byte for byte (its wall on the
-   line), then with the audit on the pipeline's thread only (no worker)
-   and with the default again. Then the reference's own cost: the CPU
-   ladder on 32 and 256 windows on 1 and 2 torch threads;
+   line), then with the audit on the pipeline's thread only (no worker,
+   the torch CPU ladder) and with the default again (warm, as the run at
+   rate 0 is). Then the worker's reference on 32 and 256 real
+   windows of the 100 kb set: bit-equal to the torch CPU ladder, and both
+   timed (one thread);
 4b. the slice's checks on the 20 kb set, each a ``daccord`` run with the
    counts set to 0 before it: ``--max-inflight 1`` and a second deque run
-   write the first deque run's FASTA byte for byte (their walls on one
-   line); ``--depth-buckets ''`` (one
+   at audit rate 0 write the first deque run's FASTA byte for byte (their
+   walls and their ``ladder.call`` spans' wall and CPU time on one line);
+   ``--depth-buckets ''`` (one
    bucket) stays within the drift bound of the bucketed run; on a copy of
    the LAS the script corrupts (one record's coordinates bit-flipped,
    another's ``tlen`` made absurd), ``--ingest-policy strict`` exits
@@ -381,9 +382,11 @@ def weights_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[d
     index of each position ``prep_batch`` made from the real windows, at B
     and at the mean batch the run gave the shape (``path_b[(M, P)]``):
     bit-equal to the plain version on the card and on the CPU, timed beside
-    it, its bound (kid and ol read once and W written once, against 2 f32
-    operations a nonzero count and column: the terms this data needs) and
-    ``torch.matmul`` of the f32 counts and the table."""
+    it, its bound (kid read once at 2 bytes a position, what a kept index
+    below M <= 1024 needs, though the kernel is handed searchsorted's int32;
+    ol read once and W written once; against 2 f32 operations a nonzero
+    count and column: the terms this data needs) and ``torch.matmul`` of the
+    f32 counts and the table."""
     from daccord_tpu_torch.kernels import position_weights as pw
     from daccord_tpu_torch.kernels import window_kernel
     from daccord_tpu_torch.tools.timing import event_ms, kernel_ms
@@ -425,7 +428,7 @@ def weights_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[d
             lib_ms, lib_how = kernel_ms(lambda: torch.matmul(occ, ol.t()), None, 20)
             diff = float((torch.matmul(occ, ol.t()) - got).abs().max())
             nnz = int((occ != 0).sum())
-            bms, by = bound(nbytes(kid, ol, got), 2 * nnz * P)
+            bms, by = bound(2 * kid.numel() + nbytes(ol, got), 2 * nnz * P)
             log(f"kernel position_weights M={M} P={P} O={O} B={Bx}: bit-equal to plain "
                 f"on the card and on the CPU, kernel {ms:.4f} ms ({how}), plain "
                 f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms ({lib_how}; max |diff| "
@@ -689,7 +692,7 @@ def audit_text(stats) -> str:
             f"{stats.audit_s / w:.4f} of the wall; audit_worker_s "
             f"{stats.audit_worker_s:.4f} s ({stats.audit_worker_s / w:.4f}); "
             f"{stats.audit_local} of {stats.sup_counters.get('audits', 0)} audits on the "
-            f"pipeline's thread (before the worker was ready), their warm-up audit_warm_s "
+            f"pipeline's thread, their warm-up audit_warm_s "
             f"{stats.audit_warm_s:.4f} s ({stats.audit_warm_s / w:.4f}); the worker's start "
             f"{json.dumps({k: round(v, 3) for k, v in stats.audit_worker_start.items()})}")
 
@@ -762,19 +765,32 @@ def slice_checks(d: dict, eprof: str, dense: tuple, counters, tmp: str) -> None:
         return out, stats
 
     # the main run above was the process's first (cold); the deque runs again
-    # after the synchronous run, so the two walls on the line are both warm
+    # after the synchronous run, so the two walls on the line are both warm.
+    # Audit rate 0 and traced: each ladder call's span holds its wall and
+    # its thread's CPU time (the rest it waited, for the card or the
+    # interpreter lock)
     walls = []
     for tag, mi in (("sync", "1"), ("deque", "8")):
-        out, st = run(tag, d["las"], "--max-inflight", mi)
+        ev = os.path.join(tmp, f"trace_{tag}.jsonl")
+        out, st = run(tag, d["las"], "--max-inflight", mi, "--audit-rate", "0",
+                      "--events", ev)
         with open(out, "rb") as a, open(dense_out, "rb") as b:
             if a.read() != b.read():
                 raise AssertionError(f"max_inflight {mi} and 8 wrote different FASTA")
+        with open(ev) as fh:
+            calls = [r for r in map(json.loads, fh)
+                     if r["event"] == "span_close" and r["name"] == "ladder.call"]
+        if len(calls) != st.n_batches:
+            raise AssertionError(f"{tag}: {len(calls)} ladder.call spans for "
+                                 f"{st.n_batches} batches")
         walls.append(f"max_inflight {mi} wall {st.wall_s:.3f} s (ladder_s "
                      f"{st.ladder_s:.3f}, device_s {st.device_s:.3f}, solve_s "
                      f"{st.solve_s:.3f}, windowing_s "
-                     f"{st.windowing_s:.3f}, else {else_s(st):.3f})")
-    log(f"deque vs sync, 20 kb dense fused -t 0, both after the first run: "
-        f"{'; '.join(walls)}; FASTA byte-identical to the first run's")
+                     f"{st.windowing_s:.3f}, else {else_s(st):.3f}; {len(calls)} "
+                     f"ladder.call spans: wall {sum(r['wall_s'] for r in calls):.3f} s, "
+                     f"their thread's CPU {sum(r['cpu_s'] for r in calls):.3f} s)")
+    log(f"deque vs sync at audit rate 0, 20 kb dense fused -t 0, both after the first "
+        f"run: {'; '.join(walls)}; FASTA byte-identical to the first run's")
 
     out, st = run("one_bucket", d["las"], "--depth-buckets", "")
     log(f"one bucket (D32) vs buckets 8/16/32: {within_drift(records(out), clean, 'one bucket')}; "
@@ -851,12 +867,11 @@ def slice_checks(d: dict, eprof: str, dense: tuple, counters, tmp: str) -> None:
 
 
 def reference_cost(big: dict, eprof: str) -> None:
-    """The audit reference (the CPU ladder) on 32 and 256 real windows of
-    the 100 kb set, on 1 and 2 torch threads in this process: its host
-    seconds a call (the median of 3 after one warm-up), what a worker pays a
-    sample."""
-    import functools
-
+    """The audit worker's reference (the CPU ladder in numpy, ``audit/
+    ladder.py``) on 32 and 256 real windows of the 100 kb set: bit-equal to
+    the torch CPU ladder (``audit_reference``, on one torch thread), and
+    each one's host seconds a call (the median of 3 after one warm-up)."""
+    from daccord_tpu_torch.audit import ladder as np_ladder
     from daccord_tpu_torch.formats.dazzdb import read_db
     from daccord_tpu_torch.formats.las import LasFile
     from daccord_tpu_torch.kernels.tensorize import BatchShape, WindowBatch
@@ -864,28 +879,43 @@ def reference_cost(big: dict, eprof: str) -> None:
     from daccord_tpu_torch.oracle.profile import ErrorProfile
     from daccord_tpu_torch.runtime.pipeline import PipelineConfig
 
+    def median_s(call) -> float:
+        call()
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            secs.append(time.perf_counter() - t0)
+        return float(np.median(secs))
+
     cfg = PipelineConfig(device="cpu")
-    ref = audit_reference(functools.partial(
-        TierLadder.from_config, ErrorProfile.load(eprof), cfg.consensus, device="cpu")())
+    tl = TierLadder.from_config(ErrorProfile.load(eprof), cfg.consensus, device="cpu")
+    ref, spec = audit_reference(tl), tl.spec()
     seqs, lens, nsegs = real_windows(read_db(big["db"]), LasFile(big["las"]), cfg, 256)
     n0 = torch.get_num_threads()
+    torch.set_num_threads(1)
     try:
-        for threads in (1, 2):
-            torch.set_num_threads(threads)
-            for n in (32, 256):
-                b = WindowBatch(seqs=seqs[:n], lens=lens[:n], nsegs=nsegs[:n],
-                                shape=BatchShape(depth=cfg.depth, seg_len=cfg.seg_len),
-                                read_ids=np.zeros(n, np.int64), wstarts=np.zeros(n, np.int64))
-                ref(b)
-                secs = []
-                for _ in range(3):
-                    t0 = time.perf_counter()
-                    ref(b)
-                    secs.append(time.perf_counter() - t0)
-                s = float(np.median(secs))
-                log(f"audit reference (CPU ladder), {n} windows on {threads} torch "
-                    f"thread{'s' if threads > 1 else ''}: {s:.4f} s a call, "
-                    f"{s / n * 1e3:.3f} ms a window")
+        for n in (32, 256):
+            s, ln, ns = seqs[:n], lens[:n], nsegs[:n]
+            b = WindowBatch(seqs=s, lens=ln, nsegs=ns,
+                            shape=BatchShape(depth=cfg.depth, seg_len=cfg.seg_len),
+                            read_ids=np.zeros(n, np.int64), wstarts=np.zeros(n, np.int64))
+            want, got = ref(b), np_ladder.solve_ladder(spec, s, ln, ns)
+            for k in want:
+                a, g = np.asarray(want[k]), np.asarray(got[k])
+                if a.dtype == np.float32:
+                    a, g = a.view(np.uint32), g.view(np.uint32)
+                if a.dtype != g.dtype or not np.array_equal(a, g):
+                    raise AssertionError(f"the numpy ladder's {k} differs from the torch "
+                                         f"CPU ladder on {n} windows")
+            t_np = median_s(lambda: np_ladder.solve_ladder(spec, s, ln, ns))
+            t_torch = median_s(lambda: ref(b))
+            tiers = {int(t): int(c) for t, c in zip(*np.unique(want["tier"],
+                                                             return_counts=True))}
+            log(f"audit reference on {n} windows (tiers {tiers}): the worker's "
+                f"numpy ladder bit-equal to the torch CPU ladder; {t_np:.4f} s a call "
+                f"({t_np / n * 1e3:.3f} ms a window) against the torch ladder's "
+                f"{t_torch:.4f} s on 1 thread")
     finally:
         torch.set_num_threads(n0)
 
@@ -1147,7 +1177,8 @@ def main() -> int:
                 f"s against {stats.wall_s:.3f} s at 1/64; solve_s {st0.solve_s:.3f}, "
                 f"device_s {st0.device_s:.3f}, else {else_s(st0):.3f})")
             # the audit without its worker (every sample on the pipeline's
-            # thread, as before the worker), then the default again
+            # thread, on the torch CPU ladder), then the default again, warm
+            # like the run at rate 0
             for label, worker in (("in-process audit only", False), ("default again", None)):
                 st1 = daccord_with([ds["db"], ds["las"], "-o", out0, "-E", ep, "-b", str(B),
                                     "--device", dev.type, *args], counters,

@@ -269,9 +269,11 @@ class _PackedHandle:
     """An in-flight ladder call: the packed result on the host (pinned on
     cuda) once ``done`` is set, the event that ends its copy, or the error
     the call raised. ``batch`` is the host batch it solves; ``solve_s`` the
-    host wall of the call on the thread that ran it."""
+    host wall of the call on the thread that ran it, ``cpu_s`` that
+    thread's CPU time in it (the rest of the wall it waited: for the card,
+    or for the interpreter lock)."""
 
-    __slots__ = ("batch", "cl", "host", "event", "error", "done", "solve_s")
+    __slots__ = ("batch", "cl", "host", "event", "error", "done", "solve_s", "cpu_s")
 
     def __init__(self, batch, cl: int):
         self.batch = batch
@@ -281,6 +283,23 @@ class _PackedHandle:
         self.error: BaseException | None = None
         self.done = threading.Event()
         self.solve_s = 0.0
+        self.cpu_s = 0.0
+
+
+def _timed(h: _PackedHandle, tracer, call) -> None:
+    """Run ``call()`` for ``h``: its wall and this thread's CPU time on the
+    handle, and with a ``tracer`` one ``ladder.call`` span (rows, wall_s,
+    cpu_s) on no parent, since the thread may not be the span stack's."""
+    sid = (tracer.open("ladder.call", parent="", attach=False, rows=int(h.batch.size))
+           if tracer is not None else None)
+    t0, c0 = time.perf_counter(), time.thread_time()
+    try:
+        call()
+    finally:
+        h.solve_s = time.perf_counter() - t0
+        h.cpu_s = time.thread_time() - c0
+        if sid is not None:
+            tracer.close(sid, cpu_s=round(h.cpu_s, 6))
 
 
 class LadderDispatcher:
@@ -293,10 +312,12 @@ class LadderDispatcher:
     so the thread moves on to the next batch while the copy lands. An
     exception inside a call is stored on its handle and raised by
     :func:`fetch`; the dispatcher never retries or solves elsewhere.
-    Close it (or use it as a context manager) to stop the thread."""
+    Close it (or use it as a context manager) to stop the thread. With a
+    ``tracer`` (``utils.obs.Tracer``) each call is a ``ladder.call`` span."""
 
-    def __init__(self, device: torch.device | str):
+    def __init__(self, device: torch.device | str, tracer=None):
         self.device = torch.device(device)
+        self.tracer = tracer
         self.stream = None
         if self.device.type == "cuda":
             if self.device.index is None:
@@ -323,24 +344,24 @@ class LadderDispatcher:
             if item is None:
                 return
             h, ladder = item
-            t0 = time.perf_counter()
             try:
-                if self.stream is None:
-                    h.host = _ladder_packed(h.batch, ladder)
-                else:
-                    with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-                        packed = _ladder_packed(h.batch, ladder)
-                        host = torch.empty(packed.shape, dtype=packed.dtype,
-                                           pin_memory=True)
-                        host.copy_(packed, non_blocking=True)
-                        ev = torch.cuda.Event()
-                        ev.record(self.stream)
-                    h.host, h.event = host, ev
+                _timed(h, self.tracer, lambda: self._call(h, ladder))
             except BaseException as e:  # noqa: BLE001 - raised again by fetch
                 h.error = e
             finally:
-                h.solve_s = time.perf_counter() - t0
                 h.done.set()
+
+    def _call(self, h: _PackedHandle, ladder: TierLadder) -> None:
+        if self.stream is None:
+            h.host = _ladder_packed(h.batch, ladder)
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            packed = _ladder_packed(h.batch, ladder)
+            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self.stream)
+        h.host, h.event = host, ev
 
     def close(self) -> None:
         """Stop the thread once the calls already submitted have run."""
@@ -356,19 +377,23 @@ class LadderDispatcher:
 
 
 def solve_ladder_async(batch, ladder: TierLadder,
-                       dispatcher: LadderDispatcher | None = None) -> _PackedHandle:
+                       dispatcher: LadderDispatcher | None = None,
+                       tracer=None) -> _PackedHandle:
     """Start the whole ladder over one host ``WindowBatch`` or
     ``PagedWindowBatch``; pair with :func:`fetch`.
 
     With a ``dispatcher`` the call is queued to its thread and this returns
     at once. Without one the ladder runs on the caller's thread and the
-    handle comes back ready (the synchronous form, :func:`solve_ladder`)."""
+    handle comes back ready (the synchronous form, :func:`solve_ladder`),
+    a ``ladder.call`` span with a ``tracer``."""
     if dispatcher is not None:
         return dispatcher.submit(batch, ladder)
     h = _PackedHandle(batch, ladder.params[0].cons_len)
-    t0 = time.perf_counter()
-    h.host = _ladder_packed(batch, ladder).cpu()
-    h.solve_s = time.perf_counter() - t0
+
+    def call():
+        h.host = _ladder_packed(batch, ladder).cpu()
+
+    _timed(h, tracer, call)
     h.done.set()
     return h
 

@@ -220,6 +220,9 @@ class PipelineStats:
                                  # the thread that ran them (the
                                  # dispatcher's, or the pipeline's at
                                  # max_inflight=1)
+    solve_cpu_s: float = 0.0     # that thread's CPU time in those calls
+                                 # (solve_s less it: waits for the card
+                                 # and for the interpreter lock)
     stage_profile: dict = field(default_factory=dict)  # StageProfile.summary()
                                  # of the feeder stages
     degraded: bool = False       # the supervisor failed over mid-run (the
@@ -900,8 +903,8 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         labels = [f"D{d}xL{ln}" for d, ln in buckets]
     nb = len(shapes)
 
-    dispatcher = LadderDispatcher(dev) if cfg.max_inflight > 1 else None
-    dispatch_fn = lambda b: solve_ladder_async(b, ladder, dispatcher)   # noqa: E731
+    dispatcher = LadderDispatcher(dev, tracer) if cfg.max_inflight > 1 else None
+    dispatch_fn = lambda b: solve_ladder_async(b, ladder, dispatcher, tracer)   # noqa: E731
     fetch_fn, fetch_many_fn = fetch, fetch_many
     sup = None
     if cfg.supervise:
@@ -1035,6 +1038,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         now = time.perf_counter()
         for (h, rid, widx, take, nsegs_b, t_d), out in zip(entries, outs):
             stats.solve_s += getattr(getattr(h, "inner", h), "solve_s", 0.0)
+            stats.solve_cpu_s += getattr(getattr(h, "inner", h), "cpu_s", 0.0)
             scatter(out, rid, widx, take, nsegs_b, now - t_d)
             log.log("batch", windows=int(take), solved=int(np.sum(out["solved"][:take])))
 

@@ -46,7 +46,8 @@ print("STATS " + json.dumps(dict(
     wall_s=stats.wall_s, windows_per_s=stats.windows_per_sec(),
     bases_per_s=stats.bases_per_sec(), windowing_s=stats.windowing_s,
     ladder_s=stats.ladder_s, device_s=getattr(stats, "device_s", None),
-    solve_s=getattr(stats, "solve_s", None), switch_interval=sys.getswitchinterval(),
+    solve_s=getattr(stats, "solve_s", None), solve_cpu_s=getattr(stats, "solve_cpu_s", None),
+    switch_interval=sys.getswitchinterval(),
     ingest_s=getattr(stats, "ingest_s", None), n_windows=stats.n_windows,
     n_batches=stats.n_batches, profile_s=stats.profile_s,
     audit_s=getattr(stats, "audit_s", None),

@@ -258,6 +258,7 @@ def kid_inputs(seed: int, B: int, M: int, D: int, npos: int, O: int, P: int):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,M,D,npos,O,P", [(2048, 64, 32, 57, 56, 41), (133, 64, 32, 57, 56, 41),
+                                            (264, 64, 32, 57, 56, 41),
                                             (2048, 256, 32, 57, 56, 41),
                                             (133, 256, 32, 57, 56, 41), (5, 7, 3, 95, 90, 5),
                                             (4, 33, 4, 31, 30, 20), (3, 9, 2, 21, 20, 100),
