@@ -12,10 +12,13 @@ daccord_tpu_torch.audit.worker``; no ``fork`` of a process that holds a
 CUDA context), started before the run's ingest scan. It imports numpy and
 this package only: no torch (``import torch`` alone took about 6 s on an
 H100 host, longer than a small run) and no CUDA. It drains every sample
-pending when it wakes and solves those of one tile shape in ONE ladder
-call, split back per ticket afterwards. That is exact because windows
-solve independently (the premise of ``audit_reference``), and it pays the
-per-call overhead once for several samples.
+pending when it wakes and solves those of one tile shape together, oldest
+first, up to :data:`CALL_WINDOWS` windows a ladder call, split back per
+ticket afterwards, each call's rows sent as soon as it ends. That is exact
+because windows solve independently (the premise of
+``audit_reference``); small samples share a call's fixed cost, and the
+cap keeps a backlog (the samples queued while the worker starts) from
+holding back the oldest sample's rows, which the next fetch waits for.
 
 A worker that fails to start or answer raises :class:`AuditWorkerError`
 from :meth:`AuditWorker.result`; the supervisor then logs
@@ -37,33 +40,48 @@ import time
 from multiprocessing.connection import Connection
 
 
+#: the most windows a ladder call of the worker takes (two samples of a
+#: 2048-window batch at 1/64); the numpy ladder's cost a window is about
+#: the same at 32 windows as at 256, so larger calls only delay rows
+CALL_WINDOWS = 64
+
+
 class AuditWorkerError(RuntimeError):
     """The audit worker died, failed to start or gave no verdict in time."""
 
 
-def solve_grouped(solve, items: list) -> tuple[list, int]:
-    """Solve ``items`` = [(ticket, (seqs, lens, nsegs))] with one ``solve``
-    call per tile shape (D, L), in first-seen order; returns ([(ticket,
-    result)], calls). Each result holds the rows of its own sample only
-    (and the solve's scalars)."""
+def solve_grouped(solve, items: list, call_windows: int = CALL_WINDOWS):
+    """Solve ``items`` = [(ticket, (seqs, lens, nsegs))] with ``solve``, the
+    samples of one tile shape (D, L) together, shapes in first-seen order,
+    oldest first, at most ``call_windows`` windows a call (a larger sample
+    alone). Yields each call's [(ticket, result)] and seconds as it ends;
+    each result holds the rows of its own sample only (and the solve's
+    scalars)."""
     import numpy as np
 
     groups: dict[tuple, list] = {}
     for ticket, sample in items:
         groups.setdefault(tuple(sample[0].shape[1:]), []).append((ticket, sample))
-    out = []
     for members in groups.values():
-        parts = [s for _, s in members]
-        whole = parts[0] if len(parts) == 1 else tuple(
-            np.concatenate([p[i] for p in parts]) for i in range(3))
-        res = solve(*whole)
-        lo = 0
-        for ticket, s in members:
-            hi = lo + len(s[2])
-            out.append((ticket, {k: v[lo:hi] if np.ndim(v) else v
-                                 for k, v in res.items()}))
-            lo = hi
-    return out, len(groups)
+        while members:
+            n, take = 0, 0
+            while take < len(members) and (take == 0 or n + len(members[take][1][2])
+                                           <= call_windows):
+                n += len(members[take][1][2])
+                take += 1
+            call, members = members[:take], members[take:]
+            t0 = time.perf_counter()
+            parts = [s for _, s in call]
+            whole = parts[0] if len(parts) == 1 else tuple(
+                np.concatenate([p[i] for p in parts]) for i in range(3))
+            res = solve(*whole)
+            out, lo = [], 0
+            for ticket, s in call:
+                hi = lo + len(s[2])
+                out.append((ticket, {k: v[lo:hi] if np.ndim(v) else v
+                                     for k, v in res.items()}))
+                lo = hi
+            yield out, time.perf_counter() - t0
 
 
 def _main(fd_in: int, fd_out: int, parent: int, t_spawn: float) -> None:
@@ -97,13 +115,11 @@ def _main(fd_in: int, fd_out: int, parent: int, t_spawn: float) -> None:
                     res.send(("ready", leaked, dict(boot_s=t_boot, import_s=t_import)))
                 else:
                     items.append((m[1], m[2]))
-            if items:
-                if spec is None:
-                    raise AuditWorkerError("a sample arrived before the ladder")
-                t0 = time.perf_counter()
-                done, calls = solve_grouped(
-                    lambda s, ln, ns: ladder.solve_ladder(spec, s, ln, ns), items)
-                res.send(("done", done, time.perf_counter() - t0, calls))
+            if items and spec is None:
+                raise AuditWorkerError("a sample arrived before the ladder")
+            for done, secs in solve_grouped(
+                    lambda s, ln, ns: ladder.solve_ladder(spec, s, ln, ns), items):
+                res.send(("done", done, secs))
     except EOFError:
         return                                  # the parent closed its end
     except BaseException as e:  # noqa: BLE001 - relayed to the parent
@@ -196,9 +212,9 @@ class AuditWorker:
             self.leaked = list(msg[1])
             self.startup = dict(msg[2])
         elif kind == "done":
-            _, done, secs, calls = msg
+            _, done, secs = msg
             self.worker_s += secs
-            self.calls += calls
+            self.calls += 1
             for t, r in done:
                 if t in self._dropped:
                     self._dropped.discard(t)

@@ -8,6 +8,10 @@ Inputs are numpy from fixed seeds; the windows are the ones
 with.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +46,19 @@ def _bits_equal(got: dict, want: dict) -> None:
         if a.dtype == np.float32:
             a, b = a.view(np.uint32), b.view(np.uint32)
         assert np.array_equal(a, b), k
+
+
+def test_audit_package_imports_no_torch():
+    """The worker's modules load numpy only: no torch, jax or
+    ``daccord_tpu`` (the worker's start is an interpreter and numpy)."""
+    code = ("import sys\n"
+            "import daccord_tpu_torch.audit.worker, daccord_tpu_torch.audit.ladder\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'daccord_tpu')))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=root)
+    assert res.returncode == 0 and res.stdout.strip() == "[]", res.stderr
 
 
 @pytest.mark.parametrize("overflow_rescue", [False, True])

@@ -160,7 +160,13 @@ def _same(got: dict, want: dict) -> bool:
         np.array_equal(np.asarray(got[k]), np.asarray(want[k])) for k in want)
 
 
-def test_samples_of_one_shape_in_one_call_equal_their_separate_solves(base):
+@pytest.mark.parametrize("call_windows,calls", [(64, [15, 10]), (10, [10, 5, 10]),
+                                                (1, [5, 5, 5, 5, 5])])
+def test_samples_of_one_shape_in_one_call_equal_their_separate_solves(base, call_windows,
+                                                                      calls):
+    """Three samples of one shape and two of another (5 windows each): one
+    call per shape, oldest first, up to ``call_windows`` windows (a sample
+    alone when it is larger); each sample's rows equal its own solve."""
     prof = ErrorProfile.load(base["eprof"])
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 2))
@@ -169,15 +175,16 @@ def test_samples_of_one_shape_in_one_call_equal_their_separate_solves(base):
         ref = audit_reference(tl)
         spec = tl.spec()
         samples = _samples(base, 5)
-        calls = []
+        sizes = []
 
         def solve(s, ln, ns):
-            calls.append(len(ns))
+            sizes.append(len(ns))
             return np_ladder.solve_ladder(spec, s, ln, ns)
 
-        done, ncalls = audit_worker.solve_grouped(
-            solve, [(t, (s.seqs, s.lens, s.nsegs)) for t, s in enumerate(samples)])
-        assert ncalls == 2 and sorted(calls) == [10, 15]
+        done = [d for out, _ in audit_worker.solve_grouped(
+            solve, [(t, (s.seqs, s.lens, s.nsegs)) for t, s in enumerate(samples)],
+            call_windows) for d in out]
+        assert sizes == calls and [t for t, _ in done] == [0, 1, 2, 3, 4]
         for t, got in done:
             assert _same(got, ref(samples[t])), t
     finally:

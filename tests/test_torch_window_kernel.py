@@ -149,6 +149,7 @@ def test_port_imports_no_jax():
         "import daccord_tpu_torch.kernels.rescore, daccord_tpu_torch.kernels.position_weights\n"
         "import daccord_tpu_torch.runtime.faults, daccord_tpu_torch.runtime.governor\n"
         "import daccord_tpu_torch.runtime.supervisor, daccord_tpu_torch.tools.eventcheck\n"
+        "import daccord_tpu_torch.audit.worker, daccord_tpu_torch.audit.ladder\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'daccord_tpu' or m.startswith('daccord_tpu.'))\n"
         "assert not bad, bad\n"
