@@ -248,10 +248,6 @@ class AuditWorker:
                 raise AuditWorkerError(f"no answer within {deadline_s:.0f} s")
             self._drain(min(left, 0.5))
 
-    def wait_ready(self, deadline_s: float) -> None:
-        """Block until the worker has its ladder."""
-        self._wait(lambda: self.ready, deadline_s)
-
     def result(self, ticket: int, deadline_s: float) -> dict:
         """The reference rows of ``ticket``'s sample (numpy, the keys of
         ``tiers.unpack_result``), waiting for them if need be."""

@@ -830,15 +830,14 @@ class DeviceSupervisor:
 
     def _audit_drop(self, h: _SupHandle) -> None:
         """The batch will not be compared (it re-solves elsewhere)."""
-        ticket = h.audit[1] if h.audit is not None else None
-        if ticket is not None and self._worker is not None:
-            self._worker.discard(ticket)
+        if h.audit is not None and self._worker is not None:
+            self._worker.discard(h.audit[1])
         h.audit = None
 
     def _audit_remote(self, h: _SupHandle, out: dict):
         """At fetch: wait for the worker's rows of ``h``'s sample and compare
         them byte for byte; a divergence re-solves the whole batch on the
-        in-process reference, as :meth:`_audit_rows` does."""
+        in-process reference, as :meth:`_audit` does."""
         from ..audit.worker import AuditWorkerError
 
         rows, ticket = h.audit
@@ -882,24 +881,17 @@ class DeviceSupervisor:
 
     def _audit(self, h, out: dict):
         """Shadow-verify a seeded sample of ``out``'s rows, drawn now,
-        against the in-process reference (:meth:`_audit_rows`)."""
+        against the in-process reference, byte for byte. On divergence:
+        ``sup_sdc``, a trust strike, and the WHOLE batch re-solved on the
+        reference, so a detected corruption never reaches the caller."""
         import numpy as np
 
         B = int(np.asarray(out["cons"]).shape[0])
-        if B <= 0 or self._audit_engine() is None:
+        eng = self._audit_engine() if B > 0 else None
+        if eng is None:
             return out
         rows = self._audit_sample(B)
         self._n_audit += 1
-        return self._audit_rows(h, out, rows)
-
-    def _audit_rows(self, h, out: dict, rows: list):
-        """Solve ``rows`` of ``h``'s batch again on the in-process reference
-        and compare them byte for byte. On divergence: ``sup_sdc``, a trust
-        strike, and the WHOLE batch re-solved on the reference, so a
-        detected corruption never reaches the caller."""
-        eng = self._audit_engine()
-        if eng is None:
-            return out
         self.counters["audits"] += 1
         self.audits_local += 1
         sample = self._take_rows(h.batch, rows)
