@@ -6,6 +6,6 @@ kernel's plain version) transcribed op for op into numpy, byte-equal to it.
 pipeline's handle on that process.
 
 Nothing here imports torch (nor does this package's ``__init__``): the
-worker starts in a fraction of a second, where ``import torch`` alone took
-about 6 s on an H100 host.
+worker starts in under a second, where one that imported torch took 9-12 s
+on an H100 host.
 """

@@ -10,8 +10,8 @@ ladder dispatcher needs; in another process it shares no lock with either.
 The worker is a fresh interpreter (``python -m
 daccord_tpu_torch.audit.worker``; no ``fork`` of a process that holds a
 CUDA context), started before the run's ingest scan. It imports numpy and
-this package only: no torch (``import torch`` alone took about 6 s on an
-H100 host, longer than a small run) and no CUDA. It drains every sample
+this package only: no torch (a worker that imported it took 9-12 s to
+start on an H100 host, longer than a small run) and no CUDA. It drains every sample
 pending when it wakes and solves those of one tile shape together, oldest
 first, up to :data:`CALL_WINDOWS` windows a ladder call, split back per
 ticket afterwards, each call's rows sent as soon as it ends. That is exact
