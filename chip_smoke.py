@@ -436,6 +436,18 @@ def weights_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[d
                 f"{occ.numel()})")
             res[Bx] = dict(ms=ms, how=how, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms,
                            by=by)
+        if (M, P) == (64, 41):
+            # the fixed cost at small batches: one window a block up to 2*132
+            sweep = []
+            for Bx in (1, 33, 132, 133, 264):
+                kid = kid_all[:Bx]
+                occ = pw.occurrence_counts(kid, M, O)
+                ms, _ = kernel_ms(lambda: pw.position_weights(kid, ol, M),
+                                  "position_weights", 20)
+                lib_ms, _ = kernel_ms(lambda: torch.matmul(occ, ol.t()), None, 20)
+                sweep.append(f"B={Bx} {ms:.4f} / {lib_ms:.4f}")
+            log(f"kernel position_weights M={M} P={P}, kernel / torch.matmul ms by "
+                f"batch: {'; '.join(sweep)}")
         full = res[Bn]
         path = None if pb is None else (pb, res[pb]["ms"], res[pb]["plain_ms"],
                                         res[pb]["bound_ms"])

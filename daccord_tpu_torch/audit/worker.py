@@ -248,6 +248,12 @@ class AuditWorker:
                 raise AuditWorkerError(f"no answer within {deadline_s:.0f} s")
             self._drain(min(left, 0.5))
 
+    def done(self, ticket: int) -> bool:
+        """Whether ``ticket``'s rows are back (or the worker failed, so
+        :meth:`result` will not wait), without waiting."""
+        self._drain(0)
+        return ticket in self._done or self.error is not None
+
     def result(self, ticket: int, deadline_s: float) -> dict:
         """The reference rows of ``ticket``'s sample (numpy, the keys of
         ``tiers.unpack_result``), waiting for them if need be."""

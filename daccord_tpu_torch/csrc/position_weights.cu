@@ -35,12 +35,11 @@
 // by consecutive lanes. The window's kid is read coalesced into registers
 // (2048 positions a block) one window ahead: the next window's read is in
 // flight while this one's rows are summed, and the first's while ol is
-// transposed. A small batch runs in one wave of blocks, each block's
-// latency chain (read, count, rows) split over as many threads as fit: up
-// to one window an SM, blocks of 1024 threads (one an SM, 64 registers);
-// up to two (the escalation tiers' ~133-151 windows on 132 SMs), blocks of
-// 512, two an SM; 1024-thread blocks there ran in two waves, 1.1-1.25x
-// torch.matmul's time. Larger batches take blocks of 256, several an SM. (A warp a window with no block barrier, tried for
+// transposed. A batch smaller than two windows an SM (the escalation tiers'
+// ~140) takes blocks of 1024 threads, so a window's latency chain (read,
+// count, rows) is split four times finer; larger batches take blocks of
+// 256, several an SM. (Blocks of 512, two an SM, so that 133-151 windows
+// run in one wave on 132 SMs, were no faster there.) (A warp a window with no block barrier, tried for
 // tier 0's B=2048, ran 1.4x slower.) No occ tensor exists in global
 // memory: prep_batch's f32 zero-fill and scatter of B * M * O counts
 // (29 MB at B=2048) left the path with it.
@@ -71,8 +70,8 @@ __device__ __forceinline__ void count_one(uint32_t* cnt, int m, int i, int NPOS,
     }
 }
 
-template <int TP, int THREADS, int MINB>   // TP columns a lane, 32 apart;
-__global__ void __launch_bounds__(THREADS, MINB)   // MINB blocks an SM
+template <int TP, int THREADS>   // TP columns a lane, 32 apart
+__global__ void __launch_bounds__(THREADS)
 position_weights_kernel(const int32_t* __restrict__ kid,  // [B, D, NPOS]
                         const float* __restrict__ ol,     // [P, O]
                         float* __restrict__ W,            // [B, M, P]
@@ -156,7 +155,7 @@ static int card_fit(K kernel, int threads, size_t smem, int* fit)
     return 0;
 }
 
-template <int TP, int THREADS, int MINB>
+template <int TP, int THREADS>
 static int launch(const void* kid, const void* ol, void* W, int B, int D, int NPOS,
                   int M, int P, int O, void* stream)
 {
@@ -165,7 +164,7 @@ static int launch(const void* kid, const void* ol, void* W, int B, int D, int NP
     const size_t smem = 4 * ((size_t)O * PS + ((size_t)M * O + 1) / 2);
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            position_weights_kernel<TP, THREADS, MINB>,
+            position_weights_kernel<TP, THREADS>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
@@ -174,13 +173,12 @@ static int launch(const void* kid, const void* ol, void* W, int B, int D, int NP
     static size_t fit_smem = 0;
     static int fit = 0;
     if (fit == 0 || fit_smem != smem) {
-        const int rc = card_fit(position_weights_kernel<TP, THREADS, MINB>, THREADS, smem,
-                                &fit);
+        const int rc = card_fit(position_weights_kernel<TP, THREADS>, THREADS, smem, &fit);
         if (rc) return rc;
         fit_smem = smem;
     }
     const int grid = B < fit ? B : fit;
-    position_weights_kernel<TP, THREADS, MINB><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+    position_weights_kernel<TP, THREADS><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         (const int32_t*)kid, (const float*)ol, (float*)W, B, D * NPOS, NPOS, M, P, O, PS);
     return (int)cudaGetLastError();
 }
@@ -196,9 +194,8 @@ static int launch_tp(const void* kid, const void* ol, void* W, int B, int D, int
         if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (e != cudaSuccess) return (int)e;
     }
-    if (B <= sms) return launch<TP, 1024, 1>(kid, ol, W, B, D, NPOS, M, P, O, stream);
-    if (B <= 2 * sms) return launch<TP, 512, 2>(kid, ol, W, B, D, NPOS, M, P, O, stream);
-    return launch<TP, 256, 1>(kid, ol, W, B, D, NPOS, M, P, O, stream);
+    if (B < 2 * sms) return launch<TP, 1024>(kid, ol, W, B, D, NPOS, M, P, O, stream);
+    return launch<TP, 256>(kid, ol, W, B, D, NPOS, M, P, O, stream);
 }
 
 extern "C" int position_weights_launch(const void* kid, const void* ol, void* W,

@@ -37,7 +37,11 @@ in this order:
 - the in-flight deque: each batch is handed to the ladder dispatcher
   (``kernels/tiers.py LadderDispatcher``) and queued; once ``max_inflight``
   are queued, the oldest half is fetched and scattered to their reads, so
-  the host windows, scatters and stitches while the card solves.
+  the host windows, scatters and stitches while the card solves. A call
+  whose shadow-audit rows the audit worker has not sent back yet stays
+  queued (up to ``AUDIT_LAG`` times the depth) rather than block the
+  pipeline on them: the worker's start (an interpreter and numpy, about
+  0.5 s on an H100 host) otherwise stalls the first fetches of every run.
   ``max_inflight=1`` solves each batch on the pipeline's thread. A fetched
   batch scatters into its reads' result arrays as array ops, one slice per
   read;
@@ -90,6 +94,11 @@ from ..utils.obs import JsonlLogger, StageProfile, Tracer, WindowLedger
 
 INGEST_POLICIES = ("strict", "quarantine", "off")
 FAILOVER_BACKENDS = ("auto", "native", "cpu")
+
+
+#: ladder calls that may stay in flight, as a multiple of ``max_inflight``,
+#: while the audit worker's rows for the oldest are not back
+AUDIT_LAG = 4
 
 
 @dataclass
@@ -945,6 +954,8 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
             audit_ref_factory=lambda: audit_reference(cpu_ladder()),
             audit_rate=cfg.audit_rate, audit_worker=worker)
         dispatch_fn, fetch_fn, fetch_many_fn = sup.dispatch, sup.fetch, sup.fetch_many
+    audit_pending = (sup.audit_pending if sup is not None and cfg.max_inflight > 1
+                     else lambda h: False)
 
     pending: dict[int, _PendingRead] = {}
     order: list[int] = []
@@ -1025,10 +1036,14 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                               tier_ks[t] if t >= 0 else -1, bool(solved[i]), "full",
                               rescued=t >= 1, wall_s=wall)
 
-    def drain(to_depth: int) -> None:
+    def drain(to_depth: int, audited_only: bool = False) -> None:
         """Fetch the oldest calls until ``to_depth`` stay in flight, and
-        scatter them."""
+        scatter them; with ``audited_only``, only those before the first
+        whose shadow-audit rows are not back yet."""
         n_pop = len(inflight) - to_depth
+        if audited_only:
+            n_pop = next((i for i in range(max(n_pop, 0))
+                          if audit_pending(inflight[i][0])), n_pop)
         if n_pop <= 0:
             return
         entries = [inflight.popleft() for _ in range(n_pop)]
@@ -1062,7 +1077,8 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         inflight.append((handle, rid, widx, take, nsg, time.perf_counter()))
         stats.peak_inflight = max(stats.peak_inflight, len(inflight))
         if len(inflight) >= cfg.max_inflight:
-            drain(cfg.max_inflight // 2)
+            drain(cfg.max_inflight // 2,
+                  audited_only=len(inflight) < AUDIT_LAG * cfg.max_inflight)
 
     def run_batches(final: bool) -> None:
         for bi in range(nb):

@@ -828,6 +828,12 @@ class DeviceSupervisor:
         h.audit = (rows, self._worker.submit(self._take_rows(h.batch, rows)))
         self.audit_s += time.time() - t0
 
+    def audit_pending(self, h) -> bool:
+        """Whether ``h``'s sample is with the worker and its rows are not
+        back yet (no wait: the fetch of ``h`` would wait for them)."""
+        return (getattr(h, "audit", None) is not None and self._worker is not None
+                and not self._worker.done(h.audit[1]))
+
     def _audit_drop(self, h: _SupHandle) -> None:
         """The batch will not be compared (it re-solves elsewhere)."""
         if h.audit is not None and self._worker is not None:

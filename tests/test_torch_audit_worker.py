@@ -83,6 +83,21 @@ def test_worker_catches_sdc_and_the_fasta_does_not_change(base, jax_clean):
             if r["event"] == "trust.state"] == [("TRUSTED", "SUSPECT")]
 
 
+def test_calls_whose_rows_are_not_back_stay_in_flight(base, monkeypatch):
+    """While the worker's rows for the oldest call are not back, the deque
+    holds more than ``max_inflight`` calls (up to ``AUDIT_LAG`` times) instead
+    of waiting on the worker; the FASTA is the clean run's."""
+    from daccord_tpu_torch.runtime import pipeline
+
+    monkeypatch.setattr(audit_worker.AuditWorker, "done", lambda self, ticket: False)
+    port = run(base, "port", "worker_lag", None, audit_rate=0.25, audit_worker=True)
+    st = port["stats"]
+    assert port["text"] == base["clean"]["text"]
+    assert st.sup_counters["audits"] == st.n_batches and st.audit_disabled is None
+    assert 8 < st.peak_inflight <= pipeline.AUDIT_LAG * 8
+    assert st.peak_inflight == min(st.n_batches, pipeline.AUDIT_LAG * 8)
+
+
 def test_killed_worker_disables_the_audit_and_the_run_completes(base, monkeypatch):
     real = audit_worker.AuditWorker.submit
     calls = []
