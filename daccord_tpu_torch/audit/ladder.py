@@ -243,7 +243,9 @@ def edit_distance_myers(cand: np.ndarray, cand_len: np.ndarray, seg: np.ndarray,
             one, np.maximum((n - 1) % WORD, 0)), zero), shape))
     score = np.broadcast_to(n, shape).copy()
     scores = [score]
-    for i in range(L):
+    sl = np.clip(np.broadcast_to(seg_len.astype(np.int64), shape), 0, L)
+    # the steps past the longest segment change no distance that is read
+    for i in range(int(sl.max()) if sl.size else 0):
         carry = None
         hp_in, hn_in = one, zero
         delta = None
@@ -268,10 +270,8 @@ def edit_distance_myers(cand: np.ndarray, cand_len: np.ndarray, seg: np.ndarray,
             vp[w] = (h2 | ~(x2 | d0)) & mask
         score = score + np.sign(delta)
         scores.append(score)
-    sl = np.broadcast_to(seg_len.astype(np.int64), shape)
-    res = np.take_along_axis(np.stack(scores, axis=-1), np.clip(sl, 0, L)[..., None],
-                             -1)[..., 0]
-    return np.where(n == 0, sl, res)
+    res = np.take_along_axis(np.stack(scores, axis=-1), sl[..., None], -1)[..., 0]
+    return np.where(n == 0, np.broadcast_to(seg_len.astype(np.int64), shape), res)
 
 
 def rescore_pick(seqs, lens, nsegs, cand, clen, ok, p: dict) -> dict:

@@ -7,14 +7,15 @@ when it fetches the batch. The reference is the port's CPU ladder in numpy
 the pipeline's thread a reference solve holds the interpreter lock that the
 ladder dispatcher needs; in another process it shares no lock with either.
 
-The worker is a fresh interpreter (``python -m
-daccord_tpu_torch.audit.worker``; no ``fork`` of a process that holds a
-CUDA context), started before the run's ingest scan. It imports numpy and
-this package only: no torch (a worker that imported it took 9-12 s to
-start on an H100 host, longer than a small run) and no CUDA. It drains every sample
-pending when it wakes and solves those of one tile shape together, oldest
-first, up to :data:`CALL_WINDOWS` windows a ladder call, split back per
-ticket afterwards, each call's rows sent as soon as it ends. That is exact
+The workers (:data:`PROCESSES` of them, dealt the samples in turn) are
+fresh interpreters (``python -m daccord_tpu_torch.audit.worker``; no
+``fork`` of a process that holds a CUDA context), started before the run's
+ingest scan. They import numpy and this package only: no torch (a worker
+that imported it took 9-12 s to start on an H100 host, longer than a small
+run) and no CUDA. A worker drains every sample pending when it wakes and
+solves those of one tile shape together, oldest first, up to
+:data:`CALL_WINDOWS` windows a ladder call, split back per ticket
+afterwards, each call's rows sent as soon as it ends. That is exact
 because windows solve independently (the premise of
 ``audit_reference``); small samples share a call's fixed cost, and the
 cap keeps a backlog (the samples queued while the worker starts) from
@@ -37,8 +38,13 @@ import subprocess
 import sys
 import threading
 import time
-from multiprocessing.connection import Connection
+from multiprocessing.connection import Connection, wait
 
+
+#: worker processes: one took 1.2-1.3 s to solve the 22 samples of a 20 kb
+#: run after its 0.6 s start, longer than that run's card work, on an
+#: 8-core H100 host; two share them
+PROCESSES = 2
 
 #: the most windows a ladder call of the worker takes (two samples of a
 #: 2048-window batch at 1/64); the numpy ladder's cost a window is about
@@ -130,36 +136,49 @@ def _main(fd_in: int, fd_out: int, parent: int, t_spawn: float) -> None:
         os._exit(1)
 
 
+def _spawn() -> tuple:
+    """One worker process and the parent's ends of its two pipes."""
+    r_req, w_req = os.pipe()
+    r_res, w_res = os.pipe()
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "daccord_tpu_torch.audit.worker", str(r_req),
+             str(w_res), str(os.getpid()), repr(time.time())],
+            pass_fds=(r_req, w_res), env=env, stdin=subprocess.DEVNULL)
+    except BaseException:
+        for fd in (r_req, w_req, r_res, w_res):
+            os.close(fd)
+        raise
+    os.close(r_req)
+    os.close(w_res)
+    return proc, Connection(w_req, readable=False), Connection(r_res, writable=False)
+
+
 class AuditWorker:
-    """The parent's side: start the process, send it the ladder and the
-    samples to solve, and collect its verdicts by ticket.
+    """The parent's side: start :data:`PROCESSES` worker processes, send
+    them the ladder and the samples to solve (in turn, by ticket), and
+    collect their verdicts by ticket.
 
-    ``worker_s`` sums the worker's own solve wall, ``calls`` its ladder
-    calls; ``startup`` holds its start walls once it is ready (``boot_s``:
-    from the start to its first line, the interpreter's start; ``import_s``:
-    numpy and the ladder); ``leaked`` is what of jax, ``daccord_tpu`` or
-    torch it had imported then (nothing)."""
+    ``worker_s`` sums the workers' own solve wall, ``calls`` their ladder
+    calls; ``startup`` holds the slowest one's start walls once all are
+    ready (``boot_s``: from the start to its first line, the interpreter's
+    start; ``import_s``: numpy and the ladder); ``leaked`` is what of jax,
+    ``daccord_tpu`` or torch they had imported then (nothing)."""
 
-    def __init__(self):
-        r_req, w_req = os.pipe()
-        r_res, w_res = os.pipe()
-        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            p for p in (root, env.get("PYTHONPATH")) if p)
+    def __init__(self, processes: int = PROCESSES):
+        self._procs, self._reqs, self._ress = [], [], []
         try:
-            self._proc = subprocess.Popen(
-                [sys.executable, "-m", "daccord_tpu_torch.audit.worker", str(r_req),
-                 str(w_res), str(os.getpid()), repr(time.time())],
-                pass_fds=(r_req, w_res), env=env, stdin=subprocess.DEVNULL)
+            for _ in range(max(1, processes)):
+                proc, req, res = _spawn()
+                self._procs.append(proc)
+                self._reqs.append(req)
+                self._ress.append(res)
         except BaseException:
-            for fd in (r_req, w_req, r_res, w_res):
-                os.close(fd)
+            self._stop()
             raise
-        os.close(r_req)
-        os.close(w_res)
-        self._req = Connection(w_req, readable=False)
-        self._res = Connection(r_res, writable=False)
         # sends go through a thread, so a full pipe never blocks the caller
         self._out: queue.Queue = queue.Queue()
         self._sender = threading.Thread(target=self._send_loop, daemon=True,
@@ -168,6 +187,7 @@ class AuditWorker:
         self._tickets = itertools.count()
         self._done: dict[int, dict] = {}
         self._dropped: set[int] = set()
+        self._ready = 0
         self.ready = False
         self.leaked: list[str] = []
         self.startup: dict = {}
@@ -177,18 +197,20 @@ class AuditWorker:
 
     def _send_loop(self) -> None:
         while True:
-            msg = self._out.get()
-            if msg is None:
+            item = self._out.get()
+            if item is None:
                 return
+            to, msg = item
             try:
-                self._req.send(msg)
+                for i in to:
+                    self._reqs[i].send(msg)
             except (OSError, ValueError) as e:
-                self.error = self.error or f"the audit worker stopped reading: {e}"
+                self.error = self.error or f"an audit worker stopped reading: {e}"
                 return
 
     def build(self, spec: tuple) -> None:
         """Send the ladder, ``TierLadder.spec()``'s plain values."""
-        self._out.put(("build", spec))
+        self._out.put((range(len(self._reqs)), ("build", spec)))
 
     def submit(self, sample) -> int:
         """Queue one dense sample (a ``WindowBatch``); returns its ticket.
@@ -196,8 +218,8 @@ class AuditWorker:
         import numpy as np
 
         t = next(self._tickets)
-        self._out.put(("solve", t, tuple(np.ascontiguousarray(a) for a in
-                                         (sample.seqs, sample.lens, sample.nsegs))))
+        self._out.put(((t % len(self._reqs),), ("solve", t, tuple(
+            np.ascontiguousarray(a) for a in (sample.seqs, sample.lens, sample.nsegs)))))
         return t
 
     def discard(self, ticket: int) -> None:
@@ -208,9 +230,10 @@ class AuditWorker:
     def _take(self, msg) -> None:
         kind = msg[0]
         if kind == "ready":
-            self.ready = True
-            self.leaked = list(msg[1])
-            self.startup = dict(msg[2])
+            self._ready += 1
+            self.ready = self._ready == len(self._procs)
+            self.leaked = sorted(set(self.leaked) | set(msg[1]))
+            self.startup = {k: max(v, self.startup.get(k, v)) for k, v in msg[2].items()}
         elif kind == "done":
             _, done, secs = msg
             self.worker_s += secs
@@ -227,13 +250,18 @@ class AuditWorker:
         """Take every message that arrives within ``timeout``; note a
         worker that is gone."""
         try:
-            while self._res.poll(timeout):
-                self._take(self._res.recv())
+            while True:
+                ready = wait(self._ress, timeout)
+                if not ready:
+                    break
+                for conn in ready:
+                    self._take(conn.recv())
                 timeout = 0
         except (EOFError, OSError):
             pass
-        if self._proc.poll() is not None and self.error is None:
-            self.error = f"the audit worker exited (code {self._proc.returncode})"
+        for proc in self._procs:
+            if proc.poll() is not None and self.error is None:
+                self.error = f"an audit worker exited (code {proc.returncode})"
 
     def _wait(self, until, deadline_s: float) -> None:
         """Receive messages until ``until()`` holds. Raises
@@ -261,19 +289,23 @@ class AuditWorker:
         return self._done.pop(ticket)
 
     def close(self) -> None:
-        """Stop the worker (``stop``, then a kill after two seconds) and
-        release its pipes."""
-        if self._proc.poll() is None:
-            self._out.put(("stop",))
+        """Stop the workers (``stop``, then a kill after two seconds) and
+        release their pipes."""
+        self._out.put((range(len(self._reqs)), ("stop",)))
         self._out.put(None)
         self._sender.join(2.0)
-        try:
-            self._proc.wait(2.0)
-        except subprocess.TimeoutExpired:
-            self._proc.kill()
-            self._proc.wait(5.0)
-        self._req.close()
-        self._res.close()
+        self._stop()
+
+    def _stop(self) -> None:
+        t0 = time.perf_counter()
+        for proc in self._procs:
+            try:
+                proc.wait(max(0.0, 2.0 - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(5.0)
+        for conn in self._reqs + self._ress:
+            conn.close()
 
 
 if __name__ == "__main__":
