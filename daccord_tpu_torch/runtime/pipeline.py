@@ -176,12 +176,12 @@ class PipelineConfig:
                                  # re-solves the whole batch on that
                                  # reference, so the rate never changes
                                  # output bytes
-    audit_worker: bool | None = None   # solve the audit's samples in a
-                                 # process of its own (audit/worker.py:
-                                 # the CPU ladder in numpy), sent at
-                                 # dispatch and compared at fetch; None =
-                                 # on cuda only (on the CPU no card waits
-                                 # on the pipeline's thread)
+    audit_worker: bool | None = None   # solve the audit's samples in
+                                 # worker processes (audit/worker.py: the
+                                 # CPU ladder in numpy), sent at dispatch
+                                 # and compared at fetch; None = on cuda
+                                 # only (on the CPU no card waits on the
+                                 # pipeline's thread)
     native_threads: int = 0      # threads of the native failover engine
                                  # (0 = every usable CPU)
 
@@ -250,17 +250,17 @@ class PipelineStats:
                                  # without the worker; with it the sends,
                                  # the wait for its rows not yet back and
                                  # the compares
-    audit_worker_s: float = 0.0  # the audit worker's own solve wall (its
-                                 # process; not on the pipeline's thread)
+    audit_worker_s: float = 0.0  # the audit workers' own solve wall (their
+                                 # processes; not on the pipeline's thread)
     audit_warm_s: float = 0.0    # wall of the in-process reference's
                                  # first solve at each shape (not in
                                  # audit_s)
     audit_local: int = 0         # batches audited on the pipeline's thread
                                  # (with no worker)
-    audit_worker_start: dict = field(default_factory=dict)  # the worker's
-                                 # start walls (boot_s: the interpreter,
-                                 # import_s: numpy and its ladder); empty
-                                 # if it never got ready
+    audit_worker_start: dict = field(default_factory=dict)  # the slowest
+                                 # worker's start walls (boot_s: the
+                                 # interpreter, import_s: numpy and its
+                                 # ladder); empty if they never got ready
     audit_disabled: str | None = None   # why the audit stopped mid-run
                                  # (``audit.disabled``), else None
     sup_counters: dict = field(default_factory=dict)  # the supervisor's
