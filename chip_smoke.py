@@ -30,14 +30,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ingest scan, host windowing, ladder dispatch and the wall blocked in
    fetch ("device"), the rest ("else"), the feeder stage profile, batches
    per bucket, pad waste, the mean batch the path gave each DP shape, the
-   peak device memory and the pinned host memory in flight. The two 20 kb
+   peak device memory, the CUDA graphs the run captured and their wall
+   (``graph_capture_s``) and the pinned host memory in flight. The two 20 kb
    FASTA outputs are compared (the drift bound of ROADMAP's parity
    invariant), and all three are scored against the simulation's truth
    (they must beat the raw reads). Every run is supervised
    (``runtime/supervisor.py``) with the shadow audit at its default 1/64,
    its samples solved in the audit worker process (``audit/worker.py``:
    the CPU ladder in numpy, in an interpreter of its own); each prints the
-   audit's wall on the pipeline's thread (``audit_s``), the worker's own
+   audit's wall on the pipeline's thread (``audit_s``; the workers are the
+   process's, started by the first run and reused), the worker's own
    solve wall (``audit_worker_s``), its start walls and the shares of the
    run's wall, fails if the audit was disabled, and is run again at audit
    rate 0, which must write the same FASTA byte for byte (its wall on the
@@ -48,8 +50,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    timed (one thread);
 4b. the slice's checks on the 20 kb set, each a ``daccord`` run with the
    counts set to 0 before it: ``--max-inflight 1`` and a second deque run
-   at audit rate 0 write the first deque run's FASTA byte for byte (their
-   walls and their ``ladder.call`` spans' wall and CPU time on one line);
+   at audit rate 0, each with the ladder's CUDA graphs and with its stages
+   run eagerly (``graphs=False``, the ladder before the graphs), write the
+   first deque run's FASTA byte for byte (their walls and their
+   ``ladder.call`` spans' wall and CPU time on one line); ``--ladder
+   split`` writes it too (its Stream A and B calls and rescue density);
    ``--depth-buckets ''`` (one
    bucket) stays within the drift bound of the bucketed run; on a copy of
    the LAS the script corrupts (one record's coordinates bit-flipped,
@@ -85,6 +90,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the device kernels and busy share of the call under ``torch.profiler``,
    with the kernels and with the torch rescore and ``torch.matmul`` in
    their place (the design before the two kernels);
+6b. graph phase, the same batch: the ladder through its CUDA graphs
+   (``kernels/graphs.py``) bit-equal to the eager ladder at each escalation
+   width and at the width a call picks (first call and replay), the
+   captures' wall and memory, and one call's wall, host CPU, device
+   kernels and host launch calls eager, through the graphs, and through
+   the graphs at the whole batch's width with no count read;
 7. supervisor phase, ``daccord`` runs on the first quarter of the 20 kb
    set at ``-b 512`` under ``DACCORD_FAULT``: ``device_lost`` with
    ``--failover-backend cpu``, ``fetch_hang``, ``dispatch_error``,
@@ -602,6 +613,96 @@ def ladder_breakdown(ladder, seqs, lens, nsegs) -> None:
                 f"device events (launches not measured)")
 
 
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+def profile_launches(call) -> dict:
+    """One call under ``torch.profiler``: its wall, the device kernels and
+    their busy time, and the host's launch calls (``cudaLaunchKernel`` and
+    its kin, ``cudaGraphLaunch`` apart) and copies."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
+    return dict(wall_ms=wall_ms, kernels=len(kernels),
+                busy_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+                launches=sum(n in LAUNCH_APIS and n != "cudaGraphLaunch" for n in names),
+                graph_launches=names.count("cudaGraphLaunch"),
+                copies=sum(n.startswith(("cudaMemcpy", "cudaMemset")) for n in names))
+
+
+def graph_phase(prof, cfg, seqs, lens, nsegs, dev) -> None:
+    """Phase 6b: one call of the ladder on B real windows through the CUDA
+    graphs (``kernels/graphs.py``, a cache of its own) against the eager
+    ladder on the card: bit-equal at each escalation width (``esc_cap``,
+    no count read) and at the width a call picks, first call (warm-up and
+    capture) and replays alike; then each form's wall (the median of 20)
+    and host CPU a call (their mean), its device kernels, busy time and the host's launch
+    calls under ``torch.profiler``, and the graphs' memory."""
+    from daccord_tpu_torch.kernels import graphs
+    from daccord_tpu_torch.kernels.tensorize import BatchShape, WindowBatch
+    from daccord_tpu_torch.kernels.tiers import (TierLadder, _ladder_packed, ladder_core,
+                                                 pack_result)
+
+    hb = WindowBatch(seqs=seqs[:B], lens=lens[:B], nsegs=nsegs[:B],
+                     shape=BatchShape(depth=seqs.shape[1], seg_len=seqs.shape[2]),
+                     read_ids=np.zeros(B, np.int64), wstarts=np.zeros(B, np.int64))
+    lg = TierLadder.from_config(prof, cfg.consensus, device=dev)
+    le = TierLadder.from_config(prof, cfg.consensus, device=dev, graphs=False)
+    ins = tuple(torch.as_tensor(a, device=dev) for a in (hb.seqs, hb.lens, hb.nsegs))
+    tables = tuple(le.tables[p.k] for p in le.params)
+    cache = graphs.GraphCache()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    checked = []
+    for E in (*graphs.widths(B), None):
+        want = (pack_result(ladder_core(*ins, tables, tuple(le.params), esc_cap=E))
+                if E is not None else _ladder_packed(hb, le))
+        got = [cache.run(hb, lg, esc_cap=E) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, want) for g in got):
+            raise AssertionError(f"graph ladder at width {E or 'picked'} differs from the "
+                                 f"eager ladder")
+        over = int(want[0, -1].item()) >> 6
+        checked.append(f"{E or 'picked'} (overflow {over})")
+    log(f"graph phase, {B} real windows: the graph replay (first call and replay) is "
+        f"bit-equal to the eager ladder at widths {', '.join(checked)}; {cache.captures} "
+        f"graphs captured in {cache.capture_s:.3f} s; device memory reserved "
+        f"{(torch.cuda.memory_reserved() - m0) / 2**30:.3f} GiB more, peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    def timed(call, n: int = 20) -> tuple[float, float]:
+        # the thread's CPU clock ticks coarsely on some hosts: its total
+        # over the n calls, a call's share of it
+        walls = []
+        c0 = time.thread_time()
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return float(np.median(walls)) * 1e3, (time.thread_time() - c0) / n * 1e3
+
+    forms = (("eager", lambda: _ladder_packed(hb, le)),
+             ("graphs, picked width", lambda: cache.run(hb, lg)),
+             (f"graphs, width {B} (no count read)", lambda: cache.run(hb, lg, esc_cap=B)))
+    for tag, call in forms:
+        wall_ms, cpu_ms = timed(call)
+        pr = profile_launches(call)
+        log(f"ladder call, {tag}: {wall_ms:.3f} ms wall (median of 20), {cpu_ms:.3f} ms "
+            f"host CPU (the mean); under torch.profiler {pr['kernels']} device kernels, busy "
+            f"{pr['busy_ms']:.3f} ms of {pr['wall_ms']:.3f} ms; host launch calls "
+            f"{pr['launches']}, graph launches {pr['graph_launches']}, copies {pr['copies']}")
+
+
 def daccord(argv: list[str], counters, on_card: bool = True) -> tuple:
     """One in-process ``daccord`` run with every kernel's launch counts set
     to 0 just before and read just after: (stats, {kernel: (launches,
@@ -672,6 +773,20 @@ def log_run(tag: str, stats, launched: dict) -> None:
         f"family sample {stats.profile_s:.3f} s, else {else_s(stats):.3f} s "
         f"({else_s(stats) / w:.4f}); pad waste {stats.pad_waste:.4f}, H2D "
         f"{stats.h2d_bytes} bytes ({stats.h2d_bytes / n:.0f} per batch)")
+    log(f"daccord {tag}: CUDA graphs captured {stats.graphs} in graph_capture_s "
+        f"{stats.graph_capture_s:.3f} s ({stats.graph_capture_s / w:.4f} of the wall), "
+        f"replays {stats.graph_replays}; ladder.call threads' CPU solve_cpu_s "
+        f"{stats.solve_cpu_s:.3f} s")
+    if stats.n_dispatch_tier0:
+        log(f"daccord {tag}: split ladder: {stats.n_dispatch_tier0} Stream A calls, "
+            f"{stats.n_dispatch_rescue} Stream B calls "
+            f"{[(r['rows'], r['reason']) for r in stats.rescue_dispatches]}, rescue "
+            f"windows {stats.n_rescue_windows} in {stats.rescue_slots_executed} slots "
+            f"(density {stats.rescue_density:.4f})")
+    elif stats.rescue_slots_executed:
+        log(f"daccord {tag}: fused ladder: rescue windows {stats.n_rescue_windows} in "
+            f"{stats.rescue_slots_executed} escalation slots (density "
+            f"{stats.rescue_density:.4f})")
     log(f"daccord {tag}: feeder stage profile {json.dumps(stats.stage_profile)}")
     log(f"daccord {tag}: supervisor {json.dumps(stats.sup_counters)}, degraded "
         f"{stats.degraded}; {audit_text(stats)}")
@@ -696,6 +811,29 @@ def daccord_with(argv: list[str], counters, **cfg):
         return daccord(argv, counters)[0]
     finally:
         cli.PipelineConfig = real
+
+
+class eager_ladder:
+    """Within it, every ``TierLadder.from_config`` builds a ladder that runs
+    its stages eagerly (``graphs=False``): the ladder before the CUDA
+    graphs, with the same sync-free stages."""
+
+    def __enter__(self):
+        from daccord_tpu_torch.kernels import tiers
+
+        self.real = real = tiers.TierLadder.__dict__["from_config"]
+
+        def from_config(cls, *a, **kw):
+            kw.setdefault("graphs", False)
+            return real.__func__(cls, *a, **kw)
+
+        tiers.TierLadder.from_config = classmethod(from_config)
+        return self
+
+    def __exit__(self, *exc):
+        from daccord_tpu_torch.kernels import tiers
+
+        tiers.TierLadder.from_config = self.real
 
 
 def audit_text(stats) -> str:
@@ -782,27 +920,51 @@ def slice_checks(d: dict, eprof: str, dense: tuple, counters, tmp: str) -> None:
     # its thread's CPU time (the rest it waited, for the card or the
     # interpreter lock)
     walls = []
-    for tag, mi in (("sync", "1"), ("deque", "8")):
-        ev = os.path.join(tmp, f"trace_{tag}.jsonl")
-        out, st = run(tag, d["las"], "--max-inflight", mi, "--audit-rate", "0",
-                      "--events", ev)
+    for tag, mi in (("sync", "1"), ("deque", "8"), ("eager deque", "8"),
+                    ("eager sync", "1")):
+        ev = os.path.join(tmp, f"trace_{tag.replace(' ', '_')}.jsonl")
+        if tag.startswith("eager"):
+            # the ladder before the graphs: the same stages, run eagerly
+            with eager_ladder():
+                out, st = run(tag.replace(" ", "_"), d["las"], "--max-inflight", mi,
+                              "--audit-rate", "0", "--events", ev)
+        else:
+            out, st = run(tag, d["las"], "--max-inflight", mi, "--audit-rate", "0",
+                          "--events", ev)
         with open(out, "rb") as a, open(dense_out, "rb") as b:
             if a.read() != b.read():
-                raise AssertionError(f"max_inflight {mi} and 8 wrote different FASTA")
+                raise AssertionError(f"{tag} (max_inflight {mi}) and the first run "
+                                     f"wrote different FASTA")
         with open(ev) as fh:
             calls = [r for r in map(json.loads, fh)
                      if r["event"] == "span_close" and r["name"] == "ladder.call"]
         if len(calls) != st.n_batches:
             raise AssertionError(f"{tag}: {len(calls)} ladder.call spans for "
                                  f"{st.n_batches} batches")
-        walls.append(f"max_inflight {mi} wall {st.wall_s:.3f} s (ladder_s "
+        walls.append(f"{tag}: max_inflight {mi} wall {st.wall_s:.3f} s (ladder_s "
                      f"{st.ladder_s:.3f}, device_s {st.device_s:.3f}, solve_s "
                      f"{st.solve_s:.3f}, windowing_s "
                      f"{st.windowing_s:.3f}, else {else_s(st):.3f}; {len(calls)} "
                      f"ladder.call spans: wall {sum(r['wall_s'] for r in calls):.3f} s, "
                      f"their thread's CPU {sum(r['cpu_s'] for r in calls):.3f} s)")
-    log(f"deque vs sync at audit rate 0, 20 kb dense fused -t 0, both after the first "
-        f"run: {'; '.join(walls)}; FASTA byte-identical to the first run's")
+    log(f"deque vs sync at audit rate 0, 20 kb dense fused -t 0, graphs and the eager "
+        f"ladder, all after the first run: {'; '.join(walls)}; FASTA byte-identical to "
+        f"the first run's")
+
+    out, st = run("split", d["las"], "--ladder", "split")
+    with open(out, "rb") as a, open(dense_out, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("--ladder split wrote another FASTA than --ladder fused")
+    if not (st.n_dispatch_tier0 and st.n_dispatch_rescue):
+        raise AssertionError(f"--ladder split ran {st.n_dispatch_tier0} Stream A and "
+                             f"{st.n_dispatch_rescue} Stream B calls")
+    log(f"--ladder split, 20 kb dense -t 0: FASTA byte-identical to --ladder fused; wall "
+        f"{st.wall_s:.3f} s against {dense_stats.wall_s:.3f} s (the first run), solve_s "
+        f"{st.solve_s:.3f}, device_s {st.device_s:.3f}, else {else_s(st):.3f}; "
+        f"{st.n_dispatch_tier0} Stream A calls, {st.n_dispatch_rescue} Stream B calls "
+        f"{[(r['rows'], r['reason']) for r in st.rescue_dispatches]}, rescue density "
+        f"{st.rescue_density:.4f} against the fused run's {dense_stats.rescue_density:.4f}; "
+        f"graphs captured {st.graphs} ({st.graph_capture_s:.3f} s)")
 
     out, st = run("one_bucket", d["las"], "--depth-buckets", "")
     log(f"one bucket (D32) vs buckets 8/16/32: {within_drift(records(out), clean, 'one bucket')}; "
@@ -1169,7 +1331,9 @@ def main() -> int:
             log_run(f"{tag} ({' '.join(args)})", stats, launched)
             packed = stats.peak_inflight * B * (-(-ladder.params[0].cons_len // 4) + 3) * 4
             log(f"daccord {tag}: peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; pinned host "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated (a "
+                f"graph's memory counts in the run that captures it), "
+                f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved; pinned host "
                 f"memory {pinned_peak()}; packed results in flight at most "
                 f"{stats.peak_inflight} x {B} rows (~{packed} bytes)")
             if stats.n_solved <= 0 or stats.bases_out <= 0:
@@ -1287,6 +1451,7 @@ def main() -> int:
             f"card, bit-equal; tiers {np.unique(res['tier'], return_counts=True)}")
 
         ladder_breakdown(ladder, tseqs, tlens, tnsegs)
+        graph_phase(prof, cfg, seqs, lens, nsegs, dev)
 
         cpu = tuple(t.cpu() for t in tables)
         cpu_packed = pack_result(ladder_core(tseqs.cpu(), tlens.cpu(), tnsegs.cpu(), cpu,

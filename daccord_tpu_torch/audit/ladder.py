@@ -314,8 +314,9 @@ def solve_batch(seqs, lens, nsegs, ol: np.ndarray, p: dict) -> dict:
 
 
 def solve_ladder(spec: tuple, seqs: np.ndarray, lens: np.ndarray,
-                 nsegs: np.ndarray) -> dict:
-    """``ladder_core`` of one dense batch, in the layout of
+                 nsegs: np.ndarray, tier0_only: bool = False) -> dict:
+    """``ladder_core`` of one dense batch (``tier0_core`` with
+    ``tier0_only``: the two-stream ladder's Stream A), in the layout of
     ``tiers.unpack_result``: cons [B, CL] int8, cons_len [B] int32, err [B]
     f32, solved [B] bool, tier [B] int32, m_ovf [B] bool, esc_overflow 0.
     ``spec`` is ``(tables, params, wide_p0)`` (``TierLadder.spec``)."""
@@ -326,6 +327,8 @@ def solve_ladder(spec: tuple, seqs: np.ndarray, lens: np.ndarray,
     cons_len_, err = out0["cons_len"].copy(), out0["err"].copy()
     tier = np.where(solved, 0, -1).astype(np.int32)
     m_ovf = out0["m_overflow"].copy()
+    if tier0_only:
+        params, wide_p0 = params[:1], None
     if wide_p0 is not None:
         idx = np.nonzero(m_ovf & (nsegs >= p0["min_depth"]))[0]
         if idx.size:

@@ -7,12 +7,16 @@ when it fetches the batch. The reference is the port's CPU ladder in numpy
 the pipeline's thread a reference solve holds the interpreter lock that the
 ladder dispatcher needs; in another process it shares no lock with either.
 
-The workers (:data:`PROCESSES` of them, dealt the samples in turn) are
-fresh interpreters (``python -m daccord_tpu_torch.audit.worker``; no
-``fork`` of a process that holds a CUDA context), started before the run's
-ingest scan. They import numpy and this package only: no torch (a worker
-that imported it took 9-12 s to start on an H100 host, longer than a small
-run) and no CUDA. A worker drains every sample pending when it wakes and
+The workers (:data:`PROCESSES` of them, dealt the samples in turn, a
+large sample in parts over several of them) are fresh interpreters
+(``python -m daccord_tpu_torch.audit.worker``; no ``fork`` of a process
+that holds a CUDA context), started once a process (:func:`shared`),
+before the ingest scan of the first run that audits in them; later runs
+send them their own ladder and reuse them, so only the first run pays
+their start. They are started again when one has died, and closed when
+the process exits. They import numpy and this package only: no torch (a
+worker that imported it took 9-12 s to start on an H100 host, longer than
+a small run) and no CUDA. A worker drains every sample pending when it wakes and
 solves those of one tile shape together, oldest first, up to
 :data:`CALL_WINDOWS` windows a ladder call, split back per ticket
 afterwards, each call's rows sent as soon as it ends. That is exact
@@ -31,6 +35,7 @@ daccord_tpu_torch.audit.worker FD_IN FD_OUT PARENT_PID SPAWN_TIME``.
 
 from __future__ import annotations
 
+import atexit
 import itertools
 import os
 import queue
@@ -41,10 +46,14 @@ import time
 from multiprocessing.connection import Connection, wait
 
 
-#: worker processes: one took 1.2-1.3 s to solve the 22 samples of a 20 kb
-#: run after its 0.6 s start, longer than that run's card work, on an
-#: 8-core H100 host; two share them
-PROCESSES = 2
+#: worker processes. The samples' solves are the run's tail: its last
+#: fetches wait for them, and with the ladder's CUDA graphs a 20 kb run's
+#: card work is a fraction of the workers' (1.1 s of their solves in a
+#: 1.7 s run on an 8-core H100 host). So a sample of at least two parts'
+#: worth of windows is dealt over the workers in parts of at least
+#: PART_WINDOWS windows
+PROCESSES = 4
+PART_WINDOWS = 8
 
 #: the most windows a ladder call of the worker takes (two samples of a
 #: 2048-window batch at 1/64); the numpy ladder's cost a window is about
@@ -120,12 +129,16 @@ def _main(fd_in: int, fd_out: int, parent: int, t_spawn: float) -> None:
                                     if n.split(".")[0] in ("jax", "daccord_tpu", "torch"))
                     res.send(("ready", leaked, dict(boot_s=t_boot, import_s=t_import)))
                 else:
-                    items.append((m[1], m[2]))
+                    items.append(m[1:])
             if items and spec is None:
                 raise AuditWorkerError("a sample arrived before the ladder")
-            for done, secs in solve_grouped(
-                    lambda s, ln, ns: ladder.solve_ladder(spec, s, ln, ns), items):
-                res.send(("done", done, secs))
+            # Stream A samples (tier 0 alone) and whole-ladder samples
+            # solve apart, each kind oldest first
+            for tier0 in dict.fromkeys(t0 for _, _, t0 in items):
+                for done, secs in solve_grouped(
+                        lambda s, ln, ns: ladder.solve_ladder(spec, s, ln, ns, tier0),
+                        [(t, smp) for t, smp, t0 in items if t0 == tier0]):
+                    res.send(("done", done, secs))
     except EOFError:
         return                                  # the parent closed its end
     except BaseException as e:  # noqa: BLE001 - relayed to the parent
@@ -185,8 +198,11 @@ class AuditWorker:
                                         name="audit-send")
         self._sender.start()
         self._tickets = itertools.count()
-        self._done: dict[int, dict] = {}
+        self._floor = 0              # tickets of runs that ended are below it
+        self._parts: dict[int, int] = {}        # ticket -> its parts
+        self._done: dict[tuple, dict] = {}      # (ticket, part) -> rows
         self._dropped: set[int] = set()
+        self._next = 0               # the worker the next part goes to
         self._ready = 0
         self.ready = False
         self.leaked: list[str] = []
@@ -212,20 +228,45 @@ class AuditWorker:
         """Send the ladder, ``TierLadder.spec()``'s plain values."""
         self._out.put((range(len(self._reqs)), ("build", spec)))
 
-    def submit(self, sample) -> int:
-        """Queue one dense sample (a ``WindowBatch``); returns its ticket.
-        Never blocks."""
+    def submit(self, sample, tier0_only: bool = False) -> int:
+        """Queue one dense sample (a ``WindowBatch``) for the whole ladder
+        (tier 0 alone with ``tier0_only``); returns its ticket. Never
+        blocks."""
         import numpy as np
 
         t = next(self._tickets)
-        self._out.put(((t % len(self._reqs),), ("solve", t, tuple(
-            np.ascontiguousarray(a) for a in (sample.seqs, sample.lens, sample.nsegs)))))
+        arrays = tuple(np.ascontiguousarray(a)
+                       for a in (sample.seqs, sample.lens, sample.nsegs))
+        n, nw = len(arrays[2]), len(self._reqs)
+        k = max(1, min(nw, n // PART_WINDOWS))
+        cuts = np.linspace(0, n, k + 1).astype(int)
+        self._parts[t] = k
+        for i in range(k):
+            part = tuple(np.ascontiguousarray(a[cuts[i]:cuts[i + 1]]) for a in arrays)
+            self._out.put((((self._next + i) % nw,),
+                           ("solve", (t, i), part, bool(tier0_only))))
+        self._next = (self._next + k) % nw
         return t
+
+    def alive(self) -> bool:
+        """Whether every worker runs and none has reported an error."""
+        self._drain(0)
+        return self.error is None and all(p.poll() is None for p in self._procs)
+
+    def forget(self) -> None:
+        """End a run: drop the rows it did not take, and those still on
+        their way (tickets below the next one are ignored when they come)."""
+        self._floor = next(self._tickets)
+        self._tickets = itertools.count(self._floor)
+        self._parts.clear()
+        self._done.clear()
+        self._dropped.clear()
 
     def discard(self, ticket: int) -> None:
         """Forget a ticket whose batch will not be compared."""
-        if self._done.pop(ticket, None) is None:
-            self._dropped.add(ticket)
+        for i in range(self._parts.pop(ticket, 0)):
+            self._done.pop((ticket, i), None)
+        self._dropped.add(ticket)
 
     def _take(self, msg) -> None:
         kind = msg[0]
@@ -238,11 +279,9 @@ class AuditWorker:
             _, done, secs = msg
             self.worker_s += secs
             self.calls += 1
-            for t, r in done:
-                if t in self._dropped:
-                    self._dropped.discard(t)
-                else:
-                    self._done[t] = r
+            for (t, i), r in done:
+                if t >= self._floor and t not in self._dropped:
+                    self._done[(t, i)] = r
         else:
             self.error = msg[1]
 
@@ -276,17 +315,24 @@ class AuditWorker:
                 raise AuditWorkerError(f"no answer within {deadline_s:.0f} s")
             self._drain(min(left, 0.5))
 
+    def _back(self, ticket: int) -> bool:
+        return all((ticket, i) in self._done for i in range(self._parts[ticket]))
+
     def done(self, ticket: int) -> bool:
         """Whether ``ticket``'s rows are back (or the worker failed, so
         :meth:`result` will not wait), without waiting."""
         self._drain(0)
-        return ticket in self._done or self.error is not None
+        return self._back(ticket) or self.error is not None
 
     def result(self, ticket: int, deadline_s: float) -> dict:
         """The reference rows of ``ticket``'s sample (numpy, the keys of
         ``tiers.unpack_result``), waiting for them if need be."""
-        self._wait(lambda: ticket in self._done, deadline_s)
-        return self._done.pop(ticket)
+        import numpy as np
+
+        self._wait(lambda: self._back(ticket), deadline_s)
+        parts = [self._done.pop((ticket, i)) for i in range(self._parts.pop(ticket))]
+        return {k: (np.concatenate([p[k] for p in parts]) if np.ndim(v)
+                    else max(p[k] for p in parts)) for k, v in parts[0].items()}
 
     def close(self) -> None:
         """Stop the workers (``stop``, then a kill after two seconds) and
@@ -306,6 +352,35 @@ class AuditWorker:
                 proc.wait(5.0)
         for conn in self._reqs + self._ress:
             conn.close()
+
+
+_shared: AuditWorker | None = None
+_shared_lock = threading.Lock()
+
+
+def shared() -> AuditWorker:
+    """The process's audit workers: they start at the first run that audits
+    in workers and serve every later run, and are started again when one
+    has died or failed. They are closed when the process exits."""
+    global _shared
+    with _shared_lock:
+        if _shared is not None and not _shared.alive():
+            _shared.close()
+            _shared = None
+        if _shared is None:
+            _shared = AuditWorker()
+        return _shared
+
+
+@atexit.register
+def close_shared() -> None:
+    """Stop the process's audit workers (at exit; the next :func:`shared`
+    starts new ones)."""
+    global _shared
+    with _shared_lock:
+        if _shared is not None:
+            _shared.close()
+            _shared = None
 
 
 if __name__ == "__main__":

@@ -210,7 +210,7 @@ def heaviest_path_plain(adjW: torch.Tensor, wt: torch.Tensor, s0: torch.Tensor,
     s = s0
     scores = [s]
     ptrs = [torch.zeros((B, M), dtype=torch.int32, device=dev)]
-    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    neg = NEG    # a Python scalar: no host-to-device copy
     for t in range(1, P):
         # the max over u and the lowest u reaching it (torch.max returns the
         # first maximal index; no value is NaN)
@@ -242,7 +242,7 @@ def candidates_backtrack(scores: torch.Tensor, ptrs: torch.Tensor,
     dev = scores.device
     C, CL = n_candidates, cons_len
     i32 = torch.int32
-    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    neg = NEG    # a Python scalar: no host-to-device copy
 
     # ---- admissible end states -------------------------------------------
     iota_t = torch.arange(P, device=dev).view(1, P, 1)

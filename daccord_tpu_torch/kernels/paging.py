@@ -104,6 +104,7 @@ class PagedWindowBatch:
     shape: BatchShape      # dense-equivalent shape (gather target [B, D, L])
     read_ids: np.ndarray   # int64 [B]
     wstarts: np.ndarray    # int64 [B]
+    stream: str = "full"   # as WindowBatch.stream
 
     @property
     def size(self) -> int:
@@ -142,7 +143,7 @@ class PagedWindowBatch:
         return WindowBatch(seqs=seqs, lens=lens.copy(),
                            nsegs=self.nsegs.copy(), shape=self.shape,
                            read_ids=self.read_ids.copy(),
-                           wstarts=self.wstarts.copy())
+                           wstarts=self.wstarts.copy(), stream=self.stream)
 
 
 def page_counts(lens: np.ndarray, page_len: int = PAGE_LEN) -> np.ndarray:
@@ -238,7 +239,7 @@ def pack_paged(batch: WindowBatch, family: ShapeFamily,
         nsegs=_pad_rows(batch.nsegs), family=family,
         shape=BatchShape(depth=D, seg_len=L, wlen=batch.shape.wlen),
         read_ids=_pad_rows(batch.read_ids, fill=-1),
-        wstarts=_pad_rows(batch.wstarts))
+        wstarts=_pad_rows(batch.wstarts), stream=batch.stream)
 
 
 def unpack_paged(pb: PagedWindowBatch) -> WindowBatch:

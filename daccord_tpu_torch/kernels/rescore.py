@@ -176,7 +176,7 @@ def rescore_pick_plain(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tens
                                 seqs[:, None, :, :], lens[:, None, :])  # [B,C,D]
     dists = torch.where(lens[:, None, :] > 0, dists, torch.zeros_like(dists))
     errs = dists.sum(dim=2).to(torch.int32).to(torch.float32) / seg_total[:, None]
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    inf = float("inf")
     errs = torch.where(ok, errs, inf)
     # argmin, the lowest index among equal errors (an all-inf row gives 0)
     ar_c = torch.arange(C, device=dev)
@@ -187,8 +187,8 @@ def rescore_pick_plain(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tens
     best_cons = cand[rows, ci]
     best_len = torch.where(ok[rows, ci], clen[rows, ci], torch.zeros_like(ci, dtype=clen.dtype))
     any_path = ok.any(dim=1)
-    max_err = torch.tensor(p.max_err, dtype=torch.float32, device=dev)
-    solved = any_path & (best_err <= max_err) & (nsegs >= p.min_depth)
+    # a Python scalar compares with an f32 tensor as an f32 operand
+    solved = any_path & (best_err <= p.max_err) & (nsegs >= p.min_depth)
     return dict(cons=torch.where(solved[:, None], best_cons,
                                  torch.full_like(best_cons, PAD)).to(torch.int8),
                 cons_len=torch.where(solved, best_len, torch.zeros_like(best_len)),

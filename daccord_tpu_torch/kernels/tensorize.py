@@ -36,6 +36,10 @@ class WindowBatch:
     # bookkeeping for scatter-back (parallel arrays, length B)
     read_ids: np.ndarray  # int64 [B]
     wstarts: np.ndarray   # int64 [B]
+    stream: str = "full"  # the ladder program that solves it: "full" (the
+                          # whole ladder), "tier0" (Stream A of the
+                          # two-stream ladder) or "rescue" (Stream B, the
+                          # whole ladder over pooled rows)
 
     @property
     def size(self) -> int:
@@ -96,6 +100,16 @@ def slice_batch(batch, lo: int, hi: int):
         wstarts=batch.wstarts[lo:hi])
 
 
+def slice_rows(batch, idx: np.ndarray):
+    """The rows ``idx`` of a batch, copied (a paged batch keeps its pool:
+    only its table rows are taken)."""
+    common = dict(lens=batch.lens[idx], nsegs=batch.nsegs[idx],
+                  read_ids=batch.read_ids[idx], wstarts=batch.wstarts[idx])
+    if getattr(batch, "pool", None) is not None:
+        return dataclasses.replace(batch, table=batch.table[idx], **common)
+    return dataclasses.replace(batch, seqs=batch.seqs[idx], **common)
+
+
 def pad_batch(batch, target: int):
     """Pad a batch to ``target`` windows with empty rows (nsegs 0, which the
     solver marks unsolved), so every launch of a run has one shape. Paged
@@ -120,4 +134,4 @@ def pad_batch(batch, target: int):
     wstarts = np.zeros(target, dtype=np.int64)
     wstarts[:B] = batch.wstarts
     return WindowBatch(seqs=seqs, lens=lens, nsegs=nsegs, shape=batch.shape,
-                       read_ids=read_ids, wstarts=wstarts)
+                       read_ids=read_ids, wstarts=wstarts, stream=batch.stream)

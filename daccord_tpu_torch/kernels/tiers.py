@@ -1,22 +1,29 @@
 """Escalation ladder over the batched window solver.
 
-The port of ``daccord_tpu/kernels/tiers.py``'s fused ladder. Tier 0 solves
-the whole batch; the optional wide overflow rescue re-solves windows whose
-top-M cap bound at the rescue active-set size; tier-0 failures then run
-through the escalation tiers. PyTorch runs eagerly, so failures are compacted
-to their real count with ``torch.nonzero`` (the JAX program pads them to a
-static ``esc_cap``): the M=256 rescue tier only pays for the windows that
-reach it. Windows are solved independently, so compaction cannot change any
-window's result.
+The port of ``daccord_tpu/kernels/tiers.py``. Tier 0 solves the whole
+batch; the optional wide overflow rescue re-solves windows whose top-M cap
+bound at the rescue active-set size; tier-0 failures then run through the
+escalation tiers. As in the JAX program, the rescue and escalation stages
+are fixed-capacity: failures are compacted into a fixed ``[E]`` index (a
+cumsum and a scatter, the port of ``jnp.nonzero(size=E)``), fill slots get
+no segments, windows already solved are masked by depth in the later
+tiers, and stale writes go to a trash row that is cut off. No stage reads a
+device value on the host. A call reads one count after tier 0 (and one
+after the wide rescue) to pick E from a short ladder of widths
+(``graphs.widths``) and to skip a stage with nothing to do: at most two
+host syncs a call. Windows are solved independently, so neither E nor the
+compaction can change any window's result.
 
-Those compactions read counts back to the host, so a ladder call waits on
-the card several times a batch. :func:`solve_ladder_async` therefore hands
-the call to a :class:`LadderDispatcher` thread with its own CUDA stream,
-which ends each call in an asynchronous copy of the packed result into
-pinned host memory and an event; :func:`fetch` waits on that event. The
-caller's thread (the pipeline's host work) runs on meanwhile, but both
-threads share the interpreter lock: only work that leaves Python (kernel
-time, the host library, waits) overlaps the ladder's launches.
+On the card each stage is captured once per shape as a CUDA graph and
+replayed (``kernels/graphs.py``); on the CPU the same stages run eagerly.
+:func:`solve_ladder_async` hands a call to a :class:`LadderDispatcher`
+thread, which ends it in an asynchronous copy of the packed result into
+pinned host memory and an event; :func:`fetch` waits on that event.
+
+The two-stream ladder (``--ladder split``) is here too: Stream A solves
+tier 0 alone (:func:`tier0_core`, :func:`solve_tier0_async`), the rows the
+fused ladder would have rescued (:func:`rescue_candidates`) pool on the
+host, and Stream B solves them in dense full-ladder batches.
 """
 
 from __future__ import annotations
@@ -43,13 +50,17 @@ class TierLadder:
                                           # the rescue active-set size
     route: str = "fused"                  # heaviest-path route of every
                                           # tier (solve_batch_core)
+    graphs: bool | None = None            # replay each stage as a CUDA
+                                          # graph (kernels/graphs.py);
+                                          # None = on cuda. False runs the
+                                          # same stages eagerly
 
     @classmethod
     def from_config(cls, profile: ErrorProfile, cfg: ConsensusConfig,
                     max_kmers: int = 64, rescue_max_kmers: int = 256,
                     overflow_rescue: bool = False,
                     device: str | torch.device = "cuda",
-                    route: str = "fused") -> "TierLadder":
+                    route: str = "fused", graphs: bool | None = None) -> "TierLadder":
         tables = {k: t.table for k, t in make_offset_likely(profile, cfg).items()}
         params = [
             dict(k=k, min_count=mc, edge_min_count=emc,
@@ -67,7 +78,8 @@ class TierLadder:
                  wlen=cfg.w)
             for k, mc, emc in cfg.tiers
         ]
-        ladder = cls.from_numpy(tables, params, device=device, route=route)
+        ladder = cls.from_numpy(tables, params, device=device, route=route,
+                                graphs=graphs)
         if overflow_rescue and ladder.params[0].max_kmers < rescue_max_kmers:
             ladder.wide_p0 = dataclasses.replace(ladder.params[0],
                                                  max_kmers=rescue_max_kmers)
@@ -77,7 +89,7 @@ class TierLadder:
     def from_numpy(cls, tables: dict[int, np.ndarray], params: list[dict],
                    wide_p0: dict | None = None,
                    device: str | torch.device = "cuda",
-                   route: str = "fused") -> "TierLadder":
+                   route: str = "fused", graphs: bool | None = None) -> "TierLadder":
         """Build a ladder from plain arrays and parameter dicts — e.g. the JAX
         ``TierLadder``'s tables (``np.asarray``) and the fields of its
         ``KernelParams`` — so both packages solve with identical tables."""
@@ -97,11 +109,17 @@ class TierLadder:
                                                    device=dev)
                            for k, t in tables.items()},
                    wide_p0=None if wide_p0 is None else KernelParams(**wide_p0),
-                   route=route)
+                   route=route, graphs=graphs)
 
     @property
     def device(self) -> torch.device:
         return next(iter(self.tables.values())).device
+
+    @property
+    def use_graphs(self) -> bool:
+        """Whether a call replays CUDA graphs: on cuda unless ``graphs`` is
+        False (nothing is captured on the CPU)."""
+        return self.device.type == "cuda" and self.graphs is not False
 
     def spec(self) -> tuple:
         """The ladder as plain values, ``(tables, params, wide_p0)``: numpy
@@ -112,69 +130,221 @@ class TierLadder:
                 None if self.wide_p0 is None else dataclasses.asdict(self.wide_p0))
 
 
+def new_state(B: int, cons_len: int, device) -> dict:
+    """The result buffers of one ladder call, one trash row past the batch
+    (row ``B``): fixed-capacity scatters send the writes of fill slots and
+    of windows they must not touch there, as ``mode="drop"`` does in JAX.
+    ``counts`` holds the wide-rescue and the failure count after tier 0
+    (the failure count again after the wide rescue); ``overflow`` the
+    escalation's failures beyond its width."""
+    n = B + 1
+    return dict(cons=torch.full((n, cons_len), 4, dtype=torch.int8, device=device),
+                cons_len=torch.zeros(n, dtype=torch.int32, device=device),
+                err=torch.full((n,), float("inf"), dtype=torch.float32, device=device),
+                solved=torch.zeros(n, dtype=torch.bool, device=device),
+                tier=torch.full((n,), -1, dtype=torch.int32, device=device),
+                m_ovf=torch.zeros(n, dtype=torch.bool, device=device),
+                counts=torch.zeros(2, dtype=torch.int32, device=device),
+                overflow=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def state_result(st: dict, B: int) -> dict:
+    """The batch's rows of a state as a ladder result dict."""
+    return dict(cons=st["cons"][:B], cons_len=st["cons_len"][:B], err=st["err"][:B],
+                solved=st["solved"][:B], tier=st["tier"][:B], m_ovf=st["m_ovf"][:B],
+                esc_overflow=st["overflow"])
+
+
+def compact(mask: torch.Tensor, E: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-capacity ``nonzero``: the indices of ``mask``'s first ``E``
+    true entries in an [E] int64 index (fill slots 0, as
+    ``jnp.nonzero(size=E, fill_value=0)``) and the [E] bool of the filled
+    slots. A cumsum gives each true entry its slot; entries past E and
+    false ones scatter to a slot past the end, which is cut off."""
+    B = mask.shape[0]
+    dev = mask.device
+    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    count = pos[-1:] + 1 if B else torch.zeros(1, dtype=torch.int64, device=dev)
+    slot = torch.where(mask & (pos < E), pos, E)
+    idx = torch.zeros(E + 1, dtype=torch.int64, device=dev)
+    idx.scatter_(0, slot, torch.arange(B, device=dev))
+    return idx[:E], torch.arange(E, device=dev) < count
+
+
+def _put(st: dict, key: str, rows: torch.Tensor, values) -> None:
+    """``st[key][rows] = values`` with rows of the trash row allowed."""
+    t = st[key]
+    if isinstance(values, torch.Tensor):
+        t.index_copy_(0, rows, values.to(t.dtype))
+    else:
+        t.index_fill_(0, rows, values)
+
+
+def _set_counts(st: dict, nsegs: torch.Tensor, p0: KernelParams, which=(0, 1)) -> None:
+    """``counts``: the windows the wide rescue would take (top-M capped at
+    depth) and the failures at depth the escalation would take."""
+    B = nsegs.shape[0]
+    deep = nsegs >= p0.min_depth
+    masks = {0: st["m_ovf"][:B] & deep, 1: ~st["solved"][:B] & deep}
+    for i in which:
+        st["counts"][i] = masks[i].sum()
+
+
+def tier0_stage(st: dict, seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
+                table0: torch.Tensor, p0: KernelParams, dp=None,
+                route: str = "fused") -> None:
+    """Tier 0 over the whole batch into ``st`` (every field of the batch's
+    rows, the counts and a zero overflow)."""
+    B = seqs.shape[0]
+    out0 = solve_batch_core(seqs, lens, nsegs, table0, p0, dp, route)
+    solved = out0["solved"]
+    st["cons"][:B] = out0["cons"]
+    st["cons_len"][:B] = out0["cons_len"]
+    st["err"][:B] = out0["err"]
+    st["solved"][:B] = solved
+    st["tier"][:B] = torch.where(solved, 0, -1).to(torch.int32)
+    # top-M-cap flag, seeded from tier 0; the later stages OR in their own
+    st["m_ovf"][:B] = out0["m_overflow"]
+    st["overflow"].zero_()
+    _set_counts(st, nsegs, p0)
+
+
+def wide_stage(st: dict, seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
+               table0: torch.Tensor, p0: KernelParams, wide_p0: KernelParams,
+               EW: int, dp=None, route: str = "fused") -> None:
+    """The overflow rescue at width ``EW``: every window whose tier-0 top-M
+    cap bound (at depth) re-solves at the rescue active-set size, and the
+    wide result replaces the capped one where it solves; the flag clears
+    only where the wide set did not cap too. Then the failure count."""
+    B = seqs.shape[0]
+    idx, live = compact(st["m_ovf"][:B] & (nsegs >= p0.min_depth), EW)
+    out_w = solve_batch_core(seqs[idx], lens[idx], torch.where(live, nsegs[idx], 0),
+                             table0, wide_p0, dp, route)
+    take = live & out_w["solved"]
+    idx_w = torch.where(take, idx, B)
+    for key in ("cons", "cons_len", "err"):
+        _put(st, key, idx_w, out_w[key])
+    _put(st, "solved", idx_w, True)
+    _put(st, "tier", idx_w, 0)
+    _put(st, "m_ovf", torch.where(take & ~out_w["m_overflow"], idx, B), False)
+    _set_counts(st, nsegs, p0, which=(1,))
+
+
+def esc_stage(st: dict, seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
+              tables: tuple, params: tuple[KernelParams, ...], E: int, dp=None,
+              route: str = "fused") -> None:
+    """The escalation tiers at width ``E`` over the failures at depth:
+    compacted once, every tier runs over all E slots with the slots already
+    solved (and the fill slots) given no segments, and the results scatter
+    back. The top-M flag ORs in for every live slot a tier processed."""
+    B = seqs.shape[0]
+    p0 = params[0]
+    fail = ~st["solved"][:B] & (nsegs >= p0.min_depth)
+    idx, live = compact(fail, E)
+    st["overflow"].copy_((fail.sum() - E).clamp(min=0))
+    sseqs, slens = seqs[idx], lens[idx]
+    snsegs = torch.where(live, nsegs[idx], 0)
+    dev = seqs.device
+    CL = st["cons"].shape[1]
+    e_solved = torch.zeros(E, dtype=torch.bool, device=dev)
+    e_cons = torch.full((E, CL), 4, dtype=torch.int8, device=dev)
+    e_len = torch.zeros(E, dtype=torch.int32, device=dev)
+    e_err = torch.full((E,), float("inf"), dtype=torch.float32, device=dev)
+    e_tier = torch.full((E,), -1, dtype=torch.int32, device=dev)
+    e_movf = torch.zeros(E, dtype=torch.bool, device=dev)
+    for ti in range(1, len(params)):
+        processed = live & ~e_solved
+        out_t = solve_batch_core(sseqs, slens, torch.where(e_solved, 0, snsegs),
+                                 tables[ti], params[ti], dp, route)
+        e_movf = e_movf | (processed & out_t["m_overflow"])
+        take = live & out_t["solved"] & ~e_solved
+        e_cons = torch.where(take[:, None], out_t["cons"], e_cons)
+        e_len = torch.where(take, out_t["cons_len"], e_len)
+        e_err = torch.where(take, out_t["err"], e_err)
+        e_tier = torch.where(take, ti, e_tier).to(torch.int32)
+        e_solved = e_solved | take
+    idx_w = torch.where(live & e_solved, idx, B)
+    # the flag scatters for ALL live escaped windows (an unsolved but
+    # truncated window is still unexplained against the oracle)
+    movf = st["m_ovf"][idx] | e_movf
+    _put(st, "cons", idx_w, e_cons)
+    _put(st, "cons_len", idx_w, e_len)
+    _put(st, "err", idx_w, e_err)
+    _put(st, "solved", idx_w, True)
+    _put(st, "tier", idx_w, e_tier)
+    _put(st, "m_ovf", torch.where(live, idx, B), movf)
+
+
+def run_stage(st: dict, name: str, width: int | None, seqs: torch.Tensor,
+              lens: torch.Tensor, nsegs: torch.Tensor, tables: tuple,
+              params: tuple[KernelParams, ...], wide_p0: KernelParams | None = None,
+              dp=None, route: str = "fused") -> None:
+    """One stage of the ladder into ``st``: ``tier0``, ``wide`` (the
+    overflow rescue at ``width``) or ``esc`` (the escalation at ``width``)."""
+    if name == "tier0":
+        tier0_stage(st, seqs, lens, nsegs, tables[0], params[0], dp, route)
+    elif name == "wide":
+        wide_stage(st, seqs, lens, nsegs, tables[0], params[0], wide_p0, width, dp, route)
+    else:
+        esc_stage(st, seqs, lens, nsegs, tables, params, width, dp, route)
+
+
+def run_ladder(stage, read_counts, B: int, n_tiers: int, wide: bool,
+               esc_cap: int | None = None) -> None:
+    """The ladder's control, shared by the eager ladder and its graphs:
+    ``stage(name, width)`` runs a stage, ``read_counts()`` is the host sync
+    that returns the state's counts. Tier 0, then the wide rescue at the
+    narrowest width of ``graphs.widths`` that holds its windows, then the
+    escalation at the narrowest that holds the failures; a stage with no
+    window is skipped. ``esc_cap`` reads no count: the wide rescue runs at
+    the batch and the escalation at ``esc_cap`` slots (0: none), the JAX
+    ladder's ``esc_cap``."""
+    from .graphs import pick_width
+
+    stage("tier0", None)
+    if n_tiers == 1 and not wide:
+        return      # nothing to rescue (Stream A): no count read
+    n_wide, n_fail = read_counts() if esc_cap is None else (B, esc_cap)
+    if wide and n_wide:
+        stage("wide", pick_width(n_wide, B) if esc_cap is None else B)
+        if esc_cap is None:
+            n_fail = read_counts()[1]
+    if n_tiers > 1 and n_fail:
+        stage("esc", pick_width(n_fail, B) if esc_cap is None else esc_cap)
+
+
 def ladder_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
                 tables: tuple, params: tuple[KernelParams, ...],
                 wide_p0: KernelParams | None = None, dp=None,
-                route: str = "fused") -> dict:
-    """Full escalation ladder over one batch.
+                route: str = "fused", esc_cap: int | None = None) -> dict:
+    """Full escalation ladder over one batch, the stages run eagerly
+    (:func:`run_ladder`: at most two host syncs).
 
-    ``tables[i]`` is the OffsetLikely table for ``params[i]``. Every tier-0
-    failure deep enough to solve runs through the remaining tiers (the JAX
-    ladder at ``esc_cap`` = the batch, so ``esc_overflow`` is always 0).
-    ``wide_p0`` re-solves every window whose tier-0 top-M cap bound at the
-    rescue set size, replacing the capped result where the wide solve
-    succeeds. ``route`` and ``dp`` select the heaviest-path route and its
-    implementation (see ``solve_batch_core``)."""
-    p0 = params[0]
-    out0 = solve_batch_core(seqs, lens, nsegs, tables[0], p0, dp, route)
-    solved = out0["solved"]
-    cons = out0["cons"]
-    cons_len = out0["cons_len"]
-    err = out0["err"]
-    tier = torch.where(solved, 0, -1).to(torch.int32)
-    # top-M-cap flag, seeded from tier 0; escalation tiers OR in their own
-    m_ovf = out0["m_overflow"]
+    ``tables[i]`` is the OffsetLikely table for ``params[i]``; ``esc_cap``
+    None gives no ``esc_overflow``. ``wide_p0`` re-solves every window
+    whose tier-0 top-M cap bound at the rescue set size. ``route`` and
+    ``dp`` select the heaviest-path route and its implementation (see
+    ``solve_batch_core``)."""
+    B = seqs.shape[0]
+    st = new_state(B, params[0].cons_len, seqs.device)
+    run_ladder(lambda name, width: run_stage(st, name, width, seqs, lens, nsegs, tables,
+                                             params, wide_p0, dp, route),
+               lambda: st["counts"].tolist(), B, len(params), wide_p0 is not None,
+               esc_cap)
+    return state_result(st, B)
 
-    if wide_p0 is not None:
-        idx = torch.nonzero(m_ovf & (nsegs >= p0.min_depth)).flatten()
-        if idx.numel():
-            out_w = solve_batch_core(seqs[idx], lens[idx], nsegs[idx],
-                                     tables[0], wide_p0, dp, route)
-            take = out_w["solved"]
-            it = idx[take]
-            cons[it] = out_w["cons"][take]
-            cons_len[it] = out_w["cons_len"][take]
-            err[it] = out_w["err"][take]
-            solved[it] = True
-            tier[it] = 0
-            # the flag clears only where the wide set didn't cap too
-            m_ovf[idx[take & ~out_w["m_overflow"]]] = False
 
-    if len(params) > 1:
-        idx = torch.nonzero(~solved & (nsegs >= p0.min_depth)).flatten()
-        e_movf = torch.zeros(idx.numel(), dtype=torch.bool, device=seqs.device)
-        live = torch.arange(idx.numel(), device=seqs.device)   # unsolved slots
-        for ti in range(1, len(params)):
-            if live.numel() == 0:
-                break
-            rows = idx[live]
-            out_t = solve_batch_core(seqs[rows], lens[rows], nsegs[rows],
-                                     tables[ti], params[ti], dp, route)
-            e_movf[live] |= out_t["m_overflow"]
-            take = out_t["solved"]
-            rt = rows[take]
-            cons[rt] = out_t["cons"][take]
-            cons_len[rt] = out_t["cons_len"][take]
-            err[rt] = out_t["err"][take]
-            solved[rt] = True
-            tier[rt] = ti
-            live = live[~take]
-        # the overflow flag scatters for ALL escaped windows (an unsolved but
-        # truncated window is still unexplained vs the oracle)
-        m_ovf[idx] = m_ovf[idx] | e_movf
-
-    return dict(cons=cons, cons_len=cons_len, err=err, solved=solved, tier=tier,
-                m_ovf=m_ovf, esc_overflow=0)
+def tier0_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
+               table0: torch.Tensor, p0: KernelParams, dp=None,
+               route: str = "fused") -> dict:
+    """Stream A of the two-stream ladder: tier 0 ONLY, shaped like
+    :func:`ladder_core`'s result so the packed layout and the pipeline's
+    scatter are shared. Its failures and top-M-capped windows pool on the
+    host (:func:`rescue_candidates`) for a Stream B batch."""
+    B = seqs.shape[0]
+    st = new_state(B, p0.cons_len, seqs.device)
+    tier0_stage(st, seqs, lens, nsegs, table0, p0, dp, route)
+    return state_result(st, B)
 
 
 def ladder_core_paged(pool: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
@@ -190,6 +360,17 @@ def ladder_core_paged(pool: torch.Tensor, table: torch.Tensor, lens: torch.Tenso
 
     seqs = gather_windows(pool, table, lens, page_len=page_len, seg_len=seg_len)
     return ladder_core(seqs, lens, nsegs, tables, params, wide_p0, dp, route)
+
+
+def tier0_core_paged(pool: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
+                     nsegs: torch.Tensor, table0: torch.Tensor, p0: KernelParams, *,
+                     page_len: int, seg_len: int, dp=None,
+                     route: str = "fused") -> dict:
+    """Paged Stream A: the page gather, then :func:`tier0_core`."""
+    from .paging import gather_windows
+
+    seqs = gather_windows(pool, table, lens, page_len=page_len, seg_len=seg_len)
+    return tier0_core(seqs, lens, nsegs, table0, p0, dp, route)
 
 
 def pack_result(out: dict) -> torch.Tensor:
@@ -208,7 +389,7 @@ def pack_result(out: dict) -> torch.Tensor:
     movf = out["m_ovf"].to(torch.int32)
     ovf = torch.zeros(B, dtype=torch.int32, device=cons.device)
     if B:
-        ovf[0] = int(out["esc_overflow"])
+        ovf[0] = out["esc_overflow"]     # a count or a 0-dim tensor: no host read
     tierw = tier | (movf << 5) | (ovf << 6)
     return torch.cat([cw, out["cons_len"].to(torch.int32)[:, None],
                       errw[:, None], tierw[:, None]], dim=1)
@@ -240,28 +421,37 @@ def upload_arrays(batch) -> tuple[np.ndarray, ...]:
     return batch.seqs, batch.lens, batch.nsegs
 
 
-def _ladder_packed(batch, ladder: TierLadder) -> torch.Tensor:
-    """The whole ladder over one host batch, on the caller's current stream:
-    the packed result on the ladder's device. A paged batch's page table is
-    checked against its pool before the upload."""
-    dev = ladder.device
-    tables = tuple(ladder.tables[p.k] for p in ladder.params)
-    params = tuple(ladder.params)
-    if getattr(batch, "pool", None) is not None:
+def _ladder_packed(batch, ladder: TierLadder, tier0_only: bool = False,
+                   log=None) -> torch.Tensor:
+    """The whole ladder (tier 0 alone with ``tier0_only``, Stream A) over
+    one host batch, on the caller's current stream: the packed result on
+    the ladder's device. On the card the stages replay as CUDA graphs
+    (``kernels/graphs.py``, ``log`` gets its ``graph.capture`` events)
+    unless the ladder was built with ``graphs=False``; on the CPU they run
+    eagerly. A paged batch's page table is checked against its pool before
+    the upload."""
+    paged = getattr(batch, "pool", None) is not None
+    if paged:
         from .gather_pages import check_table
 
         check_table(batch.table, batch.pool.shape[0])
-        pool, table, lens, nsegs = (torch.as_tensor(a, device=dev)
-                                    for a in upload_arrays(batch))
-        out = ladder_core_paged(pool, table, lens, nsegs, tables, params,
-                                page_len=batch.family.page_len,
-                                seg_len=batch.shape.seg_len,
-                                wide_p0=ladder.wide_p0, route=ladder.route)
+    if ladder.use_graphs:
+        from .graphs import CACHE
+
+        return CACHE.run(batch, ladder, tier0_only=tier0_only, log=log)
+    dev = ladder.device
+    tables = tuple(ladder.tables[p.k] for p in ladder.params)
+    params = tuple(ladder.params)
+    p0 = params[0]
+    ins = tuple(torch.as_tensor(a, device=dev) for a in upload_arrays(batch))
+    if paged:
+        kw = dict(page_len=batch.family.page_len, seg_len=batch.shape.seg_len,
+                  route=ladder.route)
+        out = (tier0_core_paged(*ins, tables[0], p0, **kw) if tier0_only else
+               ladder_core_paged(*ins, tables, params, wide_p0=ladder.wide_p0, **kw))
     else:
-        seqs, lens, nsegs = (torch.as_tensor(a, device=dev)
-                             for a in upload_arrays(batch))
-        out = ladder_core(seqs, lens, nsegs, tables, params, ladder.wide_p0,
-                          route=ladder.route)
+        out = (tier0_core(*ins, tables[0], p0, route=ladder.route) if tier0_only else
+               ladder_core(*ins, tables, params, ladder.wide_p0, route=ladder.route))
     return pack_result(out)
 
 
@@ -306,8 +496,9 @@ class LadderDispatcher:
     """One thread that runs ladder calls in submission order, on a CUDA
     stream of its own when the ladder is on cuda.
 
-    Each call's compaction syncs (``torch.nonzero``, boolean indexing) wait
-    on this thread, not on the caller's. A call ends in a ``non_blocking``
+    Each call's count reads (at most two) wait on this thread, not on the
+    caller's, and its graphs are captured and replayed on this stream. A
+    call ends in a ``non_blocking``
     copy of the packed result into pinned host memory and a recorded event,
     so the thread moves on to the next batch while the copy lands. An
     exception inside a call is stored on its handle and raised by
@@ -331,11 +522,11 @@ class LadderDispatcher:
                                         name="ladder-dispatcher")
         self._thread.start()
 
-    def submit(self, batch, ladder: TierLadder) -> _PackedHandle:
+    def submit(self, batch, ladder: TierLadder, tier0_only: bool = False) -> _PackedHandle:
         if not self._thread.is_alive():
             raise RuntimeError("the ladder dispatcher is closed")
         h = _PackedHandle(batch, ladder.params[0].cons_len)
-        self._q.put((h, ladder))
+        self._q.put((h, ladder, tier0_only))
         return h
 
     def _loop(self) -> None:
@@ -343,20 +534,21 @@ class LadderDispatcher:
             item = self._q.get()
             if item is None:
                 return
-            h, ladder = item
+            h, ladder, tier0_only = item
             try:
-                _timed(h, self.tracer, lambda: self._call(h, ladder))
+                _timed(h, self.tracer, lambda: self._call(h, ladder, tier0_only))
             except BaseException as e:  # noqa: BLE001 - raised again by fetch
                 h.error = e
             finally:
                 h.done.set()
 
-    def _call(self, h: _PackedHandle, ladder: TierLadder) -> None:
+    def _call(self, h: _PackedHandle, ladder: TierLadder, tier0_only: bool) -> None:
+        log = self.tracer.log if self.tracer is not None else None
         if self.stream is None:
-            h.host = _ladder_packed(h.batch, ladder)
+            h.host = _ladder_packed(h.batch, ladder, tier0_only, log)
             return
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            packed = _ladder_packed(h.batch, ladder)
+            packed = _ladder_packed(h.batch, ladder, tier0_only, log)
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
             host.copy_(packed, non_blocking=True)
             ev = torch.cuda.Event()
@@ -378,20 +570,21 @@ class LadderDispatcher:
 
 def solve_ladder_async(batch, ladder: TierLadder,
                        dispatcher: LadderDispatcher | None = None,
-                       tracer=None) -> _PackedHandle:
-    """Start the whole ladder over one host ``WindowBatch`` or
-    ``PagedWindowBatch``; pair with :func:`fetch`.
+                       tracer=None, tier0_only: bool = False) -> _PackedHandle:
+    """Start the whole ladder (tier 0 alone with ``tier0_only``) over one
+    host ``WindowBatch`` or ``PagedWindowBatch``; pair with :func:`fetch`.
 
     With a ``dispatcher`` the call is queued to its thread and this returns
     at once. Without one the ladder runs on the caller's thread and the
     handle comes back ready (the synchronous form, :func:`solve_ladder`),
     a ``ladder.call`` span with a ``tracer``."""
     if dispatcher is not None:
-        return dispatcher.submit(batch, ladder)
+        return dispatcher.submit(batch, ladder, tier0_only)
     h = _PackedHandle(batch, ladder.params[0].cons_len)
+    log = tracer.log if tracer is not None else None
 
     def call():
-        h.host = _ladder_packed(batch, ladder).cpu()
+        h.host = _ladder_packed(batch, ladder, tier0_only, log).cpu()
 
     _timed(h, tracer, call)
     h.done.set()
@@ -427,9 +620,10 @@ def audit_reference(host: TierLadder):
     ``host``, a ladder on the CPU, through the kernels' plain versions.
 
     The port's counterpart of the JAX package's ``audit_reference``: the
-    eager ladder compacts every escalation tier to the rows that need it,
-    so each sampled row pays only its own escalation, and windows solve
-    independently, so a sample's rows get the bytes the whole batch would.
+    escalation runs at the narrowest width that holds the sample's
+    failures, so a sample pays little more than its own escalation, and
+    windows solve independently, so a sample's rows get the bytes the whole
+    batch would.
     With W summed in one order on both sides (``kernels.position_weights``)
     the CPU ladder is byte-equal to the card's."""
     if host.device.type != "cpu":
@@ -443,3 +637,74 @@ def audit_reference(host: TierLadder):
 
     _ref.__name__ = "cpu-ladder"
     return _ref
+
+
+def solve_tier0_async(batch, ladder: TierLadder,
+                      dispatcher: LadderDispatcher | None = None,
+                      tracer=None) -> _PackedHandle:
+    """Start Stream A of the two-stream ladder, tier 0 alone: a handle like
+    :func:`solve_ladder_async`'s (one fetch, the same packed layout), whose
+    call reads no count back (on the card one graph replay). Its failures
+    cost nothing here: they pool for Stream B."""
+    return solve_ladder_async(batch, ladder, dispatcher, tracer, tier0_only=True)
+
+
+def stream_dispatcher(ladder: TierLadder, dispatcher: LadderDispatcher | None = None,
+                      tracer=None):
+    """A dispatch function that sends a batch to the program its ``stream``
+    tag names: ``tier0`` to Stream A (:func:`solve_tier0_async`), anything
+    else (``full``, ``rescue``) to the whole ladder."""
+
+    def dispatch(batch):
+        if getattr(batch, "stream", "full") == "tier0":
+            return solve_tier0_async(batch, ladder, dispatcher, tracer)
+        return solve_ladder_async(batch, ladder, dispatcher, tracer)
+
+    return dispatch
+
+
+def rescue_candidates(out: dict, nsegs: np.ndarray, ladder: TierLadder) -> np.ndarray:
+    """Bool mask of the rows the fused ladder would send through a rescue
+    stage: windows tier 0 failed at depth (when escalation tiers exist) and
+    windows whose top-M cap bound at depth (when the overflow rescue is
+    on). Applied to a tier-0 result it picks Stream B's input; applied to a
+    whole-ladder result (a Stream A batch a supervisor replayed on its
+    failover engine) it still composes byte for byte: every pooled window
+    solves again to the same bytes, and the rest already hold their final
+    ones."""
+    nsegs = np.asarray(nsegs)
+    deep = nsegs >= ladder.params[0].min_depth
+    need = np.zeros(len(nsegs), dtype=bool)
+    if len(ladder.params) > 1:
+        need |= ~np.asarray(out["solved"]) & deep
+    if ladder.wide_p0 is not None:
+        need |= np.asarray(out["m_ovf"]) & deep
+    return need
+
+
+def solve_ladder_split(batch, ladder: TierLadder, rescue_batch: int | None = None,
+                       tracer=None) -> dict:
+    """The two-stream solve of ONE batch (the unit behind the pipeline's
+    pools across batches): Stream A, tier 0 over the whole batch, then
+    Stream B, the whole ladder over the rescue candidates only, in batches
+    of ``rescue_batch`` rows (padded; None: one batch of the candidates),
+    scattered back. Byte-equal to :func:`solve_ladder`, since every window
+    solves on its own. ``tracer`` brackets the streams in ``kernel.tier0``
+    and ``kernel.rescue`` spans."""
+    from ..utils.obs import Tracer
+    from .tensorize import pad_batch, slice_rows
+
+    tr = tracer if tracer is not None else Tracer(None)
+    with tr.span("kernel.tier0", rows=int(batch.size)):
+        out = fetch(solve_tier0_async(batch, ladder))
+    out = {k: (np.array(v) if isinstance(v, np.ndarray) else v) for k, v in out.items()}
+    idx = np.nonzero(rescue_candidates(out, batch.nsegs, ladder))[0]
+    step = rescue_batch if rescue_batch else max(len(idx), 1)
+    for c0 in range(0, len(idx), step):
+        sub = idx[c0:c0 + step]
+        sb = dataclasses.replace(slice_rows(batch, sub), stream="rescue")
+        with tr.span("kernel.rescue", rows=int(len(sub)), slots=int(step)):
+            r = fetch(solve_ladder_async(pad_batch(sb, step), ladder))
+        for key in ("cons", "cons_len", "err", "solved", "tier", "m_ovf"):
+            out[key][sub] = r[key][:len(sub)]
+    return out

@@ -118,9 +118,10 @@ def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
     nxt = torch.cat([starts[:, 1:], torch.full((B, 1), N, device=dev)], dim=1)
     nxt = nxt.flip(1).cummin(dim=1).values.flip(1)
     start_counts = torch.where(is_start, nxt - ar_n, torch.zeros_like(nxt))
-    thresh = torch.clamp(torch.ceil(torch.tensor(p.count_frac, dtype=torch.float32)
-                                    * nsegs.to(torch.float32)).to(torch.int64),
-                         min=p.min_count)
+    # a Python scalar meets an f32 tensor as an f32 operand: the same
+    # product as a 0-dim f32 tensor, without a host-to-device copy
+    thresh = torch.clamp(torch.ceil(nsegs.to(torch.float32) * p.count_frac
+                                    ).to(torch.int64), min=p.min_count)
     start_counts = torch.where(start_counts >= thresh[:, None], start_counts,
                                torch.zeros_like(start_counts))
     # top-M by count with the lowest index first among equal counts (the
@@ -141,16 +142,20 @@ def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
     hit = (torch.gather(sel, 1, j) == flat_ids) & (flat_ids < SENT)
     kid = torch.where(hit, j, torch.full_like(j, -1)).view(B, D, npos)
 
-    row = torch.arange(B, device=dev).view(B, 1, 1).expand(B, D, npos)
-    pos = torch.arange(npos, device=dev).view(1, 1, npos).expand(B, D, npos)
+    # every position adds to a slot of its own window (a miss adds 0, at a
+    # slot spread by its position so the zeros do not pile onto one
+    # address), so no count of the hits crosses to the host and each slot's
+    # integer sum is the masked one
+    row = torch.arange(B, device=dev).view(B, 1, 1)
+    pos = torch.arange(npos, device=dev).view(1, 1, npos)
     m_hit = kid >= 0
-    hb, hk, hp = row[m_hit], kid[m_hit], pos[m_hit]
-
+    kc = torch.where(m_hit, kid, (pos % M).to(kid.dtype)).to(torch.int64)
+    slot = (row * M + kc).reshape(-1)
     src_ok = torch.zeros((B * M,), dtype=torch.int32, device=dev)
-    src_ok.index_add_(0, hb * M + hk, (hp <= p.anchor_slack).to(torch.int32))
-    end_lo = (lens.to(torch.int64) - k - p.end_slack)[:, :, None].expand(B, D, npos)[m_hit]
+    src_ok.index_add_(0, slot, (m_hit & (pos <= p.anchor_slack)).to(torch.int32).reshape(-1))
+    end_lo = (lens.to(torch.int64) - k - p.end_slack)[:, :, None]
     snk_ok = torch.zeros((B * M,), dtype=torch.int32, device=dev)
-    snk_ok.index_add_(0, hb * M + hk, (hp >= end_lo).to(torch.int32))
+    snk_ok.index_add_(0, slot, (m_hit & (pos >= end_lo)).to(torch.int32).reshape(-1))
     src_ok = src_ok.view(B, M) > 0
     snk_ok = snk_ok.view(B, M) > 0
 
@@ -158,10 +163,9 @@ def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
     # every occurrence of the (k+1)-mer u.c has kid[i]==u and kid[i+1]==v,
     # so its count is the number of adjacent (kept, kept) position pairs
     pair = (kid[:, :, :-1] >= 0) & (kid[:, :, 1:] >= 0)
-    pb = row[:, :, :-1][pair]
     support = torch.zeros((B * M * M,), dtype=torch.int32, device=dev)
-    support.index_add_(0, (pb * M + kid[:, :, :-1][pair]) * M + kid[:, :, 1:][pair],
-                       torch.ones_like(pb, dtype=torch.int32))
+    support.index_add_(0, ((row * M + kc[:, :, :-1]) * M + kc[:, :, 1:]).reshape(-1),
+                       pair.to(torch.int32).reshape(-1))
     support = support.view(B, M, M)
     mask_km1 = 4 ** (k - 1) - 1
     compat = (sel[:, :, None] & mask_km1) == (sel[:, None, :] >> 2)
@@ -170,9 +174,8 @@ def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
 
     # ---- position weights --------------------------------------------------
     W = position_weights(kid, ol, M)                        # [B, M, P] f32
-    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
-    adjW = torch.where(adj, torch.zeros((), dtype=torch.float32, device=dev), neg)
-    score0 = torch.where(src_ok & sel_valid, W[:, :, 0], neg)
+    adjW = torch.where(adj, 0.0, NEG).to(torch.float32)
+    score0 = torch.where(src_ok & sel_valid, W[:, :, 0], NEG)
     return dict(sel=sel.to(torch.int32), adjW=adjW, W=W, score0=score0,
                 snk_ok=snk_ok, m_overflow=m_overflow)
 

@@ -33,7 +33,10 @@ in this order:
   batch ships as a page pool and a page table instead of the dense tile.
   A bucket flushes when it holds ``batch_size`` rows, when its pages fill
   one pool, when its oldest row has waited ``bucket_flush_reads`` reads, or
-  at the end of the run;
+  at the end of the run. With ``ladder_mode="split"`` (the two-stream
+  ladder) a batch runs tier 0 alone (Stream A), the rows the fused ladder
+  would rescue pool per bucket, and a pool flushes by the same rules
+  (``rescue_flush_reads``) as a whole-ladder Stream B batch;
 - the in-flight deque: each batch is handed to the ladder dispatcher
   (``kernels/tiers.py LadderDispatcher``) and queued; once ``max_inflight``
   are queued, the oldest half is fetched and scattered to their reads, so
@@ -80,8 +83,10 @@ from ..formats.ingest import scan_with_db
 from ..formats.las import _HDR_SIZE, LasFile, index_las
 from ..kernels import paging
 from ..kernels.tensorize import BatchShape, WindowBatch, pad_batch, tensorize_windows
+from ..kernels import graphs
+from ..kernels.graphs import pick_width
 from ..kernels.tiers import (LadderDispatcher, TierLadder, fetch, fetch_many,
-                             solve_ladder_async, upload_arrays)
+                             rescue_candidates, stream_dispatcher, upload_arrays)
 from ..native.api import ColumnarLas, process_pile_native
 from ..oracle.consensus import ConsensusConfig, estimate_profile_two_pass, stitch_results
 from ..oracle.profile import ErrorProfile
@@ -93,6 +98,7 @@ from ..utils.obs import JsonlLogger, StageProfile, Tracer, WindowLedger
 
 
 INGEST_POLICIES = ("strict", "quarantine", "off")
+LADDER_MODES = ("fused", "split")
 FAILOVER_BACKENDS = ("auto", "native", "cpu")
 
 
@@ -128,6 +134,19 @@ class PipelineConfig:
     paged_families: int = 4      # most shape families the router derives
     bucket_flush_reads: int = 128    # flush a partial bucket once its oldest
                                  # row has waited this many reads
+    ladder_mode: str = "fused"   # "fused": one ladder call solves a batch
+                                 # whole; "split": the two-stream ladder,
+                                 # Stream A calls run tier 0 alone, the rows
+                                 # the fused ladder would rescue (tier-0
+                                 # failures, top-M capped rows with the
+                                 # overflow rescue) pool on the host per
+                                 # bucket and flush as dense whole-ladder
+                                 # Stream B batches. Byte-identical to fused
+                                 # (windows solve independently)
+    rescue_flush_reads: int = 128    # split: flush a partial rescue pool
+                                 # once its oldest row has waited this many
+                                 # reads (bounds the emission lag a pooled
+                                 # window adds)
     dp_route: str = "fused"      # heaviest-path route: "fused" (DP +
                                  # backtrack kernel) or "scan" (DP kernel,
                                  # torch backtrack); bit-identical
@@ -213,6 +232,23 @@ class PipelineStats:
     h2d_bytes: int = 0           # bytes of the arrays handed to the ladder
                                  # (copied host -> device on cuda)
     peak_inflight: int = 0       # most ladder calls queued at once
+    graph_capture_s: float = 0.0  # wall of this run's CUDA graph captures
+                                 # (kernels/graphs.py; 0 on the CPU and on a
+                                 # rerun in the process, whose graphs exist)
+    graphs: int = 0              # graphs this run captured
+    graph_replays: int = 0       # graph replays of this run's ladder calls
+    # two-stream ladder accounting. rescue_slots_executed counts the rescue
+    # slots the ladder ran: fused, the width picked for a batch's rescue
+    # candidates (kernels/graphs.py pick_width; from its final rows, so a
+    # tier-0 failure the wide rescue solved is missed); split, the padded
+    # width of each Stream B batch
+    n_rescue_windows: int = 0    # windows that went through a rescue stage
+    rescue_slots_executed: int = 0
+    n_dispatch_tier0: int = 0    # Stream A ladder calls (split)
+    n_dispatch_rescue: int = 0   # Stream B ladder calls (split)
+    rescue_dispatches: list = field(default_factory=list)  # split: one
+                                 # {rows, slots, reason} per Stream B call
+                                 # (reason: full | lag | final | pressure)
     ingest_s: float = 0.0        # the ingest scan (host)
     profile_s: float = 0.0       # profile pass and paged family sample (host)
     windowing_s: float = 0.0     # wall the pile loop blocked on the
@@ -260,7 +296,9 @@ class PipelineStats:
     audit_worker_start: dict = field(default_factory=dict)  # the slowest
                                  # worker's start walls (boot_s: the
                                  # interpreter, import_s: numpy and its
-                                 # ladder); empty if they never got ready
+                                 # ladder), paid by the process's first
+                                 # audited run; empty if they never got
+                                 # ready
     audit_disabled: str | None = None   # why the audit stopped mid-run
                                  # (``audit.disabled``), else None
     sup_counters: dict = field(default_factory=dict)  # the supervisor's
@@ -272,6 +310,13 @@ class PipelineStats:
     @property
     def pad_waste(self) -> float:
         return 1.0 - self.used_cells / self.pad_cells if self.pad_cells else 0.0
+
+    @property
+    def rescue_density(self) -> float:
+        """Rescue windows per rescue slot the ladder ran (1.0: every slot of
+        the M=256 tier held a real window)."""
+        return (self.n_rescue_windows / self.rescue_slots_executed
+                if self.rescue_slots_executed else 0.0)
 
     def bases_per_sec(self) -> float:
         return self.bases_out / self.wall_s if self.wall_s else 0.0
@@ -728,10 +773,62 @@ def _trim_rescue_ends(pr: _PendingRead, rescue_tiers: set, stats: PipelineStats)
     stats.n_end_trimmed += n
 
 
+class _RowBuffer:
+    """The rows of one bucket waiting for a batch (or for a Stream B batch):
+    blocks of (seqs, lens, nsegs, rid, widx, pages), their count and pages,
+    and the read count when the oldest of them came."""
+
+    __slots__ = ("blocks", "nrows", "npages", "first_seen")
+
+    def __init__(self):
+        self.blocks: list[tuple] = []
+        self.nrows = 0
+        self.npages = 0
+        self.first_seen: int | None = None
+
+    def push(self, cols: tuple, n_reads: int) -> None:
+        self.blocks.append(cols)
+        self.nrows += len(cols[2])
+        self.npages += int(cols[5].sum())
+        if self.first_seen is None:
+            self.first_seen = n_reads
+
+    def pop(self, take: int) -> list[np.ndarray]:
+        """The first ``take`` rows; the rest stay and keep the oldest row's
+        stamp."""
+        cat = [np.concatenate([blk[i] for blk in self.blocks]) for i in range(6)]
+        self.blocks = [tuple(a[take:] for a in cat)] if self.nrows > take else []
+        self.nrows -= take
+        if not self.nrows:
+            self.first_seen = None
+        rows = [a[:take] for a in cat]
+        self.npages -= int(rows[5].sum())
+        return rows
+
+    def fit(self, take: int, cap_pages: int) -> int:
+        """The largest prefix of at most ``take`` rows (never zero) whose
+        pages fit ``cap_pages``."""
+        pages = np.concatenate([blk[5] for blk in self.blocks])[:take]
+        fit = int(np.searchsorted(np.cumsum(pages), cap_pages, side="right"))
+        return max(min(take, fit), 1)
+
+    def full(self, B: int, cap_pages: int | None) -> bool:
+        """A whole batch of rows, or (paged) a whole pool of pages."""
+        return self.nrows >= B or (cap_pages is not None and self.npages >= cap_pages)
+
+    def stale(self, n_reads: int, limit: int) -> bool:
+        return self.first_seen is not None and n_reads - self.first_seen >= limit
+
+
 def _check_config(cfg: PipelineConfig) -> None:
     if cfg.feeder_threads < 0 or (cfg.feeder_threads and not cfg.use_native):
         raise ValueError(f"feeder_threads={cfg.feeder_threads}: threads window "
                          "piles through the host library (use_native), 0 in the loop")
+    if cfg.ladder_mode not in LADDER_MODES:
+        raise ValueError(f"ladder_mode={cfg.ladder_mode!r}: expected "
+                         + "|".join(LADDER_MODES))
+    if cfg.rescue_flush_reads < 1:
+        raise ValueError(f"rescue_flush_reads={cfg.rescue_flush_reads}: at least 1")
     if cfg.ingest_policy not in INGEST_POLICIES:
         raise ValueError(f"ingest_policy={cfg.ingest_policy!r}: expected "
                          + "|".join(INGEST_POLICIES))
@@ -815,16 +912,21 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
     plan = FaultPlan.from_env()
     gov_cfg = GovernorConfig.from_env()
     worker = None
+    g0 = (graphs.CACHE.capture_s, graphs.CACHE.captures, graphs.CACHE.replays)
     try:
         worker = _start_audit_worker(cfg, dev, ev_log, stats)
+        w0 = worker.worker_s if worker is not None else 0.0
         yield from _correct_range(db, las, cfg, start, end, profile, dev, paged_on,
                                   stats, prof, t_start, log, ev_log, tracer, ledger,
                                   plan, gov_cfg, check_host_pressure, worker)
     finally:
         if worker is not None:
-            stats.audit_worker_s = worker.worker_s
+            stats.audit_worker_s = worker.worker_s - w0
             stats.audit_worker_start = dict(worker.startup)
-            worker.close()
+            worker.forget()
+        stats.graph_capture_s = graphs.CACHE.capture_s - g0[0]
+        stats.graphs = graphs.CACHE.captures - g0[1]
+        stats.graph_replays = graphs.CACHE.replays - g0[2]
         tracer.unwind()
         if ledger is not None:
             ledger.close()
@@ -834,10 +936,11 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
 
 
 def _start_audit_worker(cfg: PipelineConfig, dev, ev_log, stats: PipelineStats):
-    """The audit worker of a supervised, audited run (started first, so its
-    imports overlap the ingest scan, the profile and the windowing), or
-    None. A worker that cannot start logs ``audit.disabled``; the run goes
-    on without the audit."""
+    """The audit workers of a supervised, audited run, or None. They are
+    the process's (``audit.worker.shared``): the first such run starts them
+    first, so their imports overlap its ingest scan, profile and windowing,
+    and later runs reuse them. Workers that cannot start log
+    ``audit.disabled``; the run goes on without the audit."""
     from ..utils.obs import env_float
 
     rate = cfg.audit_rate if cfg.audit_rate is not None else env_float(
@@ -845,10 +948,10 @@ def _start_audit_worker(cfg: PipelineConfig, dev, ev_log, stats: PipelineStats):
     use = cfg.audit_worker if cfg.audit_worker is not None else dev.type == "cuda"
     if not (cfg.supervise and rate > 0.0 and use):
         return None
-    from ..audit.worker import AuditWorker
+    from ..audit.worker import shared
 
     try:
-        return AuditWorker()
+        return shared()
     except Exception as e:
         ev_log.log("audit.disabled", error=str(e)[:200])
         stats.audit_disabled = str(e)[:200]
@@ -910,10 +1013,14 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         buckets = dense_buckets(cfg)
         shapes = [BatchShape(depth=d, seg_len=ln, wlen=w) for d, ln in buckets]
         labels = [f"D{d}xL{ln}" for d, ln in buckets]
+        cap_pages = [None] * len(buckets)
     nb = len(shapes)
+    split = cfg.ladder_mode == "split"
 
     dispatcher = LadderDispatcher(dev, tracer) if cfg.max_inflight > 1 else None
-    dispatch_fn = lambda b: solve_ladder_async(b, ladder, dispatcher, tracer)   # noqa: E731
+    # a batch's stream tag picks its program: Stream A (tier 0 alone) or
+    # the whole ladder (fused batches and Stream B's)
+    dispatch_fn = stream_dispatcher(ladder, dispatcher, tracer)
     fetch_fn, fetch_many_fn = fetch, fetch_many
     sup = None
     if cfg.supervise:
@@ -935,6 +1042,8 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
             worker.build(cpu_ladder().spec())
 
         def fallback_factory():
+            # the card is lost: its graphs cannot run on a poisoned context
+            graphs.CACHE.clear()
             kind = cfg.failover_backend
             if kind == "auto":
                 kind = "cpu" if dev.type == "cpu" else "native"
@@ -960,13 +1069,12 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
     pending: dict[int, _PendingRead] = {}
     order: list[int] = []
     ready: dict[int, list[np.ndarray]] = {}
-    # per-bucket row buffers: blocks of (seqs, lens, nsegs, rid, widx, pages)
-    blocks_of: list[list[tuple]] = [[] for _ in range(nb)]
-    nrows = [0] * nb
-    npages = [0] * nb
-    first_seen: list[int | None] = [None] * nb   # n_reads at the oldest row
-    # (handle, rid, widx, take, nsegs, dispatch time) of each ladder call in
-    # flight, oldest first
+    # per-bucket row buffers: the windows waiting for a batch, and (split)
+    # the rescue pools, Stream B's input
+    bufs = [_RowBuffer() for _ in range(nb)]
+    pools = [_RowBuffer() for _ in range(nb)]
+    # (handle, rid, widx, take, nsegs, dispatch time, bucket, stream, seqs,
+    # lens) of each ladder call in flight, oldest first
     inflight: deque = deque()
     qfh = None
 
@@ -976,33 +1084,15 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         ready[r] = stitch_results(pr.results(w, adv), cfg.consensus)
         del pending[r]
 
-    def push(bi: int, cols: tuple) -> None:
-        blocks_of[bi].append(cols)
-        nrows[bi] += len(cols[2])
-        npages[bi] += int(cols[5].sum())
-        if first_seen[bi] is None:
-            first_seen[bi] = stats.n_reads
+    def take_rows(buf: "_RowBuffer", bi: int) -> int:
+        """The rows of ``buf``'s next batch: at most B, and on a paged run
+        the largest prefix (never zero rows) whose pages fit one pool, the
+        guarantee behind pack_paged's budget check."""
+        take = min(B, buf.nrows)
+        return buf.fit(take, cap_pages[bi]) if paged_on else take
 
-    def pop_rows(bi: int, take: int) -> list[np.ndarray]:
-        """Bucket ``bi``'s first ``take`` rows; the rest stay buffered and
-        keep the oldest row's stamp."""
-        cat = [np.concatenate([blk[i] for blk in blocks_of[bi]]) for i in range(6)]
-        blocks_of[bi] = [tuple(a[take:] for a in cat)] if nrows[bi] > take else []
-        nrows[bi] -= take
-        if not nrows[bi]:
-            first_seen[bi] = None
-        rows = [a[:take] for a in cat]
-        npages[bi] -= int(rows[5].sum())
-        return rows
-
-    def paged_take(bi: int, take: int) -> int:
-        """The largest prefix of bucket ``bi`` (never zero rows) whose pages
-        fit one pool: the guarantee behind pack_paged's budget check."""
-        pages = np.concatenate([blk[5] for blk in blocks_of[bi]])[:take]
-        fit = int(np.searchsorted(np.cumsum(pages), cap_pages[bi], side="right"))
-        return max(min(take, fit), 1)
-
-    def scatter(out: dict, rid, widx, take: int, nsegs_b, wall: float) -> None:
+    def scatter(out: dict, rid, widx, take: int, nsegs_b, wall: float,
+                stream: str = "full") -> None:
         """One fetched batch's rows into their pending reads, as array ops
         over each read's run of rows (a read's rows are contiguous in a
         batch: they are pushed together)."""
@@ -1033,8 +1123,8 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
             for i in range(take):
                 t = int(tier[i])
                 ledger.record(int(rid[i]), int(widx[i]), w, int(nsegs_b[i]), t,
-                              tier_ks[t] if t >= 0 else -1, bool(solved[i]), "full",
-                              rescued=t >= 1, wall_s=wall)
+                              tier_ks[t] if t >= 0 else -1, bool(solved[i]), stream,
+                              rescued=stream == "rescue" or t >= 1, wall_s=wall)
 
     def drain(to_depth: int, audited_only: bool = False) -> None:
         """Fetch the oldest calls until ``to_depth`` stay in flight, and
@@ -1051,16 +1141,50 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         outs = fetch_many_fn([e[0] for e in entries])
         stats.device_s += time.perf_counter() - t0
         now = time.perf_counter()
-        for (h, rid, widx, take, nsegs_b, t_d), out in zip(entries, outs):
+        for (h, rid, widx, take, nsegs_b, t_d, bi, stream, seqs, lens), out in zip(
+                entries, outs):
             stats.solve_s += getattr(getattr(h, "inner", h), "solve_s", 0.0)
             stats.solve_cpu_s += getattr(getattr(h, "inner", h), "cpu_s", 0.0)
-            scatter(out, rid, widx, take, nsegs_b, now - t_d)
-            log.log("batch", windows=int(take), solved=int(np.sum(out["solved"][:take])))
+            out = {k: v[:take] if np.ndim(v) else v for k, v in out.items()}
+            if stream == "tier0":
+                # the rows the fused ladder would rescue pool for Stream B
+                # and scatter once, when their Stream B rows land; a Stream
+                # A batch a failover solved whole pools them too (the same
+                # bytes come back)
+                need = rescue_candidates(out, nsegs_b, ladder)
+                if need.any():
+                    sel = np.nonzero(need)[0]
+                    pgs = (paging.window_pages(lens[sel], cfg.page_len) if paged_on
+                           else np.zeros(len(sel), np.int64))
+                    pools[bi].push((seqs[sel], lens[sel], nsegs_b[sel], rid[sel],
+                                    widx[sel], pgs), stats.n_reads)
+                    keep = np.nonzero(~need)[0]
+                    out = {k: v[keep] if np.ndim(v) else v for k, v in out.items()}
+                    rid, widx, nsegs_b = rid[keep], widx[keep], nsegs_b[keep]
+                    take = len(keep)
+            elif stream == "full":
+                # the fused ladder's rescue demand, from its final rows
+                # (escalation-solved, still failed at depth, and top-M
+                # capped with the overflow rescue on; a tier-0 failure the
+                # wide rescue solved is missed) and the width it ran at
+                deep = nsegs_b >= min_depth
+                need_f = (out["tier"] >= 1) | (~out["solved"] & deep)
+                if ladder.wide_p0 is not None:
+                    need_f |= out["m_ovf"] & deep
+                n_need = int(need_f.sum())
+                if n_need:
+                    stats.n_rescue_windows += n_need
+                    stats.rescue_slots_executed += pick_width(n_need, B)
+            n_s = int(np.sum(out["solved"]))
+            if take:
+                scatter(out, rid, widx, take, nsegs_b, now - t_d, stream)
+            log.log("batch", windows=int(take), solved=n_s, stream=stream,
+                    pool=sum(pb.nrows for pb in pools))
 
-    def submit_batch(bi: int, take: int) -> None:
-        seqs, lens, nsg, rid, widx, _ = pop_rows(bi, take)
+    def submit_batch(buf: "_RowBuffer", bi: int, take: int, stream: str) -> None:
+        seqs, lens, nsg, rid, widx, _ = buf.pop(take)
         batch = WindowBatch(seqs=seqs, lens=lens, nsegs=nsg, shape=shapes[bi],
-                            read_ids=rid, wstarts=widx * adv)
+                            read_ids=rid, wstarts=widx * adv, stream=stream)
         if paged_on:
             batch = paging.pack_paged(batch, families[bi], target_rows=B)
             stats.pad_cells += int(batch.pool.size)
@@ -1074,28 +1198,56 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         stats.ladder_s += time.perf_counter() - t0
         stats.n_batches += 1
         stats.batches_by_bucket[labels[bi]] = stats.batches_by_bucket.get(labels[bi], 0) + 1
-        inflight.append((handle, rid, widx, take, nsg, time.perf_counter()))
+        inflight.append((handle, rid, widx, take, nsg, time.perf_counter(), bi, stream,
+                         seqs, lens))
         stats.peak_inflight = max(stats.peak_inflight, len(inflight))
         if len(inflight) >= cfg.max_inflight:
             drain(cfg.max_inflight // 2,
                   audited_only=len(inflight) < AUDIT_LAG * cfg.max_inflight)
 
+    def flush_rescues(final: bool, pressure: bool = False) -> None:
+        """Stream B: each bucket's rescue pool as dense whole-ladder
+        batches, when it holds a full batch (or a full pool of pages), when
+        its oldest row has waited ``rescue_flush_reads`` reads (which bounds
+        the emission lag a pooled window adds), at the end, or under host
+        memory pressure."""
+        if not split:
+            return
+        for bi, buf in enumerate(pools):
+            stale = buf.stale(stats.n_reads, cfg.rescue_flush_reads)
+            while buf.nrows and (buf.full(B, cap_pages[bi])
+                                 or final or stale or pressure):
+                reason = ("full" if buf.full(B, cap_pages[bi])
+                          else "pressure" if pressure else "final" if final else "lag")
+                stale = False
+                take = take_rows(buf, bi)
+                stats.n_dispatch_rescue += 1
+                stats.n_rescue_windows += take
+                stats.rescue_slots_executed += B
+                stats.rescue_dispatches.append({"rows": take, "slots": B,
+                                                "reason": reason})
+                ev_log.log("ladder.flush", rows=take, slots=B, reason=reason, bucket=bi)
+                submit_batch(buf, bi, take, "rescue")
+
     def run_batches(final: bool) -> None:
-        for bi in range(nb):
+        for bi, buf in enumerate(bufs):
             # a partial flush once the bucket's oldest row has waited too
             # long bounds the in-order emission lag under bucket skew
-            stale = (first_seen[bi] is not None
-                     and stats.n_reads - first_seen[bi] >= cfg.bucket_flush_reads)
-            while (nrows[bi] >= B
-                   or (paged_on and npages[bi] >= cap_pages[bi])
-                   or ((final or stale) and nrows[bi] > 0)):
+            stale = buf.stale(stats.n_reads, cfg.bucket_flush_reads)
+            while buf.nrows and (buf.full(B, cap_pages[bi])
+                                 or final or stale):
                 stale = False
-                take = min(B, nrows[bi])
-                if paged_on:
-                    take = paged_take(bi, take)
-                submit_batch(bi, take)
+                if split:
+                    stats.n_dispatch_tier0 += 1
+                submit_batch(buf, bi, take_rows(buf, bi), "tier0" if split else "full")
+        flush_rescues(final)
         if final:
             drain(0)
+            # the last Stream A rows pool fresh rescue rows; Stream B rows
+            # never pool, so one more round empties the pools
+            while any(pb.nrows for pb in pools):
+                flush_rescues(True)
+                drain(0)
 
     emit_idx = 0
 
@@ -1165,10 +1317,13 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                 ev_log.log("governor.backpressure", level=level, rss_mb=round(rss_mb, 1),
                            injected=injected, pool=0, inflight=len(inflight))
                 run_batches(final=False)
-                for bi in range(nb):
-                    while nrows[bi]:
-                        take = min(B, nrows[bi])
-                        submit_batch(bi, paged_take(bi, take) if paged_on else take)
+                for bi, buf in enumerate(bufs):
+                    while buf.nrows:
+                        if split:
+                            stats.n_dispatch_tier0 += 1
+                        submit_batch(buf, bi, take_rows(buf, bi),
+                                     "tier0" if split else "full")
+                flush_rescues(False, pressure=True)
                 if level == "hard":
                     drain(0)
                 yield from emit_ready()
@@ -1234,8 +1389,9 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                         sel = np.nonzero(assign == bi)[0]
                         if len(sel):
                             Db, Lb = shapes[bi].depth, shapes[bi].seg_len
-                            push(bi, (seqs[sel, :Db, :Lb], lens[sel, :Db], nsegs[sel],
-                                      rid[sel], widx[sel], pgs[sel]))
+                            bufs[bi].push((seqs[sel, :Db, :Lb], lens[sel, :Db],
+                                              nsegs[sel], rid[sel], widx[sel], pgs[sel]),
+                                             stats.n_reads)
             run_batches(final=False)
             yield from emit_ready()
         run_batches(final=True)

@@ -45,6 +45,12 @@ supervisor classifies it there.
 port's plain ladder on the CPU, byte-exact with the card, or the host
 library's native ladder) and re-solves every batch in flight on it; handles
 retain their batch for that replay, so no window is dropped or duplicated.
+Under the two-stream ladder (``--ladder split``) both streams' batches
+replay so: a Stream B batch to its own result (the engine is a whole
+ladder), a Stream A batch to whole-ladder rows, which compose byte for
+byte, since the pipeline's pool rule (``kernels.tiers.rescue_candidates``)
+solves every window it pools again to the same bytes and the others are
+final.
 With ``failback`` a background re-probe can route new dispatches back to a
 revived card.
 
@@ -252,19 +258,26 @@ class _SupHandle:
 def shape_key(batch, fp_prefix: str) -> str:
     """The shape identity of a batch: the cold-shape registry and the
     governor's ratchet key (``cuda:B2048xD32xL64``; paged batches add the
-    table, page and pool dims and ``:pg``)."""
+    table, page and pool dims and ``:pg``). A Stream A batch of the
+    two-stream ladder (``stream == "tier0"``) runs another program at the
+    same shape (tier 0 alone, its own graph) and adds ``:t0``; Stream B's
+    rescue batches run the whole ladder and share the fused key."""
+    t0 = ":t0" if getattr(batch, "stream", "full") == "tier0" else ""
     if getattr(batch, "pool", None) is not None:
         b, ppw = batch.table.shape
-        key = (f"{fp_prefix}B{b}xD{batch.lens.shape[1]}"
-               f"xL{batch.shape.seg_len}"
-               f"xP{ppw}x{batch.family.page_len}"
-               f"xN{batch.pool.shape[0]}:pg")
-        return key
+        return (f"{fp_prefix}B{b}xD{batch.lens.shape[1]}"
+                f"xL{batch.shape.seg_len}"
+                f"xP{ppw}x{batch.family.page_len}"
+                f"xN{batch.pool.shape[0]}:pg{t0}")
     seqs = getattr(batch, "seqs", None)
     if seqs is None:
         return fp_prefix + "opaque"
     b, d, l = seqs.shape
-    return f"{fp_prefix}B{b}xD{d}xL{l}"
+    return f"{fp_prefix}B{b}xD{d}xL{l}{t0}"
+
+
+def _is_tier0(batch) -> bool:
+    return getattr(batch, "stream", "full") == "tier0"
 
 
 class DeviceSupervisor:
@@ -800,12 +813,17 @@ class DeviceSupervisor:
             wstarts=batch.wstarts[idx])
 
     @staticmethod
-    def _rows_equal(dev: dict, ref: dict, i: int, j: int) -> bool:
+    def _rows_equal(dev: dict, ref: dict, i: int, j: int, tier0: bool = False):
         """Byte comparison of device row ``i`` against reference row ``j``:
         solved, and the consensus bytes of a solved row (err and tier never
-        reach the FASTA)."""
+        reach the FASTA). None skips a row the comparison cannot judge: on a
+        Stream A batch (``tier0``) only the rows the device calls final
+        (solved, no top-M flag) are compared, since the others pool for
+        Stream B, where they are audited with the whole ladder."""
         import numpy as np
 
+        if tier0 and (not bool(dev["solved"][i]) or bool(dev["m_ovf"][i])):
+            return None
         if bool(dev["solved"][i]) != bool(ref["solved"][j]):
             return False
         if not bool(dev["solved"][i]):
@@ -825,7 +843,8 @@ class DeviceSupervisor:
         t0 = time.time()
         rows = self._audit_sample(B)
         self._n_audit += 1
-        h.audit = (rows, self._worker.submit(self._take_rows(h.batch, rows)))
+        h.audit = (rows, self._worker.submit(self._take_rows(h.batch, rows),
+                                             tier0_only=_is_tier0(h.batch)))
         self.audit_s += time.time() - t0
 
     def audit_pending(self, h) -> bool:
@@ -859,8 +878,9 @@ class DeviceSupervisor:
             self._audit_off(e)
             return out
         self.counters["audits"] += 1
+        tier0 = _is_tier0(h.batch)
         divergent = [i for j, i in enumerate(rows)
-                     if not self._rows_equal(out, ref, i, j)]
+                     if self._rows_equal(out, ref, i, j, tier0) is False]
         if divergent:
             out = self._audit_diverged(h, out, rows, divergent)
         self.audit_s += time.time() - t0
@@ -869,7 +889,9 @@ class DeviceSupervisor:
     def _audit_diverged(self, h, out: dict, rows: list, divergent: list):
         """``sup_sdc``, the whole batch re-solved on the in-process
         reference (synchronous: rare, and the caller must not see the
-        corrupt rows), and a trust strike."""
+        corrupt rows), and a trust strike. A Stream A batch re-solves to
+        whole-ladder rows, which the pipeline's pool rule composes byte for
+        byte, as it does a failover's."""
         import numpy as np
 
         B = int(np.asarray(out["cons"]).shape[0])
@@ -913,8 +935,9 @@ class DeviceSupervisor:
         t0 = time.time()
         with self.tracer.span("audit", rows=len(rows)):
             ref = eng(sample)
+        tier0 = _is_tier0(h.batch)
         divergent = [i for j, i in enumerate(rows)
-                     if not self._rows_equal(out, ref, i, j)]
+                     if self._rows_equal(out, ref, i, j, tier0) is False]
         if divergent:
             out = self._audit_diverged(h, out, rows, divergent)
         self.audit_s += time.time() - t0

@@ -8,7 +8,8 @@
         [--max-pile-overlaps N] [--stats PATH] [-b BATCH] [-t THREADS]
         [--no-native] [--qv-track NAME] [--device cuda|cpu]
         [--paged on|off|auto] [--page-len N] [--dp fused|scan]
-        [--max-inflight N] [--depth-buckets LIST] [--no-supervise]
+        [--ladder fused|split] [--max-inflight N] [--depth-buckets LIST]
+        [--no-supervise]
         [--failover-backend auto|native|cpu] [--failback] [--audit-rate F]
         [--events PATH] [--log PATH] [--ledger PATH] [--native-threads N]
 
@@ -24,7 +25,10 @@ first: ``strict`` exits non-zero with each issue's kind, byte offset and
 pile; ``quarantine`` emits each corrupt pile's read uncorrected and records
 it in the sidecar (``--quarantine``, default ``OUT.quarantine.jsonl``);
 ``off`` trusts the input. A pile of more than ``--max-pile-overlaps``
-overlaps is contained the same way.
+overlaps is contained the same way. ``--ladder split`` runs the JAX
+package's two-stream ladder: tier-0 batches (Stream A), their failures and
+top-M capped rows pooled on the host and solved again in dense whole-ladder
+batches (Stream B); the FASTA is byte-identical to ``--ladder fused``.
 
 Port-only flags: ``--device``; ``--paged`` ships batches as a page pool and
 page table (``kernels/paging.py``) instead of the dense tile, ``--dp`` picks
@@ -70,7 +74,8 @@ USAGE = ("usage: python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT "
          "[--max-pile-overlaps N] [--stats PATH] [-b BATCH] [-t THREADS] "
          "[--no-native] [--qv-track NAME] [--device cuda|cpu] "
          "[--paged on|off|auto] [--page-len N] [--dp fused|scan] "
-         "[--max-inflight N] [--depth-buckets LIST] [--no-supervise] "
+         "[--ladder fused|split] [--max-inflight N] [--depth-buckets LIST] "
+         "[--no-supervise] "
          "[--failover-backend auto|native|cpu] [--failback] [--audit-rate F] "
          "[--events PATH] [--log PATH] [--ledger PATH] [--native-threads N]")
 
@@ -155,6 +160,13 @@ def _parser() -> argparse.ArgumentParser:
                    help="heaviest-path route: 'fused' (DP + backtrack in one "
                         "kernel) or 'scan' (DP kernel writing the score and "
                         "pointer stacks, backtrack in torch); bit-identical")
+    p.add_argument("--ladder", choices=("fused", "split"), default=defaults.ladder_mode,
+                   help="'fused' solves each batch with the whole ladder in "
+                        "one call; 'split' is the two-stream ladder: tier-0 "
+                        "batches (Stream A), the windows they leave for a "
+                        "rescue pooled on the host and solved in dense "
+                        "whole-ladder batches (Stream B); byte-identical "
+                        "FASTA")
     p.add_argument("--max-inflight", type=int, default=defaults.max_inflight,
                    metavar="N",
                    help="ladder calls in flight on the dispatcher thread; "
@@ -314,6 +326,7 @@ def daccord_run(argv=None):
                          device=args.device, max_inflight=args.max_inflight,
                          depth_buckets=buckets, paged=args.paged,
                          page_len=args.page_len, dp_route=args.dp,
+                         ladder_mode=args.ladder,
                          use_native=not args.no_native,
                          feeder_threads=args.threads,
                          qv_track=args.qv_track or None,
@@ -368,7 +381,14 @@ def stats_record(stats, args) -> dict:
         "solve_s": round(stats.solve_s, 3),
         "wall_s": round(stats.wall_s, 3), "stages": stats.stage_profile,
         "paged": stats.paged, "pad_waste": round(stats.pad_waste, 4),
-        "h2d_bytes": stats.h2d_bytes, "dp": args.dp,
+        "h2d_bytes": stats.h2d_bytes, "dp": args.dp, "ladder": args.ladder,
+        "rescue_windows": stats.n_rescue_windows,
+        "rescue_slots": stats.rescue_slots_executed,
+        "rescue_density": round(stats.rescue_density, 4),
+        "dispatch_tier0": stats.n_dispatch_tier0,
+        "dispatch_rescue": stats.n_dispatch_rescue,
+        "graph_capture_s": round(stats.graph_capture_s, 3), "graphs": stats.graphs,
+        "graph_replays": stats.graph_replays,
         "max_inflight": args.max_inflight, "peak_inflight": stats.peak_inflight,
         "native_host": stats.native_host, "threads": args.threads,
         "qv_ranked": stats.qv_ranked, "device": args.device,

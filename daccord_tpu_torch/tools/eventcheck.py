@@ -103,6 +103,10 @@ EVENT_FIELDS: dict[str, dict] = {
     # full | lag | final | pressure — the last is a host-watermark
     # force-flush)
     "ladder.flush": {"rows": int, "slots": int, "reason": str},
+    # CUDA graphs of the ladder's stages (kernels/graphs.py): one row per
+    # capture (stage = tier0 | ('wide', EW) | ('esc', E), key = the batch
+    # shape, wall_s = the capture's wall, not the warm-up solve's)
+    "graph.capture": {"stage": str, "key": str, "wall_s": _NUM},
     # staged dispatch pipeline: dispatch.pipeline announces the
     # double buffer once per run; dispatch.stage is one row per staged batch
     # (host pad/pack + per-device shard-transfer sub-walls, measured on the

@@ -17,8 +17,9 @@ such as ``--max-inflight 1``); ``--ab-args`` adds flags to both, and
 both runs (how long a thread waits before it forces the GIL from another).
 Prints the card's name and power limit, one JSON line per turn (wall,
 windows/s, host windowing, ladder dispatch and, where the checkout has
-them, the ingest scan, the wall blocked in fetch, the ladder calls' own wall and
-the shadow audit's walls) and whether every turn's FASTA equals the
+them, the ingest scan, the wall blocked in fetch, the ladder calls' own wall
+and their thread's CPU time, the shadow audit's walls and the CUDA graph
+captures' wall and count) and whether every turn's FASTA equals the
 first's.
 """
 
@@ -53,6 +54,8 @@ print("STATS " + json.dumps(dict(
     audit_s=getattr(stats, "audit_s", None),
     audit_worker_s=getattr(stats, "audit_worker_s", None),
     audit_warm_s=getattr(stats, "audit_warm_s", None),
+    graph_capture_s=getattr(stats, "graph_capture_s", None),
+    graphs=getattr(stats, "graphs", None),
     else_s=stats.wall_s - (getattr(stats, "ingest_s", 0.0) or 0.0) - stats.windowing_s
     - stats.ladder_s - (getattr(stats, "device_s", 0.0) or 0.0) - stats.profile_s)))
 """

@@ -102,12 +102,12 @@ def test_killed_worker_disables_the_audit_and_the_run_completes(base, monkeypatc
     real = audit_worker.AuditWorker.submit
     calls = []
 
-    def submit(self, sample):
+    def submit(self, sample, *args, **kw):
         calls.append(1)
         if len(calls) == 3:
             self._procs[0].kill()
             self._procs[0].wait()
-        return real(self, sample)
+        return real(self, sample, *args, **kw)
 
     monkeypatch.setattr(audit_worker.AuditWorker, "submit", submit)
     port = run(base, "port", "worker_killed", None, audit_rate=0.25, audit_worker=True)

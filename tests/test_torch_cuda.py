@@ -408,8 +408,11 @@ def test_dispatcher_stream_matches_sync_run(cuda, tmp_path):
     texts = []
     for mi in (1, 8):
         out = str(tmp_path / f"inflight{mi}.fasta")
+        # audit off: with it, calls whose audit rows lag stay queued past
+        # max_inflight (up to pipeline.AUDIT_LAG times), which the ladder's
+        # graphs make the common case
         st = correct_to_fasta(d["db"], d["las"], out,
-                              PipelineConfig(batch_size=64, max_inflight=mi))
+                              PipelineConfig(batch_size=64, max_inflight=mi, audit_rate=0))
         assert st.peak_inflight == mi and st.n_solved > 0
         with open(out) as fh:
             texts.append(fh.read())
@@ -418,7 +421,7 @@ def test_dispatcher_stream_matches_sync_run(cuda, tmp_path):
     class Boom(RuntimeError):
         pass
 
-    def boom(batch, ladder):
+    def boom(batch, ladder, *args):
         raise Boom("ladder call failed")
 
     lad = tiers.TierLadder.from_numpy({8: np.zeros((37, 56), np.float32)},

@@ -135,7 +135,7 @@ def test_dispatcher_error_reraises_from_fetch(base, monkeypatch):
     class Boom(RuntimeError):
         pass
 
-    def boom(batch, ladder):
+    def boom(batch, ladder, *args):
         raise Boom("ladder call failed")
 
     monkeypatch.setattr(tiers, "_ladder_packed", boom)
