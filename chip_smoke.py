@@ -65,6 +65,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    one below the deepest pile contains the deepest piles only; ``-J 0,3``,
    ``-J 1,3`` and ``-J 2,3`` concatenate to the unsharded FASTA, byte for
    byte;
+4c. hp phase, each run with the counts set to 0 before it: on a 100 kb /
+   30x set of 5 kb reads damaged by homopolymer indels (``hp_indel_slope``
+   1.0, seed 44, ~300k windows; one profile estimated as an hp run does),
+   dense fused ``-t N`` without the rescue, with ``--hp-rescue`` (median
+   vote, rescore accept) and with ``--hp-rescue --hp-vote posterior
+   --hp-accept likelihood``: each prints its wall, windows/s,
+   ``n_hp_rescued``, ``hp_wall_s`` and its share of the wall, ``audit_s``
+   and the corrected and raw error, and both rescue runs must rescue
+   windows and beat the run without; on a 20 kb hp set of the same slope
+   ``--paged on --dp scan -t N --hp-rescue`` must launch ``gather_pages``
+   and ``heaviest_path``, and ``--backend native`` (the default hp rescue
+   and an explicit ``--hp-rescue``, the same FASTA) must stay within 0.5%
+   of its solved windows and corrected bases and within 2e-3 of its error;
+   ``--mode patch`` on the clean 20 kb set keeps the read's bases over
+   every run of unsolved windows (read off ``--ledger``; from the run's
+   first start to one advance past its last, which no later patch takes
+   back), writes fewer records than split mode, and is scored;
+   every main-path run and warm rerun of phase 4 also prints the shadow
+   audit's tail (the final drain's audit wall, each worker's backlog and
+   running call when the final flush began, the last parts' send-to-
+   solved seconds) and the warm 20 kb dense rerun's audit share against
+   the JAX package's 2%;
 5. kernel phase, on inputs made from real windows of the dataset (topped up
    from a seeded generator if there were fewer than B), each kernel held
    bit-equal to its plain torch version on the card and timed (its device
@@ -1040,6 +1062,165 @@ def slice_checks(d: dict, eprof: str, dense: tuple, counters, tmp: str) -> None:
     log("-J 0,3 + -J 1,3 + -J 2,3 concatenated == the unsharded FASTA, byte for byte")
 
 
+def audit_tail_text(stats) -> str:
+    """The audit's tail: the wait at the final drain, each worker's backlog
+    when the final flush began and the call it was running then, and each
+    later part's send-to-solved seconds (``PipelineStats.audit_tail``)."""
+    t = stats.audit_tail
+    if not t:
+        return "no audit workers"
+    parts = t["tail_parts"]
+    backs = [p["back_s"] for p in parts if p["back_s"] is not None]
+    return (f"final drain audit_drain_s {stats.audit_drain_s:.4f} s "
+            f"({stats.audit_drain_s / stats.wall_s:.4f} of the wall); at the final flush "
+            f"each worker's queued windows {t['queued_windows']}, running calls "
+            f"{t['running']}; {len(parts)} parts sent since ({sum(p['windows'] for p in parts)} "
+            f"windows), send to solved {min(backs, default=0):.4f}-"
+            f"{max(backs, default=0):.4f} s")
+
+
+def hp_phase(d: dict, eprof: str, split_out: str, counters, tmp: str,
+             nthreads: int) -> None:
+    """Phase 4c: the homopolymer rescue (``oracle/hp.py``; the host library's
+    ``hp_rescue_windows`` over each fetched batch), the native primary and
+    patch mode, each a ``daccord`` run with the counts set to 0 before it
+    (``split_out``: the 20 kb dense fused run's FASTA)."""
+    from daccord_tpu_torch.formats.dazzdb import read_db
+    from daccord_tpu_torch.formats.las import LasFile
+    from daccord_tpu_torch.oracle.consensus import ConsensusConfig
+    from daccord_tpu_torch.oracle.hp import HP_TIER
+    from daccord_tpu_torch.runtime.pipeline import PipelineConfig, estimate_profile_for_shard
+    from daccord_tpu_torch.sim import SimConfig, make_dataset, score_vs_truth
+
+    def hp_set(spec: dict, name: str):
+        t0 = time.perf_counter()
+        ds = make_dataset(tmp, SimConfig(**spec), name=name)
+        ep = os.path.join(tmp, f"{name}_eprof.json")
+        # one profile for every run of the set, estimated as an hp run does
+        prof = estimate_profile_for_shard(
+            read_db(ds["db"]), LasFile(ds["las"]),
+            PipelineConfig(device=DEVICE, consensus=ConsensusConfig(hp_rescue=True)))
+        prof.save(ep)
+        log(f"hp dataset {spec}: made, profile estimated in "
+            f"{time.perf_counter() - t0:.1f} s -> {prof}")
+        return ds, ep
+
+    def run(tag: str, ds: dict, ep: str, *extra: str, on_card: bool = True):
+        out = os.path.join(tmp, f"hp_{tag.replace(' ', '_')}.fasta")
+        stats, launched = daccord([ds["db"], ds["las"], "-o", out, "-E", ep, "-b", str(B),
+                                   *extra], counters, on_card=on_card)
+        err, raw = score_vs_truth(out, ds["truth"], read_db(ds["db"]))
+        w = stats.wall_s
+        log(f"hp {tag} ({' '.join(extra)}): windows {stats.n_windows}, solved "
+            f"{stats.n_solved}; wall {w:.3f} s, {stats.windows_per_sec():.1f} windows/s; "
+            f"n_hp_rescued {stats.n_hp_rescued} (tier {HP_TIER}: "
+            f"{stats.tier_histogram.get(HP_TIER, 0)}), hp_wall_s {stats.hp_wall_s:.3f} s "
+            f"({stats.hp_wall_s / w:.4f} of the wall); audit_s {stats.audit_s:.4f} s "
+            f"({stats.audit_s / w:.4f}); corrected error {err:.6f} "
+            f"(Q{-10 * math.log10(max(err, 1e-9)):.2f}), raw {raw:.6f}; launches "
+            f"{ {k: v[0] for k, v in launched.items()} }")
+        return out, stats, launched, err, raw
+
+    big = dict(BIG_DATASET, seed=44, hp_indel_slope=1.0)
+    ds, ep = hp_set(big, "hpbig")
+    dense = ["--device", DEVICE, "--paged", "off", "--dp", "fused", "-t", str(nthreads)]
+    _, off, l_off, e_off, raw = run("100 kb off", ds, ep, *dense, "--no-hp-rescue")
+    if off.n_hp_rescued:
+        raise AssertionError("--no-hp-rescue rescued windows")
+    for tag, extra in (("100 kb median", ("--hp-rescue",)),
+                       ("100 kb posterior", ("--hp-rescue", "--hp-vote", "posterior",
+                                             "--hp-accept", "likelihood"))):
+        _, st, launched, err, _ = run(tag, ds, ep, *dense, *extra)
+        if not (st.n_hp_rescued > 0 and err < e_off):
+            raise AssertionError(f"hp {tag}: rescued {st.n_hp_rescued} windows, error "
+                                 f"{err:.6f} against {e_off:.6f} without the rescue")
+        for name in ("dp_backtrack", "rescore", "position_weights"):
+            if launched[name][0] <= 0:
+                raise AssertionError(f"hp {tag} never launched {name}")
+
+    small = dict(DATASET, hp_indel_slope=1.0)
+    ds, ep = hp_set(small, "hp20")
+    card_out, card, launched, e_card, _ = run(
+        "20 kb paged scan", ds, ep, "--device", DEVICE, "--paged", "on", "--dp", "scan",
+        "-t", str(nthreads), "--hp-rescue")
+    for name in ("gather_pages", "heaviest_path"):
+        if launched[name][0] <= 0:
+            raise AssertionError(f"the paged scan hp run never launched {name}")
+    if not (card.paged and card.n_hp_rescued > 0):
+        raise AssertionError("the paged scan hp run shipped dense batches or rescued nothing")
+    nat_out, nat, launched, _, _ = run("20 kb native (default hp)", ds, ep,
+                                       "--backend", "native", on_card=False)
+    if nat.n_hp_rescued <= 0 or any(v[0] for v in launched.values()):
+        raise AssertionError("--backend native rescued nothing, or launched a kernel")
+    exp_out, exp, _, e_nat, _ = run("20 kb native --hp-rescue", ds, ep, "--backend",
+                                    "native", "--hp-rescue", on_card=False)
+    with open(nat_out, "rb") as a, open(exp_out, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("--backend native: the default and an explicit "
+                                 "--hp-rescue wrote different FASTA")
+    # the native engine is not bit-equal to the card's ladder (its DP sums in
+    # its own order), and one differing window changes a whole record, so
+    # the bound is held on windows and bases (ROADMAP's drift bound) and on
+    # the corrected error (the JAX package's cross-engine rule: within 2e-3)
+    got, ref = records(exp_out), records(card_out)
+    same = sum(got.get(n) == q for n, q in ref.items())
+    text = (f"solved {exp.n_solved} vs {card.n_solved} of {card.n_windows} windows, "
+            f"bases {exp.bases_out} vs {card.bases_out}, error {e_nat:.6f} vs "
+            f"{e_card:.6f}, {same}/{len(ref)} records identical")
+    if (abs(exp.n_solved - card.n_solved) > 0.005 * card.n_windows
+            or abs(exp.bases_out - card.bases_out) > 0.005 * card.bases_out
+            or abs(e_nat - e_card) >= 2e-3):
+        raise AssertionError(f"native primary vs the card's hp run: {text}")
+    log(f"native primary --hp-rescue vs the card's --hp-rescue (paged scan): {text}; "
+        f"n_hp_rescued {exp.n_hp_rescued} vs {card.n_hp_rescued}")
+
+    # patch mode on the clean 20 kb set, with the ledger of every window
+    ledger = os.path.join(tmp, "patch_ledger.jsonl")
+    out, st, launched, err, raw = run("20 kb clean, --mode patch", d, eprof, "--device",
+                                      DEVICE, "--paged", "off", "--dp", "fused",
+                                      "--mode", "patch", "--ledger", ledger)
+    if st.n_end_trimmed:
+        raise AssertionError("--mode patch trimmed read ends")
+    got = records(out)
+    by_read: dict = {}
+    for name, seq in got.items():
+        by_read.setdefault(read_id(name), []).append(seq)
+    unsolved: dict = {}
+    with open(ledger) as fh:
+        for r in map(json.loads, fh):
+            if r.get("event") == "window" and not r["solved"]:
+                unsolved.setdefault(r["aread"], set()).add(r["widx"])
+    db = read_db(d["db"])
+    spans = 0
+    cfg = ConsensusConfig()
+    for aread, idx in unsolved.items():
+        bases = "".join("ACGT"[b] for b in db.read_bases(aread))
+        run_start = None
+        for j in sorted(idx) + [None]:
+            if run_start is not None and (j is None or j != prev + 1):
+                # the run's patches join into the read's bases; the next
+                # unsolved window's patch may take back up to w - adv bases
+                # of its end (the JAX package's stitch), never its first
+                # advance past the run's last start
+                span = bases[run_start * cfg.adv:(prev + 1) * cfg.adv]
+                if not any(span in rec for rec in by_read.get(aread, [])):
+                    raise AssertionError(f"--mode patch: read {aread}'s unsolved windows "
+                                         f"{run_start}-{prev} lost the read's bases")
+                spans += 1
+                run_start = None
+            if j is not None and run_start is None:
+                run_start = j
+            prev = j
+    split_recs = records(split_out)
+    if not spans or len(got) >= len(split_recs) or not err < raw:
+        raise AssertionError(f"--mode patch: {spans} unsolved spans, {len(got)} records "
+                             f"against {len(split_recs)} split, error {err:.6f} vs raw {raw:.6f}")
+    log(f"--mode patch, 20 kb: {spans} runs of unsolved windows each kept the read's own "
+        f"bases (from the run's first start to one advance past its last); {len(got)} records for {st.n_reads} reads against {len(split_recs)} in "
+        f"split mode (a read splits only where a stitch fails); corrected error "
+        f"{err:.6f} vs raw {raw:.6f}")
+
+
 def reference_cost(big: dict, eprof: str) -> None:
     """The audit worker's reference (the CPU ladder in numpy, ``audit/
     ladder.py``) on 32 and 256 real windows of the 100 kb set: bit-equal to
@@ -1329,6 +1510,7 @@ def main() -> int:
                                        "-b", str(B), "--device", dev.type, *args],
                                       counters)
             log_run(f"{tag} ({' '.join(args)})", stats, launched)
+            log(f"daccord {tag}: audit tail: {audit_tail_text(stats)}")
             packed = stats.peak_inflight * B * (-(-ladder.params[0].cons_len // 4) + 3) * 4
             log(f"daccord {tag}: peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated (a "
@@ -1363,7 +1545,12 @@ def main() -> int:
                     if a.read() != b0.read():
                         raise AssertionError(f"daccord {tag}, {label}: FASTA differs")
                 log(f"daccord {tag}, {label}: wall {st1.wall_s:.3f} s, FASTA "
-                    f"byte-identical; {audit_text(st1)}")
+                    f"byte-identical; {audit_text(st1)}; {audit_tail_text(st1)}")
+                if worker is None:
+                    share = st1.audit_s / st1.wall_s
+                    log(f"audit share, warm {tag} rerun: {share:.4f} of the wall (the "
+                        f"JAX package's contract: at most 0.02): "
+                        f"{'met' if share <= 0.02 else 'missed'}")
         dense_launch = runs["dense fused"][2]
         paged_launch = runs["paged scan"][2]
         for run_launched, name in ((dense_launch, "dp_backtrack"),
@@ -1392,6 +1579,11 @@ def main() -> int:
         t0 = time.perf_counter()
         slice_checks(d, eprof, runs["dense fused"][:2], counters, tmp)
         log(f"slice checks: {time.perf_counter() - t0:.1f} s")
+
+        # ---- 4c. the hp rescue, the native primary, patch mode ---------------
+        t0 = time.perf_counter()
+        hp_phase(d, eprof, runs["dense fused"][0], counters, tmp, nthreads)
+        log(f"hp phase: {time.perf_counter() - t0:.1f} s")
 
         # ---- 5. kernel phase ------------------------------------------------
         t0 = time.perf_counter()

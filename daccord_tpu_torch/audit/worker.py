@@ -138,7 +138,8 @@ def _main(fd_in: int, fd_out: int, parent: int, t_spawn: float) -> None:
                 for done, secs in solve_grouped(
                         lambda s, ln, ns: ladder.solve_ladder(spec, s, ln, ns, tier0),
                         [(t, smp) for t, smp, t0 in items if t0 == tier0]):
-                    res.send(("done", done, secs))
+                    res.send(("done", done, secs, time.time(),
+                              sum(len(r["solved"]) for _, r in done)))
     except EOFError:
         return                                  # the parent closed its end
     except BaseException as e:  # noqa: BLE001 - relayed to the parent
@@ -176,7 +177,8 @@ class AuditWorker:
     collect their verdicts by ticket.
 
     ``worker_s`` sums the workers' own solve wall, ``calls`` their ladder
-    calls; ``startup`` holds the slowest one's start walls once all are
+    calls; :meth:`anatomy` reads the run's log of parts and calls (which
+    worker, how many windows, when sent, solved and back); ``startup`` holds the slowest one's start walls once all are
     ready (``boot_s``: from the start to its first line, the interpreter's
     start; ``import_s``: numpy and the ladder); ``leaked`` is what of jax,
     ``daccord_tpu`` or torch they had imported then (nothing)."""
@@ -203,6 +205,10 @@ class AuditWorker:
         self._done: dict[tuple, dict] = {}      # (ticket, part) -> rows
         self._dropped: set[int] = set()
         self._next = 0               # the worker the next part goes to
+        # the run's parts, (ticket, part) -> [worker, windows, sent, solved],
+        # and calls, (worker, start, end, windows): wall clock (time.time)
+        self._part_log: dict[tuple, list] = {}
+        self._call_log: list[tuple] = []
         self._ready = 0
         self.ready = False
         self.leaked: list[str] = []
@@ -241,10 +247,12 @@ class AuditWorker:
         k = max(1, min(nw, n // PART_WINDOWS))
         cuts = np.linspace(0, n, k + 1).astype(int)
         self._parts[t] = k
+        now = time.time()
         for i in range(k):
             part = tuple(np.ascontiguousarray(a[cuts[i]:cuts[i + 1]]) for a in arrays)
-            self._out.put((((self._next + i) % nw,),
-                           ("solve", (t, i), part, bool(tier0_only))))
+            to = (self._next + i) % nw
+            self._part_log[(t, i)] = [to, int(cuts[i + 1] - cuts[i]), now, None]
+            self._out.put(((to,), ("solve", (t, i), part, bool(tier0_only))))
         self._next = (self._next + k) % nw
         return t
 
@@ -261,6 +269,8 @@ class AuditWorker:
         self._parts.clear()
         self._done.clear()
         self._dropped.clear()
+        self._part_log.clear()
+        self._call_log.clear()
 
     def discard(self, ticket: int) -> None:
         """Forget a ticket whose batch will not be compared."""
@@ -268,7 +278,7 @@ class AuditWorker:
             self._done.pop((ticket, i), None)
         self._dropped.add(ticket)
 
-    def _take(self, msg) -> None:
+    def _take(self, msg, worker: int) -> None:
         kind = msg[0]
         if kind == "ready":
             self._ready += 1
@@ -276,12 +286,15 @@ class AuditWorker:
             self.leaked = sorted(set(self.leaked) | set(msg[1]))
             self.startup = {k: max(v, self.startup.get(k, v)) for k, v in msg[2].items()}
         elif kind == "done":
-            _, done, secs = msg
+            _, done, secs, t_end, n = msg
             self.worker_s += secs
             self.calls += 1
+            self._call_log.append((worker, t_end - secs, t_end, n))
             for (t, i), r in done:
                 if t >= self._floor and t not in self._dropped:
                     self._done[(t, i)] = r
+                    if (t, i) in self._part_log:
+                        self._part_log[(t, i)][3] = t_end
         else:
             self.error = msg[1]
 
@@ -294,7 +307,7 @@ class AuditWorker:
                 if not ready:
                     break
                 for conn in ready:
-                    self._take(conn.recv())
+                    self._take(conn.recv(), self._ress.index(conn))
                 timeout = 0
         except (EOFError, OSError):
             pass
@@ -333,6 +346,29 @@ class AuditWorker:
         parts = [self._done.pop((ticket, i)) for i in range(self._parts.pop(ticket))]
         return {k: (np.concatenate([p[k] for p in parts]) if np.ndim(v)
                     else max(p[k] for p in parts)) for k, v in parts[0].items()}
+
+    def anatomy(self, since: float) -> dict:
+        """The audit's tail from ``since`` (wall clock, the moment a run's
+        final flush began): each worker's backlog then (the windows sent to
+        it and not back), the call it was running then (its windows, how
+        long it had run and had left), and the seconds from send to solved
+        of each part sent since (None: never back)."""
+        nw = len(self._procs)
+        queued = [0] * nw
+        for wk, n, sent, back in self._part_log.values():
+            if sent < since and (back is None or back > since):
+                queued[wk] += n
+        running = [None] * nw
+        for wk, t0, t1, n in self._call_log:
+            if t0 <= since < t1:
+                running[wk] = {"windows": n, "ran_s": round(since - t0, 4),
+                               "left_s": round(t1 - since, 4)}
+        tail = sorted((sent - since, wk, n, None if back is None else back - sent)
+                      for wk, n, sent, back in self._part_log.values() if sent >= since)
+        return {"queued_windows": queued, "running": running,
+                "tail_parts": [{"sent_s": round(a, 4), "worker": wk, "windows": n,
+                                "back_s": None if b is None else round(b, 4)}
+                               for a, wk, n, b in tail]}
 
     def close(self) -> None:
         """Stop the workers (``stop``, then a kill after two seconds) and

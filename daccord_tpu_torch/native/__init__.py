@@ -1,8 +1,9 @@
 """The port's C++ host library: build with g++ and load with ctypes.
 
 ``native/dazz_native.cpp`` (the columnar LAS loader, the pile windowing, the
-2-bit decode, the stitch splice, the exact distances and the window-consensus
-engine ``solve_windows``) compiles with
+2-bit decode, the stitch splice, the exact distances, the window-consensus
+engine ``solve_windows`` and its homopolymer rescue ``hp_rescue_windows``)
+compiles with
 ``g++ -O3 -march=native`` into ``daccord_tpu_torch/_build/`` at first use.
 The file name carries a hash of the source, the flags and the host CPU (the
 ``model name`` and ``flags`` lines of ``/proc/cpuinfo``): a library built
@@ -123,5 +124,18 @@ def load() -> ctypes.CDLL:
             + [p] * 8 + [c.c_int32] * 7      # tables .. tier_M, n_tiers .. min_depth
             + [c.c_float] * 2 + [c.c_int32]  # max_err, count_frac, n_threads
             + [p] * 5)                       # cons, cons_len, errs, tiers, movf
+        d = c.c_double
+        lib.hp_rescue_windows.restype = c.c_int64
+        lib.hp_rescue_windows.argtypes = (
+            [p] * 3 + [c.c_int32] * 3        # seqs, lens, nsegs, B, D, L
+            + [p] + [c.c_int32] * 5          # table0, P0, O0, k0, minc0, eminc0
+            + [c.c_int32] * 6                # wlen .. min_depth
+            + [d, c.c_float]                 # max_err, count_frac
+            + [d, c.c_int32, d, c.c_int32]   # hp_err, hp_min_run, hp_margin, threads
+            + [p, c.c_int32, p, c.c_int32]   # cons_in, CL, hp_cons, CLH
+            + [p] * 3                        # cons_lens, errs, tiers_io
+            + [p] + [c.c_int32] * 3          # post_tabs, n_mult, Lmax, Omax
+            + [d] * 3                        # p_err_prof, mult_lo, mult_step
+            + [c.c_int32, d])                # accept_likelihood, lambda_c
         _lib = lib
         return lib

@@ -170,9 +170,9 @@ def _n_tiles(abpos: np.ndarray, aepos: np.ndarray, tspace: int) -> np.ndarray:
 
 class NativeLadder:
     """Pre-packed tier tables and parameters for the host library's window
-    consensus engine (``solve_windows``): the port's copy of
-    ``daccord_tpu/native/api.py NativeLadder`` without the homopolymer
-    rescue. Build once a run, call :meth:`solve` a batch.
+    consensus engine (``solve_windows``) and its homopolymer rescue
+    (``hp_rescue_windows``): the port's copy of ``daccord_tpu/native/api.py
+    NativeLadder``. Build once a run, call :meth:`solve` a batch.
 
     ``max_kmers=0`` is the full-graph oracle semantics (no truncation,
     ``m_ovf`` all False); ``max_kmers > 0`` mirrors the device ladder's top-M
@@ -182,6 +182,11 @@ class NativeLadder:
     def __init__(self, ol_tables: dict, cfg, max_kmers: int = 0,
                  rescue_max_kmers: int = 256, _share=None):
         self.cfg = cfg
+        # the hp posterior vote needs the error profile (every table carries
+        # the same one)
+        self.profile = (_share.profile if _share is not None else
+                        next(iter(ol_tables.values())).profile if ol_tables else None)
+        self._post_tabs = None
         d = cfg.dbg
         tiers = list(cfg.tiers)
         if _share is not None:
@@ -208,6 +213,69 @@ class NativeLadder:
         self.n_tiers = len(tiers)
         self.CL = cfg.w + d.len_slack
         self._d = d
+
+    def hp_rescue(self, batch, out: dict, n_threads: int = 1) -> int:
+        """The homopolymer rescue of :meth:`solve`'s result ``out``, in
+        place (``oracle/hp.py`` semantics in C++: byte-equal to the python
+        ``hp_candidate`` loop). A rescued row may be longer than CL, so
+        ``out['cons']`` is re-allocated at the hp width (2 w) with the
+        rescued rows written; ``cons_len``, ``err`` and ``tier`` update in
+        place (tier ``HP_TIER``). Returns the rescued count. Runs after any
+        overflow rescue, as the python pass does."""
+        from ..oracle.hp import HP_HEAT_LO, HP_HEAT_N, HP_HEAT_STEP, HP_TIER, hp_length_tables
+
+        lib = load()
+        cfg, d = self.cfg, self._d
+        k0, minc0, eminc0 = cfg.tiers[0]
+        seqs = np.ascontiguousarray(batch.seqs, dtype=np.int8)
+        lens = np.ascontiguousarray(batch.lens, dtype=np.int32)
+        nsegs = np.ascontiguousarray(batch.nsegs, dtype=np.int32)
+        B, D, L = seqs.shape
+        CLH = 2 * cfg.w
+        hp_cons = np.full((B, CLH), 4, dtype=np.int8)
+        cons_in = np.ascontiguousarray(out["cons"], dtype=np.int8)
+        # the posterior vote's tables, one per quantized heat multiplier,
+        # built once by the python code (so the likelihoods are the python
+        # pass's to the bit), under the same slope gate as oracle/hp.py;
+        # the C++ side walks the vote
+        prof = self.profile
+        if (self._post_tabs is None and cfg.hp_vote == "posterior"
+                and prof is not None and prof.hp_slope >= 0.1):
+            self._post_tabs = np.ascontiguousarray(np.stack(
+                [hp_length_tables(prof, mult=HP_HEAT_LO + HP_HEAT_STEP * i)
+                 for i in range(HP_HEAT_N)]), dtype=np.float64)
+        tabs = self._post_tabs
+        p_err = (prof.p_ins + prof.p_del + prof.p_sub) if prof is not None else 0.0
+        for key, dt in (("cons_len", np.int32), ("err", np.float32), ("tier", np.int32)):
+            if not (out[key].dtype == dt and out[key].flags.c_contiguous
+                    and out[key].flags.writeable):
+                raise ValueError(f"hp_rescue: out[{key!r}] must be a writeable "
+                                 f"contiguous {np.dtype(dt).name} array")
+        n = int(lib.hp_rescue_windows(
+            _ptr(seqs), _ptr(lens), _ptr(nsegs), B, D, L,
+            _ptr(self.tables), int(self.tier_P[0]), int(self.tier_O[0]),
+            int(k0), int(minc0), int(eminc0),
+            cfg.w, d.anchor_slack, d.end_slack, d.len_slack,
+            d.n_candidates, d.min_depth, d.max_err, d.count_frac,
+            cfg.hp_err, int(cfg.hp_min_run), cfg.hp_margin, int(n_threads),
+            _ptr(cons_in), int(cons_in.shape[1]), _ptr(hp_cons), CLH,
+            _ptr(out["cons_len"]), _ptr(out["err"]), _ptr(out["tier"]),
+            _ptr(tabs) if tabs is not None else None,
+            HP_HEAT_N if tabs is not None else 0,
+            int(tabs.shape[1] - 1) if tabs is not None else 0,
+            int(tabs.shape[2] - 1) if tabs is not None else 0,
+            p_err, HP_HEAT_LO, HP_HEAT_STEP,
+            int(cfg.hp_accept == "likelihood"), cfg.hp_lambda_c))
+        if n < 0:
+            raise RuntimeError(f"hp_rescue_windows failed: {n}")
+        if n:
+            rescued = out["tier"] == HP_TIER
+            merged = np.full((B, max(CLH, cons_in.shape[1])), 4, dtype=np.int8)
+            merged[:, :cons_in.shape[1]] = cons_in
+            merged[rescued, :CLH] = hp_cons[rescued]
+            out["cons"] = merged
+            out["solved"] = out["tier"] >= 0
+        return n
 
     def with_caps(self, max_kmers: int, rescue_max_kmers: int = 256) -> "NativeLadder":
         """Caps-only variant sharing this ladder's packed tables."""

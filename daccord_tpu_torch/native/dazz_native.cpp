@@ -12,8 +12,9 @@
 // - decode_reads: 2-bit .bps batch decode.
 // - edit_distance_sum, align_map, infix_distance: exact unit-cost distances.
 // - solve_windows: the tier ladder over a batch of windows on the host, the
-//   supervisor's native failover engine (the homopolymer rescue of the JAX
-//   library is not copied).
+//   engine of --backend native and the supervisor's native failover.
+// - hp_rescue_windows: the homopolymer rescue over a batch's results
+//   (oracle/hp.py semantics, byte-equal to its python loop).
 //
 // A plain C ABI for ctypes, built with g++ by daccord_tpu_torch/native. The
 // realignment replicates the numpy align_path of daccord_tpu_torch/oracle/
@@ -1150,6 +1151,349 @@ int solve_windows(const int8_t* seqs, const int32_t* lens,
     for (auto& th : pool) th.join();
   }
   return 0;
+}
+
+// Homopolymer rescue post-pass over a solve_windows result (oracle/hp.py
+// semantics, bit-identical by construction — see tests). Routing per window:
+// failed or err > hp_err, with a run >= hp_min_run present (in the direct
+// consensus if solved, else in any segment). Solve: run-length-compress the
+// segments, run the FULL-GRAPH tier-0 DBG (M=0: the python path calls the
+// oracle window_consensus) at wlen_c = int(median(compressed lens)), then
+// re-expand each position's run length by the aligned MEDIAN vote
+// (round-half-even, numpy/python parity) or — when post_tabs is non-NULL —
+// the CALIBRATED POSTERIOR vote (oracle/hp.py vote_runs_posterior
+// parity; tables built python-side). Accept only when the expanded
+// candidate's exact rescored error beats the direct result (hp_margin) or
+// clears max_err where the direct solve failed. Rescued rows write their
+// (possibly longer-than-CL) sequence into hp_cons[CLH] and update
+// cons_lens/errs in place with tiers_io = 29 (HP_TIER). Returns count
+// rescued.
+namespace {
+// log-likelihood of the compressed segments under one candidate sequence
+// (oracle/hp.py hp_loglik parity): run-length-compress the candidate, then
+// per segment add -lambda_c per compressed edit plus the posterior walk's
+// per-position log P(o | L_i); float64, python's accumulation order.
+double hp_loglik_c(const int8_t* cand, int cand_len, const int8_t* cseqs,
+                   const int32_t* cruns_all, const int32_t* clens, int nseg,
+                   int L_stride, const double* tab, int Lmax, int Omax,
+                   double lam_c, std::vector<int8_t>& cc_buf,
+                   std::vector<int32_t>& cr_buf, std::vector<int64_t>& a2b,
+                   std::vector<int32_t>& Dbuf_v) {
+  cc_buf.clear();
+  cr_buf.clear();
+  for (int i = 0; i < cand_len; ++i) {
+    if (!cc_buf.empty() && cand[i] == cc_buf.back()) {
+      ++cr_buf.back();
+    } else {
+      cc_buf.push_back(cand[i]);
+      cr_buf.push_back(1);
+    }
+  }
+  const int n = (int)cc_buf.size();
+  if (n == 0) return -std::numeric_limits<double>::infinity();
+  const int TO = Omax + 1;
+  double J = 0.0;
+  a2b.resize(n + 1);
+  for (int j = 0; j < nseg; ++j) {
+    const int m = clens[j];
+    if (m == 0) continue;
+    const int8_t* cs = cseqs + (size_t)j * L_stride;
+    const int32_t* cr = cruns_all + (size_t)j * L_stride;
+    const int32_t d_c =
+        align_path(cc_buf.data(), n, cs, m, Dbuf_v, a2b.data());
+    J -= lam_c * (double)d_c;
+    int claimed[4] = {0, 0, 0, 0};
+    for (int i = 0; i < n; ++i) {
+      const int c = cc_buf[i];
+      if (c < 0 || c > 3) continue;
+      int lo = (int)a2b[i];
+      if (claimed[c] > lo) lo = claimed[c];
+      int hi = (int)a2b[i + 1];
+      if (hi < lo) hi = lo;
+      if (hi < m && cs[hi] == c) ++hi;
+      if (lo > claimed[c] && cs[lo - 1] == c) --lo;
+      if (hi <= lo) continue;
+      claimed[c] = hi;
+      int64_t o = 0;
+      for (int q = lo; q < hi; ++q)
+        if (cs[q] == c) o += cr[q];
+      int Li = cr_buf[i];
+      if (Li < 1) Li = 1;
+      if (Li > Lmax) Li = Lmax;
+      const double v = tab[(size_t)Li * TO + (o > Omax ? Omax : (int)o)];
+      if (std::isfinite(v)) {
+        J += v;
+      } else {
+        J -= 60.0;   // impossible-under-model observation: crushing but
+        //              finite, one outlier cannot veto via -inf
+      }
+    }
+  }
+  return J;
+}
+}  // namespace
+
+int64_t hp_rescue_windows(
+    const int8_t* seqs, const int32_t* lens, const int32_t* nsegs,
+    int32_t B, int32_t D, int32_t L,
+    const float* table0, int32_t P0, int32_t O0,
+    int32_t k0, int32_t minc0, int32_t eminc0,
+    int32_t wlen, int32_t anchor_slack, int32_t end_slack, int32_t len_slack,
+    int32_t n_candidates, int32_t min_depth, double max_err,
+    float count_frac,
+    double hp_err, int32_t hp_min_run, double hp_margin, int32_t n_threads,
+    const int8_t* cons_in, int32_t CL,
+    int8_t* hp_cons, int32_t CLH,
+    int32_t* cons_lens, float* errs, int32_t* tiers_io,
+    // calibrated posterior vote (oracle/hp.py vote_runs_posterior):
+    // post_tabs = [n_mult, Lmax+1, Omax+1] float64 log P(o|L) tables built
+    // by the PYTHON hp_length_tables (bit-exact likelihoods; C++ only
+    // mirrors the vote walk and same-order float64 accumulation), one per
+    // quantized heat multiplier 1.0,1.25,..; NULL = median vote.
+    const double* post_tabs, int32_t n_mult, int32_t Lmax, int32_t Omax,
+    double p_err_prof, double mult_lo, double mult_step,
+    // likelihood-ratio acceptance (oracle/hp.py hp_loglik): 1 = accept
+    // the candidate that better explains the segments under the model
+    // (only meaningful with post_tabs; solved windows only), 0 = raw
+    // rescore bar. lambda_c = compressed-space edit penalty (log units).
+    int32_t accept_likelihood, double lambda_c) {
+  const dbgc::TierSpec ts_hp = {k0, minc0, eminc0, P0, O0, 0, table0};
+  std::atomic<int32_t> next(0);
+  std::atomic<int64_t> rescued(0);
+  auto max_run_of = [](const int8_t* s, int n) {
+    int best = 0, run = 0;
+    for (int i = 0; i < n; ++i) {
+      run = (i > 0 && s[i] == s[i - 1]) ? run + 1 : 1;
+      if (run > best) best = run;
+    }
+    return best;
+  };
+  auto worker = [&]() {
+    dbgc::Scratch S;
+    std::vector<int8_t> cseqs((size_t)D * L);
+    std::vector<int32_t> clens(D), cruns((size_t)D * L), med_buf;
+    std::vector<int32_t> runs_out;
+    std::vector<int8_t> hcons, expanded;
+    std::vector<int64_t> a2b;
+    std::vector<int32_t> Dbuf_v;   // align_path / rescore DP matrix
+    std::vector<std::vector<int32_t>> pos_votes;
+    std::vector<double> ll_buf;    // posterior log-likelihood accumulator
+    std::vector<int32_t> nv_buf;
+    std::vector<int8_t> cc_buf;    // hp_loglik_c candidate compression
+    std::vector<int32_t> cr_buf;
+    for (;;) {
+      const int b = next.fetch_add(1);
+      if (b >= B) return;
+      const int nseg = nsegs[b];
+      if (nseg < min_depth) continue;
+      const bool solved = tiers_io[b] >= 0;
+      // thresholds stay double end to end: the python host pass compares
+      // float64 config values, and a float32-narrowed 0.12 differs from
+      // float64 0.12 by enough to flip borderline routing decisions
+      const double derr = solved ? (double)errs[b]
+                                 : std::numeric_limits<double>::infinity();
+      if (solved && derr <= hp_err) continue;
+      const int8_t* wseqs = seqs + (size_t)b * D * L;
+      const int32_t* wlens = lens + (size_t)b * D;
+      // routing probe: a long run must exist for a vote to fix anything
+      int mrun = 0;
+      if (solved) {
+        mrun = max_run_of(cons_in + (size_t)b * CL, cons_lens[b]);
+      } else {
+        for (int j = 0; j < nseg && mrun < hp_min_run; ++j)
+          mrun = std::max(mrun, max_run_of(wseqs + (size_t)j * L, wlens[j]));
+      }
+      if (mrun < hp_min_run) continue;
+      // ---- run-length compress into the same [D, L] layout --------------
+      int64_t seg_total = 0;
+      for (int j = 0; j < nseg; ++j) {
+        const int8_t* s = wseqs + (size_t)j * L;
+        const int n = wlens[j];
+        seg_total += n;
+        int8_t* cs = cseqs.data() + (size_t)j * L;
+        int32_t* cr = cruns.data() + (size_t)j * L;
+        int m = 0;
+        for (int i = 0; i < n; ++i) {
+          if (m > 0 && s[i] == cs[m - 1]) {
+            ++cr[m - 1];
+          } else {
+            cs[m] = s[i];
+            cr[m] = 1;
+            ++m;
+          }
+        }
+        clens[j] = m;
+      }
+      // wlen_c = int(np.median(clens)): sorted middle, even -> mean then
+      // int() truncation toward zero
+      med_buf.assign(clens.begin(), clens.begin() + nseg);
+      std::sort(med_buf.begin(), med_buf.end());
+      const int mid = nseg / 2;
+      const int wlen_c =
+          (nseg & 1) ? med_buf[mid]
+                     : (int)((med_buf[mid - 1] + med_buf[mid]) / 2.0);
+      if (wlen_c < k0 + 4) continue;
+      // ---- full-graph DBG on the compressed subproblem -------------------
+      hcons.assign((size_t)wlen_c + len_slack, PAD);
+      int32_t hlen = 0;
+      float herr = 0.0f;
+      uint8_t hm = 0;
+      if (dbgc::try_tier(cseqs.data(), clens.data(), nseg, L, ts_hp, wlen_c,
+                         anchor_slack, end_slack, len_slack, n_candidates,
+                         (float)max_err, count_frac, S, hcons.data(), &hlen,
+                         &herr, &hm) != 0)
+        continue;
+      // ---- aligned per-position run-length vote --------------------------
+      a2b.resize(hlen + 1);
+      runs_out.assign(hlen, 1);
+      int64_t out_len = 0;
+      const double* tab_sel = nullptr;   // heat-selected posterior table
+      if (post_tabs != nullptr) {
+        // calibrated posterior (vote_runs_posterior parity): per segment,
+        // per-base claim cursors keep same-base counted spans disjoint;
+        // the observation is the summed same-base run length over the
+        // (one-position-extended) span; argmax_L of the summed log
+        // likelihood, first-max tie-break like np.argmax.
+        // heat grid comes from oracle/hp.py's shared constants (mult_lo,
+        // mult_step, n_mult) — the ONE definition; hp_heat() parity:
+        // round to the step grid (nearbyint = python round ties-even on
+        // the same exact power-of-two arithmetic), then clip
+        const int TL = Lmax + 1, TO = Omax + 1;
+        const double mult_hi = mult_lo + mult_step * (n_mult - 1);
+        const double m_raw = std::isfinite(derr)
+            ? derr / std::max(p_err_prof, 1e-3) : 1.5;
+        double mq = std::nearbyint(m_raw / mult_step) * mult_step;
+        if (mq < mult_lo) mq = mult_lo;
+        if (mq > mult_hi) mq = mult_hi;
+        int mi = (int)std::nearbyint((mq - mult_lo) / mult_step);
+        if (mi < 0) mi = 0;
+        if (mi >= n_mult) mi = n_mult - 1;
+        const double* tab = post_tabs + (size_t)mi * TL * TO;
+        tab_sel = tab;
+        ll_buf.assign((size_t)hlen * TL, 0.0);
+        nv_buf.assign(hlen, 0);
+        for (int j = 0; j < nseg; ++j) {
+          const int m = clens[j];
+          if (m == 0) continue;
+          align_path(hcons.data(), hlen, cseqs.data() + (size_t)j * L, m,
+                     Dbuf_v, a2b.data());
+          const int32_t* cr = cruns.data() + (size_t)j * L;
+          const int8_t* cs = cseqs.data() + (size_t)j * L;
+          int claimed[4] = {0, 0, 0, 0};
+          for (int i = 0; i < hlen; ++i) {
+            const int c = hcons[i];
+            if (c < 0 || c > 3) continue;
+            int lo = (int)a2b[i];
+            if (claimed[c] > lo) lo = claimed[c];
+            int hi = (int)a2b[i + 1];
+            if (hi < lo) hi = lo;
+            if (hi < m && cs[hi] == c) ++hi;
+            if (lo > claimed[c] && cs[lo - 1] == c) --lo;
+            if (hi <= lo) continue;
+            int64_t o = 0;
+            for (int q = lo; q < hi; ++q)
+              if (cs[q] == c) o += cr[q];
+            const int oc = o > Omax ? Omax : (int)o;
+            double* row = ll_buf.data() + (size_t)i * TL;
+            for (int Lv = 0; Lv < TL; ++Lv)
+              row[Lv] += tab[(size_t)Lv * TO + oc];
+            nv_buf[i] += 1;
+            claimed[c] = hi;
+          }
+        }
+        for (int i = 0; i < hlen; ++i) {
+          if (nv_buf[i]) {
+            const double* row = ll_buf.data() + (size_t)i * TL;
+            int bestL = 1;
+            double bestv = row[1];
+            for (int Lv = 2; Lv < TL; ++Lv)
+              if (row[Lv] > bestv) { bestv = row[Lv]; bestL = Lv; }
+            runs_out[i] = bestL;
+          }
+          out_len += runs_out[i];
+        }
+      } else {
+      pos_votes.assign(hlen, {});
+      for (int j = 0; j < nseg; ++j) {
+        const int m = clens[j];
+        if (m == 0) continue;
+        align_path(hcons.data(), hlen, cseqs.data() + (size_t)j * L, m,
+                   Dbuf_v, a2b.data());
+        const int32_t* cr = cruns.data() + (size_t)j * L;
+        const int8_t* cs = cseqs.data() + (size_t)j * L;
+        for (int i = 0; i < hlen; ++i)
+          for (int64_t q = a2b[i]; q < a2b[i + 1]; ++q)
+            if (cs[q] == hcons[i]) pos_votes[i].push_back(cr[q]);
+      }
+      for (int i = 0; i < hlen; ++i) {
+        auto& v = pos_votes[i];   // sort in place: no per-position copies
+        if (!v.empty()) {
+          std::sort(v.begin(), v.end());
+          const int vm = (int)v.size() / 2;
+          const double med = (v.size() & 1) ? (double)v[vm]
+                                            : (v[vm - 1] + v[vm]) / 2.0;
+          // int(round(med)): python round() is half-to-even; nearbyint
+          // honors the default FE_TONEAREST (ties-to-even) mode
+          runs_out[i] = std::max(1, (int)std::nearbyint(med));
+        }
+        out_len += runs_out[i];
+      }
+      }
+      if (out_len < wlen / 2 || out_len > 2 * wlen || out_len > CLH)
+        continue;
+      expanded.resize(out_len);
+      {
+        int64_t w = 0;
+        for (int i = 0; i < hlen; ++i)
+          for (int r = 0; r < runs_out[i]; ++r) expanded[w++] = hcons[i];
+      }
+      // ---- exact rescore vs the ORIGINAL segments ------------------------
+      int64_t tot = 0;
+      for (int j = 0; j < nseg; ++j) {
+        const int m = wlens[j];
+        const int n = (int)out_len;
+        if (n == 0) { tot += m; continue; }
+        if (m == 0) { tot += n; continue; }
+        Dbuf_v.resize((size_t)(n + 1) * (m + 1));
+        tot += fill_exact(expanded.data(), n, wseqs + (size_t)j * L, m,
+                          Dbuf_v.data(), m + 1, 16);
+      }
+      const double err_hp =
+          (double)tot / (double)std::max<int64_t>(seg_total, 1);
+      if (accept_likelihood && tab_sel != nullptr && solved) {
+        // likelihood-ratio acceptance (hp_loglik parity): the expanded
+        // candidate must EXPLAIN the segments better than the direct one,
+        // with a loose raw-error sanity bound (oracle/hp.py hp_candidate)
+        const double j_exp = hp_loglik_c(
+            expanded.data(), (int)out_len, cseqs.data(), cruns.data(),
+            clens.data(), nseg, L, tab_sel, Lmax, Omax, lambda_c,
+            cc_buf, cr_buf, a2b, Dbuf_v);
+        const double j_dir = hp_loglik_c(
+            cons_in + (size_t)b * CL, cons_lens[b], cseqs.data(),
+            cruns.data(), clens.data(), nseg, L, tab_sel, Lmax, Omax,
+            lambda_c, cc_buf, cr_buf, a2b, Dbuf_v);
+        if (!(j_exp > j_dir) || err_hp > derr + 0.10) continue;
+      } else {
+        const double bar = solved ? derr - hp_margin : max_err;
+        if (err_hp >= bar) continue;
+      }
+      int8_t* out_row = hp_cons + (size_t)b * CLH;
+      std::memset(out_row, PAD, CLH);
+      std::memcpy(out_row, expanded.data(), out_len);
+      cons_lens[b] = (int32_t)out_len;
+      errs[b] = (float)err_hp;
+      tiers_io[b] = 29;  // HP_TIER (oracle/hp.py)
+      rescued.fetch_add(1);
+    }
+  };
+  if (n_threads <= 1) {
+    worker();
+  } else {
+    std::vector<std::thread> pool;
+    for (int i = 0; i < n_threads; ++i) pool.emplace_back(worker);
+    for (auto& th : pool) th.join();
+  }
+  return rescued.load();
 }
 
 }  // extern "C"

@@ -1,12 +1,11 @@
 """Consensus configuration, the two-pass error profile, and window stitching.
 
-The port's copy of the parts of ``daccord_tpu.oracle.consensus`` the main path
+The port's copy of the parts of ``daccord_tpu.oracle.consensus`` the pipeline
 runs. Stitching: consecutive windows overlap by ``w - adv`` bases; each new
 window consensus is spliced onto the accumulated sequence by aligning a suffix
 of the accumulator against a prefix of the new consensus. An unsolved window
-splits the read (daccord's default: emit corrected fragments). The JAX
-package's ``patch`` mode, which keeps the original A bases there, is not
-ported.
+either splits the read (``mode="split"``, daccord's default: emit corrected
+fragments) or, with ``mode="patch"``, keeps the original A bases for its span.
 """
 
 from __future__ import annotations
@@ -31,7 +30,41 @@ class ConsensusConfig:
     # frequency filter.
     tiers: tuple[tuple[int, int, int], ...] = ((8, 2, 2), (10, 2, 2), (12, 2, 2), (8, 1, 1))
     dbg: DBGParams = field(default_factory=DBGParams)
+    mode: str = "split"          # "split" | "patch"
     min_fragment: int = 40
+    # homopolymer rescue (oracle/hp.py): windows that failed or solved badly
+    # solve again in run-length-compressed space; a host pass after any
+    # engine
+    hp_rescue: bool = False
+    hp_err: float = 0.12         # route solved windows above this err
+    hp_min_run: int = 3          # ...only when a run at least this long exists
+    hp_margin: float = 0.005     # the expanded result must beat the direct
+                                 # err by this
+    hp_vote: str = "median"      # run-length vote: "median" or "posterior"
+                                 # (the profile-calibrated length posterior)
+    hp_accept: str = "rescore"   # acceptance: "rescore" (raw unit cost) or
+                                 # "likelihood" (the likelihood ratio under
+                                 # the observation model; engages with the
+                                 # posterior's slope gate)
+    hp_lambda_c: float = 3.0     # compressed-space edit penalty (log
+                                 # units) of the likelihood acceptance
+
+    def __post_init__(self):
+        from .hp import HP_TIER
+
+        # tier codes are 0-based indices into ``tiers`` and HP_TIER marks an
+        # hp-rescued window: a deeper ladder would alias solved rows as
+        # rescued
+        if len(self.tiers) > HP_TIER:
+            raise ValueError(
+                f"ladder depth {len(self.tiers)} collides with the reserved "
+                f"hp tier code {HP_TIER}; use fewer tiers")
+        if self.hp_vote not in ("median", "posterior"):
+            raise ValueError(f"hp_vote={self.hp_vote!r}: must be 'median' "
+                             "or 'posterior'")
+        if self.hp_accept not in ("rescore", "likelihood"):
+            raise ValueError(f"hp_accept={self.hp_accept!r}: must be "
+                             "'rescore' or 'likelihood'")
 
     @property
     def k_values(self) -> tuple[int, ...]:
@@ -70,7 +103,8 @@ def estimate_profile_two_pass(refined: list[RefinedOverlap],
 
 def solve_window(ws: WindowSegments, ol_tables: dict[int, OffsetLikely],
                  cfg: ConsensusConfig) -> WindowResult:
-    """Try escalation tiers in order until one solves the window."""
+    """Try escalation tiers in order until one solves the window; then, with
+    ``hp_rescue``, the homopolymer rescue may replace the result."""
     best = WindowResult(None, reason="depth")
     for k, mc, emc in cfg.tiers:
         p = DBGParams(**{**cfg.dbg.__dict__, "k": k,
@@ -79,14 +113,23 @@ def solve_window(ws: WindowSegments, ol_tables: dict[int, OffsetLikely],
         best = res
         if res.seq is not None:
             break
+    if cfg.hp_rescue and len(ws.segments) >= cfg.dbg.min_depth:
+        from .hp import hp_candidate
+
+        hp = hp_candidate(ws.segments, best.seq, best.err, ol_tables, cfg)
+        if hp is not None:
+            return hp
     return best
 
 
-def stitch_results(results: list[tuple[int, int, np.ndarray | None]],
+def stitch_results(a_bases: np.ndarray | None,
+                   results: list[tuple[int, int, np.ndarray | None]],
                    cfg: ConsensusConfig) -> list[np.ndarray]:
     """Stitch per-window consensi into corrected fragments.
 
-    ``results`` rows are (wstart, wlen, consensus-or-None) in window order.
+    ``results`` rows are (wstart, wlen, consensus-or-None) in window order;
+    ``a_bases``, the A read, patches unsolved windows in ``patch`` mode (and
+    may be None in ``split`` mode).
     The accumulator is a piece list concatenated once per fragment — the
     splice only ever inspects the accumulator's tail, so growth is O(read
     length), not O(read length²).
@@ -109,6 +152,19 @@ def stitch_results(results: list[tuple[int, int, np.ndarray | None]],
         if not out:
             return np.zeros(0, dtype=np.int8)
         return out[0] if len(out) == 1 else np.concatenate(out[::-1])
+
+    def drop_tail(n: int) -> None:
+        nonlocal plen
+        while n > 0 and pieces:
+            last = pieces[-1]
+            if len(last) <= n:
+                n -= len(last)
+                plen -= len(last)
+                pieces.pop()
+            else:
+                pieces[-1] = last[: len(last) - n]
+                plen -= n
+                n = 0
 
     def append(arr: np.ndarray) -> None:
         nonlocal plen
@@ -134,7 +190,18 @@ def stitch_results(results: list[tuple[int, int, np.ndarray | None]],
 
     for wstart, wlen, seq in results:
         if seq is None:
-            flush()
+            if cfg.mode == "patch":
+                patch = np.asarray(a_bases[wstart : wstart + wlen], dtype=np.int8)
+                if not active:
+                    restart(patch)
+                else:
+                    olap = acc_end - wstart
+                    if olap > 0:
+                        drop_tail(olap)
+                    append(patch)
+                acc_end = wstart + wlen
+            else:
+                flush()
             continue
         if not active:
             restart(seq)

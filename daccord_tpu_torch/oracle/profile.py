@@ -43,8 +43,8 @@ class ErrorProfile:
     # p_ins/p_del average over all positions and already absorb run
     # inflation on hp-damaged data. hp_base == 0 means "not fit" (thin
     # data); consumers fall back to the global rates with slope 0. Clean
-    # data fits hp_slope ~ 0. The port carries the fit in the shared -E file;
-    # only the JAX package's hp rescue tier consumes it.
+    # data fits hp_slope ~ 0. Consumed by the hp rescue's calibrated
+    # run-length vote (oracle/hp.py).
     hp_slope: float = 0.0
     hp_base: float = 0.0
     hp_cap: int = 8

@@ -56,10 +56,26 @@ in this order:
   watermark is checked once per pile block and the monster-pile guard once
   per pile (``runtime/governor.py``); ``DACCORD_FAULT`` injects the faults
   of ``runtime/faults.py``;
+- the homopolymer rescue (``ConsensusConfig.hp_rescue``, ``oracle/hp.py``):
+  after each fetch (and after the shadow audit's comparison, which sees the
+  ladder's own rows), the windows that failed or solved badly and hold a
+  long run solve again in run-length-compressed space on the host, in the
+  host library (``hp_rescue_windows``) or, with ``hp_native=False``, in the
+  python ``hp_candidate`` loop (the same bytes). A split run's Stream A
+  rows headed for the rescue pool get theirs when their Stream B rows land;
 - end-trim: prefix/suffix runs of windows solved only by a low-confidence
   rescue tier (min_count <= 1) count as unsolved, because read ends have
-  thin piles and such windows carry near-raw error rates;
-- stitching, and FASTA records in input order.
+  thin piles and such windows carry near-raw error rates (split mode only:
+  ``patch`` refills unsolved windows with raw bases, which no rescue
+  consensus is worse than);
+- stitching (an unsolved window splits the read, or in ``patch`` mode keeps
+  the read's own bases), and FASTA records in input order.
+
+``native_solver=True`` (``--backend native``) solves every batch with the
+host library's tier ladder instead (``_build_native_fallback``, the same
+engine the supervisor fails over to), with the homopolymer rescue inside
+the engine; no card is used, batches are dense and fused, and the
+supervisor fails over to the engine itself.
 
 Windows are solved independently, so how rows are grouped into batches, and
 how many batches are in flight, never changes a window's result.
@@ -76,6 +92,7 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
 
 import numpy as np
+import torch
 
 from ..formats.dazzdb import DazzDB, read_db, read_track
 from ..formats.fasta import FastaRecord, write_fasta
@@ -201,8 +218,18 @@ class PipelineConfig:
                                  # and compared at fetch; None = on cuda
                                  # only (on the CPU no card waits on the
                                  # pipeline's thread)
-    native_threads: int = 0      # threads of the native failover engine
-                                 # (0 = every usable CPU)
+    native_threads: int = 0      # threads of the native engine and of the
+                                 # host library's hp pass (0 = every usable
+                                 # CPU)
+    native_solver: bool = False  # solve every batch with the host library's
+                                 # tier ladder (the native failover engine)
+                                 # instead of the device ladder: no card,
+                                 # dense fused batches; max_kmers=0 is the
+                                 # full graph
+    hp_native: bool = True       # the homopolymer rescue in the host library
+                                 # (hp_rescue_windows; inside the engine with
+                                 # native_solver); False = the python
+                                 # hp_candidate loop (the same bytes)
 
 
 @dataclass
@@ -213,6 +240,10 @@ class PipelineStats:
     n_skipped_shallow: int = 0
     n_topm_overflow: int = 0
     n_end_trimmed: int = 0
+    n_hp_rescued: int = 0        # windows the homopolymer rescue replaced
+    hp_wall_s: float = 0.0       # host wall of the hp pass after fetches
+                                 # (0 with the native engine, whose solve
+                                 # call holds it)
     n_fragments: int = 0
     n_batches: int = 0
     n_quarantined: int = 0       # piles contained (their reads emitted
@@ -301,6 +332,12 @@ class PipelineStats:
                                  # ready
     audit_disabled: str | None = None   # why the audit stopped mid-run
                                  # (``audit.disabled``), else None
+    audit_drain_s: float = 0.0   # the part of audit_s spent in the final
+                                 # drain (the wait for the last verdicts)
+    audit_tail: dict = field(default_factory=dict)  # with the workers: their
+                                 # backlog when the final flush began and
+                                 # each later part's send-to-solved seconds
+                                 # (AuditWorker.anatomy)
     sup_counters: dict = field(default_factory=dict)  # the supervisor's
                                  # counters (dispatch, fetch, retries,
                                  # timeouts, probes, degraded_solves,
@@ -727,15 +764,17 @@ def iter_pile_blocks_threaded(db: DazzDB, las: LasFile, cfg: PipelineConfig,
 
 
 class _PendingRead:
-    """One read's window results as arrays, filled batch by batch: the
-    consensus rows, their lengths, whether each window solved and by which
-    tier (-1: unsolved)."""
+    """One read's bases (``patch`` mode stitches them into unsolved windows)
+    and its window results as arrays, filled batch by batch: the consensus
+    rows, their lengths, whether each window solved and by which tier (-1:
+    unsolved)."""
 
-    __slots__ = ("aread", "n_windows", "n_done", "cons", "cons_len", "solved",
-                 "tiers")
+    __slots__ = ("aread", "a_bases", "n_windows", "n_done", "cons", "cons_len",
+                 "solved", "tiers")
 
-    def __init__(self, aread: int, n_windows: int):
+    def __init__(self, aread: int, a_bases: np.ndarray, n_windows: int):
         self.aread = aread
+        self.a_bases = a_bases
         self.n_windows = n_windows
         self.n_done = 0
         self.cons: np.ndarray | None = None     # [n, CL] int8, at the first scatter
@@ -882,7 +921,71 @@ def _build_native_fallback(profile: ErrorProfile, cfg: PipelineConfig):
         return out
 
     solve.__name__ = "native-ladder"
+    # the native primary layers its in-engine hp rescue on this very
+    # construction, so the primary and the failover never diverge
+    solve.nladder, solve.nt = nladder, nt
     return solve
+
+
+def _hp_pass(out: dict, seqs, lens, nsegs, cfg: PipelineConfig, hp_ols: dict,
+             hp_nladder, nt: int) -> int:
+    """The homopolymer rescue over one fetched batch's rows, in place: the
+    rows that failed or solved with err above ``hp_err`` and hold a long run
+    solve in run-length-compressed space, and an accepted candidate replaces
+    the row (its consensus may be longer than the ladder's, so ``cons``
+    widens to hold it), with tier ``HP_TIER``. ``seqs``/``lens``/``nsegs``
+    are the rows as dispatched. Returns the rescued count."""
+    from ..oracle.hp import HP_TIER, hp_candidate
+
+    ccfg = cfg.consensus
+    take = len(nsegs)
+    if hp_nladder is not None:
+        from types import SimpleNamespace
+
+        sub = {"cons": np.array(out["cons"], dtype=np.int8),
+               "cons_len": np.array(out["cons_len"], dtype=np.int32),
+               "err": np.array(out["err"], dtype=np.float32),
+               "tier": np.where(out["solved"], out["tier"], -1).astype(np.int32)}
+        n = hp_nladder.hp_rescue(SimpleNamespace(seqs=seqs, lens=lens, nsegs=nsegs),
+                                 sub, n_threads=nt)
+        if n:
+            hit = sub["tier"] == HP_TIER
+            out.update(cons=sub["cons"], cons_len=sub["cons_len"], err=sub["err"],
+                       tier=np.where(hit, HP_TIER, out["tier"]),
+                       solved=np.asarray(out["solved"]) | hit)
+        return n
+    found = {}
+    for i in range(take):
+        nseg = int(nsegs[i])
+        if nseg < ccfg.dbg.min_depth:
+            continue
+        solved = bool(out["solved"][i])
+        derr = float(out["err"][i]) if solved else float("inf")
+        if solved and derr <= ccfg.hp_err:
+            continue
+        dseq = (np.asarray(out["cons"][i][:out["cons_len"][i]], dtype=np.int8)
+                if solved else None)
+        segs = [np.asarray(seqs[i, d, :lens[i, d]], dtype=np.int8) for d in range(nseg)]
+        res = hp_candidate(segs, dseq, derr, hp_ols, ccfg)
+        if res is not None:
+            found[i] = res
+    if found:
+        cons = np.asarray(out["cons"])
+        width = max(cons.shape[1], max(len(r.seq) for r in found.values()))
+        wide = np.full((take, width), 4, dtype=np.int8)
+        wide[:, :cons.shape[1]] = cons
+        cons_len = np.array(out["cons_len"], dtype=np.int32)
+        err = np.array(out["err"], dtype=np.float32)
+        tier = np.array(out["tier"], dtype=np.int32)
+        solved = np.array(out["solved"], dtype=bool)
+        for i, r in found.items():
+            wide[i, :len(r.seq)] = r.seq
+            cons_len[i] = len(r.seq)
+            err[i] = r.err
+            tier[i] = HP_TIER
+            solved[i] = True
+        out.update(cons=wide, cons_len=cons_len, err=err, tier=tier, solved=solved)
+    return len(found)
 
 
 def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
@@ -895,8 +998,9 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
     from .faults import FaultPlan
     from .governor import GovernorConfig, check_host_pressure
 
-    dev = resolve_device(cfg.device)
-    paged_on = paged_enabled(cfg, dev)
+    # the native engine runs on the host: the card is not asked for
+    dev = torch.device("cpu") if cfg.native_solver else resolve_device(cfg.device)
+    paged_on = paged_enabled(cfg, dev) and not cfg.native_solver
     _check_config(cfg)
     stats = PipelineStats(paged=paged_on, native_host=cfg.use_native)
     prof = StageProfile(threads=max(1, cfg.feeder_threads))
@@ -946,7 +1050,8 @@ def _start_audit_worker(cfg: PipelineConfig, dev, ev_log, stats: PipelineStats):
     rate = cfg.audit_rate if cfg.audit_rate is not None else env_float(
         "DACCORD_AUDIT_RATE", 1.0 / 64.0)
     use = cfg.audit_worker if cfg.audit_worker is not None else dev.type == "cuda"
-    if not (cfg.supervise and rate > 0.0 and use):
+    # the native engine is not audited: its reference would be itself
+    if not (cfg.supervise and rate > 0.0 and use) or cfg.native_solver:
         return None
     from ..audit.worker import shared
 
@@ -992,13 +1097,16 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                                       overflow_rescue=cfg.overflow_rescue,
                                       device=device, route=cfg.dp_route)
 
-    ladder = make_ladder(dev)
+    native = cfg.native_solver
+    ladder = None if native else make_ladder(dev)
     w, adv = cfg.consensus.w, cfg.consensus.adv
     B = cfg.batch_size
     min_depth = cfg.consensus.dbg.min_depth
     tier_ks = [t[0] for t in cfg.consensus.tiers]
+    # patch mode refills unsolved windows with raw bases, which no rescue
+    # consensus is worse than: the end-trim applies to split mode only
     rescue_tiers = ({i for i, t in enumerate(cfg.consensus.tiers) if t[1] <= 1}
-                    if cfg.end_trim else set())
+                    if cfg.end_trim and cfg.consensus.mode != "patch" else set())
     if paged_on:
         t0 = time.perf_counter()
         families = run_families(db, las, cfg, sample, start, end, clean)
@@ -1015,15 +1123,61 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         labels = [f"D{d}xL{ln}" for d, ln in buckets]
         cap_pages = [None] * len(buckets)
     nb = len(shapes)
-    split = cfg.ladder_mode == "split"
+    # the native engine escalates a window on the host: batches go fused
+    split = cfg.ladder_mode == "split" and not native
+    if native and (cfg.ladder_mode == "split" or cfg.paged != "off"):
+        log.log("info", msg="ladder_mode/paged inapplicable to the native "
+                            "engine; running dense and fused")
 
-    dispatcher = LadderDispatcher(dev, tracer) if cfg.max_inflight > 1 else None
-    # a batch's stream tag picks its program: Stream A (tier 0 alone) or
-    # the whole ladder (fused batches and Stream B's)
-    dispatch_fn = stream_dispatcher(ladder, dispatcher, tracer)
-    fetch_fn, fetch_many_fn = fetch, fetch_many
+    # the homopolymer rescue: in the native engine's solve call, or a host
+    # pass after each fetch (the host library's, or the python loop's)
+    hp_nt = cfg.native_threads if cfg.native_threads > 0 else len(os.sched_getaffinity(0))
+    hp_ols = hp_nladder = None
+    if cfg.consensus.hp_rescue and not (native and cfg.hp_native):
+        from ..oracle.consensus import make_offset_likely
+
+        hp_ols = make_offset_likely(profile, cfg.consensus)
+        if cfg.hp_native:
+            from ..native.api import NativeLadder
+
+            hp_nladder = NativeLadder(hp_ols, cfg.consensus, max_kmers=cfg.max_kmers,
+                                      rescue_max_kmers=cfg.rescue_max_kmers)
+
+    dispatcher = (LadderDispatcher(dev, tracer) if cfg.max_inflight > 1 and not native
+                  else None)
+    if native:
+        # one construction with the failover engine: the two never diverge
+        engine = _build_native_fallback(profile, cfg)
+
+        def native_solve(b):
+            out = engine(b)
+            if cfg.consensus.hp_rescue and cfg.hp_native:
+                stats.n_hp_rescued += engine.nladder.hp_rescue(b, out, n_threads=engine.nt)
+            return out
+
+        native_solve.__name__ = "native-ladder"
+        # a synchronous engine: its handle is its result
+        dispatch_fn, fetch_fn, fetch_many_fn = native_solve, (lambda h: h), list
+    else:
+        # a batch's stream tag picks its program: Stream A (tier 0 alone) or
+        # the whole ladder (fused batches and Stream B's)
+        dispatch_fn = stream_dispatcher(ladder, dispatcher, tracer)
+        fetch_fn, fetch_many_fn = fetch, fetch_many
     sup = None
-    if cfg.supervise:
+    if cfg.supervise and native:
+        from .supervisor import DeviceSupervisor, SupervisorConfig
+
+        # the primary is the degraded engine: it fails over to itself, and
+        # it is not audited (its reference would be itself)
+        sup = DeviceSupervisor(
+            dispatch_fn, fetch_fn, fallback_factory=lambda: native_solve,
+            log=ev_log,
+            cfg=SupervisorConfig.from_env(**({"failback": True} if cfg.failback else {})),
+            faults=plan, probe_fn=lambda: True, describe="native-ladder",
+            fingerprint_prefix="native:", inline=True, governor_cfg=gov_cfg,
+            tracer=tracer, audit_rate=cfg.audit_rate)
+        dispatch_fn, fetch_fn, fetch_many_fn = sup.dispatch, sup.fetch, sup.fetch_many
+    elif cfg.supervise:
         from ..kernels.tiers import audit_reference
         from ..utils.obs import device_alive
         from .supervisor import DeviceSupervisor, SupervisorConfig
@@ -1081,7 +1235,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
     def finalize_read(r: int, pr: _PendingRead) -> None:
         if rescue_tiers:
             _trim_rescue_ends(pr, rescue_tiers, stats)
-        ready[r] = stitch_results(pr.results(w, adv), cfg.consensus)
+        ready[r] = stitch_results(pr.a_bases, pr.results(w, adv), cfg.consensus)
         del pending[r]
 
     def take_rows(buf: "_RowBuffer", bi: int) -> int:
@@ -1110,8 +1264,12 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
             r = int(rid[a])
             pr = pending[r]
             wj = widx[a:b]
-            if pr.cons is None:
-                pr.cons = np.full((pr.n_windows, cons.shape[1]), 4, dtype=np.int8)
+            if pr.cons is None or pr.cons.shape[1] < cons.shape[1]:
+                # an hp-rescued row may be longer than the ladder's rows
+                wide = np.full((pr.n_windows, cons.shape[1]), 4, dtype=np.int8)
+                if pr.cons is not None:
+                    wide[:, :pr.cons.shape[1]] = pr.cons
+                pr.cons = wide
             pr.cons[wj, :cons.shape[1]] = cons[a:b]
             pr.cons_len[wj] = cl[a:b]
             pr.solved[wj] = solved[a:b]
@@ -1123,7 +1281,8 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
             for i in range(take):
                 t = int(tier[i])
                 ledger.record(int(rid[i]), int(widx[i]), w, int(nsegs_b[i]), t,
-                              tier_ks[t] if t >= 0 else -1, bool(solved[i]), stream,
+                              tier_ks[t] if 0 <= t < len(tier_ks) else -1,
+                              bool(solved[i]), stream,
                               rescued=stream == "rescue" or t >= 1, wall_s=wall)
 
     def drain(to_depth: int, audited_only: bool = False) -> None:
@@ -1136,7 +1295,31 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                           if audit_pending(inflight[i][0])), n_pop)
         if n_pop <= 0:
             return
-        entries = [inflight.popleft() for _ in range(n_pop)]
+        land([inflight.popleft() for _ in range(n_pop)])
+
+    def drain_final() -> None:
+        """Empty the deque at the end of the run in the order the shadow
+        audit's rows come back: the calls whose rows are back are fetched
+        and scattered first (oldest first), and the pipeline waits only when
+        none is, for the oldest. The workers solve the last samples while
+        the host scatters and stitches, instead of the host waiting for
+        every verdict before its first scatter. Windows solve independently,
+        so the order changes no byte. A split run drains oldest first: its
+        Stream A rows fill the rescue pools in dispatch order."""
+        if split:
+            drain(0)
+            return
+        while inflight:
+            back = {i for i, e in enumerate(inflight) if not audit_pending(e[0])} or {0}
+            entries = [e for i, e in enumerate(inflight) if i in back]
+            rest = [e for i, e in enumerate(inflight) if i not in back]
+            inflight.clear()
+            inflight.extend(rest)
+            land(entries)
+
+    def land(entries: list) -> None:
+        """Fetch ``entries`` (popped from the deque), then pool, hp-rescue
+        and scatter their rows."""
         t0 = time.perf_counter()
         outs = fetch_many_fn([e[0] for e in entries])
         stats.device_s += time.perf_counter() - t0
@@ -1161,8 +1344,9 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                     keep = np.nonzero(~need)[0]
                     out = {k: v[keep] if np.ndim(v) else v for k, v in out.items()}
                     rid, widx, nsegs_b = rid[keep], widx[keep], nsegs_b[keep]
+                    seqs, lens = seqs[keep], lens[keep]
                     take = len(keep)
-            elif stream == "full":
+            elif stream == "full" and not native:
                 # the fused ladder's rescue demand, from its final rows
                 # (escalation-solved, still failed at depth, and top-M
                 # capped with the overflow rescue on; a tier-0 failure the
@@ -1175,6 +1359,14 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                 if n_need:
                     stats.n_rescue_windows += n_need
                     stats.rescue_slots_executed += pick_width(n_need, B)
+            if hp_ols is not None and take:
+                # after the audit's comparison (inside the fetch), so the
+                # audit sees the ladder's own rows
+                t0 = time.perf_counter()
+                with tracer.span("hp", windows=int(take)):
+                    stats.n_hp_rescued += _hp_pass(out, seqs, lens, nsegs_b, cfg,
+                                                   hp_ols, hp_nladder, hp_nt)
+                stats.hp_wall_s += time.perf_counter() - t0
             n_s = int(np.sum(out["solved"]))
             if take:
                 scatter(out, rid, widx, take, nsegs_b, now - t_d, stream)
@@ -1242,7 +1434,9 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                 submit_batch(buf, bi, take_rows(buf, bi), "tier0" if split else "full")
         flush_rescues(final)
         if final:
-            drain(0)
+            a0 = sup.audit_s if sup is not None else 0.0
+            drain_final()
+            stats.audit_drain_s = (sup.audit_s if sup is not None else 0.0) - a0
             # the last Stream A rows pool fresh rescue rows; Stream B rows
             # never pool, so one more round empties the pools
             while any(pb.nrows for pb in pools):
@@ -1360,7 +1554,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
             if nwin == 0:
                 ready[aread] = []
             else:
-                pr = pending[aread] = _PendingRead(aread, nwin)
+                pr = pending[aread] = _PendingRead(aread, a_bases, nwin)
                 widx = np.arange(nwin, dtype=np.int64)
                 shallow = nsegs < min_depth
                 n_sh = int(shallow.sum())
@@ -1394,7 +1588,10 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                                              stats.n_reads)
             run_batches(final=False)
             yield from emit_ready()
+        t_final = time.time()
         run_batches(final=True)
+        if worker is not None:
+            stats.audit_tail = worker.anatomy(t_final)
         yield from emit_ready()
     finally:
         if dispatcher is not None:

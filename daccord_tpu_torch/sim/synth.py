@@ -71,6 +71,45 @@ class SimConfig:
     dropout_frac: float = 0.0     # genome fraction with thinned coverage
     dropout_factor: float = 4.0   # coverage divisor inside the dropout region
 
+    @classmethod
+    def pacbio_clr(cls, **kw) -> "SimConfig":
+        """PacBio CLR-like: ~13.5% error, insertion-heavy (the defaults)."""
+        return cls(**kw)
+
+    @classmethod
+    def ont_r10(cls, **kw) -> "SimConfig":
+        """ONT R10-like: much longer reads at a few percent error,
+        deletion-leaning; the per-window work is the PacBio preset's, the
+        windows a read about 25x as many."""
+        kw.setdefault("read_len_mean", 20_000.0)
+        kw.setdefault("read_len_sigma", 0.5)
+        kw.setdefault("p_ins", 0.008)
+        kw.setdefault("p_del", 0.018)
+        kw.setdefault("p_sub", 0.01)
+        kw.setdefault("coverage", 30.0)
+        kw.setdefault("min_overlap", 2_000)
+        return cls(**kw)
+
+    @classmethod
+    def pacbio_mismatch(cls, **kw) -> "SimConfig":
+        """The PacBio CLR shape with every mismatch process on: everything
+        the error-profile estimator does not model, at once."""
+        kw.setdefault("hp_indel_slope", 0.5)
+        kw.setdefault("burst_rate", 2e-4)
+        kw.setdefault("read_rate_sigma", 0.4)
+        kw.setdefault("p_chimera", 0.03)
+        kw.setdefault("dropout_frac", 0.15)
+        return cls(**kw)
+
+    @classmethod
+    def ont_r10_mismatch(cls, **kw) -> "SimConfig":
+        """The ONT R10 shape with homopolymer-dominated indels and rate
+        dispersion: the characteristic ONT failure modes."""
+        kw.setdefault("hp_indel_slope", 1.0)
+        kw.setdefault("read_rate_sigma", 0.5)
+        kw.setdefault("burst_rate", 1e-4)
+        return cls.ont_r10(**kw)
+
 
 @dataclass
 class SimRead:

@@ -7,6 +7,9 @@
         [--ingest-policy strict|quarantine|off] [--quarantine PATH]
         [--max-pile-overlaps N] [--stats PATH] [-b BATCH] [-t THREADS]
         [--no-native] [--qv-track NAME] [--device cuda|cpu]
+        [--backend auto|cuda|cpu|native] [--mode split|patch]
+        [--hp-rescue | --no-hp-rescue] [--hp-vote median|posterior]
+        [--hp-accept rescore|likelihood]
         [--paged on|off|auto] [--page-len N] [--dp fused|scan]
         [--ladder fused|split] [--max-inflight N] [--depth-buckets LIST]
         [--no-supervise]
@@ -29,6 +32,24 @@ overlaps is contained the same way. ``--ladder split`` runs the JAX
 package's two-stream ladder: tier-0 batches (Stream A), their failures and
 top-M capped rows pooled on the host and solved again in dense whole-ladder
 batches (Stream B); the FASTA is byte-identical to ``--ladder fused``.
+``--mode patch`` keeps the read's own bases where a window is unsolved
+instead of splitting the read there. ``--hp-rescue`` solves the windows that
+failed or solved badly and hold a long homopolymer run again in
+run-length-compressed space (``oracle/hp.py``; ``--hp-vote`` and
+``--hp-accept`` pick the run-length vote and the acceptance), on the host
+after each ladder call: in the host library, or in python under
+``--no-native`` (the same FASTA). As in the JAX package it is on by default
+for an explicit ``--backend cpu`` or ``native`` and off otherwise.
+``--backend native`` solves every window with the host library's tier
+ladder (the engine the supervisor fails over to) instead of the card, with
+the homopolymer rescue inside the engine; ``-M 0`` is its full graph. Its
+FASTA is byte-identical to the JAX package's ``--backend native``.
+
+``--backend``: ``auto`` (the default) and ``cuda`` run on the card (``auto``
+follows ``--device``, and never falls back to the CPU or the native engine
+when no card is found: it raises, as ``--device cuda`` does); ``cpu`` runs
+the port's ladder on the CPU (the JAX package's ``tpu`` is ``cuda`` here).
+An explicit ``--device`` that contradicts ``--backend`` is refused.
 
 Port-only flags: ``--device``; ``--paged`` ships batches as a page pool and
 page table (``kernels/paging.py``) instead of the dense tile, ``--dp`` picks
@@ -66,6 +87,8 @@ from ..oracle.profile import ErrorProfile
 from ..runtime.pipeline import (INGEST_POLICIES, PipelineConfig, correct_to_fasta,
                                 estimate_profile_for_shard)
 
+BACKENDS = ("auto", "cuda", "cpu", "native")
+
 USAGE = ("usage: python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT "
          "[-E EPROF] [--eprof-only] [-J i,n | --block I] [-w W] [-a ADV] [-k K] "
          "[--depth D] [--seg-len L] [-M M] [--candidates N] [--max-err F] "
@@ -73,6 +96,9 @@ USAGE = ("usage: python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT "
          "[--ingest-policy strict|quarantine|off] [--quarantine PATH] "
          "[--max-pile-overlaps N] [--stats PATH] [-b BATCH] [-t THREADS] "
          "[--no-native] [--qv-track NAME] [--device cuda|cpu] "
+         "[--backend auto|cuda|cpu|native] [--mode split|patch] "
+         "[--hp-rescue | --no-hp-rescue] [--hp-vote median|posterior] "
+         "[--hp-accept rescore|likelihood] "
          "[--paged on|off|auto] [--page-len N] [--dp fused|scan] "
          "[--ladder fused|split] [--max-inflight N] [--depth-buckets LIST] "
          "[--no-supervise] "
@@ -97,7 +123,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--seg-len", type=int, default=defaults.seg_len,
                    help="max segment length")
     p.add_argument("-M", "--max-kmers", type=int, default=defaults.max_kmers,
-                   help="tier-0 top-M active set (k-mers per window)")
+                   help="tier-0 top-M active set (k-mers per window); 0 = the "
+                        "full graph, --backend native only")
     p.add_argument("--candidates", type=int, default=3, metavar="N",
                    help="DBG paths rescored per window")
     p.add_argument("--max-err", type=float, default=0.3,
@@ -147,8 +174,31 @@ def _parser() -> argparse.ArgumentParser:
                    help="intrinsic-QV track whose B-read QVs join the depth "
                         "ranking; '' = trace-diff rate only (default inqual; "
                         "a DB without the track ranks by trace diffs)")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="where the ladder runs (default cuda; no fallback)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="where the ladder runs (default cuda, or cpu for "
+                        "--backend cpu|native; no fallback)")
+    p.add_argument("--backend", choices=BACKENDS, default="auto",
+                   help="auto and cuda: the ladder on the card (auto follows "
+                        "--device; no fallback); cpu: the ladder on the CPU; "
+                        "native: the host library's tier ladder (-M 0 = the "
+                        "full graph), with the hp rescue on by default")
+    p.add_argument("--mode", choices=("split", "patch"), default="split",
+                   help="an unsolved window splits the read, or is patched "
+                        "with the read's own bases")
+    p.add_argument("--hp-rescue", action=argparse.BooleanOptionalAction, default=None,
+                   help="homopolymer rescue: solve the windows that failed or "
+                        "solved badly and hold a long run again in run-length-"
+                        "compressed space, then re-expand the runs by an "
+                        "aligned vote (default on for an explicit --backend "
+                        "cpu or native, off otherwise)")
+    p.add_argument("--hp-vote", choices=("median", "posterior"), default="median",
+                   help="hp run-length vote: the median, or the length "
+                        "posterior calibrated on the profile's hp slope "
+                        "(engages when the fitted slope is at least 0.1)")
+    p.add_argument("--hp-accept", choices=("rescore", "likelihood"), default="rescore",
+                   help="hp acceptance: the raw rescore, or the likelihood "
+                        "ratio under the calibrated observation model (same "
+                        "slope gate as --hp-vote posterior)")
     p.add_argument("--paged", choices=("on", "off", "auto"), default="off",
                    help="ragged paged batches: a page pool + page table per "
                         "corpus-derived (depth, pages) shape family instead "
@@ -208,8 +258,20 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def _resolve_device(args) -> None:
+    """``args.device`` from ``--backend`` and ``--device``; refuses an explicit
+    ``--device`` that contradicts an explicit ``--backend``."""
+    want = {"cuda": "cuda", "cpu": "cpu", "native": "cpu"}.get(args.backend)
+    if args.device is not None and want is not None and args.device != want:
+        raise SystemExit(f"--backend {args.backend} contradicts --device "
+                         f"{args.device} (drop one of the two flags)")
+    args.device = args.device or want or "cuda"
+
+
 def _check(args) -> None:
     """The argument checks that need no file, before any work."""
+    _resolve_device(args)
+    native = args.backend == "native"
     if args.block is not None and args.J is not None:
         raise SystemExit("--block and -J are mutually exclusive")
     k = args.k
@@ -218,11 +280,23 @@ def _check(args) -> None:
     if k + 4 > min(args.w, args.seg_len - 1):
         raise SystemExit(f"escalated k {k + 4} (from -k {k}) needs window size > "
                          f"{k + 4} and --seg-len > {k + 5}")
-    if args.max_kmers <= 0:
+    if args.ladder == "split" and native:
+        raise SystemExit("--ladder split is a JAX-ladder dispatch strategy; "
+                         "--backend native escalates per window on host "
+                         "(drop one of the two flags)")
+    if args.paged == "on" and native:
+        raise SystemExit("--paged on is a JAX-ladder wire format; --backend "
+                         "native solves dense rows on host (drop one flag)")
+    if args.max_kmers == 0 and not native:
+        # on the device ladder M=0 is an empty active set that solves
+        # nothing; only the native engine reads 0 as the full graph
+        raise SystemExit("-M 0 (full graph) requires --backend native; the "
+                         "device ladder needs a positive top-M cap")
+    if args.max_kmers < 0:
         raise SystemExit("-M: the device ladder needs a positive top-M cap")
     if args.candidates < 1:
         raise SystemExit(f"--candidates {args.candidates}: at least 1")
-    if args.device == "cuda":
+    if args.device == "cuda" and not native:
         # the DP kernels' widest window and their shared memory, checked at
         # every tier's shape before any work (tiers with min_count 1 run at
         # the rescue width 256)
@@ -315,10 +389,17 @@ def daccord_run(argv=None):
         buckets = tuple(int(x) for x in args.depth_buckets.split(",") if x.strip())
     except ValueError:
         raise SystemExit(f"bad --depth-buckets {args.depth_buckets!r}") from None
-    ccfg = ConsensusConfig(w=args.w, adv=args.a,
+    # the hp rescue's default is the JAX package's: on for an explicit host
+    # engine, off on the card (and under auto, so one command writes the
+    # same bases wherever it runs)
+    hp = (args.hp_rescue if args.hp_rescue is not None
+          else args.backend in ("native", "cpu"))
+    ccfg = ConsensusConfig(w=args.w, adv=args.a, mode=args.mode,
                            tiers=((k, 2, 2), (k + 2, 2, 2), (k + 4, 2, 2), (k, 1, 1)),
                            dbg=DBGParams(n_candidates=args.candidates,
-                                         max_err=args.max_err))
+                                         max_err=args.max_err),
+                           hp_rescue=hp, hp_vote=args.hp_vote,
+                           hp_accept=args.hp_accept)
     cfg = PipelineConfig(consensus=ccfg, batch_size=args.batch, depth=args.depth,
                          seg_len=args.seg_len, max_kmers=args.max_kmers,
                          overflow_rescue=args.overflow_rescue,
@@ -328,6 +409,8 @@ def daccord_run(argv=None):
                          page_len=args.page_len, dp_route=args.dp,
                          ladder_mode=args.ladder,
                          use_native=not args.no_native,
+                         hp_native=not args.no_native,
+                         native_solver=args.backend == "native",
                          feeder_threads=args.threads,
                          qv_track=args.qv_track or None,
                          end_trim=not args.no_end_trim,
@@ -392,6 +475,8 @@ def stats_record(stats, args) -> dict:
         "max_inflight": args.max_inflight, "peak_inflight": stats.peak_inflight,
         "native_host": stats.native_host, "threads": args.threads,
         "qv_ranked": stats.qv_ranked, "device": args.device,
+        "backend": args.backend,
+        "n_hp_rescued": stats.n_hp_rescued, "hp_wall_s": round(stats.hp_wall_s, 4),
         "degraded": stats.degraded, "fallback_reason": stats.fallback_reason,
         "capacity_events": stats.n_capacity_events,
         "backpressure": stats.n_backpressure,

@@ -98,6 +98,53 @@ def test_calls_whose_rows_are_not_back_stay_in_flight(base, monkeypatch):
     assert st.peak_inflight == min(st.n_batches, pipeline.AUDIT_LAG * 8)
 
 
+def test_final_drain_lands_calls_in_the_order_their_rows_come_back(base, monkeypatch):
+    """The audit's tail: at the end of the run the deque is emptied in the
+    order the worker's rows come back, so the host scatters and stitches
+    the calls already checked while the worker solves the rest. Here the
+    oldest call's rows are held back until every other call has landed:
+    it is fetched last, the run waits only for it, and the FASTA is the
+    clean run's."""
+    first, fetched, landed = [], [], set()
+    real_fetch = DeviceSupervisor.fetch
+
+    def audit_pending(self, h):
+        if not first:
+            first.append(h)
+        return h is first[0] and len(landed) < self.counters["dispatch"] - 1
+
+    def fetch(self, h):
+        fetched.append(h)
+        out = real_fetch(self, h)
+        landed.add(id(h))
+        return out
+
+    monkeypatch.setattr(DeviceSupervisor, "audit_pending", audit_pending)
+    monkeypatch.setattr(DeviceSupervisor, "fetch", fetch)
+    port = run(base, "port", "worker_order", None, audit_rate=0.25, audit_worker=True)
+    st = port["stats"]
+    assert port["text"] == base["clean"]["text"]
+    assert len(fetched) == st.n_batches > 8 and fetched[-1] is first[0]
+    assert st.sup_counters["audits"] == st.n_batches and st.audit_disabled is None
+    assert 0 <= st.audit_drain_s <= st.audit_s
+
+
+@pytest.mark.parametrize("rate", [1.0 / 64, 1.0], ids=["1/64", "1"])
+def test_fasta_is_the_same_at_every_audit_rate(base, rate):
+    """Rates 0 (the clean run), 1/64 and 1 write one FASTA; the tail's
+    anatomy is recorded: each worker's backlog when the final flush began,
+    and every part sent since came back."""
+    port = run(base, "port", f"worker_rate{rate:.4f}", None, audit_rate=rate,
+               audit_worker=True)
+    st = port["stats"]
+    assert port["text"] == base["clean"]["text"]
+    assert not any(r["event"] in ("sup_sdc", "audit.disabled") for r in port["recs"])
+    tail = st.audit_tail
+    assert len(tail["queued_windows"]) == len(tail["running"]) == audit_worker.PROCESSES
+    assert tail["tail_parts"] and all(p["back_s"] is not None and p["back_s"] >= 0
+                                      for p in tail["tail_parts"])
+
+
 def test_killed_worker_disables_the_audit_and_the_run_completes(base, monkeypatch):
     real = audit_worker.AuditWorker.submit
     calls = []
