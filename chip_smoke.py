@@ -87,6 +87,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    running call when the final flush began, the last parts' send-to-
    solved seconds) and the warm 20 kb dense rerun's audit share against
    the JAX package's 2%;
+4d. workflow phase, the upstream daccord workflow through the port's
+   command line (``daccord_tpu_torch.tools.cli``, in-process) on a 100 kb /
+   30x set of 5 kb reads with a two-copy repeat (35% of the genome, 8%
+   divergence) and 3% chimeras, seed 45; each step prints its wall and what
+   it made: ``db2fasta`` then ``fasta2db`` rebuild the DB's files byte for
+   byte; ``dbsplit`` into four blocks, ``lassplit``, ``lasmerge`` of the
+   parts equal to the LAS, ``lassort`` of a seeded shuffle with about 100
+   on-disk runs (a two-level merge) equal to its in-memory sort,
+   ``lasindex``; ``inqual --block I`` for every block and ``catrack`` equal
+   to the whole-DB ``inqual``; ``repeats -d 30 --factor 1.5``, ``filter``,
+   ``filtersym --db`` in memory and partitioned (the same bytes), with the
+   overlaps kept; ``shard -J 0,2`` dense fused and ``-J 1,2 --paged on --dp
+   scan`` on the card over the symmetric LAS with the QV ranking on (each
+   with the counts set to 0 before it: ``dp_backtrack``, ``gather_pages``,
+   ``heaviest_path``, ``rescore`` and ``position_weights`` must launch), and
+   shard 0 again with an ``InjectedCrash`` after its first checkpoint, then
+   resumed: the same FASTA byte for byte; ``merge``, ``audit`` (the sha256
+   chain, and two piles re-solved on the CPU ladder) and ``qveval``; the
+   plain arm, ``daccord`` on the unfiltered LAS with ``--qv-track ''``, and
+   the two mixed arms (the unfiltered LAS ranked, the filtered LAS
+   unranked): every arm's error and Q beside the card's name and power
+   limit, the track arm held below half the raw error;
 5. kernel phase, on inputs made from real windows of the dataset (topped up
    from a seeded generator if there were fewer than B), each kernel held
    bit-equal to its plain torch version on the card and timed (its device
@@ -151,6 +173,10 @@ HBM_BYTES_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOP_S = 67e12           # H100 SXM float32 outside the tensor cores
 DATASET = dict(genome_len=20_000, coverage=20, read_len_mean=2_000, seed=42)
 BIG_DATASET = dict(genome_len=100_000, coverage=30, read_len_mean=5_000, seed=43)
+# the workflow phase's set: the 100 kb / 30x shape with a two-copy repeat and
+# chimeras (the JAX package's ladderbench cfg6 repeat)
+WORKFLOW_DATASET = dict(BIG_DATASET, repeat_fraction=0.35, repeat_divergence=0.08,
+                        p_chimera=0.03, seed=45)
 FEEDER_PILES = 40            # piles the feeder phase windows through each route
 KERNELS = ("dp_backtrack", "heaviest_path", "gather_pages", "rescore", "position_weights")
 # rescore and position_weights replace no Pallas kernel: the XLA steps of the
@@ -725,15 +751,20 @@ def graph_phase(prof, cfg, seqs, lens, nsegs, dev) -> None:
             f"{pr['launches']}, graph launches {pr['graph_launches']}, copies {pr['copies']}")
 
 
+def zero_counts(counters) -> None:
+    """Set every kernel wrapper's launch counts to 0."""
+    for mod in counters:
+        mod.launches = 0
+        mod.launches_by_shape.clear()
+        getattr(mod, "windows_by_shape", {}).clear()
+
+
 def daccord(argv: list[str], counters, on_card: bool = True) -> tuple:
     """One in-process ``daccord`` run with every kernel's launch counts set
     to 0 just before and read just after: (stats, {kernel: (launches,
     launches by shape)}). With ``on_card`` a run whose supervisor failed
     over, moving work off the card, raises."""
-    for mod in counters:
-        mod.launches = 0
-        mod.launches_by_shape.clear()
-        getattr(mod, "windows_by_shape", {}).clear()
+    zero_counts(counters)
     from daccord_tpu_torch.tools.cli import daccord_run
 
     stats, _ = daccord_run(argv)
@@ -1221,6 +1252,228 @@ def hp_phase(d: dict, eprof: str, split_out: str, counters, tmp: str,
         f"{err:.6f} vs raw {raw:.6f}")
 
 
+def counted(call, counters) -> dict:
+    """``call()`` with every kernel's launch counts set to 0 just before and
+    read just after: {kernel: launches}."""
+    zero_counts(counters)
+    call()
+    torch.cuda.synchronize()
+    return {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in counters}
+
+
+def workflow_phase(counters, tmp: str, nthreads: int, smi: str) -> None:
+    """Phase 4d: the upstream daccord workflow through the port's command
+    line on the workflow set (:data:`WORKFLOW_DATASET`): round trips, the
+    sort and merge, the block tracks, the filters, two checkpointed shards
+    on the card with the QV ranking on, a crash and resume, the merge gate,
+    the audit and the Q of both arms. Each step prints its wall and what it
+    made, and raises on a broken contract."""
+    import random
+    import shutil
+
+    from daccord_tpu_torch.formats.dazzdb import db_blocks, read_db
+    from daccord_tpu_torch.formats.las import LasFile, write_las
+    from daccord_tpu_torch.parallel import launch
+    from daccord_tpu_torch.runtime.faults import InjectedCrash
+    from daccord_tpu_torch.runtime.pipeline import PipelineConfig, load_qv_ranker
+    from daccord_tpu_torch.sim import SimConfig, make_dataset
+    from daccord_tpu_torch.tools import cli
+
+    walls: list[tuple[str, float]] = []
+
+    def tool(step: str, *argv: str):
+        t0 = time.perf_counter()
+        rc = cli.main(list(argv))
+        walls.append((step, time.perf_counter() - t0))
+        if rc != 0:
+            raise AssertionError(f"workflow: {' '.join(argv[:1])} exited {rc}")
+        log(f"workflow {step}: {walls[-1][1]:.3f} s")
+
+    def same(a: str, b: str) -> bool:
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            return fa.read() == fb.read()
+
+    t0 = time.perf_counter()
+    w = os.path.join(tmp, "wf")
+    ds = make_dataset(w, SimConfig(**WORKFLOW_DATASET), name="wf")
+    db_path, las_path = ds["db"], ds["las"]
+    las = LasFile(las_path)
+    nreads = read_db(db_path, load_bases=False).nreads
+    log(f"workflow dataset {WORKFLOW_DATASET}: made in {time.perf_counter() - t0:.1f} s; "
+        f"{nreads} reads, {las.novl} overlaps")
+
+    # 1. db2fasta, then fasta2db: the rebuilt DB's files equal the original's
+    fa = os.path.join(w, "reads.fasta")
+    tool("db2fasta", "db2fasta", db_path, "-o", fa)
+    os.makedirs(os.path.join(w, "re"))
+    re_db = os.path.join(w, "re", "wf.db")
+    tool("fasta2db", "fasta2db", fa, re_db)
+    for f in ("wf.db", ".wf.idx", ".wf.bps", ".wf.names"):
+        if not same(os.path.join(w, f), os.path.join(w, "re", f)):
+            raise AssertionError(f"workflow: fasta2db of db2fasta changed {f}")
+    log(f"workflow: db2fasta -> fasta2db rebuilt the DB's .db, .idx, .bps and "
+        f".names byte for byte ({os.path.getsize(fa)} bytes of FASTA)")
+
+    # 2. four DB blocks, lassplit, a sort with on-disk runs and a multi-level
+    # merge of a seeded shuffle, lasmerge of the parts, lasindex
+    total = os.path.getsize(os.path.join(w, ".wf.bps")) * 4
+    tool("dbsplit", "dbsplit", db_path, "-s", f"{total / 4 / 1e6 * 1.02:.6f}")
+    nb = len(db_blocks(db_path))
+    if nb < 2:
+        raise AssertionError(f"workflow: dbsplit made {nb} block")
+    tool("lassplit", "lassplit", las_path, db_path, os.path.join(w, "part.#.las"))
+    parts = [os.path.join(w, f"part.{i}.las") for i in range(1, nb + 1)]
+    ovls = list(las)
+    random.Random(45).shuffle(ovls)
+    shuf, ref = os.path.join(w, "shuf.las"), os.path.join(w, "ref.las")
+    write_las(shuf, las.tspace, ovls)
+    # the simulator orders a pile's records by its own rule, so the sort's
+    # reference is the in-memory stable sort of the shuffle
+    write_las(ref, las.tspace, sorted(ovls, key=lambda o: (o.aread, o.bread, o.abpos)))
+    del ovls
+    mem = max(1, las.novl // 100)       # ~100 runs: on-disk runs, two merge levels
+    tool("lassort", "lassort", shuf, os.path.join(w, "sorted.las"), "--mem-records", str(mem))
+    tool("lasmerge", "lasmerge", os.path.join(w, "merged.las"), *parts)
+    if not same(os.path.join(w, "sorted.las"), ref):
+        raise AssertionError("workflow: lassort differs from the in-memory sort")
+    if not same(os.path.join(w, "merged.las"), las_path):
+        raise AssertionError("workflow: lasmerge of the parts differs from the original")
+    tool("lasindex", "lasindex", las_path)
+    log(f"workflow: {nb} blocks, lassplit into {[LasFile(p).novl for p in parts]} "
+        f"overlaps, lasmerge of the parts == the original byte for byte; lassort of "
+        f"the shuffle at --mem-records {mem} ({-(-las.novl // mem)} runs) == its "
+        f"in-memory stable sort")
+
+    # 3. the intrinsic-QV track per block, merged, equals the whole-DB track
+    for i in range(1, nb + 1):
+        tool(f"inqual --block {i}", "inqual", db_path, las_path, "-d", "30",
+             "--block", str(i))
+    tool("catrack", "catrack", db_path, "inqual", "-d")
+    track = [os.path.join(w, f".wf.inqual.{x}") for x in ("anno", "data")]
+    merged_track = [open(p, "rb").read() for p in track]
+    tool("inqual (whole DB)", "inqual", db_path, las_path, "-d", "30")
+    if [open(p, "rb").read() for p in track] != merged_track:
+        raise AssertionError("workflow: the merged block tracks differ from the "
+                             "whole-DB inqual track")
+    log(f"workflow: inqual of {nb} blocks + catrack == the whole-DB track "
+        f"({len(merged_track[1])} tile bytes)")
+
+    # 4. repeats, filter, filtersym in memory and partitioned
+    tool("repeats", "repeats", db_path, las_path, "-d", "30", "--factor", "1.5")
+    filt, sym, sym_ext = (os.path.join(w, f) for f in ("filt.las", "sym.las", "sym_ext.las"))
+    tool("filter", "filter", db_path, las_path, filt)
+    tool("filtersym", "filtersym", filt, sym, "--db", db_path)
+    n_filt = LasFile(filt).novl
+    tool("filtersym (partitioned)", "filtersym", filt, sym_ext, "--db", db_path,
+         "--mem-records", str(max(1, n_filt // 16)))
+    if not same(sym, sym_ext):
+        raise AssertionError("workflow: the partitioned filtersym differs")
+    n_sym = LasFile(sym).novl
+    log(f"workflow: overlaps kept: {las.novl} -> filter {n_filt} -> filtersym {n_sym} "
+        f"(partitioned at --mem-records {max(1, n_filt // 16)}: the same bytes)")
+    if not 0 < n_sym <= n_filt < las.novl:
+        raise AssertionError("workflow: the filters kept nothing, or everything")
+
+    # 5. two checkpointed shards on the card over the symmetric LAS, the QV
+    # ranking on; shard 0 again with a crash after its first checkpoint
+    qcfg = PipelineConfig(device=DEVICE)
+    if load_qv_ranker(read_db(db_path), LasFile(sym), qcfg) is None:
+        raise AssertionError("workflow: the inqual track does not load for the ranking")
+    out = os.path.join(w, "shards")
+    every = max(2, nreads // 8)         # about four checkpoints a shard
+    dense = ["--device", DEVICE, "-b", str(B), "--paged", "off", "--dp", "fused",
+             "-t", str(nthreads), "--checkpoint-every", str(every)]
+    paged = ["--device", DEVICE, "-b", str(B), "--paged", "on", "--dp", "scan",
+             "-t", str(nthreads), "--checkpoint-every", str(every)]
+    launched = {}
+    for j, args in (("0,2", dense), ("1,2", paged)):
+        launched[j] = counted(lambda: tool(f"shard -J {j}", "shard", db_path, sym, out,
+                                           "-J", j, *args), counters)
+        m = json.load(open(launch.shard_paths(out, int(j[0]))["manifest"]))
+        log(f"workflow shard -J {j} ({' '.join(args)}): {m['reads']} reads, "
+            f"{m['windows']} windows, {m['solved']} solved, {m['fragments']} "
+            f"fragments, wall {m['wall_s']:.3f} s, {m['windows'] / m['wall_s']:.1f} "
+            f"windows/s, degraded {m['degraded']}; launches {launched[j]}")
+        if m["degraded"] or not m["solved"]:
+            raise AssertionError(f"workflow: shard {j} degraded or solved nothing")
+    for j, names in (("0,2", ("dp_backtrack", "rescore", "position_weights")),
+                     ("1,2", ("gather_pages", "heaviest_path", "rescore",
+                              "position_weights"))):
+        for name in names:
+            if launched[j][name] <= 0:
+                raise AssertionError(f"workflow: shard {j} never launched {name}")
+    crash = os.path.join(w, "crash")
+    real = launch.correct_shard
+
+    def crashing(*a, **kw):
+        for i, item in enumerate(real(*a, **kw)):
+            if i == every + every // 2:
+                raise InjectedCrash("injected after the first checkpoint")
+            yield item
+
+    launch.correct_shard = crashing
+    t0 = time.perf_counter()
+    try:
+        cli.main(["shard", db_path, sym, crash, "-J", "0,2", *dense])
+        raise AssertionError("workflow: the injected crash did not fire")
+    except InjectedCrash:
+        pass
+    finally:
+        launch.correct_shard = real
+    t_crash = time.perf_counter() - t0
+    prog = json.load(open(launch.shard_paths(crash, 0)["progress"]))
+    t0 = time.perf_counter()
+    cli.main(["shard", db_path, sym, crash, "-J", "0,2", *dense])
+    t_resume = time.perf_counter() - t0
+    m = json.load(open(launch.shard_paths(crash, 0)["manifest"]))
+    if not same(launch.shard_paths(crash, 0)["fasta"], launch.shard_paths(out, 0)["fasta"]):
+        raise AssertionError("workflow: the resumed shard 0 differs from the "
+                             "uninterrupted one")
+    log(f"workflow crash and resume, shard 0: crashed {t_crash:.3f} s in, after "
+        f"{prog['emitted']} reads checkpointed; the resume ({t_resume:.3f} s, from read "
+        f"{m['resumed_at_read']}) wrote the uninterrupted run's FASTA byte for byte")
+
+    # 6. the merge gate, the audit, the Q of the track arm
+    merged = os.path.join(w, "corrected.fasta")
+    tool("merge", "merge", out, "2", merged)
+    tool("audit", "audit", out, "--nshards", "2")
+    tool("audit --resolve 2", "audit", out, "--nshards", "2", "--db", db_path,
+         "--las", sym, "--resolve", "2", "--shard", "0")
+    qj = os.path.join(w, "q_track.json")
+    tool("qveval (track arm)", "qveval", merged, ds["truth"], "--raw-db", db_path,
+         "--json", qj)
+    q_track = json.load(open(qj))
+
+    # 7. the plain arm: daccord on the unfiltered LAS, no QV track; and, to
+    # tell the filters' share from the ranking's, the two mixed arms
+    arms = {}
+    for arm, las_in, extra in (("plain", las_path, ["--qv-track", ""]),
+                               ("ranked, unfiltered", las_path, []),
+                               ("filtered, unranked", sym, ["--qv-track", ""])):
+        fa_out = os.path.join(w, f"arm_{len(arms)}.fasta")
+        lp = counted(lambda: tool(f"daccord ({arm} arm)", "daccord", db_path, las_in,
+                                  "-o", fa_out, *extra, *dense[:-2]), counters)
+        qj = os.path.join(w, f"q_arm_{len(arms)}.json")
+        tool(f"qveval ({arm} arm)", "qveval", fa_out, ds["truth"], "--raw-db", db_path,
+             "--json", qj)
+        arms[arm] = json.load(open(qj))
+        log(f"workflow {arm} arm: error {arms[arm]['error_rate']} "
+            f"(Q{arms[arm]['qscore']}), {arms[arm]['fragments']} fragments, "
+            f"{arms[arm]['bases']} bases; launches {lp}")
+    q_plain = arms["plain"]
+    log(f"workflow arms, {smi}: track arm (inqual, repeats, filter, filtersym, two "
+        f"shards, merge) error {q_track['error_rate']} (Q{q_track['qscore']}), "
+        f"{q_track['fragments']} fragments, {q_track['bases']} bases; plain arm "
+        f"(daccord on the unfiltered LAS, --qv-track '') error "
+        f"{q_plain['error_rate']} (Q{q_plain['qscore']}), {q_plain['fragments']} "
+        f"fragments, {q_plain['bases']} bases; raw {q_track['raw_error_rate']} "
+        f"(Q{q_track['raw_qscore']})")
+    if not q_track["error_rate"] < q_track["raw_error_rate"] / 2:
+        raise AssertionError("workflow: the track arm is not clearly better than raw")
+    log(f"workflow walls, {smi}: " + ", ".join(f"{s} {t:.3f} s" for s, t in walls))
+    shutil.rmtree(w, ignore_errors=True)
+
+
 def reference_cost(big: dict, eprof: str) -> None:
     """The audit worker's reference (the CPU ladder in numpy, ``audit/
     ladder.py``) on 32 and 256 real windows of the 100 kb set: bit-equal to
@@ -1584,6 +1837,11 @@ def main() -> int:
         t0 = time.perf_counter()
         hp_phase(d, eprof, runs["dense fused"][0], counters, tmp, nthreads)
         log(f"hp phase: {time.perf_counter() - t0:.1f} s")
+
+        # ---- 4d. the upstream workflow through the port's tools --------------
+        t0 = time.perf_counter()
+        workflow_phase(counters, tmp, nthreads, smi)
+        log(f"workflow phase: {time.perf_counter() - t0:.1f} s")
 
         # ---- 5. kernel phase ------------------------------------------------
         t0 = time.perf_counter()

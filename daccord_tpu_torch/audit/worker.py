@@ -214,6 +214,7 @@ class AuditWorker:
         self.leaked: list[str] = []
         self.startup: dict = {}
         self.error: str | None = None
+        self._lost: str | None = None   # a broken pipe, noted by the sender
         self.worker_s = 0.0
         self.calls = 0
 
@@ -227,7 +228,9 @@ class AuditWorker:
                 for i in to:
                     self._reqs[i].send(msg)
             except (OSError, ValueError) as e:
-                self.error = self.error or f"an audit worker stopped reading: {e}"
+                # recorded by _drain, after what the worker sent before it
+                # went: its own error, if it sent one, wins
+                self._lost = self._lost or f"an audit worker stopped reading: {e}"
                 return
 
     def build(self, spec: tuple) -> None:
@@ -300,7 +303,11 @@ class AuditWorker:
 
     def _drain(self, timeout: float) -> None:
         """Take every message that arrives within ``timeout``; note a
-        worker that is gone."""
+        worker that is gone. A worker writes its error and then exits, so
+        its exit (or a pipe it no longer reads) can be seen after a wait
+        that found its message not yet there: every pipe is then read to
+        its end before the exit is recorded, and the worker's own error is
+        the one kept."""
         try:
             while True:
                 ready = wait(self._ress, timeout)
@@ -311,9 +318,16 @@ class AuditWorker:
                 timeout = 0
         except (EOFError, OSError):
             pass
-        for proc in self._procs:
-            if proc.poll() is not None and self.error is None:
-                self.error = f"an audit worker exited (code {proc.returncode})"
+        gone = [proc.returncode for proc in self._procs if proc.poll() is not None]
+        if gone or self._lost is not None:
+            for i, conn in enumerate(self._ress):
+                try:
+                    while conn.poll(0):
+                        self._take(conn.recv(), i)
+                except (EOFError, OSError):
+                    pass
+            if self.error is None:
+                self.error = self._lost or f"an audit worker exited (code {gone[0]})"
 
     def _wait(self, until, deadline_s: float) -> None:
         """Receive messages until ``until()`` holds. Raises

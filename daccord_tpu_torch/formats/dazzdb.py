@@ -26,10 +26,12 @@ reads in the other:
 ``<name>.db``  ::   small text stub (file list + block partition).
 
 Variable-length tracks (``.<name>.<track>.anno`` offsets, ``.data`` bytes;
-e.g. the ``inqual`` intrinsic-QV track) read with :func:`read_track`. Only
-what the consensus path reads and the simulator writes lives here. Every
-.idx byte is validated before it steers a decode (:func:`read_db`), with the
-structured errors of ``formats/ingest.py``.
+e.g. the ``inqual`` intrinsic-QV track) are written and read with
+:func:`write_track` and :func:`read_track`, per DB block with ``block=``
+(``.<name>.<block>.<track>.*``, merged by :func:`catrack`). :func:`split_db`
+rewrites the .db stub's block partition. Every .idx byte is validated before
+it steers a decode (:func:`read_db`), with the structured errors of
+``formats/ingest.py``.
 """
 
 from __future__ import annotations
@@ -84,8 +86,14 @@ class DazzDB:
         self._boffs = np.fromiter((r.boff for r in self.reads), np.int64, len(self.reads))
         self._rlens = np.fromiter((r.rlen for r in self.reads), np.int32, len(self.reads))
 
+    def _need_bases(self, ids) -> None:
+        if len(self.bps) == 0 and any(self.reads[i].rlen > 0 for i in ids):
+            raise ValueError("DB was opened with load_bases=False (no base store); "
+                             "use read_db(path) or decode_reads_from_bps for bases")
+
     def read_bases(self, i: int) -> np.ndarray:
         """Decode read ``i`` to an int8 array of 0..3."""
+        self._need_bases((i,))
         r = self.reads[i]
         nbytes = (r.rlen + 3) // 4
         return unpack_2bit(self.bps[r.boff : r.boff + nbytes], r.rlen)
@@ -94,6 +102,7 @@ class DazzDB:
         """Decode many reads in one call of the host library's 2-bit decode;
         views over one buffer, equal to :meth:`read_bases` of each."""
         ids = np.fromiter(ids, np.int64)
+        self._need_bases(ids)
         return decode_reads_batch(self.bps, self._boffs[ids], self._rlens[ids])
 
     def read_length(self, i: int) -> int:
@@ -109,6 +118,26 @@ def _db_stems(path: str) -> tuple[str, str]:
     if b.endswith(".db"):
         b = b[:-3]
     return d, b
+
+
+def _write_block_section(fh, bounds: list[int], block_bases: int, cutoff: int) -> None:
+    """The .db stub's ``blocks =`` section (fasta2DB layout; what
+    :func:`db_blocks` reads)."""
+    fh.write(f"blocks = {len(bounds) - 1:>9}\n")
+    fh.write(f"size = {block_bases:>11} cutoff = {cutoff:>10} all = 1\n")
+    for b in bounds:
+        fh.write(f"{b:>11} {b:>11}\n")  # untrimmed == trimmed (all = 1)
+
+
+def read_lengths(path: str) -> np.ndarray:
+    """Per-read lengths from the .idx alone (no base-store load)."""
+    d, stem = _db_stems(path)
+    with open(os.path.join(d, f".{stem}.idx"), "rb") as fh:
+        hdr = fh.read(_HDR_SIZE)
+        ureads = struct.unpack_from("<i", hdr, 0)[0]
+        raw = fh.read(_READ_SIZE * ureads)
+    arr = np.frombuffer(raw, dtype=np.uint8).reshape(ureads, _READ_SIZE)
+    return arr[:, 4:8].copy().view("<i4").reshape(-1)
 
 
 def write_db(path: str, seqs: list[np.ndarray], names: list[str] | None = None,
@@ -156,10 +185,7 @@ def write_db(path: str, seqs: list[np.ndarray], names: list[str] | None = None,
     with open(db_path, "wt") as fh:
         fh.write("files =         1\n")
         fh.write(f"{n:>11} {stem} {stem}\n")
-        fh.write(f"blocks = {1:>9}\n")
-        fh.write(f"size = {200_000_000:>11} cutoff = {cutoff:>10} all = 1\n")
-        for b in (0, n):
-            fh.write(f"{b:>11} {b:>11}\n")
+        _write_block_section(fh, [0, n], 200_000_000, cutoff)
 
     with open(os.path.join(d, f".{stem}.names"), "wt") as fh:
         for nm in names:
@@ -171,8 +197,12 @@ def write_db(path: str, seqs: list[np.ndarray], names: list[str] | None = None,
                   names=names)
 
 
-def read_db(path: str, strict: bool = True) -> DazzDB:
+def read_db(path: str, load_bases: bool = True, strict: bool = True) -> DazzDB:
     """Load a DB triple written by :func:`write_db` (or DAZZ_DB-compatible).
+
+    ``load_bases=False`` skips the .bps base store (multi-GB on real DBs) for
+    the tools that need only read lengths, so per-block jobs stay O(block);
+    the base-store bounds of the read records are then not checked.
 
     A torn header or a read count the .idx cannot hold raises a structured
     :class:`~.ingest.IngestError`. A read record whose ``rlen``/``boff``
@@ -181,7 +211,11 @@ def read_db(path: str, strict: bool = True) -> DazzDB:
     ``DazzDB.bad_reads`` so piles referencing it are contained at ingest."""
     d, stem = _db_stems(path)
     idx_path = os.path.join(d, f".{stem}.idx")
-    bps = np.fromfile(os.path.join(d, f".{stem}.bps"), dtype=np.uint8)
+    bps_path = os.path.join(d, f".{stem}.bps")
+    bps = (np.fromfile(bps_path, dtype=np.uint8) if load_bases
+           else np.zeros(0, np.uint8))
+    bps_size = (len(bps) if load_bases else
+                os.path.getsize(bps_path) if os.path.exists(bps_path) else None)
     idx_size = os.path.getsize(idx_path)
     with open(idx_path, "rb") as fh:
         hdr = fh.read(_HDR_SIZE)
@@ -209,11 +243,12 @@ def read_db(path: str, strict: bool = True) -> DazzDB:
     for i in range(ureads):
         origin, rlen, fpulse, boff, coff, flags = struct.unpack_from(
             _READ_FMT, raw, i * _READ_SIZE)
-        if rlen < 0 or boff < 0 or boff + (rlen + 3) // 4 > len(bps):
+        if rlen < 0 or boff < 0 or (bps_size is not None
+                                    and boff + (rlen + 3) // 4 > bps_size):
             issues.append(IngestIssue(
                 "db_read", idx_path, _HDR_SIZE + i * _READ_SIZE,
                 f"read {i}: rlen={rlen} boff={boff} outside the "
-                f"{len(bps)}-byte base store", aread=i, record=i))
+                f"{bps_size}-byte base store", aread=i, record=i))
             bad.add(i)
         reads.append(DazzRead(origin, rlen, fpulse, boff, coff, flags))
     if issues and strict:
@@ -240,18 +275,59 @@ def db_blocks(db_path: str) -> list[tuple[int, int]]:
     return [(bounds[i], bounds[i + 1]) for i in range(nb)]
 
 
-def _track_paths(db_path: str, track: str) -> tuple[str, str]:
-    """(.anno, .data) paths of a whole-DB track."""
+def decode_reads_from_bps(db: DazzDB, ids) -> list[np.ndarray]:
+    """Decode selected reads by seeking the .bps on disk: O(selected bytes)
+    memory, for lengths-only handles (``read_db(load_bases=False)``)."""
+    d, stem = _db_stems(db.path)
+    out: list[np.ndarray] = []
+    with open(os.path.join(d, f".{stem}.bps"), "rb") as fh:
+        for i in ids:
+            r = db.reads[i]
+            fh.seek(r.boff)
+            buf = np.frombuffer(fh.read((r.rlen + 3) // 4), dtype=np.uint8)
+            out.append(unpack_2bit(buf, r.rlen))
+    return out
+
+
+def _track_paths(db_path: str, track: str, block: int | None = None) -> tuple[str, str]:
+    """(.anno, .data) paths of a track; a block track is
+    ``.<stem>.<block>.<track>.*`` (the Catrack convention), so per-block jobs
+    never collide."""
     d, stem = _db_stems(db_path)
-    return (os.path.join(d, f".{stem}.{track}.anno"),
-            os.path.join(d, f".{stem}.{track}.data"))
+    mid = f"{block}.{track}" if block is not None else track
+    return (os.path.join(d, f".{stem}.{mid}.anno"),
+            os.path.join(d, f".{stem}.{mid}.data"))
 
 
-def read_track(db_path: str, track: str) -> list[np.ndarray]:
-    """A variable-length track as per-read uint8 arrays. Raises
-    ``FileNotFoundError`` when the track is absent, ``ValueError`` when its
-    files disagree."""
-    anno_path, data_path = _track_paths(db_path, track)
+def write_track(db_path: str, track: str, payloads: list,
+                block: int | None = None) -> None:
+    """Write a variable-length track (.anno = offsets, .data = bytes), of
+    DB block ``block`` alone when given (merge with :func:`catrack`). Each
+    file goes through a tmp name and ``os.replace``, .data first, so a crash
+    never leaves a truncated file and a reader never sees a new .anno
+    without its .data."""
+    anno_path, data_path = _track_paths(db_path, track, block)
+    blobs = [np.asarray(p, dtype=np.uint8).tobytes() if isinstance(p, np.ndarray)
+             else bytes(p) for p in payloads]
+    offsets = np.zeros(len(blobs) + 1, dtype=np.int64)
+    np.cumsum([len(b) for b in blobs], out=offsets[1:])
+    anno_tmp = f"{anno_path}.tmp.{os.getpid()}"
+    data_tmp = f"{data_path}.tmp.{os.getpid()}"
+    with open(anno_tmp, "wb") as fh:
+        fh.write(struct.pack("<2i", len(blobs), 0))
+        fh.write(offsets.tobytes())
+    with open(data_tmp, "wb") as fh:
+        for b in blobs:
+            fh.write(b)
+    os.replace(data_tmp, data_path)
+    os.replace(anno_tmp, anno_path)
+
+
+def read_track(db_path: str, track: str, block: int | None = None) -> list[np.ndarray]:
+    """A variable-length track (of DB block ``block`` when given) as
+    per-read uint8 arrays. Raises ``FileNotFoundError`` when the track is
+    absent, ``ValueError`` when its files disagree."""
+    anno_path, data_path = _track_paths(db_path, track, block)
     with open(anno_path, "rb") as fh:
         head = fh.read(8)
         if len(head) < 8:
@@ -265,3 +341,53 @@ def read_track(db_path: str, track: str) -> list[np.ndarray]:
             or (np.diff(offsets) < 0).any() or offsets[-1] > len(data)):
         raise ValueError(f"{anno_path}: offsets do not fit {data_path}")
     return [data[offsets[i] : offsets[i + 1]] for i in range(nreads)]
+
+
+def split_db(db_path: str, block_bases: int = 200_000_000) -> list[tuple[int, int]]:
+    """Recompute the .db stub's block partition (DAZZ_DB ``DBsplit -s``):
+    consecutive reads of at most ``block_bases`` bases a block (a longer
+    read alone), from the .idx alone. Rewrites the stub's ``blocks =``
+    section atomically and returns the [start, end) read pairs."""
+    rlens = read_lengths(db_path)
+    d, stem = _db_stems(db_path)
+    with open(os.path.join(d, f".{stem}.idx"), "rb") as fh:
+        cutoff = struct.unpack_from("<4i", fh.read(16), 0)[2]
+    bounds = [0]
+    acc = 0
+    for i, rlen in enumerate(rlens):
+        if acc > 0 and acc + int(rlen) > block_bases:
+            bounds.append(i)
+            acc = 0
+        acc += int(rlen)
+    bounds.append(len(rlens))
+    stub = os.path.join(d, f"{stem}.db")
+    with open(stub, "rt") as fh:
+        lines = fh.readlines()
+    nfiles = int(lines[0].split("=")[1])
+    tmp = f"{stub}.tmp.{os.getpid()}"
+    with open(tmp, "wt") as fh:
+        fh.writelines(lines[: 1 + nfiles])
+        _write_block_section(fh, bounds, block_bases, cutoff)
+    os.replace(tmp, stub)
+    return [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
+
+
+def catrack(db_path: str, track: str, delete: bool = False) -> int:
+    """Merge the per-block tracks into the whole-DB track (DAZZ_DB
+    ``Catrack``): every block of the stub's partition must have its track,
+    covering exactly its reads. Returns the merged read count; ``delete``
+    removes the block tracks after the merge (Catrack ``-d``)."""
+    blocks = db_blocks(db_path)
+    payloads: list[np.ndarray] = []
+    for i, (lo, hi) in enumerate(blocks, start=1):
+        p = read_track(db_path, track, block=i)
+        if len(p) != hi - lo:
+            raise ValueError(
+                f"block {i} track '{track}' covers {len(p)} reads, expected {hi - lo}")
+        payloads.extend(p)
+    write_track(db_path, track, payloads)
+    if delete:
+        for i in range(1, len(blocks) + 1):
+            for path in _track_paths(db_path, track, i):
+                os.remove(path)
+    return len(payloads)

@@ -1,4 +1,4 @@
-"""Minimal FASTA writer (and reader, for tests and tools).
+"""Minimal streaming FASTA reader and writer.
 
 The writer wraps at 80 columns like the reference tool output, and the record
 layout matches ``daccord_tpu.formats.fasta`` byte for byte.
@@ -20,9 +20,10 @@ class FastaRecord:
 
 
 def read_fasta(path_or_file) -> Iterator[FastaRecord]:
-    """Stream records from a FASTA path or an open text file object."""
+    """Stream records from a FASTA path (``mem:`` URLs too) or an open text
+    file object."""
     own = isinstance(path_or_file, (str, bytes))
-    fh = open(path_or_file, "rt") if own else path_or_file
+    fh = aio.open_input(path_or_file, "rt") if own else path_or_file
     try:
         name = None
         chunks: list[str] = []

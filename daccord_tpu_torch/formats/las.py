@@ -90,25 +90,34 @@ def _trace_dtype(tspace: int):
     return np.uint8 if tspace <= TRACE_XOVR else np.uint16
 
 
-def write_las(path: str, tspace: int, overlaps: Iterable[Overlap]) -> int:
-    """Write overlaps to a .las file; returns the record count. The file is
-    written under a temporary name and renamed into place, so a reader never
-    sees a header whose ``novl`` was not yet patched."""
+def _write_las_stream(fh, tspace: int, overlaps: Iterable[Overlap]) -> int:
+    """Write the header and the records to an open binary stream, patching
+    the header's ``novl`` at the end; returns the record count."""
     tdt = _trace_dtype(tspace)
-    tmp = f"{path}.tmp.{os.getpid()}"
     novl = 0
-    with open(tmp, "wb") as fh:
-        fh.write(struct.pack(_HDR_FMT, 0, tspace))  # novl patched at the end
-        for ovl in overlaps:
-            trace = np.asarray(ovl.trace, dtype=np.int64).reshape(-1)
-            fh.write(struct.pack(_REC_FMT, len(trace), ovl.diffs, ovl.abpos,
-                                 ovl.bbpos, ovl.aepos, ovl.bepos, ovl.flags,
-                                 ovl.aread, ovl.bread))
-            fh.write(trace.astype(tdt).tobytes())
-            novl += 1
-        fh.seek(0)
-        fh.write(struct.pack("<q", novl))
-    os.replace(tmp, path)
+    fh.write(struct.pack(_HDR_FMT, 0, tspace))  # novl patched at the end
+    for ovl in overlaps:
+        trace = np.asarray(ovl.trace, dtype=np.int64).reshape(-1)
+        fh.write(struct.pack(_REC_FMT, len(trace), ovl.diffs, ovl.abpos,
+                             ovl.bbpos, ovl.aepos, ovl.bepos, ovl.flags,
+                             ovl.aread, ovl.bread))
+        fh.write(trace.astype(tdt).tobytes())
+        novl += 1
+    fh.seek(0)
+    fh.write(struct.pack("<q", novl))
+    return novl
+
+
+def write_las(path: str, tspace: int, overlaps: Iterable[Overlap]) -> int:
+    """Write overlaps to a .las path or ``mem:`` URL; returns the record
+    count. A file commits through ``aio.durable_write`` (a tmp name, fsync,
+    rename), so a crash never leaves a LAS whose header was not yet patched
+    at the target path; a ``mem:`` file commits at close."""
+    if aio.is_mem(path):
+        with aio.open_output(path, "wb") as fh:
+            novl = _write_las_stream(fh, tspace, overlaps)
+    else:
+        novl = aio.durable_write(path, lambda fh: _write_las_stream(fh, tspace, overlaps))
     invalidate_index(path)
     return novl
 
@@ -190,6 +199,12 @@ class LasFile:
             pile.append(ovl)
         if cur is not None:
             yield cur, pile
+
+
+def read_las(path: str) -> tuple[int, list[Overlap]]:
+    """(tspace, every record) of a LAS."""
+    f = LasFile(path)
+    return f.tspace, list(f)
 
 
 def index_las(path: str, use_sidecar: bool = True) -> np.ndarray:

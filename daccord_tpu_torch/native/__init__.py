@@ -2,8 +2,8 @@
 
 ``native/dazz_native.cpp`` (the columnar LAS loader, the pile windowing, the
 2-bit decode, the stitch splice, the exact distances, the window-consensus
-engine ``solve_windows`` and its homopolymer rescue ``hp_rescue_windows``)
-compiles with
+engine ``solve_windows`` and its homopolymer rescue ``hp_rescue_windows``,
+the external LAS sort ``las_sort`` and merge ``las_merge``) compiles with
 ``g++ -O3 -march=native`` into ``daccord_tpu_torch/_build/`` at first use.
 The file name carries a hash of the source, the flags and the host CPU (the
 ``model name`` and ``flags`` lines of ``/proc/cpuinfo``): a library built
@@ -137,5 +137,9 @@ def load() -> ctypes.CDLL:
             + [p] + [c.c_int32] * 3          # post_tabs, n_mult, Lmax, Omax
             + [d] * 3                        # p_err_prof, mult_lo, mult_step
             + [c.c_int32, d])                # accept_likelihood, lambda_c
+        lib.las_sort.restype = c.c_int64
+        lib.las_sort.argtypes = [c.c_char_p, c.c_char_p, c.c_char_p, c.c_int64]
+        lib.las_merge.restype = c.c_int64
+        lib.las_merge.argtypes = [c.c_char_p, c.c_char_p, c.c_int32]
         _lib = lib
         return lib

@@ -161,6 +161,32 @@ def process_pile_native(a_bases: np.ndarray, col: ColumnarLas, s: int, e: int,
     return seqs, lens, nsegs
 
 
+def las_sort_native(in_path: str, out_path: str, tmp_dir: str,
+                    mem_records: int) -> int:
+    """The host library's external LAS sort (the LAsort role): at most
+    ``mem_records`` records in memory, sorted runs in ``tmp_dir``; returns
+    the record count. Byte-equal to ``formats.extsort.sort_las_plain`` at the
+    same ``mem_records`` (the same runs, stable sort, earliest run first on
+    ties, fan-in 64)."""
+    n = load().las_sort(in_path.encode(), out_path.encode(), tmp_dir.encode(),
+                        int(mem_records))
+    if n < 0:
+        raise IOError(f"las_sort({in_path}) failed: {n}")
+    return int(n)
+
+
+def las_merge_native(in_paths: list[str], out_path: str, tspace: int) -> int:
+    """The host library's k-way merge of sorted LAS files (the LAmerge
+    role); returns the record count. The order of the python
+    ``heapq.merge`` path (earliest input first on ties); a truncated or
+    corrupt input, or one of another tspace, raises."""
+    blob = b"\x00".join(p.encode() for p in in_paths) + b"\x00\x00"
+    n = load().las_merge(blob, out_path.encode(), int(tspace))
+    if n < 0:
+        raise IOError(f"las_merge failed: {n}")
+    return int(n)
+
+
 def _n_tiles(abpos: np.ndarray, aepos: np.ndarray, tspace: int) -> np.ndarray:
     """Trace tiles of each overlap: [abpos, aepos) cut at multiples of tspace."""
     ab = abpos.astype(np.int64)

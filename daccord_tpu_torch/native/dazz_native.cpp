@@ -15,6 +15,9 @@
 //   engine of --backend native and the supervisor's native failover.
 // - hp_rescue_windows: the homopolymer rescue over a batch's results
 //   (oracle/hp.py semantics, byte-equal to its python loop).
+// - las_sort / las_merge: the bounded-memory external LAS sort and the k-way
+//   merge of sorted LAS files (formats/extsort.py's python path is their
+//   plain version, byte-equal for the same mem_records).
 //
 // A plain C ABI for ctypes, built with g++ by daccord_tpu_torch/native. The
 // realignment replicates the numpy align_path of daccord_tpu_torch/oracle/
@@ -30,6 +33,8 @@
 #include <cstdlib>
 #include <cstring>
 #include <limits>
+#include <queue>
+#include <string>
 #include <thread>
 #include <utility>
 #include <vector>
@@ -1494,6 +1499,274 @@ int64_t hp_rescue_windows(
     for (auto& th : pool) th.join();
   }
   return rescued.load();
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// block-memory external)
+// ---------------------------------------------------------------------------
+// Key (aread, bread, abpos), stable on input order. The run partitioning
+// (chunks of mem_records in input order), the stable chunk sort, the
+// earliest-run-wins tie break and the fan-in-64 multi-level merge replicate
+// formats/extsort.py's semantics exactly, so for a given mem_records the
+// native and Python sorts emit byte-identical files.
+
+namespace {
+
+struct SortKey {
+  int32_t aread, bread, abpos;
+  bool operator<(const SortKey& o) const {
+    if (aread != o.aread) return aread < o.aread;
+    if (bread != o.bread) return bread < o.bread;
+    return abpos < o.abpos;
+  }
+};
+
+struct LasRec40 {
+  int32_t tlen, diffs, abpos, bbpos, aepos, bepos;
+  uint32_t flags;
+  int32_t aread, bread, pad;
+};
+static_assert(sizeof(LasRec40) == 40, "record layout");
+
+// buffered reader over a run file of raw (Rec40 + trace) records.
+// corrupt != exhausted: a truncated record or garbage tlen sets `err`
+// (silently dropping a foreign file's tail would hand downstream consensus
+// an incomplete overlap set while reporting success)
+struct RunReader {
+  FILE* f = nullptr;
+  int tsize = 1;
+  std::vector<uint8_t> rec;   // current raw record bytes
+  SortKey key{};
+  bool ok = false;
+  bool err = false;
+
+  bool next() {
+    LasRec40 h;
+    size_t got = fread(&h, 1, sizeof(h), f);
+    if (got != sizeof(h)) {
+      ok = false;
+      err = got != 0;          // partial header = corruption, 0 = clean EOF
+      return false;
+    }
+    if (h.tlen < 0 || h.tlen > (1 << 28)) { ok = false; err = true; return false; }
+    h.pad = 0;   // normalize struct tail padding like the Python writer
+    rec.resize(sizeof(h) + (size_t)h.tlen * tsize);
+    std::memcpy(rec.data(), &h, sizeof(h));
+    if (h.tlen &&
+        fread(rec.data() + sizeof(h), tsize, h.tlen, f) != (size_t)h.tlen) {
+      ok = false;
+      err = true;              // truncated trace
+      return false;
+    }
+    key = SortKey{h.aread, h.bread, h.abpos};
+    ok = true;
+    return true;
+  }
+};
+
+// merge `paths` (already individually sorted) into `out`; `hdr16` non-null
+// writes the 16-byte LAS header (novl patched at the end) for the final
+// file. `in_hdr_tspace >= 0` means each input starts with a 16-byte LAS
+// header that must carry that tspace (the las_merge foreign-input mode);
+// -1 means headerless run files. `count_out` (optional) receives novl.
+static int merge_runs(const std::vector<std::string>& paths, int tsize,
+                      const char* out, const uint8_t* hdr16,
+                      int32_t in_hdr_tspace = -1,
+                      int64_t* count_out = nullptr) {
+  std::vector<RunReader> rs(paths.size());
+  auto close_runs = [&]() {
+    for (auto& r : rs)
+      if (r.f) { fclose(r.f); r.f = nullptr; }
+  };
+  for (size_t i = 0; i < paths.size(); ++i) {
+    rs[i].f = fopen(paths[i].c_str(), "rb");
+    if (!rs[i].f) { close_runs(); return -1; }
+    if (in_hdr_tspace >= 0) {
+      struct { int64_t novl; int32_t tspace; int32_t pad; } h;
+      if (fread(&h, 16, 1, rs[i].f) != 1 || h.tspace != in_hdr_tspace) {
+        close_runs();
+        return -6;
+      }
+    }
+    rs[i].tsize = tsize;
+    rs[i].next();
+  }
+  FILE* fo = fopen(out, "wb");
+  if (!fo) { close_runs(); return -1; }
+  int64_t novl = 0;
+  if (hdr16 && fwrite(hdr16, 16, 1, fo) != 1) { fclose(fo); close_runs(); return -2; }
+  using HeapItem = std::pair<SortKey, size_t>;   // (key, run ordinal)
+  auto gt = [](const HeapItem& a, const HeapItem& b) {
+    if (b.first < a.first) return true;
+    if (a.first < b.first) return false;
+    return a.second > b.second;   // earliest run wins ties (stability)
+  };
+  std::priority_queue<HeapItem, std::vector<HeapItem>, decltype(gt)> heap(gt);
+  for (size_t i = 0; i < rs.size(); ++i)
+    if (rs[i].ok) heap.push({rs[i].key, i});
+  while (!heap.empty()) {
+    size_t i = heap.top().second;
+    heap.pop();
+    if (fwrite(rs[i].rec.data(), 1, rs[i].rec.size(), fo) != rs[i].rec.size()) {
+      fclose(fo);
+      close_runs();
+      return -2;
+    }
+    ++novl;
+    if (rs[i].next()) heap.push({rs[i].key, i});
+  }
+  for (const auto& r : rs)
+    if (r.err) { fclose(fo); close_runs(); return -7; }   // corrupt input
+  if (hdr16) {
+    struct { int64_t novl; int32_t tspace; int32_t pad; } hdr;
+    std::memcpy(&hdr, hdr16, 16);
+    hdr.novl = novl;
+    fseek(fo, 0, SEEK_SET);
+    if (fwrite(&hdr, 16, 1, fo) != 1) { fclose(fo); close_runs(); return -2; }
+  }
+  close_runs();
+  if (count_out) *count_out = novl;
+  // fclose flushes the tail of the stdio buffer: a full disk surfaces HERE,
+  // not at the buffered fwrites — an unchecked close would report a
+  // truncated file as success
+  return fclose(fo) == 0 ? 0 : -2;
+}
+
+}  // namespace
+
+extern "C" {
+
+// k-way merge of ALREADY-SORTED headered LAS files (LAmerge role; DALIGNER
+// emits one LAS per block pair). Same key and earliest-input-wins tie break
+// as las_sort / the Python heapq.merge path. in_paths is a
+// NUL-separated, double-NUL-terminated list. Returns the record count or a
+// negative error; all inputs must share out-file tspace `tspace_expect`.
+int64_t las_merge(const char* in_paths, const char* out_path,
+                  int32_t tspace_expect) {
+  std::vector<std::string> paths;
+  for (const char* p = in_paths; *p;) {
+    paths.emplace_back(p);
+    p += paths.back().size() + 1;
+  }
+  if (paths.empty()) return -1;
+  const int tsize = tspace_expect <= 125 ? 1 : 2;
+  struct { int64_t novl; int32_t tspace; int32_t pad; } oh{0, tspace_expect, 0};
+  uint8_t hdr16[16];
+  std::memcpy(hdr16, &oh, 16);
+  int64_t novl = 0;
+  const int rc = merge_runs(paths, tsize, out_path, hdr16,
+                            /*in_hdr_tspace=*/tspace_expect, &novl);
+  return rc == 0 ? novl : rc;
+}
+
+// sorts in_path -> out_path by (aread, bread, abpos) holding at most
+// mem_records records in memory; temp runs live in tmp_dir. Returns the
+// record count, or a negative error.
+int64_t las_sort(const char* in_path, const char* out_path,
+                 const char* tmp_dir, int64_t mem_records) {
+  FILE* f = fopen(in_path, "rb");
+  if (!f) return -1;
+  struct { int64_t novl; int32_t tspace; int32_t pad; } hdr;
+  if (fread(&hdr, 16, 1, f) != 1) { fclose(f); return -2; }
+  const int tsize = hdr.tspace <= 125 ? 1 : 2;
+  hdr.pad = 0;   // normalize header padding like the Python writer
+  uint8_t hdr16[16];
+  std::memcpy(hdr16, &hdr, 16);
+
+  std::vector<uint8_t> arena;        // raw record bytes of the current chunk
+  struct Ent { SortKey key; int64_t off; int32_t size; };
+  std::vector<Ent> ents;
+  std::vector<std::string> runs;
+  int gen = 0;
+
+  auto run_path = [&](int g) {
+    return std::string(tmp_dir) + "/nrun" + std::to_string(g) + ".bin";
+  };
+  auto flush = [&]() -> int {
+    if (ents.empty()) return 0;
+    std::stable_sort(ents.begin(), ents.end(),
+                     [](const Ent& a, const Ent& b) { return a.key < b.key; });
+    std::string rp = run_path(gen++);
+    FILE* fo = fopen(rp.c_str(), "wb");
+    if (!fo) return -1;
+    for (const auto& e : ents)
+      if (fwrite(arena.data() + e.off, 1, e.size, fo) != (size_t)e.size) {
+        fclose(fo);
+        return -2;
+      }
+    fclose(fo);
+    runs.push_back(rp);
+    ents.clear();
+    arena.clear();
+    return 0;
+  };
+
+  LasRec40 rec;
+  int64_t total = 0;
+  size_t got;
+  while ((got = fread(&rec, 1, sizeof(rec), f)) == sizeof(rec)) {
+    if (rec.tlen < 0 || rec.tlen > (1 << 28)) { fclose(f); return -3; }
+    rec.pad = 0;   // normalize struct tail padding like the Python writer
+    const size_t sz = sizeof(rec) + (size_t)rec.tlen * tsize;
+    const int64_t off = (int64_t)arena.size();
+    arena.resize(arena.size() + sz);
+    std::memcpy(arena.data() + off, &rec, sizeof(rec));
+    if (rec.tlen && fread(arena.data() + off + sizeof(rec), tsize, rec.tlen, f)
+                        != (size_t)rec.tlen) {
+      fclose(f);
+      return -3;
+    }
+    ents.push_back({SortKey{rec.aread, rec.bread, rec.abpos}, off, (int32_t)sz});
+    ++total;
+    if ((int64_t)ents.size() >= mem_records)
+      if (flush() != 0) { fclose(f); return -4; }
+  }
+  if (got != 0) { fclose(f); return -3; }   // partial record = truncated input
+  fclose(f);
+
+  if (runs.empty()) {
+    // whole input fit one chunk: sort and write directly (same fast path as
+    // the Python implementation)
+    std::stable_sort(ents.begin(), ents.end(),
+                     [](const Ent& a, const Ent& b) { return a.key < b.key; });
+    FILE* fo = fopen(out_path, "wb");
+    if (!fo) return -1;
+    if (fwrite(hdr16, 16, 1, fo) != 1) { fclose(fo); return -2; }
+    for (const auto& e : ents)
+      if (fwrite(arena.data() + e.off, 1, e.size, fo) != (size_t)e.size) {
+        fclose(fo);
+        return -2;
+      }
+    struct { int64_t novl; int32_t tspace; int32_t pad; } oh;
+    std::memcpy(&oh, hdr16, 16);
+    oh.novl = total;
+    fseek(fo, 0, SEEK_SET);
+    if (fwrite(&oh, 16, 1, fo) != 1) { fclose(fo); return -2; }
+    if (fclose(fo) != 0) return -2;   // flush failure = truncated output
+    return total;
+  }
+  if (flush() != 0) return -4;
+
+  // multi-level merge, fan-in 64 (same grouping as extsort.py)
+  const size_t FANIN = 64;
+  while (runs.size() > FANIN) {
+    std::vector<std::string> merged;
+    for (size_t g0 = 0; g0 < runs.size(); g0 += FANIN) {
+      std::vector<std::string> group(
+          runs.begin() + g0,
+          runs.begin() + std::min(runs.size(), g0 + FANIN));
+      std::string rp = run_path(gen++);
+      if (merge_runs(group, tsize, rp.c_str(), nullptr) != 0) return -5;
+      for (const auto& p : group) std::remove(p.c_str());
+      merged.push_back(rp);
+    }
+    runs = std::move(merged);
+  }
+  if (merge_runs(runs, tsize, out_path, hdr16) != 0) return -5;
+  for (const auto& p : runs) std::remove(p.c_str());
+  return total;
 }
 
 }  // extern "C"

@@ -108,6 +108,7 @@ from ..native.api import ColumnarLas, process_pile_native
 from ..oracle.consensus import ConsensusConfig, estimate_profile_two_pass, stitch_results
 from ..oracle.profile import ErrorProfile
 from ..oracle.windows import cut_windows, refine_overlap
+from ..tools.lastools import QV_NOCOV, QV_SCALE
 from ..utils import aio
 from ..utils.bases import ints_to_seq
 from ..utils.device import resolve_device
@@ -362,10 +363,6 @@ class PipelineStats:
         return self.n_windows / self.wall_s if self.wall_s else 0.0
 
 
-#: the QV track's byte for a tile without coverage, and its QV -> error rate
-#: scale (``daccord_tpu/tools/lastools.py``, which writes the track)
-QV_NOCOV = 255
-QV_SCALE = 200.0
 
 
 class QvRanker:

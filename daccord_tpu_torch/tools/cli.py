@@ -1,4 +1,30 @@
-"""Command line of the port.
+"""Command line of the port: ``python -m daccord_tpu_torch.tools.cli TOOL
+[args]``, the tools of the JAX package's dispatcher
+(``daccord_tpu/tools/cli.py``) with their flags and defaults:
+
+- ``daccord`` (below); ``shard`` (``daccord-shard``: one ``-J i,n`` shard
+  into OUTDIR with a manifest and mid-shard checkpoints, the ``daccord``
+  flags otherwise), ``merge`` (``daccord-merge``: the validating merge gate)
+  and ``audit`` (``daccord-audit``: the sha256 chain of a shard directory);
+- the workflow before ``daccord``: ``inqual`` (the intrinsic-QV track the
+  depth ranking reads), ``repeats``, ``filter``, ``filtersym``;
+- LAS tools ``lassort``, ``lasmerge``, ``lasindex``, ``lassplit``,
+  ``lasshow``, ``lascheck``; DB tools ``fasta2db``, ``db2fasta``,
+  ``dbsplit``, ``catrack``, ``dbstats``, ``dbshow``, ``fillfasta``;
+  ``qveval`` (Q against a simulator's truth) and ``eventcheck``.
+
+The tools that sort, merge, compute the QV track, detect repeats or filter
+run in the port's host library and require it (no build raises; nothing
+falls back to python), apart from ``mem:`` paths, which the C++ code cannot
+open. The upstream workflow on the card, the tools' outputs byte-identical
+to the JAX package's::
+
+    python -m daccord_tpu_torch.tools.cli inqual DB LAS
+    python -m daccord_tpu_torch.tools.cli repeats DB LAS
+    python -m daccord_tpu_torch.tools.cli filter DB LAS F.las
+    python -m daccord_tpu_torch.tools.cli filtersym F.las S.las --db DB
+    python -m daccord_tpu_torch.tools.cli shard DB S.las OUT -J 0,2  (and 1,2)
+    python -m daccord_tpu_torch.tools.cli merge OUT 2 OUT.fasta
 
     python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT [-E EPROF]
         [--eprof-only] [-J i,n | --block I] [-w W] [-a ADV] [-k K]
@@ -76,16 +102,26 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import struct
 import sys
 
-from ..formats.dazzdb import db_blocks, read_db
-from ..formats.ingest import IngestError, scan_with_db
-from ..formats.las import LasFile, range_for_areads, shard_ranges
+import numpy as np
+
+from ..formats.dazzdb import (catrack, db_blocks, decode_reads_from_bps, read_db,
+                              read_lengths, split_db, write_db)
+from ..formats.extsort import filter_symmetric_external, merge_las, sort_las_external
+from ..formats.fasta import FastaRecord, read_fasta, write_fasta
+from ..formats.ingest import IngestError, scan_with_db, sidecar_issues
+from ..formats.las import LasFile, index_las, range_for_areads, shard_ranges, write_las
 from ..oracle.consensus import ConsensusConfig
 from ..oracle.dbg import DBGParams
 from ..oracle.profile import ErrorProfile
 from ..runtime.pipeline import (INGEST_POLICIES, PipelineConfig, correct_to_fasta,
                                 estimate_profile_for_shard)
+from ..utils.bases import ints_to_seq, revcomp_ints, seq_to_ints
+from . import lastools
+from .audit import audit_main
+from .eventcheck import eventcheck_main
 
 BACKENDS = ("auto", "cuda", "cpu", "native")
 
@@ -106,13 +142,32 @@ USAGE = ("usage: python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT "
          "[--events PATH] [--log PATH] [--ledger PATH] [--native-threads N]")
 
 
-def _parser() -> argparse.ArgumentParser:
+def _parser(shard: bool = False) -> argparse.ArgumentParser:
+    """The ``daccord`` arguments; with ``shard``, those of ``daccord-shard``
+    (an OUTDIR and a required ``-J`` in place of ``-o``, ``-E``, ``--block``,
+    ``--quarantine`` and ``--stats``; ``--checkpoint-every``, ``--force``)."""
     defaults = PipelineConfig()
-    p = argparse.ArgumentParser(prog="daccord",
-                                description="Correct long reads: DB + LAS -> FASTA")
+    if shard:
+        p = argparse.ArgumentParser(prog="daccord-shard", description=shard_main.__doc__)
+    else:
+        p = argparse.ArgumentParser(prog="daccord",
+                                    description="Correct long reads: DB + LAS -> FASTA")
     p.add_argument("db")
     p.add_argument("las")
-    p.add_argument("-o", "--out", default="-", help="output FASTA ('-' = stdout)")
+    if shard:
+        p.add_argument("outdir")
+        p.add_argument("-J", required=True, metavar="i,n", help="shard i of n")
+        p.add_argument("--checkpoint-every", type=int, default=64, metavar="N",
+                       help="checkpoint progress every N emitted reads (0 = off)")
+        p.add_argument("--force", action="store_true",
+                       help="recompute even if the manifest exists")
+        p.add_argument("--ledger", default="auto", metavar="PATH",
+                       help="per-window outcome ledger jsonl; 'auto' (default) "
+                            "= shardNNNN.ledger.jsonl in OUTDIR, 'none' disables")
+        p.set_defaults(out=None, eprof=None, eprof_only=False, block=None,
+                       quarantine=None, stats=None)
+    else:
+        p.add_argument("-o", "--out", default="-", help="output FASTA ('-' = stdout)")
     p.add_argument("-w", type=int, default=40, help="window size")
     p.add_argument("-a", type=int, default=10, help="window advance")
     p.add_argument("-k", type=int, default=8,
@@ -138,30 +193,33 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-sample", type=int,
                    default=defaults.profile_sample_piles, metavar="N",
                    help="piles sampled by the error-profile pass")
-    p.add_argument("-E", "--eprof", default=None, metavar="PATH",
-                   help="error profile JSON: read when it exists, else "
-                        "estimated and written here")
-    p.add_argument("--eprof-only", action="store_true",
-                   help="estimate the error profile, write it to -E, and exit")
-    p.add_argument("--block", type=int, default=None, metavar="I",
-                   help="correct only the piles of DB block I (1-based); "
-                        "mutually exclusive with -J")
-    p.add_argument("-J", default=None, metavar="i,n",
-                   help="correct shard i of n (aread-aligned LAS byte ranges)")
+    if not shard:
+        p.add_argument("-E", "--eprof", default=None, metavar="PATH",
+                       help="error profile JSON: read when it exists, else "
+                            "estimated and written here")
+        p.add_argument("--eprof-only", action="store_true",
+                       help="estimate the error profile, write it to -E, and exit")
+        p.add_argument("--block", type=int, default=None, metavar="I",
+                       help="correct only the piles of DB block I (1-based); "
+                            "mutually exclusive with -J")
+        p.add_argument("-J", default=None, metavar="i,n",
+                       help="correct shard i of n (aread-aligned LAS byte ranges)")
     p.add_argument("--ingest-policy", choices=INGEST_POLICIES,
                    default=defaults.ingest_policy,
                    help="strict: exit with the structured report of every "
                         "corrupt record; quarantine: emit each corrupt pile's "
                         "read uncorrected and record it in the sidecar; off: "
                         "trust the input")
-    p.add_argument("--quarantine", default=None, metavar="PATH",
-                   help="quarantine sidecar jsonl (default OUT.quarantine.jsonl)")
+    if not shard:
+        p.add_argument("--quarantine", default=None, metavar="PATH",
+                       help="quarantine sidecar jsonl (default OUT.quarantine.jsonl)")
     p.add_argument("--max-pile-overlaps", type=int,
                    default=defaults.max_pile_overlaps, metavar="N",
                    help="contain a pile of more overlaps than this (read "
                         "emitted uncorrected) before windowing it; 0 = off")
-    p.add_argument("--stats", default=None, metavar="PATH",
-                   help="also write the run statistics JSON here")
+    if not shard:
+        p.add_argument("--stats", default=None, metavar="PATH",
+                       help="also write the run statistics JSON here")
     p.add_argument("-b", "--batch", type=int, default=defaults.batch_size,
                    help="windows per ladder call")
     p.add_argument("-t", "--threads", type=int, default=0,
@@ -229,10 +287,11 @@ def _parser() -> argparse.ArgumentParser:
                    help="threads of the native engine (the native failover); "
                         "0 = every usable CPU; independent of -t")
     p.add_argument("--log", default=None, help="jsonl event log path ('-' = stderr)")
-    p.add_argument("--ledger", default=None, metavar="PATH",
-                   help="per-window outcome ledger jsonl (window identity, "
-                        "length, depth, tier reached, rescue membership, "
-                        "batch turnaround)")
+    if not shard:
+        p.add_argument("--ledger", default=None, metavar="PATH",
+                       help="per-window outcome ledger jsonl (window identity, "
+                            "length, depth, tier reached, rescue membership, "
+                            "batch turnaround)")
     p.add_argument("--events", default=None, metavar="PATH",
                    help="supervisor events jsonl (state transitions, cold-"
                         "shape heartbeats, retries, failover; schema: "
@@ -384,6 +443,36 @@ def daccord_run(argv=None):
     (kind, byte offset and pile of each issue), never a traceback."""
     args = _parser().parse_args(argv)
     _check(args)
+    cfg = _pipeline_config(args)
+    try:
+        start, end = _byte_range(args)
+        prof = None
+        if args.eprof and os.path.exists(args.eprof) and not args.eprof_only:
+            prof = ErrorProfile.load(args.eprof)
+        elif args.eprof:
+            prof = _estimate_validated(args, cfg, start, end)
+            prof.save(args.eprof)
+            if args.eprof_only:
+                return None, args
+        stats = correct_to_fasta(args.db, args.las, args.out, cfg, start, end,
+                                 profile=prof)
+    except IngestError as ex:
+        # under quarantine a surviving failure comes from a path that needs
+        # the aread index (-J/--block), which a corrupt LAS cannot provide
+        raise SystemExit(f"daccord: {ex}\n{_ingest_hint(args)}") from None
+    return stats, args
+
+
+def _ingest_hint(args) -> str:
+    return ("(rerun with --ingest-policy quarantine to contain the corrupt "
+            "piles instead)" if args.ingest_policy == "strict" else
+            "(byte-range sharding needs the aread index, which cannot be "
+            "built over a corrupt LAS: repair the file or run unsharded)")
+
+
+def _pipeline_config(args) -> PipelineConfig:
+    """The run's PipelineConfig from the checked ``daccord`` (or
+    ``daccord-shard``) arguments."""
     k = args.k
     try:
         buckets = tuple(int(x) for x in args.depth_buckets.split(",") if x.strip())
@@ -400,50 +489,29 @@ def daccord_run(argv=None):
                                          max_err=args.max_err),
                            hp_rescue=hp, hp_vote=args.hp_vote,
                            hp_accept=args.hp_accept)
-    cfg = PipelineConfig(consensus=ccfg, batch_size=args.batch, depth=args.depth,
-                         seg_len=args.seg_len, max_kmers=args.max_kmers,
-                         overflow_rescue=args.overflow_rescue,
-                         profile_sample_piles=args.profile_sample,
-                         device=args.device, max_inflight=args.max_inflight,
-                         depth_buckets=buckets, paged=args.paged,
-                         page_len=args.page_len, dp_route=args.dp,
-                         ladder_mode=args.ladder,
-                         use_native=not args.no_native,
-                         hp_native=not args.no_native,
-                         native_solver=args.backend == "native",
-                         feeder_threads=args.threads,
-                         qv_track=args.qv_track or None,
-                         end_trim=not args.no_end_trim,
-                         ingest_policy=args.ingest_policy,
-                         quarantine_path=args.quarantine,
-                         max_pile_overlaps=args.max_pile_overlaps,
-                         supervise=not args.no_supervise,
-                         events_path=args.events, log_path=args.log,
-                         ledger_path=args.ledger,
-                         failover_backend=args.failover_backend,
-                         failback=args.failback, audit_rate=args.audit_rate,
-                         native_threads=args.native_threads)
-    try:
-        start, end = _byte_range(args)
-        prof = None
-        if args.eprof and os.path.exists(args.eprof) and not args.eprof_only:
-            prof = ErrorProfile.load(args.eprof)
-        elif args.eprof:
-            prof = _estimate_validated(args, cfg, start, end)
-            prof.save(args.eprof)
-            if args.eprof_only:
-                return None, args
-        stats = correct_to_fasta(args.db, args.las, args.out, cfg, start, end,
-                                 profile=prof)
-    except IngestError as ex:
-        # under quarantine a surviving failure comes from a path that needs
-        # the aread index (-J/--block), which a corrupt LAS cannot provide
-        hint = ("(rerun with --ingest-policy quarantine to contain the corrupt "
-                "piles instead)" if args.ingest_policy == "strict" else
-                "(byte-range sharding needs the aread index, which cannot be "
-                "built over a corrupt LAS: repair the file or run unsharded)")
-        raise SystemExit(f"daccord: {ex}\n{hint}") from None
-    return stats, args
+    return PipelineConfig(consensus=ccfg, batch_size=args.batch, depth=args.depth,
+                          seg_len=args.seg_len, max_kmers=args.max_kmers,
+                          overflow_rescue=args.overflow_rescue,
+                          profile_sample_piles=args.profile_sample,
+                          device=args.device, max_inflight=args.max_inflight,
+                          depth_buckets=buckets, paged=args.paged,
+                          page_len=args.page_len, dp_route=args.dp,
+                          ladder_mode=args.ladder,
+                          use_native=not args.no_native,
+                          hp_native=not args.no_native,
+                          native_solver=args.backend == "native",
+                          feeder_threads=args.threads,
+                          qv_track=args.qv_track or None,
+                          end_trim=not args.no_end_trim,
+                          ingest_policy=args.ingest_policy,
+                          quarantine_path=args.quarantine,
+                          max_pile_overlaps=args.max_pile_overlaps,
+                          supervise=not args.no_supervise,
+                          events_path=args.events, log_path=args.log,
+                          ledger_path=args.ledger,
+                          failover_backend=args.failover_backend,
+                          failback=args.failback, audit_rate=args.audit_rate,
+                          native_threads=args.native_threads)
 
 
 def stats_record(stats, args) -> dict:
@@ -498,12 +566,549 @@ def daccord_main(argv=None) -> int:
     return 0
 
 
+def shard_main(argv=None) -> int:
+    """daccord-shard: correct one LAS byte-range shard into OUTDIR with a
+    manifest and mid-shard checkpoints (rerun the same command to resume)."""
+    args = _parser(shard=True).parse_args(argv)
+    _check(args)
+    try:
+        i, n = (int(x) for x in args.J.split(","))
+    except ValueError:
+        raise SystemExit(f"bad -J {args.J}: expected i,n") from None
+    if not (0 <= i < n):
+        raise SystemExit(f"bad -J {args.J}")
+    from ..parallel.launch import run_shard, shard_paths
+
+    if args.ledger == "auto":
+        args.ledger = shard_paths(args.outdir, i)["ledger"]
+    elif args.ledger == "none":
+        args.ledger = None
+    cfg = _pipeline_config(args)
+    try:
+        m = run_shard(args.db, args.las, args.outdir, i, n, cfg, force=args.force,
+                      checkpoint_every=args.checkpoint_every)
+    except IngestError as ex:
+        raise SystemExit(f"daccord-shard: {ex}\n{_ingest_hint(args)}") from None
+    print(json.dumps(m), file=sys.stderr)
+    return 0
+
+
+def merge_main(argv=None) -> int:
+    """daccord-merge: validating merge gate and crash-durable concatenation
+    of the shard FASTAs: manifests are checked for presence, byte-range
+    coverage, read and base counts and sha256 before the output commits."""
+    p = argparse.ArgumentParser(prog="daccord-merge", description=merge_main.__doc__)
+    p.add_argument("outdir")
+    p.add_argument("n", type=int, help="number of shards")
+    p.add_argument("out_fasta")
+    p.add_argument("--allow-degraded", action="store_true",
+                   help="merge even when shards completed degraded or "
+                        "quarantined, and skip shards with no output at all "
+                        "instead of refusing")
+    args = p.parse_args(argv)
+    from ..parallel.launch import MergeGateError, merge_shards
+    from ..utils.obs import sha256_file
+
+    try:
+        n = merge_shards(args.outdir, args.n, args.out_fasta,
+                         allow_degraded=args.allow_degraded)
+    except MergeGateError as ex:
+        raise SystemExit("daccord-merge: refusing to merge:\n  "
+                         + "\n  ".join(ex.issues)) from None
+    print(f"merged {n} fragments sha256={sha256_file(args.out_fasta)}", file=sys.stderr)
+    return 0
+
+
+def intrinsicqv_main(argv=None) -> int:
+    """compute-inqual: intrinsic QV track (``computeintrinsicqv``)."""
+    p = argparse.ArgumentParser(prog="compute-inqual", description=intrinsicqv_main.__doc__)
+    p.add_argument("db")
+    p.add_argument("las")
+    p.add_argument("-d", type=int, default=20, help="expected coverage depth")
+    p.add_argument("--block", type=int, default=None, metavar="I",
+                   help="process only DB block I (1-based); writes a per-block "
+                        "track to merge with `catrack`")
+    args = p.parse_args(argv)
+    db = read_db(args.db, load_bases=False)  # lengths only: block jobs stay O(block)
+    lastools.compute_intrinsic_qv(db, LasFile(args.las), depth=args.d, block=args.block)
+    return 0
+
+
+def detectrepeats_main(argv=None) -> int:
+    """las-detect-repeats: repeat intervals (``lasdetectsimplerepeats``)."""
+    p = argparse.ArgumentParser(prog="las-detect-repeats",
+                                description=detectrepeats_main.__doc__)
+    p.add_argument("db")
+    p.add_argument("las")
+    p.add_argument("-d", type=int, default=20, help="expected coverage depth")
+    p.add_argument("--factor", type=float, default=2.0, help="over-coverage factor")
+    p.add_argument("--qv-track", default="inqual", metavar="NAME",
+                   help="intrinsic-QV track gating which tiles may be repeat-"
+                        "annotated; '' disables")
+    p.add_argument("--qv-max", type=int, default=100,
+                   help="tiles with QV above this are too low-quality to "
+                        "repeat-annotate (255 = no coverage always excluded)")
+    p.add_argument("--grow", type=int, default=2,
+                   help="dilate detected intervals by this many tiles per "
+                        "side (tile-granular thresholding under-calls repeat "
+                        "edges where coverage decays)")
+    p.add_argument("--block", type=int, default=None, metavar="I",
+                   help="process only DB block I (1-based); writes a per-block "
+                        "track to merge with `catrack`")
+    args = p.parse_args(argv)
+    db = read_db(args.db, load_bases=False)
+    lastools.detect_repeats(db, LasFile(args.las), depth=args.d, cov_factor=args.factor,
+                            block=args.block, qv_track=args.qv_track or None,
+                            qv_max=args.qv_max, grow=args.grow)
+    return 0
+
+
+def filteralignments_main(argv=None) -> int:
+    """las-filter: drop repeat-inconsistent alignments (``lasfilteralignments``)."""
+    p = argparse.ArgumentParser(prog="las-filter", description=filteralignments_main.__doc__)
+    p.add_argument("db")
+    p.add_argument("las")
+    p.add_argument("out")
+    p.add_argument("--max-err", type=float, default=None)
+    p.add_argument("--rep-margin", type=float, default=0.015,
+                   help="repeat-confined alignments survive while their error "
+                        "rate is within this of the unique-region profile "
+                        "(cross-repeat-copy alignments carry the copies' "
+                        "divergence on top of it)")
+    p.add_argument("--mem-records", type=int, default=2_000_000,
+                   help="bound peak memory to ~this many records (the "
+                        "pre-filter LAS is the workflow's largest file); "
+                        "chunked pile-aligned passes, byte-identical output")
+    args = p.parse_args(argv)
+    db = read_db(args.db, load_bases=False)
+    las = LasFile(args.las)
+    n = lastools.filter_alignments(db, las, args.out, max_err=args.max_err,
+                                   rep_margin=args.rep_margin,
+                                   mem_records=args.mem_records)
+    print(f"kept {n} of {las.novl}", file=sys.stderr)
+    return 0
+
+
+def filtersym_main(argv=None) -> int:
+    """las-filter-sym: symmetrize a filtered LAS (``filtersym``)."""
+    p = argparse.ArgumentParser(prog="las-filter-sym", description=filtersym_main.__doc__)
+    p.add_argument("las")
+    p.add_argument("out")
+    p.add_argument("--db", default=None, help="DB for exact complement mirroring")
+    p.add_argument("--mem-records", type=int, default=2_000_000,
+                   help="above this record count (with --db) the symmetric "
+                        "join hash-partitions its key sets onto disk so "
+                        "memory stays bounded; output is byte-identical")
+    args = p.parse_args(argv)
+    db = read_db(args.db, load_bases=False) if args.db else None
+    if db is not None and LasFile(args.las).novl > args.mem_records:
+        n = filter_symmetric_external(args.las, args.out, db, mem_records=args.mem_records)
+    else:
+        n = lastools.filter_symmetric(args.las, args.out, db=db)
+    print(f"kept {n}", file=sys.stderr)
+    return 0
+
+
+def lasindex_main(argv=None) -> int:
+    """las-index: build or refresh the aread byte index sidecar, so sharded
+    jobs skip the whole-file scan."""
+    p = argparse.ArgumentParser(prog="las-index", description=lasindex_main.__doc__)
+    p.add_argument("las")
+    args = p.parse_args(argv)
+    idx = index_las(args.las)
+    print(f"{len(idx)} piles -> {args.las}.idx", file=sys.stderr)
+    return 0
+
+
+def lassort_main(argv=None) -> int:
+    """las-sort: sort a LAS by (aread, bread) (the LAsort role: a
+    block-memory external sort, so inputs far larger than RAM still sort)."""
+    p = argparse.ArgumentParser(prog="las-sort", description=lassort_main.__doc__)
+    p.add_argument("las")
+    p.add_argument("out")
+    p.add_argument("--mem-records", type=int, default=2_000_000,
+                   help="records held in memory per sorted run; files with "
+                        "more records than this go through on-disk runs + "
+                        "k-way merge (byte-identical to the in-memory sort)")
+    args = p.parse_args(argv)
+    n = sort_las_external(args.las, args.out, mem_records=args.mem_records)
+    print(f"sorted {n} overlaps", file=sys.stderr)
+    return 0
+
+
+def dbsplit_main(argv=None) -> int:
+    """db-split: recompute the DB's block partition (DAZZ_DB ``DBsplit``)."""
+    p = argparse.ArgumentParser(prog="db-split", description=dbsplit_main.__doc__)
+    p.add_argument("db")
+    p.add_argument("-s", "--size", type=float, default=200.0,
+                   help="block size in megabases (DBsplit -s)")
+    args = p.parse_args(argv)
+    blocks = split_db(args.db, int(args.size * 1_000_000))
+    print(f"{len(blocks)} blocks", file=sys.stderr)
+    return 0
+
+
+def catrack_main(argv=None) -> int:
+    """catrack: merge per-block tracks into the whole-DB track (DAZZ_DB
+    ``Catrack``), after `inqual --block` or `repeats --block`."""
+    p = argparse.ArgumentParser(prog="catrack", description=catrack_main.__doc__)
+    p.add_argument("db")
+    p.add_argument("track", help="track name (e.g. inqual, rep)")
+    p.add_argument("-d", "--delete", action="store_true",
+                   help="remove the per-block track files after merging")
+    args = p.parse_args(argv)
+    n = catrack(args.db, args.track, delete=args.delete)
+    print(f"merged track '{args.track}' over {n} reads", file=sys.stderr)
+    return 0
+
+
+def lasmerge_main(argv=None) -> int:
+    """las-merge: merge sorted LAS files into one (the LAmerge role:
+    DALIGNER writes one LAS per DB-block pair)."""
+    p = argparse.ArgumentParser(prog="las-merge", description=lasmerge_main.__doc__)
+    p.add_argument("out")
+    p.add_argument("las", nargs="+", help="input LAS files (aread-sorted)")
+    args = p.parse_args(argv)
+    try:
+        n = merge_las(args.las, args.out)
+    except ValueError as ex:
+        raise SystemExit(f"las-merge: {ex}") from None
+    print(f"merged {len(args.las)} files -> {n} overlaps", file=sys.stderr)
+    return 0
+
+
+def fasta2db_main(argv=None) -> int:
+    """fasta2db: build a Dazzler DB triple from FASTA (DAZZ_DB fasta2DB)."""
+    p = argparse.ArgumentParser(prog="fasta2db", description=fasta2db_main.__doc__)
+    p.add_argument("fasta")
+    p.add_argument("db", help="output .db path")
+    p.add_argument("--cutoff", type=int, default=0,
+                   help="drop reads shorter than this (Dazzler trim semantics)")
+    args = p.parse_args(argv)
+    recs = list(read_fasta(args.fasta))
+    n_all = len(recs)
+    if args.cutoff > 0:
+        recs = [r for r in recs if len(r.seq) >= args.cutoff]
+    db = write_db(args.db, [seq_to_ints(r.seq) for r in recs],
+                  names=[r.name for r in recs], cutoff=args.cutoff)
+    dropped = n_all - len(recs)
+    print(f"{db.nreads} reads, {db.totlen} bases"
+          + (f" ({dropped} below cutoff dropped)" if dropped else ""), file=sys.stderr)
+    return 0
+
+
+def db2fasta_main(argv=None) -> int:
+    """db2fasta: dump a Dazzler DB back to FASTA (DAZZ_DB DB2fasta)."""
+    p = argparse.ArgumentParser(prog="db2fasta", description=db2fasta_main.__doc__)
+    p.add_argument("db")
+    p.add_argument("-o", "--out", default="-", help="output FASTA ('-' = stdout)")
+    args = p.parse_args(argv)
+    db = read_db(args.db)
+    recs = [FastaRecord(db.names[i] if i < len(db.names) else f"read{i}",
+                        ints_to_seq(db.read_bases(i))) for i in range(db.nreads)]
+    write_fasta(sys.stdout if args.out == "-" else args.out, recs)
+    return 0
+
+
+def dbstats_main(argv=None) -> int:
+    """db-stats: read and base counts, length distribution, N50 and block
+    partition (DAZZ_DB ``DBstats``)."""
+    p = argparse.ArgumentParser(prog="db-stats", description=dbstats_main.__doc__)
+    p.add_argument("db")
+    args = p.parse_args(argv)
+    rlens = np.sort(read_lengths(args.db))[::-1]
+    tot = int(rlens.sum())
+    n50 = 0
+    if tot:
+        n50 = int(rlens[np.searchsorted(np.cumsum(rlens), tot / 2)])
+    try:
+        nblocks = len(db_blocks(args.db))
+    except (OSError, ValueError, IndexError):
+        nblocks = 1
+    print(f"{len(rlens):>12,} reads  {tot:>15,} bases  in {nblocks} block(s)")
+    if len(rlens):
+        print(f"{'min':>12} {int(rlens[-1]):>11,}\n"
+              f"{'median':>12} {int(np.median(rlens)):>11,}\n"
+              f"{'mean':>12} {int(rlens.mean()):>11,}\n"
+              f"{'N50':>12} {n50:>11,}\n"
+              f"{'max':>12} {int(rlens[0]):>11,}")
+    return 0
+
+
+def dbshow_main(argv=None) -> int:
+    """db-show: print selected reads as FASTA (DAZZ_DB ``DBshow``). Read
+    selectors are 0-based ids or i-j ranges (end exclusive); no selector
+    dumps the whole DB."""
+    p = argparse.ArgumentParser(prog="db-show", description=dbshow_main.__doc__)
+    p.add_argument("db")
+    p.add_argument("reads", nargs="*", help="read ids: '7' or '3-12' (0-based, end-exclusive)")
+    p.add_argument("-o", "--out", default="-", help="output FASTA ('-' = stdout)")
+    args = p.parse_args(argv)
+    db = read_db(args.db, load_bases=False)  # bases seeked per selected read
+    ids: list[int] = []
+    for sel in args.reads:
+        try:
+            if "-" in sel:
+                i, j = (int(x) for x in sel.split("-", 1))
+                ids.extend(range(i, j))
+            else:
+                ids.append(int(sel))
+        except ValueError:
+            raise SystemExit(f"db-show: bad read selector {sel!r} (use 'i' or 'i-j')") from None
+    if not args.reads:
+        ids = list(range(db.nreads))
+    bad = [i for i in ids if not (0 <= i < db.nreads)]
+    if bad:
+        raise SystemExit(f"db-show: read id(s) out of range (DB has {db.nreads} reads): {bad[:5]}")
+    recs = (FastaRecord(db.names[i] if i < len(db.names) else f"read{i}", ints_to_seq(bases))
+            for i, bases in zip(ids, decode_reads_from_bps(db, ids)))
+    write_fasta(sys.stdout if args.out == "-" else args.out, recs)
+    return 0
+
+
+def lasshow_main(argv=None) -> int:
+    """las-show: human-readable LAS dump (DALIGNER ``LAshow``)."""
+    p = argparse.ArgumentParser(prog="las-show", description=lasshow_main.__doc__)
+    p.add_argument("las")
+    p.add_argument("-n", type=int, default=None, help="print at most N records")
+    p.add_argument("--trace", action="store_true", help="also print per-tile (diffs, b-bases)")
+    args = p.parse_args(argv)
+    las = LasFile(args.las)
+    print(f"{las.novl} records, tspace {las.tspace}")
+    for i, o in enumerate(las):
+        if args.n is not None and i >= args.n:
+            break
+        strand = "c" if o.is_comp else "n"
+        print(f"{o.aread:>9} {o.bread:>9} {strand} "
+              f"[{o.abpos:>9}..{o.aepos:>9}] x [{o.bbpos:>9}..{o.bepos:>9}] "
+              f"diffs {o.diffs}")
+        if args.trace:
+            for d, b in o.trace:
+                print(f"          ({d:>4}, {b:>4})")
+    return 0
+
+
+def lascheck_main(argv=None) -> int:
+    """las-check: validate LAS structure (DALIGNER ``LAcheck``): header count
+    against records, aread sort order, coordinate sanity, trace tile counts,
+    and (with a DB) coordinates against read lengths. Exit status 1 on any
+    violation."""
+    p = argparse.ArgumentParser(prog="las-check", description=lascheck_main.__doc__)
+    p.add_argument("las")
+    p.add_argument("--db", default=None, help="DB to bounds-check coordinates against")
+    p.add_argument("--max-report", type=int, default=10)
+    args = p.parse_args(argv)
+    rlens = read_lengths(args.db) if args.db else None
+    try:
+        las = LasFile(args.las)
+    except ValueError as ex:  # IngestError: torn/corrupt header
+        print(f"{args.las}: {ex}", file=sys.stderr)
+        print(f"{args.las}: 0 records BAD", file=sys.stderr)
+        return 1
+    errs: list[str] = []
+
+    def report(msg: str):
+        if len(errs) < args.max_report:
+            errs.append(msg)
+
+    n = 0
+    prev = (-1, -1, -1)
+    try:
+        for o in las:
+            key = (o.aread, o.bread, o.abpos)
+            if key < prev:
+                report(f"record {n}: sort order violated {prev} > {key}")
+            prev = key
+            if not (0 <= o.abpos < o.aepos) or not (0 <= o.bbpos < o.bepos):
+                report(f"record {n}: degenerate span a[{o.abpos},{o.aepos}) b[{o.bbpos},{o.bepos})")
+            elif len(o.trace) != o.ntiles(las.tspace):
+                report(f"record {n}: {len(o.trace)} trace tiles, expected {o.ntiles(las.tspace)}")
+            elif int(o.trace[:, 1].sum()) != o.bepos - o.bbpos:
+                report(f"record {n}: trace b-bases {int(o.trace[:, 1].sum())} != span {o.bepos - o.bbpos}")
+            if rlens is not None:
+                if not (0 <= o.aread < len(rlens)) or not (0 <= o.bread < len(rlens)):
+                    report(f"record {n}: read id out of range ({o.aread}, {o.bread})")
+                elif o.aepos > rlens[o.aread] or o.bepos > rlens[o.bread]:
+                    report(f"record {n}: span exceeds read length")
+            n += 1
+    except (ValueError, struct.error) as ex:
+        # a file cut mid-record is what this tool exists to detect
+        report(f"record {n}: file truncated or corrupt mid-record ({ex})")
+    if n != las.novl:
+        report(f"header novl {las.novl} != {n} records")
+    for iss in sidecar_issues(args.las):
+        # a torn .idx sidecar costs every array job a silent full rescan
+        report(iss.describe())
+    for e in errs:
+        print(e, file=sys.stderr)
+    print(f"{args.las}: {n} records {'OK' if not errs else 'BAD'}", file=sys.stderr)
+    return 1 if errs else 0
+
+
+def lassplit_main(argv=None) -> int:
+    """las-split: split an aread-sorted LAS into per-DB-block files (DALIGNER
+    ``LAsplit``, the inverse of las-merge). The output template must contain
+    '#' (the block number)."""
+    p = argparse.ArgumentParser(prog="las-split", description=lassplit_main.__doc__)
+    p.add_argument("las")
+    p.add_argument("db", help="DB whose block partition drives the split")
+    p.add_argument("template", help="output path template, e.g. out.#.las")
+    args = p.parse_args(argv)
+    if "#" not in args.template:
+        raise SystemExit("las-split: template must contain '#'")
+    las = LasFile(args.las)
+    total = 0
+    for i, (lo, hi) in enumerate(db_blocks(args.db), start=1):
+        start, end = range_for_areads(args.las, lo, hi)
+        n = write_las(args.template.replace("#", str(i)), las.tspace,
+                      las.iter_range(start, end))
+        total += n
+        print(f"block {i}: reads [{lo},{hi}) -> {n} overlaps", file=sys.stderr)
+    if total != las.novl:
+        # records whose aread lies outside the block partition (a LAS of
+        # another DB) would vanish silently
+        raise SystemExit(f"las-split: {las.novl - total} of {las.novl} overlaps "
+                         f"fall outside {args.db}'s block partition")
+    return 0
+
+
+def fillfasta_main(argv=None) -> int:
+    """fill-fasta: replace non-ACGT symbols with seeded random bases so the
+    2-bit Dazzler DB can hold the reads (``fillfasta``)."""
+    p = argparse.ArgumentParser(prog="fill-fasta", description=fillfasta_main.__doc__)
+    p.add_argument("fasta")
+    p.add_argument("out", help="output FASTA ('-' = stdout)")
+    p.add_argument("--seed", type=int, default=0, help="RNG seed for the fill bases")
+    args = p.parse_args(argv)
+    rng = np.random.default_rng(args.seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    stats = {"reads": 0, "filled": 0}
+
+    def fill():  # streamed: one read in memory
+        for rec in read_fasta(args.fasta):
+            s = np.frombuffer(rec.seq.upper().encode(), dtype=np.uint8).copy()
+            bad = ~np.isin(s, acgt)
+            nb = int(bad.sum())
+            if nb:
+                s[bad] = acgt[rng.integers(0, 4, size=nb)]
+                stats["filled"] += nb
+            stats["reads"] += 1
+            yield FastaRecord(rec.name, s.tobytes().decode())
+
+    write_fasta(sys.stdout if args.out == "-" else args.out, fill())
+    print(f"filled {stats['filled']} non-ACGT symbols in {stats['reads']} reads",
+          file=sys.stderr)
+    return 0
+
+
+def qveval_main(argv=None) -> int:
+    """qv-eval: align corrected reads back to their truth and report the
+    consensus Q-score."""
+    p = argparse.ArgumentParser(prog="qv-eval", description=qveval_main.__doc__)
+    p.add_argument("fasta", help="corrected FASTA (names 'read<ID>/<frag>')")
+    p.add_argument("truth", help="sim truth .npz (genome/starts/ends/strands)")
+    p.add_argument("--raw-db", default=None,
+                   help="also score the uncorrected reads of this DB (raw Q)")
+    p.add_argument("--json", default="-", help="write the JSON line here")
+    args = p.parse_args(argv)
+    import math
+
+    from ..oracle.align import edit_distance, infix_distance
+
+    t = np.load(args.truth)
+    genome, starts, ends, strands = t["genome"], t["starts"], t["ends"], t["strands"]
+
+    def truth_of(rid: int) -> np.ndarray:
+        tr = genome[starts[rid] : ends[rid]]
+        return revcomp_ints(tr) if strands[rid] == 1 else tr
+
+    tot_e = tot_l = 0
+    n_frags = n_skipped = 0
+    scored_rids = set()
+    for rec in read_fasta(args.fasta):
+        name = rec.name.split()[0]
+        try:
+            if not name.startswith("read"):
+                raise ValueError(name)
+            rid = int(name.removeprefix("read").split("/")[0])
+            if not (0 <= rid < len(starts)):  # also rejects negative ids
+                raise IndexError(rid)
+            tr = truth_of(rid)
+        except (ValueError, IndexError):
+            n_skipped += 1
+            continue
+        f = seq_to_ints(rec.seq)
+        tot_e += infix_distance(f, tr)
+        tot_l += len(f)
+        n_frags += 1
+        scored_rids.add(rid)
+    err = tot_e / tot_l if tot_l else float("nan")
+    q = -10.0 * math.log10(max(err, 1e-9)) if tot_l else float("nan")
+    line = {"fragments": n_frags, "skipped": n_skipped, "bases": tot_l,
+            "errors": tot_e, "error_rate": round(err, 6), "qscore": round(q, 2)}
+    if args.raw_db:
+        db = read_db(args.raw_db)
+        raw_e = raw_l = 0
+        for rid in sorted(scored_rids):
+            raw = db.read_bases(rid)
+            raw_e += edit_distance(raw, truth_of(rid))
+            raw_l += len(raw)  # the errors / len(sequence) of the above
+        raw_err = raw_e / raw_l if raw_l else float("nan")
+        raw_q = -10.0 * math.log10(max(raw_err, 1e-9)) if raw_l else float("nan")
+        line.update(raw_error_rate=round(raw_err, 6), raw_qscore=round(raw_q, 2),
+                    delta_q=round(q - raw_q, 2))
+    out = json.dumps(line)
+    if args.json == "-":
+        print(out)
+    else:
+        with open(args.json, "wt") as fh:
+            fh.write(out + "\n")
+        print(out, file=sys.stderr)
+    return 0
+
+
+_TOOLS = {
+    "daccord": daccord_main,
+    "shard": shard_main,
+    "merge": merge_main,
+    "audit": audit_main,
+    "inqual": intrinsicqv_main,
+    "repeats": detectrepeats_main,
+    "filter": filteralignments_main,
+    "filtersym": filtersym_main,
+    "lassort": lassort_main,
+    "lasmerge": lasmerge_main,
+    "catrack": catrack_main,
+    "lasindex": lasindex_main,
+    "lasshow": lasshow_main,
+    "lascheck": lascheck_main,
+    "lassplit": lassplit_main,
+    "dbstats": dbstats_main,
+    "dbshow": dbshow_main,
+    "fasta2db": fasta2db_main,
+    "db2fasta": db2fasta_main,
+    "dbsplit": dbsplit_main,
+    "fillfasta": fillfasta_main,
+    "qveval": qveval_main,
+    "eventcheck": eventcheck_main,
+}
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0] != "daccord":
-        print(USAGE, file=sys.stderr)
+    usage = (f"usage: python -m daccord_tpu_torch.tools.cli <tool> [args]\n"
+             f"tools: {', '.join(_TOOLS)}\n{USAGE}")
+    if argv[:1] in (["-h"], ["--help"]):
+        print(usage)
+        return 0
+    if not argv:
+        print(usage, file=sys.stderr)
         return 2
-    return daccord_main(argv[1:])
+    tool = argv.pop(0)
+    if tool not in _TOOLS:
+        print(f"unknown tool {tool!r}; tools: {', '.join(_TOOLS)}", file=sys.stderr)
+        return 2
+    return _TOOLS[tool](argv)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,12 @@ storage faults: plain paths and ``file:PATH`` map to the filesystem,
 ``mem:NAME`` to a process-local byte store (:func:`put_mem`; written
 ``mem:`` files become visible at close).
 
-Every output primitive here (:func:`open_output`, :func:`durable_replace`)
-consults the process ``DACCORD_FAULT`` plan's ``io_*`` kinds
-(``runtime/faults.py``) first, keyed by an optional path-class domain
-(``sidecar`` for the event log, the ledger and the quarantine sidecar).
+Every output primitive here (:func:`open_output`, :func:`durable_replace`,
+:func:`durable_write`, :func:`exclusive_create`, :func:`fsync_dir`) consults
+the process ``DACCORD_FAULT`` plan's ``io_*`` kinds (``runtime/faults.py``)
+first, keyed by an optional path-class domain (``sidecar`` for the event
+log, the ledger and the quarantine sidecar; ``manifest`` for the shard
+launcher's manifests).
 Injected failures are real :class:`OSError` instances with real errnos
 (ENOSPC, EIO); :func:`retrying` is the bounded-backoff wrapper for the
 transient class (EIO), and writers with their own file handles consult
@@ -236,3 +238,112 @@ def getsize(url: str) -> int:
                 raise FileNotFoundError(url)
             return len(_MEM[url])
     return os.path.getsize(local_path(url))
+
+
+def exists(url: str) -> bool:
+    if is_mem(url):
+        with _LOCK:
+            return url in _MEM
+    return os.path.exists(local_path(url))
+
+
+def remove(url: str) -> None:
+    """Delete a URL; raises FileNotFoundError when absent (both schemes)."""
+    if is_mem(url):
+        with _LOCK:
+            if url not in _MEM:
+                raise FileNotFoundError(url)
+            del _MEM[url]
+        return
+    os.remove(local_path(url))
+
+
+def fsync_dir(path: str, domain: str = "") -> None:
+    """Best-effort fsync of the directory holding ``path``, so a rename is
+    durable too. A filesystem that cannot fsync a directory is tolerated,
+    and an injected storage fault is absorbed the same way."""
+    if _io_prelude(domain) is not None:
+        return
+    _fsync_dir_raw(path)
+
+
+def durable_write(dst: str, write_fn, mode: str = "wb", domain: str = ""):
+    """The crash-durable commit of a file: ``write_fn(fh)`` fills a
+    pid-suffixed tmp, its content is fsynced, and :func:`durable_replace`
+    publishes it (rename + directory fsync). The tmp is removed on any
+    failure. Returns ``write_fn``'s value.
+
+    One logical storage op an attempt: an injected fault fires after
+    ``write_fn`` has filled the tmp (``io_short_write`` first truncates it
+    to half, ``io_fsync_fail`` takes the fsync's place), so the clean-up
+    path is what the fault matrix exercises; a transient EIO is retried
+    (:func:`retrying`, each attempt rewrites the tmp whole)."""
+    real = local_path(dst)
+    tmp = f"{real}.tmp.{os.getpid()}"
+
+    def attempt():
+        spec = _io_prelude(domain)
+        try:
+            with open(tmp, mode) as fh:
+                out = write_fn(fh)
+                fh.flush()
+                if spec is not None:
+                    if spec.kind == "io_short_write":
+                        fh.truncate(max(0, fh.tell() // 2))
+                    _io_raise(spec, "durable_write", domain)
+                os.fsync(fh.fileno())
+        except BaseException:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            raise
+        # the rename and the write are one logical op for the fault counters
+        _NESTED.depth = getattr(_NESTED, "depth", 0) + 1
+        try:
+            durable_replace(tmp, real)
+        finally:
+            _NESTED.depth -= 1
+        return out
+
+    return retrying(attempt)
+
+
+def exclusive_create(url: str, data: bytes, domain: str = "") -> bool:
+    """Create ``url`` with ``data`` iff it does not exist (``O_CREAT |
+    O_EXCL``: of N racing claimants exactly one sees True); content and
+    directory are fsynced. A write or fsync failure after the open unlinks
+    the claim before re-raising, so no torn claim blocks the slot."""
+    if is_mem(url):
+        with _LOCK:
+            if url in _MEM:
+                return False
+            _MEM[url] = data
+        return True
+
+    def attempt():
+        spec = _io_prelude(domain)
+        try:
+            fd = os.open(local_path(url), os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o644)
+        except FileExistsError:
+            return False
+        try:
+            try:
+                if spec is not None:
+                    if spec.kind == "io_short_write":
+                        os.write(fd, data[: len(data) // 2])
+                    _io_raise(spec, "exclusive_create", domain)
+                os.write(fd, data)
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+        except BaseException:
+            try:
+                os.remove(local_path(url))
+            except OSError:
+                pass
+            raise
+        _fsync_dir_raw(url)
+        return True
+
+    return retrying(attempt)

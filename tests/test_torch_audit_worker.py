@@ -13,6 +13,8 @@ their separate solves and the torch reference's.
 """
 
 import dataclasses
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -180,6 +182,49 @@ def test_worker_that_fails_on_its_ladder_disables_the_audit(base, monkeypatch):
     off = [r for r in port["recs"] if r["event"] == "audit.disabled"]
     assert len(off) == 1 and "KeyError" in off[0]["error"]
     assert port["stats"].audit_disabled and port["done"][0]["audits"] == 0
+
+
+#: a worker that writes its error and exits at once, before any request
+_FAKE_WORKER = """
+import os, sys
+from multiprocessing.connection import Connection
+Connection(int(sys.argv[2]), readable=False).send(("error", "KeyError: 'no table'"))
+os._exit(1)
+"""
+
+
+@pytest.mark.parametrize("also_lost_pipe", [False, True])
+def test_an_error_written_just_before_exit_is_the_one_reported(monkeypatch,
+                                                               also_lost_pipe):
+    """The worker's message is in its pipe and the worker has exited, but
+    the parent's first wait found nothing ready (the message came between
+    that wait and the exit check): the parent reads the pipe to its end and
+    reports the worker's own error, not its exit code or the broken pipe
+    its sender met."""
+    real_popen = subprocess.Popen
+
+    def popen(argv, **kw):
+        return real_popen([sys.executable, "-c", _FAKE_WORKER, *argv[3:]], **kw)
+
+    monkeypatch.setattr(audit_worker.subprocess, "Popen", popen)
+    w = audit_worker.AuditWorker(processes=1)
+    try:
+        assert w._procs[0].wait(60) == 1
+        if also_lost_pipe:
+            w._lost = "an audit worker stopped reading: [Errno 32] Broken pipe"
+        real_wait, waits = audit_worker.wait, []
+
+        def wait(conns, timeout):
+            waits.append(timeout)
+            return [] if len(waits) == 1 else real_wait(conns, timeout)
+
+        monkeypatch.setattr(audit_worker, "wait", wait)
+        assert not w.alive()
+        assert waits and w.error == "KeyError: 'no table'"
+        with pytest.raises(audit_worker.AuditWorkerError, match="KeyError"):
+            w._wait(lambda: False, 5.0)
+    finally:
+        w.close()
 
 
 def _ladder(prof: ErrorProfile) -> TierLadder:

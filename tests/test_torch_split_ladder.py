@@ -11,8 +11,8 @@ fewer rescue slots, dense Stream B batches, the flush-lag bound, the fault
 matrix, the shadow audit's Stream A rule (in process and in the workers).
 Last, the audit workers start once for two runs of one process.
 
-Left out: checkpoint/resume with a pending pool (needs
-``parallel/launch.py``, not ported) and ``kernelbench``'s stage row (the
+Checkpoint and resume with a pending pool is in
+``tests/test_torch_launch.py``. Left out: ``kernelbench``'s stage row (the
 tool is not ported).
 """
 
