@@ -109,6 +109,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the two mixed arms (the unfiltered LAS ranked, the filtered LAS
    unranked): every arm's error and Q beside the card's name and power
    limit, the track arm held below half the raw error;
+4e. telemetry phase: the cost of ``--events`` on the 20 kb dense fused run
+   (``tools/wall_ab.py``, a fresh process a turn in the order A B B A A B B
+   A, B with ``--events``; then the same pair warm in this process, A B B
+   A, and one warm run of each under cProfile: the pipeline thread's own
+   time in the telemetry functions),
+   the 100 kb dense fused run again with ``--events``,
+   ``--metrics-snapshot-s 2`` and ``DACCORD_PROFILE_DIR`` (a torch.profiler
+   capture of its second ladder call), read by the port's own tools:
+   ``eventcheck --strict``, ``trace --check --json`` (the wall's split
+   into spans, with "else" split into the pile loop's own work, the
+   flushes and the hp pass, and the rest), ``prof --check`` (the feeder's
+   stage table, the gauges and the verdict), ``top --once`` and
+   ``sentinel --strict`` over the events and the rollup's ``.prom``; the
+   capture must have written its trace and ``shard_done`` must be there.
+   The warm 20 kb run again under ``--profile DIR`` (one capture of the
+   whole run, a faulthandler dump bounding it): a trace, the same FASTA.
+   Then the supervisor phase's quarter of the 20 kb set, clean and under
+   ``DACCORD_FAULT=feeder_stall:50``: the same FASTA byte for byte, and the
+   stalled run's verdict ``host_feeder`` with ``stall`` its named stage;
+   warm graphed runs are ``host_feeder`` already, so the flip is held on
+   the eager ladder (``graphs=False``), whose host launches keep the card
+   busy: the warm 20 kb dense fused run clean, then under the stall, in
+   this process; the clean verdict must not be ``host_feeder`` and the
+   stalled one must, same bytes;
 5. kernel phase, on inputs made from real windows of the dataset (topped up
    from a seeded generator if there were fewer than B), each kernel held
    bit-equal to its plain torch version on the card and timed (its device
@@ -840,7 +864,9 @@ def log_run(tag: str, stats, launched: dict) -> None:
         log(f"daccord {tag}: fused ladder: rescue windows {stats.n_rescue_windows} in "
             f"{stats.rescue_slots_executed} escalation slots (density "
             f"{stats.rescue_density:.4f})")
-    log(f"daccord {tag}: feeder stage profile {json.dumps(stats.stage_profile)}")
+    log(f"daccord {tag}: feeder stage profile {json.dumps(stats.stage_profile)}; "
+        f"host_s {stats.host_s:.3f} s, verdict {stats.verdict} "
+        f"{json.dumps(stats.bottleneck)}")
     log(f"daccord {tag}: supervisor {json.dumps(stats.sup_counters)}, degraded "
         f"{stats.degraded}; {audit_text(stats)}")
     for name, (total, by_shape, windows) in launched.items():
@@ -892,7 +918,8 @@ class eager_ladder:
 def audit_text(stats) -> str:
     w = stats.wall_s
     return (f"shadow audit (rate 1/64) audit_s {stats.audit_s:.4f} s, "
-            f"{stats.audit_s / w:.4f} of the wall; audit_worker_s "
+            f"{stats.audit_s / w:.4f} of the wall (its sends {stats.audit_send_s:.4f} s, "
+            f"of which taking the sampled rows {stats.audit_take_s:.4f} s); audit_worker_s "
             f"{stats.audit_worker_s:.4f} s ({stats.audit_worker_s / w:.4f}); "
             f"{stats.audit_local} of {stats.sup_counters.get('audits', 0)} audits on the "
             f"pipeline's thread, their warm-up audit_warm_s "
@@ -1474,6 +1501,247 @@ def workflow_phase(counters, tmp: str, nthreads: int, smi: str) -> None:
     shutil.rmtree(w, ignore_errors=True)
 
 
+def pile_own_wall(recs: list) -> tuple[float, float]:
+    """(the pile spans' summed wall, the part of it in spans of their own:
+    dispatch, device.fetch, flush and hp opened while a pile was open, and
+    a profiler capture's start or stop there). The difference is the pile
+    loop's own work: routing rows to buckets, packing, scattering,
+    stitching and emitting reads."""
+    inner_names = {"dispatch", "device.fetch", "flush", "hp"}
+    piles = inner = 0.0
+    open_pile, inside = None, set()
+    for r in recs:
+        ev = r["event"]
+        if ev == "profile.capture" and open_pile is not None:
+            inner += r.get("wall_s", 0.0)
+        elif ev == "span_open":
+            if r["name"] == "pile":
+                open_pile = r["span"]
+            elif open_pile is not None and r["name"] in inner_names:
+                inside.add(r["span"])
+        elif ev == "span_close":
+            if r["span"] == open_pile:
+                piles += r["wall_s"]
+                open_pile = None
+            elif r["span"] in inside:
+                inner += r["wall_s"]
+                inside.discard(r["span"])
+    return piles, inner
+
+
+def telemetry_phase(d: dict, eprof: str, big: dict, big_eprof: str, counters,
+                    tmp: str, nthreads: int, smi: str) -> None:
+    """Phase 4e: the cost of the telemetry plane, one captured 100 kb run read
+    by the port's tools, a warm run under ``--profile``, and the feeder
+    stall's verdict."""
+    from daccord_tpu_torch.tools import prof, sentinel, top, trace
+    from daccord_tpu_torch.tools.eventcheck import validate_events
+    from daccord_tpu_torch.utils.obs import render_prom
+
+    # the cost of --events: fresh processes in turns, then warm in this one
+    ab_events = os.path.join(tmp, "ab.events.jsonl")
+    res = subprocess.run(
+        [sys.executable, "-m", "daccord_tpu_torch.tools.wall_ab", ".", ".",
+         "--turns", "ABBAABBA", "--b-args", f"--events {ab_events}"],
+        capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"wall_ab failed:\n{res.stdout}{res.stderr}")
+    turns = [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
+    walls = {s: [t["wall_s"] for t in turns if t["side"] == s] for s in "AB"}
+    if "FASTA of every turn identical: True" not in res.stdout:
+        raise AssertionError(f"wall_ab: the FASTA differs with --events\n{res.stdout}")
+    cold = sum(walls["B"]) / sum(walls["A"]) - 1.0
+    base = [d["db"], d["las"], "-E", eprof, "-b", str(B), "--device", DEVICE,
+            "--paged", "off", "--dp", "fused"]
+    warm = {"A": [], "B": []}
+    outs = {}
+    for i, side in enumerate("ABBA"):
+        out = os.path.join(tmp, f"tel_{i}.fasta")
+        extra = ["--events", os.path.join(tmp, "warm.events.jsonl")] if side == "B" else []
+        st, _ = daccord(base + ["-o", out] + extra, counters)
+        warm[side].append(st.wall_s)
+        outs[i] = out
+    for i in (1, 2, 3):
+        if records(outs[i]) != records(outs[0]):
+            raise AssertionError("the warm 20 kb run's FASTA differs with --events")
+    hot = sum(warm["B"]) / sum(warm["A"]) - 1.0
+    log(f"telemetry cost, 20 kb dense fused -t 0 ({smi}): fresh processes A B B A A B B A "
+        f"without / with --events {[round(w, 3) for w in walls['A']]} / "
+        f"{[round(w, 3) for w in walls['B']]} s -> {cold:+.4f}; warm in this process "
+        f"{[round(w, 3) for w in warm['A']]} / {[round(w, 3) for w in warm['B']]} s -> "
+        f"{hot:+.4f} (predicted at most +0.02)")
+    # the pipeline thread's own time in the telemetry plane's functions
+    # (utils/obs.py and the json encoder), without and with --events, one
+    # warm run each under cProfile (which sees only the thread that runs it)
+    import cProfile
+    import pstats
+
+    tel_files = ("utils/obs.py", "json/encoder.py", "json/__init__.py")
+    prof_rows = []
+    for side in "AB":
+        extra = ["--events", os.path.join(tmp, "cprof.events.jsonl")] if side == "B" else []
+        pr = cProfile.Profile()
+        pr.enable()
+        st, _ = daccord(base + ["-o", os.path.join(tmp, f"cprof_{side}.fasta")] + extra,
+                        counters)
+        pr.disable()
+        funcs = pstats.Stats(pr).stats
+        tel = sum(v[2] for k, v in funcs.items() if k[0].endswith(tel_files))
+        calls = sum(v[1] for k, v in funcs.items() if k[0].endswith(tel_files))
+        prof_rows.append(f"{'with' if extra else 'without'} --events {tel:.4f} s in "
+                         f"{calls} calls of a {st.wall_s:.3f} s wall ({tel / st.wall_s:.4f})")
+    log(f"telemetry on the pipeline thread, warm 20 kb dense fused under cProfile: "
+        f"{'; '.join(prof_rows)}")
+
+    # one captured 100 kb run, read by the port's tools
+    run_dir = os.path.join(tmp, "telemetry_run")
+    cap_dir = os.path.join(tmp, "capture")
+    os.makedirs(run_dir)
+    ev = os.path.join(run_dir, "big.events.jsonl")
+    out = os.path.join(tmp, "tel_big.fasta")
+    import faulthandler
+
+    os.environ["DACCORD_PROFILE_DIR"] = cap_dir
+    # a wedged capture dumps every thread's stack and ends the smoke, rather
+    # than spending the run's time limit
+    faulthandler.dump_traceback_later(300, exit=True)
+    try:
+        st, launched = daccord([big["db"], big["las"], "-o", out, "-E", big_eprof, "-b",
+                                str(B), "--device", DEVICE, "--paged", "off", "--dp",
+                                "fused", "-t", str(nthreads), "--events", ev,
+                                "--metrics-snapshot-s", "2"], counters)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        del os.environ["DACCORD_PROFILE_DIR"]
+    log_run("100 kb dense fused, captured", st, launched)
+    errs = validate_events(ev, strict=True)
+    if errs:
+        raise AssertionError(f"eventcheck --strict: {errs[:5]}")
+    recs = [json.loads(x) for x in open(ev)]
+    if not any(r["event"] == "shard_done" for r in recs):
+        raise AssertionError("the captured run wrote no shard_done")
+    caps = [r["state"] for r in recs if r["event"] == "profile.capture"]
+    cap_walls = [r.get("wall_s") for r in recs if r["event"] == "profile.capture"]
+    traces = [f for f in os.listdir(cap_dir)] if os.path.isdir(cap_dir) else []
+    if caps != ["start", "stop"] or not any(f.endswith(".trace.json") for f in traces):
+        raise AssertionError(f"the profiler capture: events {caps}, files {traces}")
+    log(f"profiler capture: {caps}, its own walls (the start; the stop and the export) "
+        f"{cap_walls} s, {[(f, os.path.getsize(os.path.join(cap_dir, f))) for f in traces]}")
+    with open(os.path.join(run_dir, "big.metrics.json"), "wt") as fh:
+        json.dump({"wall_s": st.wall_s, "device_s": st.device_s, "host_s": st.host_s,
+                   **st.metrics}, fh)
+    prom = os.path.join(run_dir, "big.prom")
+    with open(prom, "wt") as fh:
+        fh.write(render_prom(st.metrics))
+    import contextlib
+    import io
+
+    for name, call in (("trace --check --json", lambda: trace.trace_main([ev, "--check", "--json"])),
+                       ("prof --check", lambda: prof.prof_main(["--check", ev])),
+                       ("prof", lambda: prof.prof_main([ev])),
+                       ("top --once", lambda: top.top_main([run_dir, "--once"])),
+                       ("sentinel --strict", lambda: sentinel.sentinel_main(
+                           ["--strict", ev, prom]))):
+        so, se = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            rc = call()
+        for line in (so.getvalue() + se.getvalue()).splitlines():
+            log(f"  {name}: {line}")
+        if rc != 0:
+            raise AssertionError(f"{name} exited {rc}")
+        if name.startswith("trace"):
+            dec = json.loads(so.getvalue().splitlines()[-1])["decomposition"][0]
+    piles, inner = pile_own_wall(recs)
+    run_wall = dec["wall_s"]
+    capture_s = sum(r.get("wall_s", 0.0) for r in recs if r["event"] == "profile.capture")
+    e = else_s(st) - capture_s
+    pile_own = piles - inner
+    in_spans = pile_own + dec["stages"]["flush"] + dec["stages"]["hp"]
+    log(f"else split, 100 kb dense fused ({smi}): stats wall {st.wall_s:.3f} s (the "
+        f"run span {run_wall:.3f} s; outside it read_db and the FASTA write "
+        f"{st.wall_s - run_wall:.3f} s), else {e:.3f} s (less the profiler capture's "
+        f"own {capture_s:.3f} s); in spans: the pile loop's own "
+        f"work (routing, scatter, stitch, emit) {pile_own:.3f} s, flush "
+        f"{dec['stages']['flush']:.3f} s, hp {dec['stages']['hp']:.3f} s = {in_spans:.3f} s "
+        f"({in_spans / max(e, 1e-9):.4f} of else; predicted at least 0.5); the trace's "
+        f"other(host) {dec['other']:.3f} s; pile spans {piles:.3f} s, of it in "
+        f"dispatch, fetch, flush and hp spans {inner:.3f} s; the trace's stages "
+        f"{json.dumps(dec['stages'])}")
+    log(f"saturation, 100 kb dense fused: verdict {st.verdict}, {json.dumps(st.bottleneck)}, "
+        f"feeder_s {st.feeder_s}, dispatch_s {st.dispatch_s}, host_s {st.host_s:.3f}, "
+        f"device_peak_bytes {st.metrics['gauges'].get('device_peak_bytes')}")
+
+    # the whole-run capture (--profile DIR), warm in this process: the
+    # profiler stays on while the dispatcher thread replays the graphs
+    whole_dir = os.path.join(tmp, "capture_whole")
+    whole_out = os.path.join(tmp, "tel_whole.fasta")
+    faulthandler.dump_traceback_later(300, exit=True)
+    try:
+        t0 = time.perf_counter()
+        st, _ = daccord(base + ["-o", whole_out, "--profile", whole_dir], counters)
+        whole_s = time.perf_counter() - t0
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    files = os.listdir(whole_dir) if os.path.isdir(whole_dir) else []
+    if not any(f.endswith(".trace.json") for f in files):
+        raise AssertionError(f"--profile wrote no trace: {files}")
+    if records(whole_out) != records(outs[0]):
+        raise AssertionError("the warm 20 kb run's FASTA differs under --profile")
+    log(f"--profile, warm 20 kb dense fused in this process: wall {st.wall_s:.3f} s "
+        f"(with the trace's export {whole_s:.3f} s; the warm runs without it "
+        f"{[round(w, 3) for w in warm['A']]} s), "
+        f"{[(f, os.path.getsize(os.path.join(whole_dir, f))) for f in files]}; same FASTA")
+
+    # the feeder stall on the supervisor phase's quarter of the 20 kb set
+    quarter = [d["db"], d["las"], "-E", eprof, "-J", SUP_SHARD, "-b", str(SUP_B),
+               "--device", DEVICE]
+    clean_out, stall_out = (os.path.join(tmp, f"stall_{t}.fasta") for t in ("clean", "on"))
+    clean, _ = daccord(quarter + ["-o", clean_out, "--events",
+                                  os.path.join(tmp, "clean.events.jsonl")], counters)
+    os.environ["DACCORD_FAULT"] = "feeder_stall:50"
+    try:
+        stalled, _ = daccord(quarter + ["-o", stall_out, "--events",
+                                        os.path.join(tmp, "stall.events.jsonl")], counters)
+    finally:
+        del os.environ["DACCORD_FAULT"]
+    same = records(clean_out) == records(stall_out)
+    log(f"feeder_stall:50 on -J {SUP_SHARD} -b {SUP_B}: clean verdict {clean.verdict} "
+        f"({json.dumps(clean.bottleneck)}, wall {clean.wall_s:.3f} s), stalled verdict "
+        f"{stalled.verdict} ({json.dumps(stalled.bottleneck)}, wall {stalled.wall_s:.3f} s, "
+        f"stall stage {stalled.stage_profile['stages'].get('stall')}); FASTA "
+        f"byte-identical: {same}")
+    if not same or stalled.verdict != "host_feeder" or stalled.bottleneck["stage"] != "stall":
+        raise AssertionError("feeder_stall did not move the verdict to the stall with "
+                             "the same bytes")
+    # warm, every graphed run here is host_feeder already (a warm 20 kb
+    # run's ladder calls take about 0.1 s of the card), and a first run in
+    # a fresh process sits on the verdict's line (host blocked 0.40, idle
+    # 0.44). The eager ladder keeps the card busy through its host launches
+    # (idle about a quarter of the wall), so the flip is held there: the
+    # warm 20 kb dense fused run with the eager ladder in this process,
+    # clean, then stalled
+    eager = {}
+    for tag, fault in (("clean", None), ("stalled", "feeder_stall:50")):
+        out = os.path.join(tmp, f"eager_{tag}.fasta")
+        if fault:
+            os.environ["DACCORD_FAULT"] = fault
+        try:
+            with eager_ladder():
+                eager[tag] = (out, daccord(base + ["-o", out], counters)[0])
+        finally:
+            os.environ.pop("DACCORD_FAULT", None)
+    (clean_out, clean), (stall_out, stalled) = eager["clean"], eager["stalled"]
+    same = records(stall_out) == records(clean_out)
+    log(f"feeder_stall:50 on the eager ladder, warm 20 kb dense fused -t 0: clean verdict "
+        f"{clean.verdict} ({json.dumps(clean.bottleneck)}, wall {clean.wall_s:.3f} s), "
+        f"stalled verdict {stalled.verdict} ({json.dumps(stalled.bottleneck)}, wall "
+        f"{stalled.wall_s:.3f} s); FASTA byte-identical: {same}")
+    if (not same or clean.verdict == "host_feeder" or stalled.verdict != "host_feeder"
+            or stalled.bottleneck["stage"] != "stall"):
+        raise AssertionError("feeder_stall did not flip the eager run's verdict to "
+                             "host_feeder with the same bytes")
+
+
 def reference_cost(big: dict, eprof: str) -> None:
     """The audit worker's reference (the CPU ladder in numpy, ``audit/
     ladder.py``) on 32 and 256 real windows of the 100 kb set: bit-equal to
@@ -1842,6 +2110,11 @@ def main() -> int:
         t0 = time.perf_counter()
         workflow_phase(counters, tmp, nthreads, smi)
         log(f"workflow phase: {time.perf_counter() - t0:.1f} s")
+
+        # ---- 4e. the telemetry plane ------------------------------------------
+        t0 = time.perf_counter()
+        telemetry_phase(d, eprof, big, big_eprof, counters, tmp, nthreads, smi)
+        log(f"telemetry phase: {time.perf_counter() - t0:.1f} s (predicted at most 60 s)")
 
         # ---- 5. kernel phase ------------------------------------------------
         t0 = time.perf_counter()

@@ -25,6 +25,12 @@ because windows solve independently (the premise of
 cap keeps a backlog (the samples queued while the worker starts) from
 holding back the oldest sample's rows, which the next fetch waits for.
 
+A paged sample travels as it was dispatched: its rows' page table and the
+pool pages those rows name (:func:`sample_pages`), unpacked to the dense
+rows in the worker (``utils.pages.unpack_pages``, which
+``PagedWindowBatch.to_dense`` calls too), so the pipeline's thread pays a
+table slice and a page gather per audited batch, not the unpack.
+
 A worker that fails to start or answer raises :class:`AuditWorkerError`
 from :meth:`AuditWorker.result`; the supervisor then logs
 ``audit.disabled`` and the run goes on without the audit.
@@ -63,6 +69,36 @@ CALL_WINDOWS = 64
 
 class AuditWorkerError(RuntimeError):
     """The audit worker died, failed to start or gave no verdict in time."""
+
+
+def sample_pages(batch, rows):
+    """The ``rows`` of a paged batch (``PagedWindowBatch``) as a sample the
+    workers unpack: those rows' table, lens and nsegs, and the pool pages
+    the table names (page 0, the all-PAD sentinel, kept first), with the
+    table renumbered into them."""
+    import dataclasses
+
+    import numpy as np
+
+    idx = np.asarray(rows, dtype=np.int64)
+    table = batch.table[idx]
+    used = np.union1d(table, [0])
+    return dataclasses.replace(
+        batch, pool=batch.pool[used],
+        table=np.searchsorted(used, table).astype(batch.table.dtype),
+        lens=batch.lens[idx], nsegs=batch.nsegs[idx],
+        read_ids=batch.read_ids[idx], wstarts=batch.wstarts[idx])
+
+
+def _dense(sample: tuple) -> tuple:
+    """A part as (seqs, lens, nsegs): a paged part (pool, table, lens, nsegs,
+    geometry) is unpacked first."""
+    if len(sample) == 3:
+        return sample
+    from ..utils.pages import unpack_pages
+
+    pool, table, lens, nsegs, geo = sample
+    return unpack_pages(pool, table, lens, *geo), lens, nsegs
 
 
 def solve_grouped(solve, items: list, call_windows: int = CALL_WINDOWS):
@@ -129,7 +165,7 @@ def _main(fd_in: int, fd_out: int, parent: int, t_spawn: float) -> None:
                                     if n.split(".")[0] in ("jax", "daccord_tpu", "torch"))
                     res.send(("ready", leaked, dict(boot_s=t_boot, import_s=t_import)))
                 else:
-                    items.append(m[1:])
+                    items.append((m[1], _dense(m[2]), m[3]))
             if items and spec is None:
                 raise AuditWorkerError("a sample arrived before the ladder")
             # Stream A samples (tier 0 alone) and whole-ladder samples
@@ -238,14 +274,21 @@ class AuditWorker:
         self._out.put((range(len(self._reqs)), ("build", spec)))
 
     def submit(self, sample, tier0_only: bool = False) -> int:
-        """Queue one dense sample (a ``WindowBatch``) for the whole ladder
-        (tier 0 alone with ``tier0_only``); returns its ticket. Never
-        blocks."""
+        """Queue one sample for the whole ladder (tier 0 alone with
+        ``tier0_only``): a dense ``WindowBatch``, or a paged one made by
+        :func:`sample_pages` (each part carries its pool, unpacked in the
+        worker); returns its ticket. Never blocks."""
         import numpy as np
 
         t = next(self._tickets)
-        arrays = tuple(np.ascontiguousarray(a)
-                       for a in (sample.seqs, sample.lens, sample.nsegs))
+        paged = getattr(sample, "pool", None) is not None
+        rows = (sample.table, sample.lens, sample.nsegs) if paged else (
+            sample.seqs, sample.lens, sample.nsegs)
+        arrays = tuple(np.ascontiguousarray(a) for a in rows)
+        extra = ()
+        if paged:
+            extra = (np.ascontiguousarray(sample.pool), (
+                sample.shape.depth, sample.shape.seg_len, sample.family.page_len))
         n, nw = len(arrays[2]), len(self._reqs)
         k = max(1, min(nw, n // PART_WINDOWS))
         cuts = np.linspace(0, n, k + 1).astype(int)
@@ -253,6 +296,8 @@ class AuditWorker:
         now = time.time()
         for i in range(k):
             part = tuple(np.ascontiguousarray(a[cuts[i]:cuts[i + 1]]) for a in arrays)
+            if paged:
+                part = (extra[0], *part, extra[1])
             to = (self._next + i) % nw
             self._part_log[(t, i)] = [to, int(cuts[i + 1] - cuts[i]), now, None]
             self._out.put(((to,), ("solve", (t, i), part, bool(tier0_only))))

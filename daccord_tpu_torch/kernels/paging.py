@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..utils.bases import PAD
+from ..utils.pages import page_counts, unpack_pages
 from .gather_pages import gather_pages
 from .tensorize import BatchShape, WindowBatch
 
@@ -125,35 +126,12 @@ class PagedWindowBatch:
     def to_dense(self) -> WindowBatch:
         """Host-side unpack to the exact dense batch that was packed (the
         round-trip inverse of :func:`pack_paged`)."""
-        B = self.size
-        D, L = self.shape.depth, self.shape.seg_len
-        PL = self.family.page_len
-        seqs = np.full((B, D, L), PAD, dtype=np.int8)
-        lens = np.asarray(self.lens)
-        pps = page_counts(lens, PL)                          # [B, D]
-        off = np.cumsum(pps, axis=1) - pps                   # excl page slot
-        b_idx, d_idx, p_idx = np.nonzero(
-            np.arange(L // PL)[None, None, :] < pps[:, :, None])
-        pages = self.pool[self.table[b_idx, off[b_idx, d_idx] + p_idx]]
-        seqs.reshape(B, D, L // PL, PL)[b_idx, d_idx, p_idx] = pages
-        # page tails past a segment's length hold undefined pool bytes;
-        # re-mask so the round-trip reproduces tensorize's PAD cells exactly
-        j = np.arange(L, dtype=np.int32)
-        np.copyto(seqs, PAD, where=j[None, None, :] >= lens[:, :, None])
-        return WindowBatch(seqs=seqs, lens=lens.copy(),
+        seqs = unpack_pages(self.pool, self.table, self.lens, self.shape.depth,
+                            self.shape.seg_len, self.family.page_len)
+        return WindowBatch(seqs=seqs, lens=np.asarray(self.lens).copy(),
                            nsegs=self.nsegs.copy(), shape=self.shape,
                            read_ids=self.read_ids.copy(),
                            wstarts=self.wstarts.copy(), stream=self.stream)
-
-
-def page_counts(lens: np.ndarray, page_len: int = PAGE_LEN) -> np.ndarray:
-    """Pages each segment occupies: ceil(lens / page_len), elementwise."""
-    lens = np.asarray(lens)
-    if page_len & (page_len - 1) == 0:
-        # pow2 fast path (the default): shift beats two negations + floordiv
-        # on the feeder hot path
-        return (lens + (page_len - 1)) >> (page_len.bit_length() - 1)
-    return -(-lens // page_len)
 
 
 def window_pages(lens: np.ndarray, page_len: int = PAGE_LEN) -> np.ndarray:

@@ -461,26 +461,36 @@ class _PackedHandle:
     the call raised. ``batch`` is the host batch it solves; ``solve_s`` the
     host wall of the call on the thread that ran it, ``cpu_s`` that
     thread's CPU time in it (the rest of the wall it waited: for the card,
-    or for the interpreter lock)."""
+    or for the interpreter lock). ``busy_s``, set by :func:`fetch`, is the
+    time its engine had the call: on cuda the card's span of it (between
+    two timing events on the dispatcher's stream, the async tail after the
+    thread moved on included), elsewhere ``solve_s``."""
 
-    __slots__ = ("batch", "cl", "host", "event", "error", "done", "solve_s", "cpu_s")
+    __slots__ = ("batch", "cl", "host", "event", "start_event", "error", "done",
+                 "solve_s", "cpu_s", "busy_s")
 
     def __init__(self, batch, cl: int):
         self.batch = batch
         self.cl = cl
         self.host: torch.Tensor | None = None
         self.event = None
+        self.start_event = None
         self.error: BaseException | None = None
         self.done = threading.Event()
         self.solve_s = 0.0
         self.cpu_s = 0.0
+        self.busy_s = 0.0
 
 
-def _timed(h: _PackedHandle, tracer, call) -> None:
+def _timed(h: _PackedHandle, tracer, call, parent: str | None = None) -> None:
     """Run ``call()`` for ``h``: its wall and this thread's CPU time on the
     handle, and with a ``tracer`` one ``ladder.call`` span (rows, wall_s,
-    cpu_s) on no parent, since the thread may not be the span stack's."""
-    sid = (tracer.open("ladder.call", parent="", attach=False, rows=int(h.batch.size))
+    cpu_s), a child of ``parent`` (default: the span open where the call
+    was made, the pipeline's ``dispatch``); it never joins the span stack,
+    since the thread may not be the stack's."""
+    if parent is None and tracer is not None:
+        parent = tracer.current()
+    sid = (tracer.open("ladder.call", parent=parent, attach=False, rows=int(h.batch.size))
            if tracer is not None else None)
     t0, c0 = time.perf_counter(), time.thread_time()
     try:
@@ -526,7 +536,9 @@ class LadderDispatcher:
         if not self._thread.is_alive():
             raise RuntimeError("the ladder dispatcher is closed")
         h = _PackedHandle(batch, ladder.params[0].cons_len)
-        self._q.put((h, ladder, tier0_only))
+        # the dispatch span open now parents the call's span on the thread
+        parent = self.tracer.current() if self.tracer is not None else ""
+        self._q.put((h, ladder, tier0_only, parent))
         return h
 
     def _loop(self) -> None:
@@ -534,9 +546,9 @@ class LadderDispatcher:
             item = self._q.get()
             if item is None:
                 return
-            h, ladder, tier0_only = item
+            h, ladder, tier0_only, parent = item
             try:
-                _timed(h, self.tracer, lambda: self._call(h, ladder, tier0_only))
+                _timed(h, self.tracer, lambda: self._call(h, ladder, tier0_only), parent)
             except BaseException as e:  # noqa: BLE001 - raised again by fetch
                 h.error = e
             finally:
@@ -548,12 +560,14 @@ class LadderDispatcher:
             h.host = _ladder_packed(h.batch, ladder, tier0_only, log)
             return
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self.stream)
             packed = _ladder_packed(h.batch, ladder, tier0_only, log)
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
             host.copy_(packed, non_blocking=True)
-            ev = torch.cuda.Event()
+            ev = torch.cuda.Event(enable_timing=True)
             ev.record(self.stream)
-        h.host, h.event = host, ev
+        h.host, h.event, h.start_event = host, ev, start
 
     def close(self) -> None:
         """Stop the thread once the calls already submitted have run."""
@@ -597,8 +611,11 @@ def fetch(h: _PackedHandle) -> dict:
     h.done.wait()
     if h.error is not None:
         raise h.error
+    h.busy_s = h.solve_s
     if h.event is not None:
         h.event.synchronize()
+        if h.start_event is not None:
+            h.busy_s = h.start_event.elapsed_time(h.event) / 1e3
     return unpack_result(h.host.numpy(), h.cl)
 
 

@@ -155,7 +155,7 @@ def run_shard(db_path: str, las_path: str, outdir: str, shard: int, nshards: int
         _write_manifest_durable(paths["metrics"], {
             "shard": shard, "wall_s": counters.get("wall_s"),
             "device_s": counters.get("device_s"),
-            **metrics_rollup})
+            "host_s": counters.get("host_s"), **metrics_rollup})
         # the same rollup as a shard-labelled Prometheus text exposition
         from ..utils.aio import durable_write
         from ..utils.obs import render_prom
@@ -341,9 +341,8 @@ def _run_shard_checkpointed(db_path: str, las_path: str, paths: dict,
 
 
 def _final_counters(st) -> dict:
-    """The manifest's end-of-run fields of a shard's ``PipelineStats``."""
-    from ..utils.obs import stats_rollup
-
+    """The manifest's end-of-run fields of a shard's ``PipelineStats``, and
+    its metrics rollup (``_metrics``, committed beside the manifest)."""
     return {"quarantined": st.n_quarantined,
             "ingest_issues": st.n_ingest_issues,
             # a shard that finished on the failover engine is correct
@@ -355,8 +354,9 @@ def _final_counters(st) -> dict:
             "batch_effective": st.batch_effective,
             "capacity_events": st.n_capacity_events,
             "governor": st.governor_ratchet or None,
-            "device_s": round(st.device_s, 4),
-            "_metrics": stats_rollup(st)}
+            # the wall decomposition's anchors (tools/trace.py)
+            "device_s": round(st.device_s, 4), "host_s": round(st.host_s, 4),
+            "_metrics": st.metrics}
 
 
 class MergeGateError(ValueError):

@@ -112,7 +112,8 @@ from ..tools.lastools import QV_NOCOV, QV_SCALE
 from ..utils import aio
 from ..utils.bases import ints_to_seq
 from ..utils.device import resolve_device
-from ..utils.obs import JsonlLogger, StageProfile, Tracer, WindowLedger
+from ..utils.obs import (JsonlLogger, MetricsRegistry, StageProfile, Tracer,
+                         WindowLedger)
 
 
 INGEST_POLICIES = ("strict", "quarantine", "off")
@@ -197,6 +198,11 @@ class PipelineConfig:
                                  # log_path's logger
     log_path: str | None = None  # jsonl event log ('-' = stderr)
     ledger_path: str | None = None   # per-window outcome ledger jsonl
+    metrics_snapshot_s: float = 30.0  # cadence of the periodic ``metrics``
+                                 # and ``stage.profile`` events (rates, pad
+                                 # waste, RSS, device peak memory, the
+                                 # saturation gauges); 0 = off (the
+                                 # end-of-run rollup still lands)
     failover_backend: str = "auto"   # degraded engine on declared device
                                  # loss: 'cpu' (the port's own ladder on
                                  # the CPU, byte-exact with the card: W in
@@ -335,6 +341,11 @@ class PipelineStats:
                                  # (``audit.disabled``), else None
     audit_drain_s: float = 0.0   # the part of audit_s spent in the final
                                  # drain (the wait for the last verdicts)
+    audit_send_s: float = 0.0    # the part of audit_s spent in the sends at
+                                 # dispatch (sample, rows, queue)
+    audit_take_s: float = 0.0    # of that, taking the sampled rows (a paged
+                                 # batch's table rows and the pages they
+                                 # name; the workers unpack them)
     audit_tail: dict = field(default_factory=dict)  # with the workers: their
                                  # backlog when the final flush began and
                                  # each later part's send-to-solved seconds
@@ -344,6 +355,22 @@ class PipelineStats:
                                  # timeouts, probes, degraded_solves,
                                  # audits, sdc_detected, ...)
     wall_s: float = 0.0
+    host_s: float = 0.0          # wall_s less device_s
+    # the saturation profiler. feeder_s = the wall the pile loop blocked on
+    # the feeder (windowing_s, with an injected stall); dispatch_s = the
+    # wall inside ladder dispatches (ladder_s: the enqueue with the
+    # dispatcher, the whole call at max_inflight=1 and on the native
+    # engine); verdict/bottleneck = obs.bottleneck_verdict of the run,
+    # stamped into shard_done, the metrics rollup and its .prom
+    feeder_s: float = 0.0
+    dispatch_s: float = 0.0
+    dispatch_walls: dict | None = None   # the staged dispatch's pack / stage /
+                                 # launch walls: a mesh's, None on one card
+    verdict: str = "balanced"
+    bottleneck: dict = field(default_factory=dict)
+    metrics: dict = field(default_factory=dict)  # the end-of-run
+                                 # MetricsRegistry rollup (launch.run_shard
+                                 # commits it beside the shard manifest)
 
     @property
     def pad_waste(self) -> float:
@@ -985,6 +1012,47 @@ def _hp_pass(out: dict, seqs, lens, nsegs, cfg: PipelineConfig, hp_ols: dict,
     return len(found)
 
 
+class _Telemetry:
+    """One run's telemetry: the buffered event and log writers, the span
+    tracer, the per-window ledger, the metrics registry and the feeder's
+    stage profile. Made before the run and closed in :func:`correct_shard`'s
+    ``finally``, so an aborted run flushes its buffered tail, stops a
+    profiler capture and closes every open span (the pairing
+    ``tools/trace.py --check`` holds)."""
+
+    def __init__(self, cfg: PipelineConfig, start, end):
+        # file-backed streams buffer (their cost is on the pile loop); '-'
+        # streams stay line-flushed, since stderr is watched live
+        def _mk(path):
+            kw = {"buffer_lines": 64, "flush_s": 2.0} if path and path != "-" else {}
+            return JsonlLogger(path, **kw)
+
+        self.log = _mk(cfg.log_path)
+        self.ev_log = _mk(cfg.events_path) if cfg.events_path else self.log
+        # the stream boundary first: a resumed shard appends to the same file
+        # with a fresh relative clock, and eventcheck --strict resets there
+        self.ev_log.log("shard_start", start=int(start or 0),
+                        end=int(-1 if end is None else end), pid=os.getpid())
+        self.tracer = Tracer(self.ev_log)
+        self.ledger = WindowLedger(cfg.ledger_path) if cfg.ledger_path else None
+        self.metrics = MetricsRegistry()
+        self.stage = StageProfile(threads=max(1, cfg.feeder_threads))
+        self.prof_stop = None
+        self.run_span = self.tracer.open("run")
+
+    def close(self) -> None:
+        if self.prof_stop is not None:
+            # an abort mid-capture still stops the profiler and writes its
+            # trace (a torn capture is worse than none)
+            self.prof_stop()
+        self.tracer.unwind()
+        if self.ledger is not None:
+            self.ledger.close()
+        if self.ev_log is not self.log:
+            self.ev_log.close()
+        self.log.close()
+
+
 def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
                   start: int | None = None, end: int | None = None,
                   profile: ErrorProfile | None = None):
@@ -1000,26 +1068,20 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
     paged_on = paged_enabled(cfg, dev) and not cfg.native_solver
     _check_config(cfg)
     stats = PipelineStats(paged=paged_on, native_host=cfg.use_native)
-    prof = StageProfile(threads=max(1, cfg.feeder_threads))
     t_start = time.perf_counter()
-    log = JsonlLogger(cfg.log_path)
-    ev_log = JsonlLogger(cfg.events_path) if cfg.events_path else log
-    ev_log.log("shard_start", start=int(start or 0),
-               end=int(-1 if end is None else end), pid=os.getpid())
-    tracer = Tracer(ev_log)
-    ledger = WindowLedger(cfg.ledger_path) if cfg.ledger_path else None
+    tel = _Telemetry(cfg, start, end)
     # one fault plan for the whole range: the supervisor consumes the device
-    # kinds, the guards below host_rss and monster_pile
+    # kinds, the guards below host_rss, monster_pile and feeder_stall
     plan = FaultPlan.from_env()
     gov_cfg = GovernorConfig.from_env()
     worker = None
     g0 = (graphs.CACHE.capture_s, graphs.CACHE.captures, graphs.CACHE.replays)
     try:
-        worker = _start_audit_worker(cfg, dev, ev_log, stats)
+        worker = _start_audit_worker(cfg, dev, tel.ev_log, stats)
         w0 = worker.worker_s if worker is not None else 0.0
         yield from _correct_range(db, las, cfg, start, end, profile, dev, paged_on,
-                                  stats, prof, t_start, log, ev_log, tracer, ledger,
-                                  plan, gov_cfg, check_host_pressure, worker)
+                                  stats, t_start, tel, plan, gov_cfg,
+                                  check_host_pressure, worker)
     finally:
         if worker is not None:
             stats.audit_worker_s = worker.worker_s - w0
@@ -1028,12 +1090,7 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
         stats.graph_capture_s = graphs.CACHE.capture_s - g0[0]
         stats.graphs = graphs.CACHE.captures - g0[1]
         stats.graph_replays = graphs.CACHE.replays - g0[2]
-        tracer.unwind()
-        if ledger is not None:
-            ledger.close()
-        if ev_log is not log:
-            ev_log.close()
-        log.close()
+        tel.close()
 
 
 def _start_audit_worker(cfg: PipelineConfig, dev, ev_log, stats: PipelineStats):
@@ -1060,15 +1117,25 @@ def _start_audit_worker(cfg: PipelineConfig, dev, ev_log, stats: PipelineStats):
         return None
 
 
-def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof,
-                   t_start, log, ev_log, tracer, ledger, plan, gov_cfg,
-                   check_host_pressure, worker):
+def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
+                   t_start, tel: _Telemetry, plan, gov_cfg, check_host_pressure,
+                   worker):
+    log, ev_log, tracer, ledger = tel.log, tel.ev_log, tel.tracer, tel.ledger
+    metrics, prof = tel.metrics, tel.stage
     report = None
     if cfg.ingest_policy != "off":
         t0 = time.perf_counter()
-        report = scan_with_db(db, las, start, end)
+        with tracer.span("scan"):
+            report = scan_with_db(db, las, start, end)
         stats.ingest_s = time.perf_counter() - t0
         stats.n_ingest_issues = len(report.issues)
+        ev_log.log("ingest.scan", path=las.path, records=report.n_records,
+                   piles=report.n_piles, issues=len(report.issues),
+                   policy=cfg.ingest_policy)
+        for iss in report.issues[:64]:
+            ev_log.log("ingest.issue", kind=iss.kind, offset=iss.offset,
+                       aread=-1 if iss.aread is None else int(iss.aread),
+                       detail=iss.detail)
         if report.issues and cfg.ingest_policy == "strict":
             raise report.error()
     # quarantine: the profile sample and the family sample take clean piles
@@ -1080,12 +1147,13 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
     sample = None
     if profile is None:
         t0 = time.perf_counter()
-        if paged_on:
-            profile, sample = estimate_profile_for_shard(
-                db, las, cfg, start, end, pile_ranges=clean, return_windows=True)
-        else:
-            profile = estimate_profile_for_shard(db, las, cfg, start, end,
-                                                 pile_ranges=clean)
+        with tracer.span("profile"):
+            if paged_on:
+                profile, sample = estimate_profile_for_shard(
+                    db, las, cfg, start, end, pile_ranges=clean, return_windows=True)
+            else:
+                profile = estimate_profile_for_shard(db, las, cfg, start, end,
+                                                     pile_ranges=clean)
         stats.profile_s = time.perf_counter() - t0
 
     def make_ladder(device):
@@ -1095,7 +1163,10 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                                       device=device, route=cfg.dp_route)
 
     native = cfg.native_solver
-    ladder = None if native else make_ladder(dev)
+    ladder = None
+    if not native:
+        with tracer.span("ladder.build"):
+            ladder = make_ladder(dev)
     w, adv = cfg.consensus.w, cfg.consensus.adv
     B = cfg.batch_size
     min_depth = cfg.consensus.dbg.min_depth
@@ -1106,8 +1177,13 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                     if cfg.end_trim and cfg.consensus.mode != "patch" else set())
     if paged_on:
         t0 = time.perf_counter()
-        families = run_families(db, las, cfg, sample, start, end, clean)
+        with tracer.span("paging.derive"):
+            families = run_families(db, las, cfg, sample, start, end, clean)
         stats.profile_s += time.perf_counter() - t0
+        for fi, f in enumerate(families):
+            ev_log.log("paging.family", family=f.describe(), bucket=fi,
+                       depth=int(f.depth), pages=int(f.pages),
+                       page_len=int(f.page_len), pool_pages=int(f.budget))
         buckets = None
         shapes = [BatchShape(depth=f.depth, seg_len=cfg.seg_len, wlen=w)
                   for f in families]
@@ -1176,7 +1252,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         dispatch_fn, fetch_fn, fetch_many_fn = sup.dispatch, sup.fetch, sup.fetch_many
     elif cfg.supervise:
         from ..kernels.tiers import audit_reference
-        from ..utils.obs import device_alive
+        from ..utils.obs import device_alive, measure_rtt_s
         from .supervisor import DeviceSupervisor, SupervisorConfig
 
         sup_cfg = SupervisorConfig.from_env(**({"failback": True} if cfg.failback else {}))
@@ -1205,6 +1281,10 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         sup = DeviceSupervisor(
             dispatch_fn, fetch_fn, fallback_factory=fallback_factory,
             log=ev_log, cfg=sup_cfg, faults=plan,
+            # the card's warm deadline scales with its measured round trip;
+            # a CPU ladder cannot hang the way a card can and keeps the flat
+            # deadline, as the native engine does
+            rtt_s=measure_rtt_s(device=dev) if dev.type == "cuda" else None,
             probe_fn=lambda: device_alive(sup_cfg.probe_timeout_s, str(dev)),
             describe="cpu-ladder" if dev.type == "cpu" else "device-ladder",
             fingerprint_prefix=f"{dev.type}:", inline=dev.type == "cpu",
@@ -1216,6 +1296,94 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         dispatch_fn, fetch_fn, fetch_many_fn = sup.dispatch, sup.fetch, sup.fetch_many
     audit_pending = (sup.audit_pending if sup is not None and cfg.max_inflight > 1
                      else lambda h: False)
+    # the saturation accounting: a synchronous engine (the native engine, or
+    # the ladder on the pipeline's thread at max_inflight=1) solves inside
+    # the dispatch call, so its busy wall is the dispatch wall and the host
+    # is blocked there. With the dispatcher only the fetch blocks the host,
+    # and the busy wall is the sum of the calls' own spans on their engine
+    # (on cuda the card's, from two timing events; tiers.fetch), booked as
+    # each call lands. The JAX package books its deque's occupancy instead,
+    # from a dispatch into an empty deque to the fetch that empties it; the
+    # port's deque holds finished calls until half of it drains, so that
+    # integral reads the whole run busy whatever the card does
+    sync_engine = native or dispatcher is None
+    busy = [0.0]
+
+    def timed_dispatch(batch):
+        t_d = time.perf_counter()
+        handle = dispatch_fn(batch)
+        dt = time.perf_counter() - t_d
+        # with the dispatcher this wall is the enqueue alone (the call runs
+        # on its thread): a dispatch here means less than a JAX dispatch,
+        # whose wall holds the host side of the jitted call
+        stats.ladder_s += dt
+        if sync_engine:
+            busy[0] += dt
+        return handle
+
+    # one torch.profiler capture a run (DACCORD_PROFILE_DIR): the Nth ladder
+    # call (DACCORD_PROFILE_DISPATCH, default 2: past the first shape's build
+    # and capture) from its dispatch through the drain that fetches it,
+    # written as a chrome trace into the directory. The deque is drained
+    # before the call and the call fetched right after it, so the profiler
+    # starts and stops with no ladder call in flight on the dispatcher's
+    # thread (the JAX package's capture leaves the deque as it is). Never on
+    # the native engine
+    from ..utils.obs import env_float
+
+    prof_dir = os.environ.get("DACCORD_PROFILE_DIR")
+    cap = {"n": 0, "active": None, "done": not prof_dir or native,
+           "at": max(1, int(env_float("DACCORD_PROFILE_DISPATCH", 2)))}
+
+    def prof_due() -> bool:
+        """Count a dispatch; True for the one to capture."""
+        if cap["done"]:
+            return False
+        cap["n"] += 1
+        return cap["n"] >= cap["at"]
+
+    def prof_start() -> None:
+        cap["done"] = True
+        try:
+            drain(0)
+            t0 = time.perf_counter()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            os.makedirs(prof_dir, exist_ok=True)
+            p = torch.profiler.profile(activities=acts)
+            p.start()
+            cap["active"] = p
+            # wall_s: what the capture itself cost the run past the drains
+            # around it (here the start; at stop the stop and the export)
+            ev_log.log("profile.capture", dir=prof_dir, dispatch=cap["n"], state="start",
+                       wall_s=round(time.perf_counter() - t0, 4))
+        except Exception as e:   # profiling must never sink a run
+            log.log("warn", msg=f"profiler start failed: {e}")
+
+    def prof_stop(wait: bool = True) -> None:
+        p = cap["active"]
+        if p is None:
+            return
+        cap["active"] = None
+        try:
+            if wait:
+                drain(0)
+            t0 = time.perf_counter()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            p.stop()
+            path = os.path.join(prof_dir, f"daccord-{os.getpid()}-{cap['n']}.trace.json")
+            p.export_chrome_trace(path)
+            ev_log.log("profile.capture", dir=prof_dir, dispatch=cap["n"], state="stop",
+                       wall_s=round(time.perf_counter() - t0, 4))
+        except Exception as e:
+            log.log("warn", msg=f"profiler stop failed: {e}")
+
+    # an aborted run stops an open capture without waiting for the deque
+    tel.prof_stop = lambda: prof_stop(wait=False)
 
     pending: dict[int, _PendingRead] = {}
     order: list[int] = []
@@ -1318,13 +1486,22 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         """Fetch ``entries`` (popped from the deque), then pool, hp-rescue
         and scatter their rows."""
         t0 = time.perf_counter()
+        # the device.fetch span wraps exactly the region device_s times, so
+        # tools/trace.py's device sum reconciles with device_s
+        f_sp = tracer.open("device.fetch", n=len(entries))
         outs = fetch_many_fn([e[0] for e in entries])
-        stats.device_s += time.perf_counter() - t0
         now = time.perf_counter()
-        for (h, rid, widx, take, nsegs_b, t_d, bi, stream, seqs, lens), out in zip(
+        tracer.close(f_sp)
+        stats.device_s += now - t0
+        metrics.counter("fetch_calls").inc()
+        for (h, rid, widx, take, nsegs_b, t_d, bi, stream, seqs, lens, b_sp), out in zip(
                 entries, outs):
-            stats.solve_s += getattr(getattr(h, "inner", h), "solve_s", 0.0)
-            stats.solve_cpu_s += getattr(getattr(h, "inner", h), "cpu_s", 0.0)
+            metrics.histogram("batch_turnaround_s").observe(now - t_d)
+            inner = getattr(h, "inner", h)
+            stats.solve_s += getattr(inner, "solve_s", 0.0)
+            stats.solve_cpu_s += getattr(inner, "cpu_s", 0.0)
+            if not sync_engine:
+                busy[0] += getattr(inner, "busy_s", 0.0)
             out = {k: v[:take] if np.ndim(v) else v for k, v in out.items()}
             if stream == "tier0":
                 # the rows the fused ladder would rescue pool for Stream B
@@ -1360,35 +1537,66 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                 # after the audit's comparison (inside the fetch), so the
                 # audit sees the ladder's own rows
                 t0 = time.perf_counter()
-                with tracer.span("hp", windows=int(take)):
-                    stats.n_hp_rescued += _hp_pass(out, seqs, lens, nsegs_b, cfg,
-                                                   hp_ols, hp_nladder, hp_nt)
+                hp_sp = tracer.open("hp", parent=b_sp, attach=False)
+                stats.n_hp_rescued += _hp_pass(out, seqs, lens, nsegs_b, cfg,
+                                               hp_ols, hp_nladder, hp_nt)
+                tracer.close(hp_sp)
                 stats.hp_wall_s += time.perf_counter() - t0
             n_s = int(np.sum(out["solved"]))
             if take:
                 scatter(out, rid, widx, take, nsegs_b, now - t_d, stream)
+            tracer.close(b_sp, windows=int(take), solved=n_s)
             log.log("batch", windows=int(take), solved=n_s, stream=stream,
-                    pool=sum(pb.nrows for pb in pools))
+                    pool=sum(pb.nrows for pb in pools), inflight=len(inflight),
+                    t_turnaround=round(now - t_d, 4))
 
-    def submit_batch(buf: "_RowBuffer", bi: int, take: int, stream: str) -> None:
-        seqs, lens, nsg, rid, widx, _ = buf.pop(take)
+    def submit_batch(buf: "_RowBuffer", bi: int, take: int, stream: str,
+                     fl_sp=None) -> None:
+        """Pop ``take`` rows of ``buf`` into a batch of bucket ``bi``, pad or
+        pack it, dispatch it and queue its handle. ``fl_sp`` (a Stream B
+        flush) closes once the batch is packed: the dispatch books under its
+        own span, and the two stay disjoint."""
+        seqs, lens, nsg, rid, widx, pgs = buf.pop(take)
         batch = WindowBatch(seqs=seqs, lens=lens, nsegs=nsg, shape=shapes[bi],
                             read_ids=rid, wstarts=widx * adv, stream=stream)
         if paged_on:
-            batch = paging.pack_paged(batch, families[bi], target_rows=B)
+            n_pages = int(pgs.sum())
+            with prof.timed("pack"):
+                batch = paging.pack_paged(batch, families[bi], target_rows=B)
             stats.pad_cells += int(batch.pool.size)
+            ev_log.log("batch.paged", windows=int(take), bucket=bi,
+                       family=families[bi].describe(), pages=n_pages,
+                       pool_pages=int(batch.pool.shape[0] - 1),
+                       table_cells=int(batch.table.size) * 4,
+                       occupancy=round(n_pages / max(batch.pool.shape[0] - 1, 1), 4))
+        elif native:
+            # the host engine walks real rows: padding would only add dead
+            # ones (and each partial batch keeps its own shape key)
+            stats.pad_cells += int(batch.seqs.size)
         else:
-            batch = pad_batch(batch, B)
+            with prof.timed("pack"):
+                batch = pad_batch(batch, B)
             stats.pad_cells += int(batch.seqs.size)
         stats.used_cells += int(lens.sum())
         stats.h2d_bytes += sum(int(a.nbytes) for a in upload_arrays(batch))
-        t0 = time.perf_counter()
-        handle = dispatch_fn(batch)
-        stats.ladder_s += time.perf_counter() - t0
+        tracer.close(fl_sp)
+        b_sp = tracer.open("batch", attach=False, stream=stream, rows=int(take),
+                           bucket=bi)
+        # a capture starts and stops outside the dispatch span: its cost is
+        # its own (profile.capture's wall_s), not the dispatch's
+        capture = prof_due()
+        if capture:
+            prof_start()
+        d_sp = tracer.open("dispatch", parent=b_sp, stream=stream)
+        handle = timed_dispatch(batch)
+        tracer.close(d_sp)
+        metrics.counter("dispatches").inc()
         stats.n_batches += 1
         stats.batches_by_bucket[labels[bi]] = stats.batches_by_bucket.get(labels[bi], 0) + 1
         inflight.append((handle, rid, widx, take, nsg, time.perf_counter(), bi, stream,
-                         seqs, lens))
+                         seqs, lens, b_sp))
+        if capture:
+            prof_stop()
         stats.peak_inflight = max(stats.peak_inflight, len(inflight))
         if len(inflight) >= cfg.max_inflight:
             drain(cfg.max_inflight // 2,
@@ -1415,8 +1623,12 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                 stats.rescue_slots_executed += B
                 stats.rescue_dispatches.append({"rows": take, "slots": B,
                                                 "reason": reason})
+                # the flush span covers the pool's pop and the pad: the
+                # dispatch books under its own span
+                fl_sp = tracer.open("flush", reason=reason, rows=take, bucket=bi)
+                metrics.histogram("flush_rows").observe(take)
                 ev_log.log("ladder.flush", rows=take, slots=B, reason=reason, bucket=bi)
-                submit_batch(buf, bi, take, "rescue")
+                submit_batch(buf, bi, take, "rescue", fl_sp)
 
     def run_batches(final: bool) -> None:
         for bi, buf in enumerate(bufs):
@@ -1483,14 +1695,104 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
 
     bad_reads = db.bad_reads
     blocks = segmented() if clean is not None else block_iter(start, end)
-    bp_latched = None
-    try:
+    # the injected feeder slowdown (DACCORD_FAULT=feeder_stall:MS): a sleep
+    # a pile block, booked under the profiler's `stall` stage, so the
+    # verdict names it
+    stall_s = (plan.feeder_stall_ms() if plan is not None else 0.0) / 1e3
+    if stall_s:
+        ev_log.log("sup_fault", kind="feeder_stall", op="feeder", n=int(stall_s * 1e3))
+
+    def timed_blocks():
+        # a feeder span a pile block: the wall the pile loop blocks on the
+        # feeder (decode, ranking, the host library's windowing); the pile
+        # span before it is closed, so these parent under the run span
         while True:
+            f_sp = tracer.open("feeder")
             t0 = time.perf_counter()
             blk = next(blocks, None)
-            stats.windowing_s += time.perf_counter() - t0
             if blk is None:
-                break
+                stats.windowing_s += time.perf_counter() - t0
+                tracer.close(f_sp, status="end")
+                return
+            if stall_s:
+                # the sleep's measured wall, not its nominal length: the
+                # stage table then reconciles with the feeder wall exactly
+                t_s = time.perf_counter()
+                time.sleep(stall_s)
+                prof.add("stall", time.perf_counter() - t_s)
+            stats.windowing_s += time.perf_counter() - t0
+            tracer.close(f_sp)
+            yield blk
+
+    def saturation():
+        """(gauges, stage summary, verdict) of the run so far: the one
+        computation of the periodic snapshot and the end-of-run stamp."""
+        from ..utils.obs import bottleneck_verdict, saturation_gauges
+
+        now = time.perf_counter()
+        busy_s, blocked = busy[0], stats.device_s
+        if sync_engine:
+            # the solve runs inside the dispatch: the host is blocked there,
+            # and that wall is the engine's busy time
+            blocked += stats.ladder_s
+            busy_s += stats.device_s
+        gs = saturation_gauges(max(now - t_start, 1e-9), blocked, busy_s)
+        summ = prof.summary()
+        return gs, summ, bottleneck_verdict(gs, summ["stages"])
+
+    def metrics_snap(final: bool = False) -> None:
+        """Refresh the registry's gauges and write a ``stage.profile`` event
+        (and, unless ``final``, a ``metrics`` snapshot). On the pipeline's
+        thread, never the dispatcher's: the allocator's peak is a host-side
+        read, and nothing here waits on the card."""
+        from .governor import host_rss_mb
+        from ..utils.obs import device_peak_bytes
+
+        el = max(time.perf_counter() - t_start, 1e-9)
+        g = metrics.gauge
+        g("windows_per_sec").set(stats.n_windows / el)
+        g("bases_per_sec").set(stats.bases_out / el)
+        g("pad_waste").set(stats.pad_waste)
+        g("rescue_density").set(stats.rescue_density)
+        g("rss_mb").set(host_rss_mb())
+        g("pool_rows").set(float(sum(pb.nrows for pb in pools)) if split else 0.0)
+        g("inflight").set(float(len(inflight)))
+        g("n_reads").set(float(stats.n_reads))
+        g("n_windows").set(float(stats.n_windows))
+        g("n_solved").set(float(stats.n_solved))
+        gs, summ, bver = saturation()
+        for k, v in gs.items():
+            g(k).set(v)
+        g("feeder_s").set(stats.windowing_s)
+        g("dispatch_s").set(stats.ladder_s)
+        g("stage_threads").set(float(summ["threads"]))
+        for name, row in summ["stages"].items():
+            g(f"stage_{name}_s").set(row["wall_s"])
+        ev_log.log("stage.profile", stages=summ["stages"], threads=summ["threads"],
+                   feeder_s=round(stats.windowing_s, 4),
+                   dispatch_s=round(stats.ladder_s, 4),
+                   verdict=bver["verdict"], stage=bver["stage"] or "",
+                   device_idle_frac=bver["device_idle_frac"],
+                   host_blocked_frac=bver["host_blocked_frac"],
+                   overlap_frac=bver["overlap_frac"], final=final)
+        if not native and not (sup is not None and sup.failed_over):
+            # a failed-over card's context may be poisoned: not asked again
+            dpb = device_peak_bytes(dev)
+            if dpb is not None:
+                g("device_peak_bytes").set(float(dpb))
+        if not final:
+            metrics.snapshot(ev_log)
+
+    bp_latched = None
+    last_snap = time.perf_counter()
+    try:
+        for blk in timed_blocks():
+            if (cfg.metrics_snapshot_s
+                    and time.perf_counter() - last_snap >= cfg.metrics_snapshot_s):
+                last_snap = time.perf_counter()
+                metrics_snap()
+            pa = blk[1] if isinstance(blk[0], str) else blk[0]
+            pile_sp = tracer.open("pile", aread=int(-1 if pa is None else pa))
             # host-memory watermark, once per pile block: pressure
             # force-flushes the partial buckets (hard: and every call in
             # flight). Flush cadence changes no window's bytes. Real
@@ -1541,6 +1843,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                     order.append(int(q_aread))
                     ready[int(q_aread)] = [a]
                 yield from emit_ready()
+                tracer.close(pile_sp, quarantined=True)
                 continue
             aread, a_bases, seqs, lens, nsegs = blk
             stats.n_reads += 1
@@ -1585,6 +1888,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
                                              stats.n_reads)
             run_batches(final=False)
             yield from emit_ready()
+            tracer.close(pile_sp)
         t_final = time.time()
         run_batches(final=True)
         if worker is not None:
@@ -1597,7 +1901,6 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
             sup.close()
         if qfh is not None:
             qfh.close()
-    stats.stage_profile = prof.summary()
     stats.wall_s = time.perf_counter() - t_start
     if sup is not None:
         # the governor's rung solves block the host at dispatch time,
@@ -1615,9 +1918,53 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats, prof
         stats.audit_local = sup.audits_local
         stats.audit_disabled = stats.audit_disabled or sup.audit_disabled
         stats.sup_counters = dict(sup.counters)
+        stats.audit_send_s = sup.audit_send_s
+        stats.audit_take_s = sup.audit_take_s
         ev_log.log("sup_done", state=sup.state, degraded=sup.failed_over,
                    audit_s=round(sup.audit_s, 4), **sup.counters,
                    **{f"gov_{k}": v for k, v in gov.counters.items()})
+    stats.host_s = stats.wall_s - stats.device_s
+    # the saturation profiler's end-of-run stamp, computed once from the
+    # final walls: the stats, the metrics rollup (and its .prom), the last
+    # stage.profile event and shard_done
+    _, sat_summ, sat_verdict = saturation()
+    stats.feeder_s = round(stats.windowing_s, 4)
+    stats.dispatch_s = round(stats.ladder_s, 4)
+    stats.stage_profile = sat_summ
+    stats.verdict = sat_verdict["verdict"]
+    stats.bottleneck = sat_verdict
+    metrics_snap(final=True)
+    metrics.snapshot(ev_log, final=True)
+    stats.metrics = metrics.rollup()
+    stats.metrics["verdict"] = stats.verdict
+    done = dict(
+        reads=stats.n_reads, windows=stats.n_windows, solved=stats.n_solved,
+        skipped_shallow=stats.n_skipped_shallow, topm_overflow=stats.n_topm_overflow,
+        hp_rescued=stats.n_hp_rescued, qv_ranked=stats.qv_ranked,
+        bases_out=stats.bases_out, quarantined=stats.n_quarantined,
+        ingest_issues=stats.n_ingest_issues, pad_waste=round(stats.pad_waste, 4),
+        paged=stats.paged, wall_s=round(stats.wall_s, 3),
+        # the anchors tools/trace.py reconciles its span sums against
+        device_s=round(stats.device_s, 4), host_s=round(stats.host_s, 4),
+        # the saturation profiler's record, tools/prof.py's first source;
+        # one card: mesh 0, and no staged-dispatch walls
+        stages={k: v["wall_s"] for k, v in sat_summ["stages"].items()},
+        stage_threads=sat_summ["threads"], feeder_s=stats.feeder_s,
+        dispatch_s=stats.dispatch_s, verdict=stats.verdict, bottleneck=sat_verdict,
+        mesh=0, tiers=stats.tier_histogram, native=stats.native_host,
+        ladder=cfg.ladder_mode, rescue_slots=stats.rescue_slots_executed,
+        rescue_windows=stats.n_rescue_windows,
+        rescue_density=round(stats.rescue_density, 4),
+        capacity_events=stats.n_capacity_events, backpressure=stats.n_backpressure,
+        monster_piles=stats.n_monster_piles, batch_effective=stats.batch_effective,
+        bases_per_sec=round(stats.bases_per_sec(), 1), degraded=stats.degraded,
+        windows_per_sec=round(stats.n_windows / stats.wall_s, 1) if stats.wall_s else 0.0)
+    log.log("shard_done", **done)
+    if ev_log is not log:
+        ev_log.log("shard_done", **done)
+    # a finished run closes its span here, not in the unwind, so a trace
+    # tells it from an aborted one
+    tracer.close(tel.run_span, reads=stats.n_reads, status="done")
 
 
 def correct_to_fasta(db_path: str, las_path: str, out_path,

@@ -21,7 +21,9 @@ state machine, its events and its fault plan are the JAX package's, so a
 the cold-shape registry (``utils/obs.py``) is COMPILING: its kernels may be
 built by nvcc at first use, so it gets the long compile deadline and emits
 heartbeats instead of being declared wedged. A warm op gets
-``SupervisorConfig.op_deadline_s``; expiry makes the device SUSPECT, and a
+``SupervisorConfig.op_deadline_s``, or, given the card's measured round
+trip ``rtt_s`` (``utils.obs.measure_rtt_s``), ``rtt_s * rtt_mult`` floored at
+``min_op_deadline_s``; expiry makes the device SUSPECT, and a
 probe in a child process (``utils.obs.device_alive``) decides between
 RETRYING (backoff with deterministic jitter, the op re-dispatched from its
 retained batch) and LOST.
@@ -143,7 +145,9 @@ def is_device_lost_error(exc: BaseException) -> bool:
 
 @dataclass
 class SupervisorConfig:
-    op_deadline_s: float = 300.0      # warm-shape deadline
+    op_deadline_s: float = 300.0      # warm-shape deadline (no RTT estimate)
+    rtt_mult: float = 300.0           # RTT-scaled deadline = rtt_s * this
+    min_op_deadline_s: float = 30.0   # floor under the RTT scaling
     compile_deadline_s: float = 3600.0  # cold-shape deadline (the nvcc
                                       # builds at first use take seconds;
                                       # the bound is a wedge detector)
@@ -300,7 +304,7 @@ class DeviceSupervisor:
                  fingerprint_prefix: str = "", inline: bool = False,
                  governor_cfg: GovernorConfig | None = None, tracer=None,
                  audit_ref_factory=None, audit_rate: float | None = None,
-                 audit_worker=None):
+                 audit_worker=None, rtt_s: float | None = None):
         from ..utils.obs import NullLogger, Tracer
 
         self._dispatch_fn = dispatch_fn
@@ -333,7 +337,11 @@ class DeviceSupervisor:
         self.governor = CapacityGovernor(
             self._gov_solve_width, log=self.log,
             cfg=governor_cfg or GovernorConfig.from_env(), tracer=self.tracer)
-        self.op_deadline_s = self.cfg.op_deadline_s
+        if rtt_s:
+            self.op_deadline_s = max(self.cfg.min_op_deadline_s,
+                                     rtt_s * self.cfg.rtt_mult)
+        else:
+            self.op_deadline_s = self.cfg.op_deadline_s
         self._audit_ref_factory = audit_ref_factory
         if audit_rate is None:
             audit_rate = _env_float("DACCORD_AUDIT_RATE", 1.0 / 64.0)
@@ -350,6 +358,10 @@ class DeviceSupervisor:
                                    # first solve at each shape (not in
                                    # audit_s)
         self.audits_local = 0      # batches audited in this process
+        self.audit_send_s = 0.0    # the sends' part of audit_s (sample,
+                                   # rows, queue to the worker)
+        self.audit_take_s = 0.0    # of that, taking the sampled rows (a
+                                   # paged batch's table rows and pages)
         self.audit_disabled: str | None = None   # why the audit stopped
         self._audit_warmed: set[tuple] = set()
         self._trust: dict[int, dict] = {}
@@ -357,7 +369,7 @@ class DeviceSupervisor:
         self.log.log("sup_init", primary=describe or "solver",
                      op_deadline_s=round(self.op_deadline_s, 1),
                      compile_deadline_s=self.cfg.compile_deadline_s,
-                     rtt_s=None, faults=bool(self.faults),
+                     rtt_s=rtt_s, faults=bool(self.faults),
                      failback=self.cfg.failback, inline=inline,
                      audit_rate=self._audit_rate)
 
@@ -795,18 +807,18 @@ class DeviceSupervisor:
 
     @staticmethod
     def _take_rows(batch, rows):
-        """Row-subset copy of a batch, dense (a paged batch unpacks only
-        those rows: its pool is shared, its table rows are not)."""
+        """Row-subset copy of a batch. A paged batch stays paged: those rows'
+        table and the pool pages it names (``audit.worker.sample_pages``),
+        unpacked where the sample is solved."""
         import dataclasses
 
         import numpy as np
 
-        idx = np.asarray(rows, dtype=np.int64)
         if hasattr(batch, "to_dense"):
-            return dataclasses.replace(
-                batch, table=batch.table[idx], lens=batch.lens[idx],
-                nsegs=batch.nsegs[idx], read_ids=batch.read_ids[idx],
-                wstarts=batch.wstarts[idx]).to_dense()
+            from ..audit.worker import sample_pages
+
+            return sample_pages(batch, rows)
+        idx = np.asarray(rows, dtype=np.int64)
         return dataclasses.replace(
             batch, seqs=batch.seqs[idx], lens=batch.lens[idx],
             nsegs=batch.nsegs[idx], read_ids=batch.read_ids[idx],
@@ -840,12 +852,17 @@ class DeviceSupervisor:
         B = int(h.batch.size)
         if B <= 0:
             return
-        t0 = time.time()
+        t0 = time.perf_counter()
         rows = self._audit_sample(B)
         self._n_audit += 1
-        h.audit = (rows, self._worker.submit(self._take_rows(h.batch, rows),
-                                             tier0_only=_is_tier0(h.batch)))
-        self.audit_s += time.time() - t0
+        t1 = time.perf_counter()
+        sample = self._take_rows(h.batch, rows)
+        t2 = time.perf_counter()
+        h.audit = (rows, self._worker.submit(sample, tier0_only=_is_tier0(h.batch)))
+        dt = time.perf_counter() - t0
+        self.audit_take_s += t2 - t1
+        self.audit_send_s += dt
+        self.audit_s += dt
 
     def audit_pending(self, h) -> bool:
         """Whether ``h``'s sample is with the worker and its rows are not
@@ -873,7 +890,9 @@ class DeviceSupervisor:
         t0 = time.time()
         try:
             with self.tracer.span("audit", rows=len(rows)):
-                ref = worker.result(ticket, self.op_deadline_s)
+                # a CPU process's wait: the flat deadline, not the card's
+                # RTT-scaled one
+                ref = worker.result(ticket, self.cfg.op_deadline_s)
         except AuditWorkerError as e:
             self._audit_off(e)
             return out
@@ -923,7 +942,7 @@ class DeviceSupervisor:
         self.counters["audits"] += 1
         self.audits_local += 1
         sample = self._take_rows(h.batch, rows)
-        shape = tuple(sample.seqs.shape)
+        shape = (len(rows), sample.shape.depth, sample.shape.seg_len)
         if shape not in self._audit_warmed:
             # the first audit at a shape pays the reference's warm-up, once,
             # under its own span and audit_warm_s, not under audit_s

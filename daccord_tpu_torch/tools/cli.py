@@ -11,7 +11,12 @@
 - LAS tools ``lassort``, ``lasmerge``, ``lasindex``, ``lassplit``,
   ``lasshow``, ``lascheck``; DB tools ``fasta2db``, ``db2fasta``,
   ``dbsplit``, ``catrack``, ``dbstats``, ``dbshow``, ``fillfasta``;
-  ``qveval`` (Q against a simulator's truth) and ``eventcheck``.
+  ``qveval`` (Q against a simulator's truth);
+- the readers of a run's telemetry: ``eventcheck`` (the ``--events``
+  schema), ``trace`` (span pairing and the wall's split into spans),
+  ``prof`` (the feeder's stage table and the bottleneck verdict), ``top``
+  (a one-screen snapshot of a run directory) and ``sentinel`` (red flags in
+  events, rollups and ``.prom`` files).
 
 The tools that sort, merge, compute the QV track, detect repeats or filter
 run in the port's host library and require it (no build raises; nothing
@@ -41,6 +46,7 @@ to the JAX package's::
         [--no-supervise]
         [--failover-backend auto|native|cpu] [--failback] [--audit-rate F]
         [--events PATH] [--log PATH] [--ledger PATH] [--native-threads N]
+        [--metrics-snapshot-s S] [--profile DIR]
 
 The flags and defaults of the JAX package's ``daccord`` that this port
 covers keep their meaning there (``daccord_tpu/tools/cli.py``). ``-E`` reads
@@ -91,10 +97,16 @@ device loss (``--failover-backend``: ``cpu`` is the port's own ladder on the
 CPU, byte-equal to the card; ``native`` the host library's ladder; ``auto``
 native on cuda) and the shadow audit (``--audit-rate``, default
 ``DACCORD_AUDIT_RATE`` or 1/64). ``DACCORD_FAULT`` injects the JAX
-package's faults (``runtime/faults.py``); ``--events`` records the
-supervisor's transitions (lint: ``python -m
-daccord_tpu_torch.tools.eventcheck``). A JSON line of run statistics goes to
-stderr (and to ``--stats``).
+package's faults (``runtime/faults.py``). ``--events`` records the run's
+telemetry, the JAX package's: the supervisor's transitions, the span tree
+(run, scan, profile, ladder.build, paging.derive, pile, feeder, batch,
+dispatch, device.fetch, flush, hp; the port's ``ladder.call`` under each
+dispatch), the feeder's ``stage.profile``, ``metrics`` snapshots every
+``--metrics-snapshot-s`` and ``shard_done`` with the bottleneck verdict.
+``--profile DIR`` captures a ``torch.profiler`` trace of the whole run;
+``DACCORD_PROFILE_DIR`` one of the ladder calls from the
+``DACCORD_PROFILE_DISPATCH``-th dispatch (default 2) to its fetch. A JSON
+line of run statistics goes to stderr (and to ``--stats``).
 """
 
 from __future__ import annotations
@@ -122,6 +134,10 @@ from ..utils.bases import ints_to_seq, revcomp_ints, seq_to_ints
 from . import lastools
 from .audit import audit_main
 from .eventcheck import eventcheck_main
+from .prof import prof_main
+from .sentinel import sentinel_main
+from .top import top_main
+from .trace import trace_main
 
 BACKENDS = ("auto", "cuda", "cpu", "native")
 
@@ -139,7 +155,8 @@ USAGE = ("usage: python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT "
          "[--ladder fused|split] [--max-inflight N] [--depth-buckets LIST] "
          "[--no-supervise] "
          "[--failover-backend auto|native|cpu] [--failback] [--audit-rate F] "
-         "[--events PATH] [--log PATH] [--ledger PATH] [--native-threads N]")
+         "[--events PATH] [--log PATH] [--ledger PATH] [--native-threads N] "
+         "[--metrics-snapshot-s S] [--profile DIR]")
 
 
 def _parser(shard: bool = False) -> argparse.ArgumentParser:
@@ -296,6 +313,15 @@ def _parser(shard: bool = False) -> argparse.ArgumentParser:
                    help="supervisor events jsonl (state transitions, cold-"
                         "shape heartbeats, retries, failover; schema: "
                         "tools/eventcheck.py). Default: share --log")
+    p.add_argument("--metrics-snapshot-s", type=float,
+                   default=defaults.metrics_snapshot_s, metavar="S",
+                   help="cadence of the periodic metrics and stage.profile "
+                        "events in --events (0 = the end-of-run rollup only)")
+    if not shard:
+        p.add_argument("--profile", default=None, metavar="DIR",
+                       help="capture a torch.profiler trace of the whole run "
+                            "(host ops and, on cuda, the card's kernels) into "
+                            "DIR as a chrome trace")
     p.add_argument("--no-supervise", action="store_true",
                    help="disable the device supervisor (watchdog deadlines, "
                         "retry, mid-run failover to the degraded engine)")
@@ -399,6 +425,8 @@ def _check(args) -> None:
                          f"divide --seg-len {args.seg_len}")
     if args.max_inflight < 1:
         raise SystemExit("--max-inflight must be at least 1")
+    if args.metrics_snapshot_s < 0:
+        raise SystemExit("--metrics-snapshot-s must be 0 (off) or positive")
     if args.eprof_only and not args.eprof:
         raise SystemExit("--eprof-only requires -E/--eprof PATH")
 
@@ -454,13 +482,43 @@ def daccord_run(argv=None):
             prof.save(args.eprof)
             if args.eprof_only:
                 return None, args
-        stats = correct_to_fasta(args.db, args.las, args.out, cfg, start, end,
-                                 profile=prof)
+        if args.profile:
+            with _profiled(args.profile, cfg.device):
+                stats = correct_to_fasta(args.db, args.las, args.out, cfg, start, end,
+                                         profile=prof)
+        else:
+            stats = correct_to_fasta(args.db, args.las, args.out, cfg, start, end,
+                                     profile=prof)
     except IngestError as ex:
         # under quarantine a surviving failure comes from a path that needs
         # the aread index (-J/--block), which a corrupt LAS cannot provide
         raise SystemExit(f"daccord: {ex}\n{_ingest_hint(args)}") from None
     return stats, args
+
+
+class _profiled:
+    """``--profile DIR``: one ``torch.profiler`` capture around the run
+    (host ops, and the card's kernels on cuda), written into DIR as a chrome
+    trace when the run ends, whether or not it finished."""
+
+    def __init__(self, out_dir: str, device: str):
+        import torch
+
+        self.dir = out_dir
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = torch.profiler.profile(activities=acts)
+
+    def __enter__(self):
+        os.makedirs(self.dir, exist_ok=True)
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.prof.__exit__(*exc)
+        self.prof.export_chrome_trace(os.path.join(self.dir, f"daccord-{os.getpid()}.trace.json"))
+        return False
 
 
 def _ingest_hint(args) -> str:
@@ -509,6 +567,7 @@ def _pipeline_config(args) -> PipelineConfig:
                           supervise=not args.no_supervise,
                           events_path=args.events, log_path=args.log,
                           ledger_path=args.ledger,
+                          metrics_snapshot_s=args.metrics_snapshot_s,
                           failover_backend=args.failover_backend,
                           failback=args.failback, audit_rate=args.audit_rate,
                           native_threads=args.native_threads)
@@ -529,6 +588,8 @@ def stats_record(stats, args) -> dict:
         "ingest_s": round(stats.ingest_s, 3), "profile_s": round(stats.profile_s, 3),
         "windowing_s": round(stats.windowing_s, 3),
         "ladder_s": round(stats.ladder_s, 3), "device_s": round(stats.device_s, 3),
+        "host_s": round(stats.host_s, 3), "feeder_s": stats.feeder_s,
+        "verdict": stats.verdict,
         "solve_s": round(stats.solve_s, 3),
         "wall_s": round(stats.wall_s, 3), "stages": stats.stage_profile,
         "paged": stats.paged, "pad_waste": round(stats.pad_waste, 4),
@@ -1091,6 +1152,10 @@ _TOOLS = {
     "fillfasta": fillfasta_main,
     "qveval": qveval_main,
     "eventcheck": eventcheck_main,
+    "trace": trace_main,
+    "top": top_main,
+    "sentinel": sentinel_main,
+    "prof": prof_main,
 }
 
 

@@ -319,3 +319,50 @@ def test_worker_process_solves_pending_samples_together(base):
     ref = audit_reference(tl)
     for t, s in zip(tickets[1:], samples[1:]):
         assert _same(got[t], ref(s))
+
+
+def test_a_paged_sample_is_its_pages_and_unpacks_to_the_dense_rows():
+    """A paged batch's audit sample is its rows' table and the pool pages
+    they name (``sample_pages``); the worker's unpack of it gives those
+    rows of the dense batch that was packed, byte for byte."""
+    from daccord_tpu_torch.kernels import paging
+    from daccord_tpu_torch.kernels.tensorize import BatchShape, WindowBatch
+    from daccord_tpu_torch.utils.bases import PAD
+
+    rng = np.random.default_rng(3)
+    B, D, L = 40, 8, 64
+    lens = rng.integers(0, L + 1, size=(B, D)).astype(np.int32)
+    nsegs = rng.integers(1, D + 1, size=B).astype(np.int32)
+    for i in range(B):
+        lens[i, nsegs[i]:] = 0
+    seqs = np.where(np.arange(L)[None, None, :] < lens[:, :, None],
+                    rng.integers(0, 4, size=(B, D, L)), PAD).astype(np.int8)
+    batch = WindowBatch(seqs=seqs, lens=lens, nsegs=nsegs,
+                        shape=BatchShape(depth=D, seg_len=L, wlen=40),
+                        read_ids=np.arange(B, dtype=np.int64),
+                        wstarts=np.arange(B, dtype=np.int64) * 10)
+    pb = paging.pack_paged(batch, paging.ShapeFamily(depth=D, pages=D * L // 16,
+                                                     page_len=16))
+    rows = [0, 3, 7, 21, 39]
+    sample = audit_worker.sample_pages(pb, rows)
+    assert sample.pool.shape[0] < pb.pool.shape[0] and sample.size == len(rows)
+    got = audit_worker._dense((sample.pool, sample.table, sample.lens, sample.nsegs,
+                               (D, L, 16)))
+    for g, w in zip(got, (seqs[rows], lens[rows], nsegs[rows])):
+        assert np.array_equal(g, w)
+    assert np.array_equal(sample.to_dense().seqs, seqs[rows])
+
+
+@pytest.mark.parametrize("in_worker", [True, False], ids=["worker", "in-process"])
+def test_paged_batches_audited_from_their_pages_write_the_clean_fasta(base, in_worker):
+    """Every window of a paged run audited from the pages each sample names,
+    in the workers or on the pipeline's thread: no divergence, and the
+    clean (dense) run's FASTA."""
+    port = run(base, "port", f"paged_audit_{in_worker}", None, audit_rate=1.0,
+               audit_worker=in_worker, paged="on")
+    st = port["stats"]
+    assert st.paged and port["text"] == base["clean"]["text"]
+    assert not any(r["event"] in ("sup_sdc", "audit.disabled") for r in port["recs"])
+    assert st.sup_counters["audits"] == st.n_batches
+    assert st.audit_local == (0 if in_worker else st.n_batches)
+    assert (st.audit_take_s > 0) == in_worker

@@ -96,9 +96,35 @@ def test_merged_shards_equal_the_jax_packages_merge(native_shards):
     assert open(port["merged"]).read() == open(jax["merged"]).read()
     paths = launch.shard_paths(port["outdir"], 0)
     rollup = json.load(open(paths["metrics"]))
-    assert rollup["counters"]["windows"] == port["manifests"][0]["windows"]
+    assert rollup["gauges"]["n_windows"] == port["manifests"][0]["windows"]
     prom = open(paths["metrics"][: -len(".json")] + ".prom").read()
-    assert 'daccord_windows_total{shard="0"}' in prom
+    assert 'daccord_n_windows{shard="0"}' in prom
+
+
+@pytest.mark.parametrize("shard", [0, 1])
+def test_shard_metrics_carry_the_jax_registrys_names(native_shards, shard):
+    """Each shard's ``*.metrics.json`` holds the JAX package's registry
+    rollup: the same counter, gauge and histogram names, the verdict and the
+    wall anchors; its ``.prom`` twin lints clean under both packages'
+    ``parse_prom`` and names the same series."""
+    from daccord_tpu.utils.obs import parse_prom as jax_parse_prom
+    from daccord_tpu_torch.utils.obs import parse_prom
+
+    rolls, proms = {}, {}
+    for name in ("port", "jax"):
+        path = launch.shard_paths(native_shards[name]["outdir"], shard)["metrics"]
+        rolls[name] = json.load(open(path))
+        proms[name] = open(path[: -len(".json")] + ".prom").read()
+    port, jax = rolls["port"], rolls["jax"]
+    for key in ("counters", "gauges", "hists"):
+        assert sorted(port[key]) == sorted(jax[key]), key
+    assert set(port) == set(jax)
+    assert port["verdict"] in ("host_feeder", "device", "io", "balanced")
+    assert port["host_s"] is not None and port["device_s"] is not None
+    for parse in (parse_prom, jax_parse_prom):
+        samples, errs = parse(proms["port"])
+        assert errs == []
+        assert sorted(samples) == sorted(parse(proms["jax"])[0])
 
 
 def test_rerun_returns_the_manifest_without_recomputing(native_shards, dataset, monkeypatch):
@@ -139,6 +165,48 @@ def test_crash_between_checkpoints_resumes_byte_identical(dataset, tmp_path, mon
     assert m["resumed_at_read"] == 4 and m["reads"] == m_ref["reads"]
     assert _fasta(crash_dir) == _fasta(ref_dir)
     assert not os.path.exists(prog_path)
+
+
+def test_hp_resume_writes_the_uninterrupted_runs_bytes(tmp_path, monkeypatch):
+    """A crash and resume of a shard with the homopolymer rescue (the
+    posterior vote and the likelihood accept, which read the profile's hp
+    model) on an hp set writes the uninterrupted run's bytes: the progress
+    file keeps all six ``ErrorProfile`` fields. Not held against the JAX
+    package: its progress file keeps three (``p_ins``, ``p_del``, ``p_sub``;
+    JAX ``launch.py``), so a JAX shard resumed with the rescue falls back to
+    ``hp_slope`` 0 and writes other bytes than its uninterrupted run."""
+    from daccord_tpu_torch.oracle.consensus import ConsensusConfig
+
+    out = make_dataset(str(tmp_path / "d"), SimConfig(genome_len=2000, coverage=14,
+                                                      read_len_mean=600, min_overlap=250,
+                                                      hp_indel_slope=1.0, seed=31),
+                       name="hp")
+
+    def cfg():
+        return PipelineConfig(batch_size=64, native_solver=True, consensus=ConsensusConfig(
+            hp_rescue=True, hp_vote="posterior", hp_accept="likelihood"))
+
+    ref_dir = str(tmp_path / "ref")
+    m_ref = launch.run_shard(out["db"], out["las"], ref_dir, 0, 1, cfg(), checkpoint_every=3)
+    crash_dir = str(tmp_path / "crash")
+    real = launch.correct_shard
+
+    def crashing(db, las, c, start=None, end=None, **kw):
+        for i, item in enumerate(real(db, las, c, start, end, **kw)):
+            if i == 7:
+                raise RuntimeError("injected crash")
+            yield item
+
+    monkeypatch.setattr(launch, "correct_shard", crashing)
+    with pytest.raises(RuntimeError, match="injected crash"):
+        launch.run_shard(out["db"], out["las"], crash_dir, 0, 1, cfg(), checkpoint_every=3)
+    prog = json.load(open(launch.shard_paths(crash_dir, 0)["progress"]))
+    assert prog["emitted"] == 6 and len(prog["profile"]) == 6
+    assert prog["profile"][3] >= 0.1      # the hp slope: the posterior engages
+    monkeypatch.setattr(launch, "correct_shard", real)
+    m = launch.run_shard(out["db"], out["las"], crash_dir, 0, 1, cfg(), checkpoint_every=3)
+    assert m["resumed_at_read"] == 6 and m["reads"] == m_ref["reads"]
+    assert _fasta(crash_dir) == _fasta(ref_dir)
 
 
 def test_split_crash_with_a_pending_rescue_pool_resumes_byte_identical(tmp_path,

@@ -332,8 +332,7 @@ def test_every_tool_answers_help(tool, capsys):
 
 
 def test_the_jax_packages_workflow_tools_are_all_here():
-    assert set(jax_cli._TOOLS) - set(cli._TOOLS) == {"fleet", "serve", "router", "trace",
-                                                     "top", "sentinel", "prof"}
+    assert set(jax_cli._TOOLS) - set(cli._TOOLS) == {"fleet", "serve", "router"}
 
 
 def test_the_module_dispatches_and_refuses_an_unknown_tool(dataset):

@@ -129,8 +129,8 @@ def test_myers_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """The port and every one of its modules import without jax or
-    daccord_tpu."""
+    """The port and every one of its modules (the telemetry readers and
+    ``utils/obs`` among them) import without jax or daccord_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import daccord_tpu_torch\n"
@@ -138,6 +138,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "assert 'daccord_tpu_torch.parallel.launch' in sys.modules\n"
         "assert 'daccord_tpu_torch.tools.lastools' in sys.modules\n"
+        "for m in ('utils.obs', 'tools.trace', 'tools.prof', 'tools.top', 'tools.sentinel'):\n"
+        "    assert 'daccord_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'daccord_tpu' or m.startswith('daccord_tpu.'))\n"
         "assert not bad, bad\n"
