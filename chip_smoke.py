@@ -110,13 +110,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    unranked): every arm's error and Q beside the card's name and power
    limit, the track arm held below half the raw error;
 4e. telemetry phase: the cost of ``--events`` on the 20 kb dense fused run
-   (``tools/wall_ab.py``, a fresh process a turn in the order A B B A A B B
-   A, B with ``--events``; then the same pair warm in this process, A B B
+   (``tools/wall_ab.py``, a fresh process a turn in the order A B B A, B
+   with ``--events``; then the same pair warm in this process, A B B
    A, and one warm run of each under cProfile: the pipeline thread's own
    time in the telemetry functions),
    the 100 kb dense fused run again with ``--events``,
    ``--metrics-snapshot-s 2`` and ``DACCORD_PROFILE_DIR`` (a torch.profiler
-   capture of its second ladder call), read by the port's own tools:
+   capture of its second ladder call, the JAX package's bracket: from its
+   dispatch to the drain that fetches it, the other calls in flight; again
+   at the 5th and the 13th call, each run bounded at 120 s), read by the
+   port's own tools:
    ``eventcheck --strict``, ``trace --check --json`` (the wall's split
    into spans, with "else" split into the pile loop's own work, the
    flushes and the hp pass, and the rest), ``prof --check`` (the feeder's
@@ -133,6 +136,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    busy: the warm 20 kb dense fused run clean, then under the stall, in
    this process; the clean verdict must not be ``host_feeder`` and the
    stalled one must, same bytes;
+4f. serve phase, the serving plane through its real entry point: three
+   ``python -m daccord_tpu_torch.tools.cli serve --backend cuda -b 2048``
+   processes on an ephemeral port, each driven over HTTP and stopped by
+   SIGTERM (exit 0, ``serve.done``; ``eventcheck --strict`` on the
+   service's, the groups' and the jobs' event files; ``top --once`` on the
+   workdir). The dense fused service (``--workers 4``, ``--idle-evict-s
+   10``) takes three 20 kb jobs from two tenants and one 100 kb job at once;
+   each job's streamed FASTA (and its ``result``) must be byte-identical to
+   a solo card run of ``serve.jobs.build_job_config``'s config; it prints
+   each job's latency, the service's windows/s against the solo runs' sum,
+   the batches holding rows of more than one job, the warm
+   hits and misses (two groups, two hits), each group's ``saturation()``,
+   graphs (captured at its build) and governor, and the kernels' launch
+   counts in that process (``dp_backtrack``, ``rescore`` and
+   ``position_weights`` must launch; the capture warm-ups are not
+   counted); then both groups must evict at the TTL and the process's
+   allocated device memory fall back within 64 MiB of its value before the
+   first group. The paged scan service (``--paged --dp scan``) takes two
+   20 kb jobs, byte-identical to a solo paged scan card run, and must
+   launch ``gather_pages``, ``heaviest_path``, ``rescore`` and
+   ``position_weights``. The faulted service (``DACCORD_FAULT=device_oom:1``,
+   ``--workers 3 --flush-lag-ms 1000``) takes three 20 kb jobs: the OOM
+   leaves a ceiling at half the width, every later merged batch (mixed ones
+   among them, at least one) runs bisected, and the bytes do not move;
 5. kernel phase, on inputs made from real windows of the dataset (topped up
    from a seeded generator if there were fewer than B), each kernel held
    bit-equal to its plain torch version on the card and timed (its device
@@ -1542,7 +1569,7 @@ def telemetry_phase(d: dict, eprof: str, big: dict, big_eprof: str, counters,
     ab_events = os.path.join(tmp, "ab.events.jsonl")
     res = subprocess.run(
         [sys.executable, "-m", "daccord_tpu_torch.tools.wall_ab", ".", ".",
-         "--turns", "ABBAABBA", "--b-args", f"--events {ab_events}"],
+         "--turns", "ABBA", "--b-args", f"--events {ab_events}"],
         capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise AssertionError(f"wall_ab failed:\n{res.stdout}{res.stderr}")
@@ -1565,7 +1592,7 @@ def telemetry_phase(d: dict, eprof: str, big: dict, big_eprof: str, counters,
         if records(outs[i]) != records(outs[0]):
             raise AssertionError("the warm 20 kb run's FASTA differs with --events")
     hot = sum(warm["B"]) / sum(warm["A"]) - 1.0
-    log(f"telemetry cost, 20 kb dense fused -t 0 ({smi}): fresh processes A B B A A B B A "
+    log(f"telemetry cost, 20 kb dense fused -t 0 ({smi}): fresh processes A B B A "
         f"without / with --events {[round(w, 3) for w in walls['A']]} / "
         f"{[round(w, 3) for w in walls['B']]} s -> {cold:+.4f}; warm in this process "
         f"{[round(w, 3) for w in warm['A']]} / {[round(w, 3) for w in warm['B']]} s -> "
@@ -1603,8 +1630,9 @@ def telemetry_phase(d: dict, eprof: str, big: dict, big_eprof: str, counters,
 
     os.environ["DACCORD_PROFILE_DIR"] = cap_dir
     # a wedged capture dumps every thread's stack and ends the smoke, rather
-    # than spending the run's time limit
-    faulthandler.dump_traceback_later(300, exit=True)
+    # than spending the run's time limit (faulthandler's own thread: it fires
+    # even when a hang holds the interpreter lock)
+    faulthandler.dump_traceback_later(120, exit=True)
     try:
         st, launched = daccord([big["db"], big["las"], "-o", out, "-E", big_eprof, "-b",
                                 str(B), "--device", DEVICE, "--paged", "off", "--dp",
@@ -1670,6 +1698,32 @@ def telemetry_phase(d: dict, eprof: str, big: dict, big_eprof: str, counters,
     log(f"saturation, 100 kb dense fused: verdict {st.verdict}, {json.dumps(st.bottleneck)}, "
         f"feeder_s {st.feeder_s}, dispatch_s {st.dispatch_s}, host_s {st.host_s:.3f}, "
         f"device_peak_bytes {st.metrics['gauges'].get('device_peak_bytes')}")
+
+    # the capture's bracket (the calls in flight stay in flight) hung a warm
+    # 100 kb run at its 5th call before the profiler took the graph cache's
+    # lock; the same run warm again at the 5th and the 13th, each bounded
+    for at in (5, 13):
+        bdir = os.path.join(tmp, f"capture_{at}")
+        bev = os.path.join(tmp, f"bracket_{at}.events.jsonl")
+        os.environ["DACCORD_PROFILE_DIR"] = bdir
+        os.environ["DACCORD_PROFILE_DISPATCH"] = str(at)
+        faulthandler.dump_traceback_later(120, exit=True)
+        try:
+            bst, _ = daccord([big["db"], big["las"], "-o", os.path.join(tmp, f"bracket_{at}.fasta"),
+                              "-E", big_eprof, "-b", str(B), "--device", DEVICE, "--paged",
+                              "off", "--dp", "fused", "-t", str(nthreads), "--events", bev],
+                             counters)
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+            del os.environ["DACCORD_PROFILE_DIR"], os.environ["DACCORD_PROFILE_DISPATCH"]
+        bcaps = [(r["state"], r.get("wall_s")) for r in map(json.loads, open(bev))
+                 if r["event"] == "profile.capture"]
+        bfiles = os.listdir(bdir) if os.path.isdir(bdir) else []
+        log(f"bracket at the {at}th call, warm 100 kb dense fused: wall {bst.wall_s:.3f} s, "
+            f"capture {bcaps}, {bfiles}")
+        if [c for c, _ in bcaps] != ["start", "stop"] or not bfiles \
+                or records(os.path.join(tmp, f"bracket_{at}.fasta")) != records(out):
+            raise AssertionError(f"the bracket at the {at}th call: {bcaps}, {bfiles}")
 
     # the whole-run capture (--profile DIR), warm in this process: the
     # profiler stays on while the dispatcher thread replays the graphs
@@ -1740,6 +1794,340 @@ def telemetry_phase(d: dict, eprof: str, big: dict, big_eprof: str, counters,
             or stalled.bottleneck["stage"] != "stall"):
         raise AssertionError("feeder_stall did not flip the eager run's verdict to "
                              "host_feeder with the same bytes")
+
+
+SERVE_FAULT = "device_oom:1"    # the faulted serve arm's injected OOM: the first
+                                # device op, which leaves a ceiling at half its
+                                # width, so every later merged batch bisects
+SERVE_EVICT_S = 10.0            # the dense serve arm's idle TTL
+SERVE_MEM_SLACK = 64 << 20      # allocated bytes an evicted server may keep
+
+
+def serve_start(tmp: str, tag: str, extra=(), env_extra=None):
+    """Start ``python -m daccord_tpu_torch.tools.cli serve`` (the user's entry
+    point) on an ephemeral port: (process, port, workdir). The port comes from
+    its ready file; a process that dies first raises with its log."""
+    workdir = os.path.join(tmp, f"serve_{tag}")
+    ready = os.path.join(tmp, f"serve_{tag}.ready.json")
+    logp = os.path.join(tmp, f"serve_{tag}.log")
+    backend = "cuda" if DEVICE == "cuda" else "cpu"
+    argv = [sys.executable, "-m", "daccord_tpu_torch.tools.cli", "serve",
+            "--workdir", workdir, "--port", "0", "--ready-file", ready,
+            "--backend", backend, "-b", str(B), *extra]
+    env = dict(os.environ, **(env_extra or {}))
+    with open(logp, "wb") as fh:
+        proc = subprocess.Popen(argv, env=env, stdout=fh, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+    deadline = time.time() + 120
+    while not os.path.exists(ready):
+        if proc.poll() is not None or time.time() > deadline:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            raise AssertionError(f"serve {tag} did not start (rc {proc.returncode}):\n"
+                                 + open(logp).read()[-4000:])
+        time.sleep(0.05)
+    port = json.load(open(ready))["port"]
+    log(f"serve {tag}: {' '.join(argv[3:])} on port {port}, pid {proc.pid}")
+    return proc, port, workdir
+
+
+def http(port: int, method: str, path: str, body=None, timeout: float = 600.0):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=json.dumps(body).encode() if body is not None else None,
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, resp.read()
+
+
+def serve_jobs(port: int, bodies: list) -> tuple[list, float, dict]:
+    """Submit every job at once from a thread each and read each one's
+    streamed FASTA to its end: ([(body, status, streamed bytes, result
+    bytes)], wall from the first submit to the last stream's end, each
+    group's stats as last seen when one of its jobs ended, by name: a group
+    may evict before the last job ends)."""
+    import threading
+    import urllib.request
+
+    got: list = [None] * len(bodies)
+    errs: list = []
+    groups: dict = {}
+
+    def client(i: int) -> None:
+        try:
+            _, raw = http(port, "POST", "/v1/jobs", bodies[i])
+            job = json.loads(raw)["job"]
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/jobs/{job}/stream",
+                                        timeout=600) as r:
+                streamed = r.read()
+            _, result = http(port, "GET", f"/v1/jobs/{job}/result?wait=1")
+            _, st = http(port, "GET", f"/v1/jobs/{job}")
+            got[i] = (bodies[i], json.loads(st), streamed, result)
+            for g in serve_metrics(port)["warm"]["groups"]:
+                groups[g["name"]] = g
+        except Exception as e:  # noqa: BLE001 - raised below
+            errs.append(f"job {i}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    if errs or any(g is None for g in got):
+        raise AssertionError(f"serve jobs failed: {errs}")
+    return got, wall, groups
+
+
+def serve_stop(proc, port: int, workdir: str, tag: str) -> None:
+    """SIGTERM: the drain must be clean (exit 0, ``serve.done``), every event
+    file of the service, its groups and its jobs passes ``eventcheck
+    --strict``, and ``top --once`` renders the workdir."""
+    import contextlib
+    import glob
+    import io
+    import signal
+
+    from daccord_tpu_torch.tools import top
+    from daccord_tpu_torch.tools.eventcheck import validate_events
+
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"serve {tag}: SIGTERM did not end the process in 120 s")
+    files = (glob.glob(os.path.join(workdir, "*.events.jsonl"))
+             + glob.glob(os.path.join(workdir, "jobs", "*", "events.jsonl")))
+    bad = {f: validate_events(f, strict=True) for f in files}
+    bad = {os.path.relpath(f, workdir): e[:3] for f, e in bad.items() if e}
+    done = [json.loads(x) for x in open(os.path.join(workdir, "serve.events.jsonl"))
+            if '"serve.done"' in x]
+    so = io.StringIO()
+    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(so):
+        top_rc = top.top_main([workdir, "--once"])
+    log(f"serve {tag}: SIGTERM -> exit {rc} in {time.perf_counter() - t0:.2f} s, "
+        f"{done[-1] if done else 'no serve.done'}; eventcheck --strict on {len(files)} "
+        f"files: {'clean' if not bad else bad}; top --once exit {top_rc}, "
+        f"{len(so.getvalue().splitlines())} lines")
+    for line in so.getvalue().splitlines()[:12]:
+        log(f"  top: {line}")
+    if rc != 0 or not done or bad or top_rc != 0:
+        raise AssertionError(f"serve {tag}: unclean stop (exit {rc}, serve.done "
+                             f"{bool(done)}, eventcheck {bad}, top {top_rc})")
+
+
+def serve_solo(ds: dict, tag: str, tmp: str, paged: bool = False) -> tuple[bytes, object]:
+    """A solo run of ``serve.jobs.build_job_config``'s config on this card
+    (the byte reference of a serve job): (FASTA bytes, stats)."""
+    import dataclasses
+
+    from daccord_tpu_torch.runtime.pipeline import correct_to_fasta
+    from daccord_tpu_torch.serve.jobs import JobSpec, build_job_config
+
+    spec = JobSpec.from_json({"db": ds["db"], "las": ds["las"]}, tmp)
+    cfg = build_job_config(spec, "cuda" if DEVICE == "cuda" else "cpu", True, B, "fused",
+                           tmp, "solo")
+    cfg = dataclasses.replace(cfg, supervise=True, events_path=None, ledger_path=None,
+                              job_tag=None, quarantine_path=None,
+                              paged="on" if paged else "off",
+                              dp_route="scan" if paged else "fused")
+    out = os.path.join(tmp, f"serve_solo_{tag}.fasta")
+    st = correct_to_fasta(ds["db"], ds["las"], out, cfg)
+    with open(out, "rb") as fh:
+        return fh.read(), st
+
+
+def serve_metrics(port: int) -> dict:
+    return json.loads(http(port, "GET", "/v1/metrics")[1])
+
+
+def serve_phase(d: dict, big: dict, tmp: str, smi: str) -> None:
+    """Phase 4f: the serving plane through its real entry point. Three
+    ``serve`` processes on the card at -b 2048: the dense fused service takes
+    three 20 kb jobs from two tenants and one 100 kb job at once; the paged
+    scan service two 20 kb jobs; the faulted service two 20 kb jobs under an
+    injected device OOM. Every streamed FASTA is held byte-identical to a solo
+    card run of ``build_job_config``'s config; the dense service's groups
+    evict at their idle TTL and its allocated device memory falls back; each
+    service stops clean on SIGTERM."""
+    t_phase = time.perf_counter()
+    on_card = DEVICE == "cuda"
+    t0 = time.perf_counter()
+    refs = {"20kb": serve_solo(d, "20kb", tmp), "100kb": serve_solo(big, "100kb", tmp),
+            "20kb paged": serve_solo(d, "20kb_paged", tmp, paged=True)}
+    log(f"serve solo references ({smi}): " + "; ".join(
+        f"{k} wall {st.wall_s:.3f} s, {st.n_windows} windows, "
+        f"{st.n_windows / st.wall_s:.0f} windows/s" for k, (_, st) in refs.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    job20 = {"db": d["db"], "las": d["las"]}
+    job100 = {"db": big["db"], "las": big["las"]}
+
+    # ---- dense fused: four jobs at once, then eviction and SIGTERM ----------
+    proc, port, wd = serve_start(tmp, "dense", ["--idle-evict-s", str(SERVE_EVICT_S),
+                                                "--workers", "4"])
+    try:
+        m0 = serve_metrics(port)
+        alloc0 = m0.get("device", {}).get("allocated_bytes", 0)
+        got, wall, groups = serve_jobs(port, [dict(job20, tenant="a"), dict(job20, tenant="a"),
+                                      dict(job20, tenant="b"), dict(job100, tenant="b")])
+        m1 = serve_metrics(port)
+        for body, st, streamed, result in got:
+            ref = refs["100kb" if body["db"] == big["db"] else "20kb"][0]
+            if st["state"] != "done" or streamed != ref or result != ref:
+                raise AssertionError(f"serve dense: job {st['job']} ({body['tenant']}) "
+                                     f"state {st['state']}: its FASTA differs from the "
+                                     f"solo card run")
+        wins = sum(st["windows"] for _, st, _, _ in got)
+        solo_s = sum(refs["100kb" if b["db"] == big["db"] else "20kb"][1].wall_s
+                     for b, _, _, _ in got)
+        log(f"serve dense fused -b {B} ({smi}): 4 jobs byte-identical to their solo card "
+            f"runs (streamed and result); latencies "
+            + ", ".join(f"{st['job']} {b['tenant']} "
+                        f"{'100kb' if b['db'] == big['db'] else '20kb'} "
+                        f"{st['latency']['total_s']} s (queue {st['latency']['queue_s']}, "
+                        f"first result {st['latency']['first_result_s']})"
+                        for b, st, _, _ in got)
+            + f"; service {wins} windows in {wall:.3f} s = {wins / wall:.0f} windows/s "
+            f"against the solo runs' sum {wins} in {solo_s:.3f} s = {wins / solo_s:.0f} "
+            f"windows/s ({solo_s / wall:.3f}x)")
+        warm = m1["warm"]
+        for g in sorted({**groups, **{g["name"]: g for g in warm["groups"]}}.values(),
+                        key=lambda g: g["name"]):
+            log(f"serve dense group {g['name']}: {g['batches']} batches, "
+                f"{g['mixed_batches']} with rows of more than one job, rows {g['rows']}, "
+                f"flushes demand {g['demand_flushes']} lag {g['lag_flushes']}, width "
+                f"{g['width']}; saturation {json.dumps(g['saturation'])}; graphs "
+                f"{json.dumps(g['graphs'])}; governor {json.dumps(g['governor'])}")
+        log(f"serve dense warm state: {warm['hits']} hits, {warm['misses']} misses; "
+            f"device {json.dumps(m1.get('device'))}; verdict {m1.get('verdict')}")
+        if warm["hits"] < 2 or warm["misses"] != 2:
+            raise AssertionError(f"serve dense: warm {warm['hits']} hits / "
+                                 f"{warm['misses']} misses (want 2 groups, 2 hits)")
+        # from the groups' event files: a group whose jobs ended may be gone
+        import glob
+
+        sb = [json.loads(x) for f in sorted(glob.glob(os.path.join(wd, "g*.events.jsonl")))
+              for x in open(f) if '"serve.batch"' in x]
+        mixed = sum(r["jobs"] > 1 for r in sb)
+        # printed, not held: at the default flush lag a job's full batches
+        # flush alone and only its partial blocks can meet another job's
+        # rows (1-5 such batches in four chip runs); the faulted service below
+        # holds mixed batches
+        log(f"serve dense batches: {len(sb)}, {mixed} with rows of more than one job "
+            f"(the three 20 kb jobs share a group; the 100 kb job has its own)")
+        if on_card:
+            la = m1["device"]["launches"]
+            for k in ("dp_backtrack", "rescore", "position_weights"):
+                if la.get(k, 0) <= 0:
+                    raise AssertionError(f"serve dense: the {k} kernel never launched")
+            log(f"serve dense kernel launches (the jobs' batches; the groups' capture "
+                f"warm-ups not counted): {json.dumps(la)}")
+        # eviction at the idle TTL: every group closes, and the device memory
+        # the groups held comes back
+        t0 = time.perf_counter()
+        m2 = m1
+        while time.perf_counter() - t0 < 60 and (m2["warm"]["resident"] or
+                                                 m2["warm"]["evicted"] < 2):
+            time.sleep(0.5)
+            m2 = serve_metrics(port)
+        alloc1 = m1.get("device", {}).get("allocated_bytes", 0)
+        alloc2 = m2.get("device", {}).get("allocated_bytes", 0)
+        log(f"serve dense eviction: {m2['warm']['evicted']} groups evicted "
+            f"{time.perf_counter() - t0:.1f} s after the last job (TTL {SERVE_EVICT_S} s); "
+            f"allocated device memory {alloc0} bytes before the first group, {alloc1} "
+            f"with the groups warm, {alloc2} after the eviction; graph shapes held "
+            f"{m2.get('device', {}).get('graphs', {}).get('shapes')}")
+        if m2["warm"]["resident"] or m2["warm"]["evicted"] < 2:
+            raise AssertionError("serve dense: the idle groups did not evict")
+        if alloc2 > alloc0 + SERVE_MEM_SLACK:
+            raise AssertionError(f"serve dense: {alloc2 - alloc0} bytes stay allocated "
+                                 f"after the eviction")
+    except BaseException:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        raise
+    serve_stop(proc, port, wd, "dense")
+
+    # ---- paged scan: gather_pages and heaviest_path on the serve path -------
+    proc, port, wd = serve_start(tmp, "paged", ["--paged", "--dp", "scan"])
+    try:
+        got, wall, groups = serve_jobs(port, [dict(job20, tenant="a"), dict(job20, tenant="b")])
+        m = serve_metrics(port)
+        ref = refs["20kb paged"][0]
+        for _, st, streamed, result in got:
+            if st["state"] != "done" or streamed != ref or result != ref:
+                raise AssertionError(f"serve paged: job {st['job']}'s FASTA differs from "
+                                     f"the solo paged card run")
+        if ref != refs["20kb"][0]:
+            log("serve paged: note, the solo paged scan run's FASTA differs from the "
+                "dense fused one (both packages' routes agree within the drift bound)")
+        g = m["warm"]["groups"][0]
+        log(f"serve paged scan ({smi}): 2 jobs byte-identical to the solo paged scan card "
+            f"run in {wall:.3f} s; latencies "
+            + ", ".join(f"{st['job']} {st['latency']['total_s']} s" for _, st, _, _ in got)
+            + f"; {g['batches']} batches, {g['mixed_batches']} mixed; saturation "
+            f"{json.dumps(g['saturation'])}; device {json.dumps(m.get('device'))}")
+        if on_card:
+            la = m["device"]["launches"]
+            for k in ("gather_pages", "heaviest_path", "rescore", "position_weights"):
+                if la.get(k, 0) <= 0:
+                    raise AssertionError(f"serve paged: the {k} kernel never launched")
+    except BaseException:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        raise
+    serve_stop(proc, port, wd, "paged")
+
+    # ---- an injected device OOM on a mixed batch: bisected, same bytes ------
+    # a job hands the group full batches, which flush alone; its partial
+    # blocks (stale buckets, its tail) merge with the others' rows while they
+    # wait, so here they wait up to a second (the flush lag) and three jobs
+    # run: mixed batches come often enough that one runs under the ceiling
+    proc, port, wd = serve_start(tmp, "fault", ["--workers", "3", "--flush-lag-ms", "1000"],
+                                 env_extra={"DACCORD_FAULT": SERVE_FAULT,
+                                            "DACCORD_COMPCACHE": os.path.join(tmp, "cc_serve")})
+    try:
+        got, wall, groups = serve_jobs(port, [dict(job20, tenant="a"), dict(job20, tenant="b"),
+                                              dict(job20, tenant="a")])
+        m = serve_metrics(port)
+        ref = refs["20kb"][0]
+        for _, st, streamed, result in got:
+            if st["state"] != "done" or streamed != ref or result != ref:
+                raise AssertionError(f"serve fault: job {st['job']}'s FASTA differs")
+        g = m["warm"]["groups"][0]
+        gev = [json.loads(x) for x in open(os.path.join(wd, "g0.events.jsonl"))]
+        cls = next((i for i, r in enumerate(gev) if r["event"] == "governor.classify"),
+                   len(gev))
+        # the OOM leaves a ceiling at half the width: every merged batch
+        # dispatched after its classification runs bisected (a shrink, or
+        # the ratchet's chunks), the mixed ones among them
+        after = [r for r in gev[cls:] if r["event"] == "serve.batch"]
+        mixed = [r for r in after if r["jobs"] > 1]
+        log(f"serve {SERVE_FAULT}: 3 jobs byte-identical in {wall:.3f} s; governor "
+            f"{json.dumps(g['governor'])}, degraded {g['degraded']}; {len(after)} batches "
+            f"dispatched after the OOM's classification under its ceiling, {len(mixed)} "
+            f"of them mixed (first: {mixed[0] if mixed else None})")
+        if not (g["governor"]["classify"] >= 1 and g["governor"]["shrink"] >= 1) \
+                or g["degraded"]:
+            raise AssertionError("serve fault: the OOM was not bisected on the card")
+        if not mixed or g["governor"]["chunks"] <= 0:
+            raise AssertionError("serve fault: no mixed batch ran under the OOM's ceiling")
+    except BaseException:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        raise
+    serve_stop(proc, port, wd, "fault")
+    log(f"serve phase: {time.perf_counter() - t_phase:.1f} s (predicted at most 120 s)")
 
 
 def reference_cost(big: dict, eprof: str) -> None:
@@ -2115,6 +2503,9 @@ def main() -> int:
         t0 = time.perf_counter()
         telemetry_phase(d, eprof, big, big_eprof, counters, tmp, nthreads, smi)
         log(f"telemetry phase: {time.perf_counter() - t0:.1f} s (predicted at most 60 s)")
+
+        # ---- 4f. the serving plane ---------------------------------------------
+        serve_phase(d, big, tmp, smi)
 
         # ---- 5. kernel phase ------------------------------------------------
         t0 = time.perf_counter()

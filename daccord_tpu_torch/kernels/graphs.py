@@ -36,6 +36,17 @@ wrappers count launches in Python, which a replay does not run: a capture
 records what its stage added to the counts, takes it off again (a capture
 launches nothing), and each replay adds it. A failed capture or replay
 raises; nothing falls back to the eager ladder.
+
+One process may hold several ladders at once (the serve plane's solve
+groups, each with its dispatcher thread and stream). A capture is made
+with ``capture_error_mode="thread_local"``, which does not stop another
+thread from working on the card meanwhile, so every piece of card work of
+such a process outside a job thread's fetch runs under :attr:`GraphCache.lock`:
+the calls themselves (``tiers.LadderDispatcher`` holds it around a call and
+its copy back), a group's build and its round-trip probe. Each shape records
+the ladders that ran it; :meth:`GraphCache.release` drops the shapes only
+a released ladder used, so an evicted group gives its graphs and buffers
+back.
 """
 
 from __future__ import annotations
@@ -147,6 +158,7 @@ class _Shape:
         words = (p0.cons_len + 3) // 4
         self.packed = torch.empty((B, words + 3), dtype=torch.int32, device=dev)
         self.graphs: dict = {}
+        self.owners: set = set()    # id() of each ladder that ran this shape
 
 
 class GraphCache:
@@ -157,7 +169,7 @@ class GraphCache:
 
     def __init__(self):
         self._shapes: dict = {}
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
         self._pools: dict = {}
         self._side: dict = {}
         self._last = None            # event after the last call's work
@@ -165,6 +177,31 @@ class GraphCache:
         self.capture_s = 0.0
         self.captures = 0
         self.replays = 0
+
+    @property
+    def lock(self) -> threading.RLock:
+        """Held by every call (and capture) of the cache; take it around
+        other card work that must not overlap a capture."""
+        return self._lock
+
+    def shapes(self) -> int:
+        """Shapes (each with its buffers and graphs) held now."""
+        return len(self._shapes)
+
+    def release(self, ladder) -> int:
+        """Forget ``ladder``: the shapes no other ladder ran are dropped,
+        their graphs and buffers with them. Returns the count dropped."""
+        with self._lock:
+            if self._last is not None:
+                # nothing of a dropped graph may still run
+                self._last.synchronize()
+            n = 0
+            for key, sh in list(self._shapes.items()):
+                sh.owners.discard(id(ladder))
+                if not sh.owners:
+                    del self._shapes[key]
+                    n += 1
+            return n
 
     def clear(self) -> None:
         # no lock: a call that hangs on a lost card may hold it forever. The
@@ -202,6 +239,7 @@ class GraphCache:
             if sh is None:
                 sh = self._shapes[key] = _Shape(
                     arrays, batch.shape.seg_len if paged else None, ladder, dev)
+            sh.owners.add(id(ladder))
             self._load(sh, arrays, ladder)
             run_ladder(lambda name, width: self._stage(sh, ladder, batch, name, width,
                                                       log, key),

@@ -106,6 +106,7 @@ class PagedWindowBatch:
     read_ids: np.ndarray   # int64 [B]
     wstarts: np.ndarray    # int64 [B]
     stream: str = "full"   # as WindowBatch.stream
+    job: str = ""          # as WindowBatch.job
 
     @property
     def size(self) -> int:
@@ -131,7 +132,8 @@ class PagedWindowBatch:
         return WindowBatch(seqs=seqs, lens=np.asarray(self.lens).copy(),
                            nsegs=self.nsegs.copy(), shape=self.shape,
                            read_ids=self.read_ids.copy(),
-                           wstarts=self.wstarts.copy(), stream=self.stream)
+                           wstarts=self.wstarts.copy(), stream=self.stream,
+                           job=self.job)
 
 
 def window_pages(lens: np.ndarray, page_len: int = PAGE_LEN) -> np.ndarray:
@@ -217,7 +219,7 @@ def pack_paged(batch: WindowBatch, family: ShapeFamily,
         nsegs=_pad_rows(batch.nsegs), family=family,
         shape=BatchShape(depth=D, seg_len=L, wlen=batch.shape.wlen),
         read_ids=_pad_rows(batch.read_ids, fill=-1),
-        wstarts=_pad_rows(batch.wstarts), stream=batch.stream)
+        wstarts=_pad_rows(batch.wstarts), stream=batch.stream, job=batch.job)
 
 
 def unpack_paged(pb: PagedWindowBatch) -> WindowBatch:

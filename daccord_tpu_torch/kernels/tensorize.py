@@ -40,6 +40,10 @@ class WindowBatch:
                           # whole ladder), "tier0" (Stream A of the
                           # two-stream ladder) or "rescue" (Stream B, the
                           # whole ladder over pooled rows)
+    job: str = ""         # the serve plane's tag: the job(s) the rows belong
+                          # to ("" in a batch run, "a+b" for a batch merged
+                          # across jobs); telemetry only, never a shape or
+                          # graph key
 
     @property
     def size(self) -> int:
@@ -134,4 +138,5 @@ def pad_batch(batch, target: int):
     wstarts = np.zeros(target, dtype=np.int64)
     wstarts[:B] = batch.wstarts
     return WindowBatch(seqs=seqs, lens=lens, nsegs=nsegs, shape=batch.shape,
-                       read_ids=read_ids, wstarts=wstarts, stream=batch.stream)
+                       read_ids=read_ids, wstarts=wstarts, stream=batch.stream,
+                       job=batch.job)

@@ -559,7 +559,11 @@ class LadderDispatcher:
         if self.stream is None:
             h.host = _ladder_packed(h.batch, ladder, tier0_only, log)
             return
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+        from .graphs import CACHE
+
+        # under the graph cache's lock: another dispatcher's capture (a
+        # second ladder of the process) never overlaps this call's card work
+        with CACHE.lock, torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             start = torch.cuda.Event(enable_timing=True)
             start.record(self.stream)
             packed = _ladder_packed(h.batch, ladder, tier0_only, log)

@@ -5,9 +5,10 @@ The port's copy of ``daccord_tpu/runtime/faults.py``: every kind of the
 means the same in both packages. The port consumes the device kinds (the
 supervisor), ``device_oom``, ``host_rss`` and ``monster_pile`` (the
 governor and the pipeline), the data kinds (the ``daccord`` entry point),
-``sdc`` (the shadow audit) and the storage kinds (``utils/aio.py``). The
-fleet, serve, network and ``feeder_stall`` kinds parse, and nothing in the
-port consumes them yet.
+``sdc`` (the shadow audit), the storage kinds (``utils/aio.py``),
+``feeder_stall`` (the pipeline's pile loop) and the serve kinds
+(``serve/journal.py``, ``serve/jobs.py``). The fleet and network kinds
+parse, and nothing in the port consumes them yet.
 
 Every failure mode the supervisor handles (``runtime/supervisor.py``) can be
 reproduced on a CPU-only host from one env var, so the whole

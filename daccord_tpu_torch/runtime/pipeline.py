@@ -237,6 +237,11 @@ class PipelineConfig:
                                  # (hp_rescue_windows; inside the engine with
                                  # native_solver); False = the python
                                  # hp_candidate loop (the same bytes)
+    job_tag: str | None = None   # the serve plane's job tag: stamped on every
+                                 # dispatched batch (WindowBatch.job) and
+                                 # every ledger row, so a merged trace
+                                 # attributes batches to jobs; None (batch
+                                 # runs) leaves both as they were
 
 
 @dataclass
@@ -1055,17 +1060,29 @@ class _Telemetry:
 
 def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
                   start: int | None = None, end: int | None = None,
-                  profile: ErrorProfile | None = None):
+                  profile: ErrorProfile | None = None, solver=None,
+                  ingest_report=None):
     """Correct every pile of the byte range ``[start, end)`` (default: the
     whole file); yields (aread, fragments, stats) in input order. Under the
     strict ingest policy a corrupt range raises ``IngestError`` before any
-    pile is windowed."""
+    pile is windowed.
+
+    ``solver`` replaces the run's own solve path (:func:`build_solve_path`)
+    with an async solver of the same duck type (``dispatch``, ``fetch``,
+    ``fetch_many``; the serve plane's ``serve.batcher.JobSolver``), by the
+    JAX package's rules: it turns off the local ladder, the dispatcher, the
+    supervisor and paging; ``--ladder split`` stays on only for a solver
+    with ``routes_streams``; a solver with ``accepts_partial`` gets its
+    batches unpadded; its ``ladder`` and ``hp_ols``, when it has them, are
+    reused instead of built. ``ingest_report`` is a scan of exactly this
+    range made before (the run then does not scan again)."""
     from .faults import FaultPlan
     from .governor import GovernorConfig, check_host_pressure
 
     # the native engine runs on the host: the card is not asked for
+    native = solver is None and cfg.native_solver
     dev = torch.device("cpu") if cfg.native_solver else resolve_device(cfg.device)
-    paged_on = paged_enabled(cfg, dev) and not cfg.native_solver
+    paged_on = paged_enabled(cfg, dev) and not native and solver is None
     _check_config(cfg)
     stats = PipelineStats(paged=paged_on, native_host=cfg.use_native)
     t_start = time.perf_counter()
@@ -1081,7 +1098,7 @@ def correct_shard(db: DazzDB, las: LasFile, cfg: PipelineConfig,
         w0 = worker.worker_s if worker is not None else 0.0
         yield from _correct_range(db, las, cfg, start, end, profile, dev, paged_on,
                                   stats, t_start, tel, plan, gov_cfg,
-                                  check_host_pressure, worker)
+                                  check_host_pressure, worker, solver, ingest_report)
     finally:
         if worker is not None:
             stats.audit_worker_s = worker.worker_s - w0
@@ -1113,17 +1130,163 @@ def _start_audit_worker(cfg: PipelineConfig, dev, ev_log, stats: PipelineStats):
         return shared()
     except Exception as e:
         ev_log.log("audit.disabled", error=str(e)[:200])
-        stats.audit_disabled = str(e)[:200]
+        if stats is not None:
+            stats.audit_disabled = str(e)[:200]
         return None
+
+
+class SolvePath:
+    """The ``dispatch`` and ``fetch_many`` of one solve path and what holds
+    them up: the ladder's ``LadderDispatcher`` thread (None: the calls run
+    on the caller's thread, or the native engine's) and the supervisor
+    (None: unsupervised). ``sync_engine``: the engine solves inside the
+    dispatch call. :meth:`close` stops the threads (the audit worker
+    belongs to the caller)."""
+
+    def __init__(self, dispatch, fetch_many, sync_engine: bool, sup=None,
+                 dispatcher=None):
+        self.dispatch = dispatch
+        self.fetch_many = fetch_many
+        self.sync_engine = sync_engine
+        self.sup = sup
+        self.dispatcher = dispatcher
+
+    def audit_pending(self, handle) -> bool:
+        """Whether ``handle``'s shadow-audit rows are not back yet."""
+        return self.sup is not None and self.sup.audit_pending(handle)
+
+    def close(self) -> None:
+        if self.dispatcher is not None:
+            self.dispatcher.close()
+        if self.sup is not None:
+            self.sup.close()
+
+
+def build_solve_path(profile: ErrorProfile, cfg: PipelineConfig, dev, ladder, *,
+                     native: bool, supervise: bool, tracer, ev_log, plan, gov_cfg,
+                     worker=None, engine_hp: bool | None = None, on_hp=None,
+                     make_ladder=None, audit_rate: float | None = None,
+                     describe_prefix: str = "") -> SolvePath:
+    """The solve path of a run: the one construction ``correct_shard`` and
+    the serve plane's solve groups (``serve/batcher.py``) share, so the two
+    cannot diverge.
+
+    ``native``: the host library's tier ladder (:func:`_build_native_fallback`)
+    solving in the dispatch call, its hp rescue inside it when
+    ``engine_hp`` (default: the config's hp rescue in the host library;
+    ``on_hp(n)`` gets each call's rescued count), supervised inline with
+    itself as the failover and no audit. Otherwise ``ladder`` (a
+    ``TierLadder`` on ``dev``) behind a ``LadderDispatcher`` thread when
+    ``cfg.max_inflight > 1``, the stream tag of a batch picking its program
+    (``stream_dispatcher``); supervised, the warm deadline scales with the
+    card's measured round trip, the failover engine is ``cfg``'s
+    (``failover_backend``; the card's graphs are dropped first), and the
+    shadow audit's reference is the ladder on the CPU (``make_ladder("cpu")``,
+    built once, never copied off the card), solved in ``worker``'s processes
+    when one is given (sent that ladder here). ``audit_rate`` None reads
+    ``cfg.audit_rate``."""
+    from ..kernels.tiers import audit_reference
+    from .supervisor import DeviceSupervisor, SupervisorConfig
+
+    if audit_rate is None:
+        audit_rate = cfg.audit_rate
+    sup_cfg = SupervisorConfig.from_env(**({"failback": True} if cfg.failback else {}))
+    if native:
+        if engine_hp is None:
+            engine_hp = cfg.consensus.hp_rescue and cfg.hp_native
+        # one construction with the failover engine: the two never diverge
+        engine = _build_native_fallback(profile, cfg)
+
+        def native_solve(b):
+            out = engine(b)
+            if engine_hp:
+                n = engine.nladder.hp_rescue(b, out, n_threads=engine.nt)
+                if on_hp is not None:
+                    on_hp(n)
+            return out
+
+        native_solve.__name__ = "native-ladder"
+        if not supervise:
+            # a synchronous engine: its handle is its result
+            return SolvePath(native_solve, list, sync_engine=True)
+        # the primary is the degraded engine: it fails over to itself, and
+        # it is not audited (its reference would be itself)
+        sup = DeviceSupervisor(
+            native_solve, lambda h: h, fallback_factory=lambda: native_solve,
+            log=ev_log, cfg=sup_cfg, faults=plan, probe_fn=lambda: True,
+            describe=describe_prefix + "native-ladder", fingerprint_prefix="native:",
+            inline=True, governor_cfg=gov_cfg, tracer=tracer, audit_rate=audit_rate)
+        return SolvePath(sup.dispatch, sup.fetch_many, sync_engine=True, sup=sup)
+    dispatcher = LadderDispatcher(dev, tracer) if cfg.max_inflight > 1 else None
+    # a batch's stream tag picks its program: Stream A (tier 0 alone) or
+    # the whole ladder (fused batches and Stream B's)
+    dispatch_fn = stream_dispatcher(ladder, dispatcher, tracer)
+    if not supervise:
+        return SolvePath(dispatch_fn, fetch_many, sync_engine=dispatcher is None,
+                         dispatcher=dispatcher)
+    from ..utils.obs import device_alive, measure_rtt_s
+
+    host_ladder: list = []
+
+    def cpu_ladder() -> TierLadder:
+        # built from the profile's numpy tables, never copied off the
+        # card: a poisoned CUDA context cannot be read from
+        if not host_ladder:
+            host_ladder.append(make_ladder("cpu"))
+        return host_ladder[0]
+
+    if worker is not None:
+        worker.build(cpu_ladder().spec())
+
+    def fallback_factory():
+        # the card is lost: its graphs cannot run on a poisoned context
+        graphs.CACHE.clear()
+        kind = cfg.failover_backend
+        if kind == "auto":
+            kind = "cpu" if dev.type == "cpu" else "native"
+        if kind == "native":
+            return _build_native_fallback(profile, cfg)
+        return audit_reference(cpu_ladder())
+
+    rtt_s = None
+    if dev.type == "cuda":
+        # no graph capture of another thread overlaps the probe's copies
+        with graphs.CACHE.lock:
+            rtt_s = measure_rtt_s(device=dev)
+    sup = DeviceSupervisor(
+        dispatch_fn, fetch, fallback_factory=fallback_factory,
+        log=ev_log, cfg=sup_cfg, faults=plan,
+        # the card's warm deadline scales with its measured round trip; a
+        # CPU ladder cannot hang the way a card can and keeps the flat
+        # deadline, as the native engine does
+        rtt_s=rtt_s,
+        probe_fn=lambda: device_alive(sup_cfg.probe_timeout_s, str(dev)),
+        describe=describe_prefix + ("cpu-ladder" if dev.type == "cpu" else "device-ladder"),
+        fingerprint_prefix=f"{dev.type}:", inline=dev.type == "cpu",
+        governor_cfg=gov_cfg, tracer=tracer,
+        # the reference is the card's own ladder on the CPU, byte-exact
+        # with the card; the native engine would not be
+        audit_ref_factory=lambda: audit_reference(cpu_ladder()),
+        audit_rate=audit_rate, audit_worker=worker)
+    return SolvePath(sup.dispatch, sup.fetch_many, sync_engine=dispatcher is None,
+                     sup=sup, dispatcher=dispatcher)
 
 
 def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
                    t_start, tel: _Telemetry, plan, gov_cfg, check_host_pressure,
-                   worker):
+                   worker, solver=None, ingest_report=None):
     log, ev_log, tracer, ledger = tel.log, tel.ev_log, tel.tracer, tel.ledger
     metrics, prof = tel.metrics, tel.stage
+    job = cfg.job_tag
     report = None
-    if cfg.ingest_policy != "off":
+    if ingest_report is not None and cfg.ingest_policy != "off":
+        # scanned before (the serve plane scans a job at admission and again
+        # at its start): the checks are the scan's own, not paid twice
+        report = ingest_report
+        stats.n_ingest_issues = len(report.issues)
+        if report.issues and cfg.ingest_policy == "strict":
+            raise report.error()
+    elif cfg.ingest_policy != "off":
         t0 = time.perf_counter()
         with tracer.span("scan"):
             report = scan_with_db(db, las, start, end)
@@ -1162,9 +1325,11 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
                                       overflow_rescue=cfg.overflow_rescue,
                                       device=device, route=cfg.dp_route)
 
-    native = cfg.native_solver
-    ladder = None
-    if not native:
+    # a custom solver (the serve plane's cross-job batcher) brings its own
+    # solve path and, when it has one, its warm ladder
+    native = solver is None and cfg.native_solver
+    ladder = getattr(solver, "ladder", None)
+    if solver is None and not native:
         with tracer.span("ladder.build"):
             ladder = make_ladder(dev)
     w, adv = cfg.consensus.w, cfg.consensus.adv
@@ -1196,105 +1361,48 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
         labels = [f"D{d}xL{ln}" for d, ln in buckets]
         cap_pages = [None] * len(buckets)
     nb = len(shapes)
-    # the native engine escalates a window on the host: batches go fused
-    split = cfg.ladder_mode == "split" and not native
+    # the native engine escalates a window on the host: batches go fused; a
+    # custom solver runs the two streams only if it routes their tags
+    split = cfg.ladder_mode == "split" and (
+        (solver is None and not native) or getattr(solver, "routes_streams", False))
     if native and (cfg.ladder_mode == "split" or cfg.paged != "off"):
         log.log("info", msg="ladder_mode/paged inapplicable to the native "
                             "engine; running dense and fused")
+    elif solver is not None and (cfg.paged != "off" or (cfg.ladder_mode == "split"
+                                                         and not split)):
+        log.log("info", msg="ladder_mode/paged inapplicable with a custom solver; "
+                            "running dense" + ("" if split else " and fused"))
+    # a solver that pads its own (merged) batches gets them unpadded: rows
+    # padded here would be dead rows it cannot give to another job
+    partial = solver is not None and getattr(solver, "accepts_partial", False)
 
     # the homopolymer rescue: in the native engine's solve call, or a host
     # pass after each fetch (the host library's, or the python loop's)
     hp_nt = cfg.native_threads if cfg.native_threads > 0 else len(os.sched_getaffinity(0))
     hp_ols = hp_nladder = None
     if cfg.consensus.hp_rescue and not (native and cfg.hp_native):
-        from ..oracle.consensus import make_offset_likely
+        # a warm solver's tables, shared read-only across its jobs
+        hp_ols = getattr(solver, "hp_ols", None)
+        if hp_ols is None:
+            from ..oracle.consensus import make_offset_likely
 
-        hp_ols = make_offset_likely(profile, cfg.consensus)
+            hp_ols = make_offset_likely(profile, cfg.consensus)
         if cfg.hp_native:
             from ..native.api import NativeLadder
 
             hp_nladder = NativeLadder(hp_ols, cfg.consensus, max_kmers=cfg.max_kmers,
                                       rescue_max_kmers=cfg.rescue_max_kmers)
 
-    dispatcher = (LadderDispatcher(dev, tracer) if cfg.max_inflight > 1 and not native
-                  else None)
-    if native:
-        # one construction with the failover engine: the two never diverge
-        engine = _build_native_fallback(profile, cfg)
-
-        def native_solve(b):
-            out = engine(b)
-            if cfg.consensus.hp_rescue and cfg.hp_native:
-                stats.n_hp_rescued += engine.nladder.hp_rescue(b, out, n_threads=engine.nt)
-            return out
-
-        native_solve.__name__ = "native-ladder"
-        # a synchronous engine: its handle is its result
-        dispatch_fn, fetch_fn, fetch_many_fn = native_solve, (lambda h: h), list
+    if solver is not None:
+        path = SolvePath(solver.dispatch, solver.fetch_many, sync_engine=False)
     else:
-        # a batch's stream tag picks its program: Stream A (tier 0 alone) or
-        # the whole ladder (fused batches and Stream B's)
-        dispatch_fn = stream_dispatcher(ladder, dispatcher, tracer)
-        fetch_fn, fetch_many_fn = fetch, fetch_many
-    sup = None
-    if cfg.supervise and native:
-        from .supervisor import DeviceSupervisor, SupervisorConfig
-
-        # the primary is the degraded engine: it fails over to itself, and
-        # it is not audited (its reference would be itself)
-        sup = DeviceSupervisor(
-            dispatch_fn, fetch_fn, fallback_factory=lambda: native_solve,
-            log=ev_log,
-            cfg=SupervisorConfig.from_env(**({"failback": True} if cfg.failback else {})),
-            faults=plan, probe_fn=lambda: True, describe="native-ladder",
-            fingerprint_prefix="native:", inline=True, governor_cfg=gov_cfg,
-            tracer=tracer, audit_rate=cfg.audit_rate)
-        dispatch_fn, fetch_fn, fetch_many_fn = sup.dispatch, sup.fetch, sup.fetch_many
-    elif cfg.supervise:
-        from ..kernels.tiers import audit_reference
-        from ..utils.obs import device_alive, measure_rtt_s
-        from .supervisor import DeviceSupervisor, SupervisorConfig
-
-        sup_cfg = SupervisorConfig.from_env(**({"failback": True} if cfg.failback else {}))
-        host_ladder: list = []
-
-        def cpu_ladder() -> TierLadder:
-            # built from the profile's numpy tables, never copied off the
-            # card: a poisoned CUDA context cannot be read from
-            if not host_ladder:
-                host_ladder.append(make_ladder("cpu"))
-            return host_ladder[0]
-
-        if worker is not None:
-            worker.build(cpu_ladder().spec())
-
-        def fallback_factory():
-            # the card is lost: its graphs cannot run on a poisoned context
-            graphs.CACHE.clear()
-            kind = cfg.failover_backend
-            if kind == "auto":
-                kind = "cpu" if dev.type == "cpu" else "native"
-            if kind == "native":
-                return _build_native_fallback(profile, cfg)
-            return audit_reference(cpu_ladder())
-
-        sup = DeviceSupervisor(
-            dispatch_fn, fetch_fn, fallback_factory=fallback_factory,
-            log=ev_log, cfg=sup_cfg, faults=plan,
-            # the card's warm deadline scales with its measured round trip;
-            # a CPU ladder cannot hang the way a card can and keeps the flat
-            # deadline, as the native engine does
-            rtt_s=measure_rtt_s(device=dev) if dev.type == "cuda" else None,
-            probe_fn=lambda: device_alive(sup_cfg.probe_timeout_s, str(dev)),
-            describe="cpu-ladder" if dev.type == "cpu" else "device-ladder",
-            fingerprint_prefix=f"{dev.type}:", inline=dev.type == "cpu",
-            governor_cfg=gov_cfg, tracer=tracer,
-            # the reference is the card's own ladder on the CPU, byte-exact
-            # with the card; the native engine would not be
-            audit_ref_factory=lambda: audit_reference(cpu_ladder()),
-            audit_rate=cfg.audit_rate, audit_worker=worker)
-        dispatch_fn, fetch_fn, fetch_many_fn = sup.dispatch, sup.fetch, sup.fetch_many
-    audit_pending = (sup.audit_pending if sup is not None and cfg.max_inflight > 1
+        path = build_solve_path(
+            profile, cfg, dev, ladder, native=native, supervise=cfg.supervise,
+            tracer=tracer, ev_log=ev_log, plan=plan, gov_cfg=gov_cfg, worker=worker,
+            on_hp=lambda n: setattr(stats, "n_hp_rescued", stats.n_hp_rescued + n),
+            make_ladder=make_ladder)
+    dispatch_fn, fetch_many_fn, sup = path.dispatch, path.fetch_many, path.sup
+    audit_pending = (path.audit_pending if sup is not None and cfg.max_inflight > 1
                      else lambda h: False)
     # the saturation accounting: a synchronous engine (the native engine, or
     # the ladder on the pipeline's thread at max_inflight=1) solves inside
@@ -1306,7 +1414,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
     # from a dispatch into an empty deque to the fetch that empties it; the
     # port's deque holds finished calls until half of it drains, so that
     # integral reads the whole run busy whatever the card does
-    sync_engine = native or dispatcher is None
+    sync_engine = path.sync_engine
     busy = [0.0]
 
     def timed_dispatch(batch):
@@ -1323,16 +1431,19 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
 
     # one torch.profiler capture a run (DACCORD_PROFILE_DIR): the Nth ladder
     # call (DACCORD_PROFILE_DISPATCH, default 2: past the first shape's build
-    # and capture) from its dispatch through the drain that fetches it,
-    # written as a chrome trace into the directory. The deque is drained
-    # before the call and the call fetched right after it, so the profiler
-    # starts and stops with no ladder call in flight on the dispatcher's
-    # thread (the JAX package's capture leaves the deque as it is). Never on
-    # the native engine
+    # and capture) from its dispatch through the drain that fetches it (the
+    # JAX package's bracket: the calls in flight stay in flight), written as
+    # a chrome trace into the directory. The profiler's start and stop take
+    # the graph cache's lock, which the dispatcher thread holds around each
+    # call: CUPTI's stop deadlocked with a graph replay on the dispatcher's
+    # thread (both threads' stacks, H100: PERF.md section 7), and under the
+    # lock no replay runs while CUPTI turns on or off. Never on the native
+    # engine or with a custom solver
     from ..utils.obs import env_float
 
     prof_dir = os.environ.get("DACCORD_PROFILE_DIR")
-    cap = {"n": 0, "active": None, "done": not prof_dir or native,
+    cap = {"n": 0, "fetched": 0, "active": None,
+           "done": not prof_dir or native or solver is not None,
            "at": max(1, int(env_float("DACCORD_PROFILE_DISPATCH", 2)))}
 
     def prof_due() -> bool:
@@ -1345,36 +1456,38 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
     def prof_start() -> None:
         cap["done"] = True
         try:
-            drain(0)
             t0 = time.perf_counter()
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
             acts = [torch.profiler.ProfilerActivity.CPU]
             if dev.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             os.makedirs(prof_dir, exist_ok=True)
             p = torch.profiler.profile(activities=acts)
-            p.start()
+            with graphs.CACHE.lock:
+                p.start()
             cap["active"] = p
-            # wall_s: what the capture itself cost the run past the drains
-            # around it (here the start; at stop the stop and the export)
+            # wall_s: what the capture itself cost the run (here the start;
+            # at stop the stop and the export)
             ev_log.log("profile.capture", dir=prof_dir, dispatch=cap["n"], state="start",
                        wall_s=round(time.perf_counter() - t0, 4))
         except Exception as e:   # profiling must never sink a run
             log.log("warn", msg=f"profiler start failed: {e}")
 
-    def prof_stop(wait: bool = True) -> None:
+    def prof_landed(n: int) -> None:
+        """Count ``n`` fetched calls; stop the capture at the drain that
+        fetched the captured one (calls land oldest first)."""
+        cap["fetched"] += n
+        if cap["active"] is not None and cap["fetched"] >= cap["n"]:
+            prof_stop()
+
+    def prof_stop() -> None:
         p = cap["active"]
         if p is None:
             return
         cap["active"] = None
         try:
-            if wait:
-                drain(0)
             t0 = time.perf_counter()
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            p.stop()
+            with graphs.CACHE.lock:
+                p.stop()
             path = os.path.join(prof_dir, f"daccord-{os.getpid()}-{cap['n']}.trace.json")
             p.export_chrome_trace(path)
             ev_log.log("profile.capture", dir=prof_dir, dispatch=cap["n"], state="stop",
@@ -1382,8 +1495,8 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
         except Exception as e:
             log.log("warn", msg=f"profiler stop failed: {e}")
 
-    # an aborted run stops an open capture without waiting for the deque
-    tel.prof_stop = lambda: prof_stop(wait=False)
+    # an aborted run still stops an open capture and writes its trace
+    tel.prof_stop = prof_stop
 
     pending: dict[int, _PendingRead] = {}
     order: list[int] = []
@@ -1448,7 +1561,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
                 ledger.record(int(rid[i]), int(widx[i]), w, int(nsegs_b[i]), t,
                               tier_ks[t] if 0 <= t < len(tier_ks) else -1,
                               bool(solved[i]), stream,
-                              rescued=stream == "rescue" or t >= 1, wall_s=wall)
+                              rescued=stream == "rescue" or t >= 1, wall_s=wall, job=job)
 
     def drain(to_depth: int, audited_only: bool = False) -> None:
         """Fetch the oldest calls until ``to_depth`` stay in flight, and
@@ -1492,6 +1605,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
         outs = fetch_many_fn([e[0] for e in entries])
         now = time.perf_counter()
         tracer.close(f_sp)
+        prof_landed(len(entries))
         stats.device_s += now - t0
         metrics.counter("fetch_calls").inc()
         for (h, rid, widx, take, nsegs_b, t_d, bi, stream, seqs, lens, b_sp), out in zip(
@@ -1520,7 +1634,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
                     rid, widx, nsegs_b = rid[keep], widx[keep], nsegs_b[keep]
                     seqs, lens = seqs[keep], lens[keep]
                     take = len(keep)
-            elif stream == "full" and not native:
+            elif stream == "full" and ladder is not None:
                 # the fused ladder's rescue demand, from its final rows
                 # (escalation-solved, still failed at depth, and top-M
                 # capped with the overflow rescue on; a tier-0 failure the
@@ -1558,7 +1672,8 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
         own span, and the two stay disjoint."""
         seqs, lens, nsg, rid, widx, pgs = buf.pop(take)
         batch = WindowBatch(seqs=seqs, lens=lens, nsegs=nsg, shape=shapes[bi],
-                            read_ids=rid, wstarts=widx * adv, stream=stream)
+                            read_ids=rid, wstarts=widx * adv, stream=stream,
+                            job=job or "")
         if paged_on:
             n_pages = int(pgs.sum())
             with prof.timed("pack"):
@@ -1569,9 +1684,10 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
                        pool_pages=int(batch.pool.shape[0] - 1),
                        table_cells=int(batch.table.size) * 4,
                        occupancy=round(n_pages / max(batch.pool.shape[0] - 1, 1), 4))
-        elif native:
+        elif native or partial:
             # the host engine walks real rows: padding would only add dead
-            # ones (and each partial batch keeps its own shape key)
+            # ones (and each partial batch keeps its own shape key); a
+            # partial-capable solver pads the batches it merges
             stats.pad_cells += int(batch.seqs.size)
         else:
             with prof.timed("pack"):
@@ -1595,8 +1711,6 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
         stats.batches_by_bucket[labels[bi]] = stats.batches_by_bucket.get(labels[bi], 0) + 1
         inflight.append((handle, rid, widx, take, nsg, time.perf_counter(), bi, stream,
                          seqs, lens, b_sp))
-        if capture:
-            prof_stop()
         stats.peak_inflight = max(stats.peak_inflight, len(inflight))
         if len(inflight) >= cfg.max_inflight:
             drain(cfg.max_inflight // 2,
@@ -1863,7 +1977,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
                 if ledger is not None:
                     for wj in np.nonzero(shallow)[0]:
                         ledger.record(aread, int(wj), w, int(nsegs[wj]), -1, -1, False,
-                                      "skip", rescued=False, wall_s=0.0)
+                                      "skip", rescued=False, wall_s=0.0, job=job)
                 keep = ~shallow
                 seqs, lens, nsegs, widx = seqs[keep], lens[keep], nsegs[keep], widx[keep]
                 rid = np.full(len(nsegs), aread, dtype=np.int64)
@@ -1895,10 +2009,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
             stats.audit_tail = worker.anatomy(t_final)
         yield from emit_ready()
     finally:
-        if dispatcher is not None:
-            dispatcher.close()
-        if sup is not None:
-            sup.close()
+        path.close()
         if qfh is not None:
             qfh.close()
     stats.wall_s = time.perf_counter() - t_start

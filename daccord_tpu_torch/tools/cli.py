@@ -654,6 +654,195 @@ def shard_main(argv=None) -> int:
     return 0
 
 
+def serve_main(argv=None) -> int:
+    """serve: the always-on consensus service. An HTTP/JSON front end takes
+    concurrent correction jobs, a cross-job batcher merges their windows
+    into shared device batches (each job's FASTA byte-identical to a solo
+    daccord run), per-tenant admission control with RSS and free-disk
+    watermarks sheds load, and a warm-state manager keeps each solve group
+    (its ladder on the card, its CUDA graphs, its threads and audit
+    workers) resident across jobs."""
+    p = argparse.ArgumentParser(prog="serve", description=serve_main.__doc__)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8947,
+                   help="listen port (0 = ephemeral; pair with --ready-file)")
+    p.add_argument("--workdir", required=True,
+                   help="service state root: job spool dirs, durable job "
+                        "commits, telemetry sidecars")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="where the groups' ladders run (default cuda, or cpu "
+                        "for --backend cpu|native; no fallback)")
+    p.add_argument("--backend", choices=BACKENDS, default="auto",
+                   help="the engine of every solve group (see daccord "
+                        "--backend); auto follows --device")
+    p.add_argument("-b", "--batch", type=int, default=None,
+                   help="merged cross-job dispatch width (default: 2048 on "
+                        "cuda, 512 on cpu, 4096 native)")
+    p.add_argument("--workers", type=int, default=2,
+                   help="concurrent job slots (each job runs its own "
+                        "feeder; the device is shared through the batcher)")
+    p.add_argument("--ladder", choices=("fused", "split"), default="fused",
+                   help="group dispatch strategy (see daccord --ladder); "
+                        "ladder groups only: native groups run fused dense")
+    p.add_argument("--paged", action="store_true",
+                   help="pack merged cross-job batches as the paged wire "
+                        "format (kernels/paging.py); ladder groups only")
+    p.add_argument("--dp", choices=("fused", "scan"), default="fused",
+                   help="the groups' heaviest-path route (see daccord --dp)")
+    p.add_argument("--flush-lag-ms", type=float, default=50.0,
+                   help="stale cross-job pool flush deadline: bounds the "
+                        "latency one job's rows can pay waiting for others")
+    p.add_argument("--idle-evict-s", type=float, default=600.0,
+                   help="warm solve-group TTL (the group, its graphs, "
+                        "threads and workers go after this long idle)")
+    p.add_argument("--max-queued", type=int, default=32,
+                   help="service-wide admission queue depth")
+    p.add_argument("--tenant-max-queued", type=int, default=8,
+                   help="queued+running jobs per tenant")
+    p.add_argument("--tenant-max-mb", type=float, default=1024.0,
+                   help="queued input bytes per tenant (MB)")
+    p.add_argument("--rss-soft-mb", type=float, default=0.0,
+                   help="pause admission at this host RSS (set below the "
+                        "pipeline's DACCORD_GOV_RSS_* watermarks so new "
+                        "work sheds before running feeders pause); 0 = off")
+    p.add_argument("--rss-hard-mb", type=float, default=0.0,
+                   help="reject and engage the batch-ladder shed at this "
+                        "host RSS; 0 = off")
+    p.add_argument("--events", default=None, metavar="PATH",
+                   help="service events jsonl (serve.* lifecycle + metrics "
+                        "snapshots; default WORKDIR/serve.events.jsonl)")
+    p.add_argument("--ready-file", default=None, metavar="PATH",
+                   help="write {port, pid} JSON here once the listener is "
+                        "bound (scripts discovering an ephemeral --port 0)")
+    p.add_argument("--metrics-snapshot-s", type=float, default=30.0)
+    p.add_argument("--slo-p99-s", type=float, default=0.0,
+                   help="p99 job-latency SLO target: the ticker tracks "
+                        "rolling p99 against it, emits serve.slo burn events "
+                        "and sheds batch width before a breach (0 = off)")
+    p.add_argument("--slo-window-s", type=float, default=60.0,
+                   help="rolling window the SLO p99 is computed over")
+    p.add_argument("--no-journal", action="store_true",
+                   help="disable the write-ahead job journal (jobs queued "
+                        "or running at a crash are then lost; the default "
+                        "journal replays them on restart)")
+    p.add_argument("--checkpoint-reads", type=int, default=16,
+                   help="per-job progress checkpoint stride (emitted reads "
+                        "between durable progress manifests: the resume "
+                        "point of a replay or takeover; 0 = off)")
+    p.add_argument("--peer-dir", default=None, metavar="DIR",
+                   help="shared-FS lease root: serve processes pointing at "
+                        "the same dir form a takeover group; any of them "
+                        "claims a dead peer's stale per-job lease and "
+                        "finishes the journaled job byte-identically "
+                        "(default: off, journal replay only)")
+    p.add_argument("--peer-name", default="", metavar="NAME",
+                   help="lease holder identity (default "
+                        "<workdir-basename>@<host>:<pid>)")
+    p.add_argument("--lease-ttl-s", type=float, default=15.0,
+                   help="a per-job lease older than this is stale (peer "
+                        "takeover fires)")
+    p.add_argument("--heartbeat-s", type=float, default=1.0,
+                   help="lease renewal and takeover-scan cadence")
+    p.add_argument("--drain-deadline-s", type=float, default=0.0,
+                   help="bounded graceful shutdown: a drain outliving this "
+                        "journal-marks in-flight jobs INTERRUPTED (resumable "
+                        "on restart) and exits nonzero (0 = unbounded)")
+    p.add_argument("--audit-rate", type=float, default=None, metavar="F",
+                   help="sampled shadow verification for solve groups: the "
+                        "fraction of windows per merged batch re-solved on "
+                        "the CPU ladder and compared (default: env "
+                        "DACCORD_AUDIT_RATE or 1/64; 0 disables; native "
+                        "groups never audit). Never changes output bytes")
+    args = p.parse_args(argv)
+
+    backend_explicit = args.backend != "auto"
+    _resolve_device(args)
+    if args.backend == "auto":
+        args.backend = args.device
+    if args.paged and args.backend == "native":
+        raise SystemExit("--paged is the ladder's wire format; --backend "
+                         "native solves dense rows on host (drop one flag)")
+    if args.ladder == "split" and args.backend == "native":
+        raise SystemExit("--ladder split is the ladder's dispatch strategy; "
+                         "--backend native escalates per window on host")
+    if args.audit_rate is not None and not 0.0 <= args.audit_rate <= 1.0:
+        raise SystemExit("--audit-rate must be within [0, 1]")
+    if args.backend == "cuda":
+        from ..utils.device import resolve_device
+
+        try:
+            resolve_device("cuda")
+        except RuntimeError as e:
+            # no fallback hides the card: a cuda service without one does
+            # not start
+            raise SystemExit(f"serve --backend cuda: {e}") from None
+    from ..runtime.faults import FaultPlan
+
+    try:
+        FaultPlan.from_env()
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    from ..utils.obs import auto_batch_size
+
+    if args.batch is None:
+        args.batch = auto_batch_size(args.backend)
+    from ..serve import AdmissionConfig, ConsensusService, ServeConfig
+    from ..serve.http import start_server
+
+    cfg = ServeConfig(
+        workdir=args.workdir, backend=args.backend,
+        backend_explicit=backend_explicit, batch=args.batch,
+        workers=args.workers, ladder_mode=args.ladder, paged=args.paged,
+        dp_route=args.dp, flush_lag_s=args.flush_lag_ms / 1000.0,
+        idle_evict_s=args.idle_evict_s,
+        metrics_snapshot_s=args.metrics_snapshot_s,
+        slo_p99_s=args.slo_p99_s, slo_window_s=args.slo_window_s,
+        journal=not args.no_journal,
+        checkpoint_reads=args.checkpoint_reads,
+        peer_dir=args.peer_dir, peer_name=args.peer_name,
+        lease_ttl_s=args.lease_ttl_s, heartbeat_s=args.heartbeat_s,
+        drain_deadline_s=args.drain_deadline_s, audit_rate=args.audit_rate,
+        admission=AdmissionConfig(
+            max_queued_jobs=args.max_queued,
+            tenant_max_queued=args.tenant_max_queued,
+            tenant_max_bytes=int(args.tenant_max_mb * 1024 * 1024),
+            rss_soft_mb=args.rss_soft_mb, rss_hard_mb=args.rss_hard_mb),
+        events_path=args.events)
+    svc = ConsensusService(cfg)
+    httpd, port, _t = start_server(svc, args.host, args.port)
+    # router discovery: publish the URL as an announce lease beside the job
+    # leases (a no-op without --peer-dir)
+    svc.announce(f"http://{args.host}:{port}")
+    if args.ready_file:
+        from ..utils.aio import durable_write
+
+        durable_write(args.ready_file,
+                      lambda fh: json.dump({"port": port, "pid": os.getpid()}, fh),
+                      mode="wt")
+    print(json.dumps({"serving": f"http://{args.host}:{port}",
+                      "backend": args.backend, "batch": args.batch,
+                      "workdir": args.workdir}), file=sys.stderr)
+    import signal
+    import threading
+
+    def _stop(signum, frame):
+        # graceful drain on SIGTERM/SIGINT: in-flight jobs finish, pools
+        # drain, telemetry commits durably
+        threading.Thread(target=lambda: (svc.shutdown(drain=True), httpd.shutdown()),
+                         daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _stop)
+    # SIGINT takes the same graceful path (no KeyboardInterrupt surfaces
+    # once the handler is installed)
+    signal.signal(signal.SIGINT, _stop)
+    # serve_forever runs on the daemon thread; block until shutdown()
+    _t.join()
+    # an unclean drain (a wedged group thread outliving --drain-deadline-s,
+    # its in-flight jobs journal-marked INTERRUPTED) exits nonzero, so a
+    # supervisor knows to restart and replay
+    return 0 if getattr(svc, "clean", True) else 1
+
+
 def merge_main(argv=None) -> int:
     """daccord-merge: validating merge gate and crash-durable concatenation
     of the shard FASTAs: manifests are checked for presence, byte-range
@@ -1131,6 +1320,7 @@ def qveval_main(argv=None) -> int:
 _TOOLS = {
     "daccord": daccord_main,
     "shard": shard_main,
+    "serve": serve_main,
     "merge": merge_main,
     "audit": audit_main,
     "inqual": intrinsicqv_main,

@@ -34,8 +34,13 @@ The port's copy of those parts of ``daccord_tpu/utils/obs.py``:
   manifests, the merge gate, ``tools/audit.py``), :func:`result_digest`,
   :func:`row_digests` and :func:`batch_digest`.
 
-The fleet's and the mesh's parts of the JAX module (the trust registry, the
-disk-free gauge, the auto batch size and backend) are not ported yet.
+- The serve plane's host gauges: :func:`disk_free_mb` (the free-bytes
+  watermarks of admission and the disk-pressure governor) and
+  :func:`auto_batch_size` (the merged dispatch width ``serve`` uses when
+  ``-b`` is not given).
+
+The fleet's and the mesh's parts of the JAX module (the trust registry and
+the auto backend probe) are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,6 +61,11 @@ DURABLE_EVENTS = frozenset({
     "ingest.fault", "ingest.commit", "ingest.quarantine",
     "governor.classify", "governor.monster",
     "io.fault", "sup_sdc", "trust.state",
+    # the serve tier's recovery milestones (the journal fsyncs each record;
+    # these are its mirrors in the event stream) and its disk-pressure
+    # transitions: what a post-crash investigation reads
+    "serve.replay", "serve.takeover", "serve.commit", "serve.abort",
+    "disk.pressure", "journal.compact",
 })
 
 _TEL_DROPPED = 0
@@ -69,6 +79,34 @@ def _note_dropped(n: int) -> None:
 def telemetry_dropped_total() -> int:
     """Lines dropped by telemetry writers process-wide (0 = none)."""
     return _TEL_DROPPED
+
+
+def disk_free_mb(path: str) -> float:
+    """Free MiB on the filesystem holding ``path`` (walking up to the
+    nearest existing ancestor: a watched directory may not exist yet); -1.0
+    when even statvfs fails. The free-bytes gauge of the serve plane's
+    disk-pressure watermarks, beside the governor's ``host_rss_mb``."""
+    p = os.path.abspath(path or ".")
+    while p and not os.path.exists(p):
+        parent = os.path.dirname(p)
+        if parent == p:
+            break
+        p = parent
+    try:
+        st = os.statvfs(p)
+    except (OSError, AttributeError):
+        return -1.0
+    return st.f_bavail * st.f_frsize / float(1 << 20)
+
+
+def auto_batch_size(backend: str) -> int:
+    """The batch when ``-b`` is not given, by the port's backend: the native
+    engine pays no shape-scaled cost, so bigger is better (4096); the ladder
+    on the card runs 2048 (the TPU's width in the JAX package's mapping),
+    on the CPU 512."""
+    if backend == "native":
+        return 4096
+    return 2048 if backend == "cuda" else 512
 
 
 class JsonlLogger:
@@ -233,7 +271,8 @@ class WindowLedger:
     pipeline accounted (identity, length, depth, the tier reached, whether
     it solved, its batch's turnaround from dispatch to scatter), through a
     buffered :class:`JsonlLogger`. Rows record the outcome at solve time; a
-    later end-trim does not rewrite them."""
+    later end-trim does not rewrite them. ``job`` (a serve job's tag) joins
+    a row only when given, so a batch run's ledger keeps its schema."""
 
     def __init__(self, path: str):
         self.log = JsonlLogger(path, buffer_lines=256, flush_s=5.0)
@@ -241,22 +280,24 @@ class WindowLedger:
 
     def record(self, aread: int, widx: int, length: int, depth: int,
                tier: int, k: int, solved: bool, stream: str, rescued: bool,
-               wall_s: float) -> None:
+               wall_s: float, job: str | None = None) -> None:
         self.rows += 1
         log = self.log
         if log._fh is None:
             return
         # a hand-built line (fixed schema, scalar fields): the ledger is the
-        # highest-volume record, and skipping json.dumps keeps it cheap
+        # highest-volume record, and skipping json.dumps keeps it cheap. The
+        # job tag is a client's string, so it is quoted by json.dumps
+        jf = ', "job": %s' % json.dumps(job) if job else ""
         now = time.time()
         with log._lock:
             log._buf.append(
                 '{"t": %.3f, "ts": %.6f, "event": "window", "aread": %d, '
                 '"widx": %d, "len": %d, "depth": %d, "tier": %d, "k": %d, '
-                '"solved": %s, "stream": "%s", "rescued": %s, "wall_s": %.6f}\n'
+                '"solved": %s, "stream": "%s", "rescued": %s, "wall_s": %.6f%s}\n'
                 % (now - log._t0, now, aread, widx, length, depth, tier, k,
                    "true" if solved else "false", stream,
-                   "true" if rescued else "false", wall_s))
+                   "true" if rescued else "false", wall_s, jf))
             if (len(log._buf) >= log._buffer_lines
                     or (log._flush_s and now - log._last_flush >= log._flush_s)):
                 log._flush_locked()

@@ -206,12 +206,19 @@ def test_telemetry_changes_no_byte_under_the_fault_matrix(runs, fault, tmp_path,
 
 def test_feeder_stall_moves_the_verdict_to_the_stall_with_the_same_bytes(runs, tmp_path,
                                                                          monkeypatch):
-    """``DACCORD_FAULT=feeder_stall:250`` sleeps a quarter second a pile
-    block: the run's wall is then mostly the stall, whatever the load, so
-    the verdict is ``host_feeder`` with ``stall`` its named stage and the
-    device idle share rises; the bytes do not move. No wall is compared."""
+    """``DACCORD_FAULT=feeder_stall:MS`` sleeps MS a pile block: the run's
+    wall is then mostly the stall, so the verdict is ``host_feeder`` with
+    ``stall`` its named stage and the device idle share rises; the bytes do
+    not move. MS is sized from the base run's own walls (at least 250): the
+    stall's total is eight times the base run's dispatch wall and feeder
+    wall together, so it dominates the run whatever load the host is under
+    (on a loaded host a fixed stall could fall below the engine's share of
+    the wall, which the native engine books as blocked). No wall is
+    compared."""
     base = runs[("port", "native")]
-    monkeypatch.setenv("DACCORD_FAULT", "feeder_stall:250")
+    blocks = sum(r["name"] == "feeder" for r in _spans(_events(base[2]))) - 1
+    ms = max(250, int(8e3 * (base[1].dispatch_s + base[1].feeder_s) / max(blocks, 1)) + 1)
+    monkeypatch.setenv("DACCORD_FAULT", f"feeder_stall:{ms}")
     fasta, st, ev = _run("port", "native", str(tmp_path), "stall")
     assert fasta == base[0]
     assert base[1].bottleneck["stage"] != "stall"
@@ -219,9 +226,9 @@ def test_feeder_stall_moves_the_verdict_to_the_stall_with_the_same_bytes(runs, t
     assert st.bottleneck["device_idle_frac"] > base[1].bottleneck["device_idle_frac"]
     recs = _events(ev)
     assert any(r["event"] == "sup_fault" and r["kind"] == "feeder_stall"
-               and r["op"] == "feeder" and r["n"] == 250 for r in recs)
+               and r["op"] == "feeder" and r["n"] == ms for r in recs)
     assert st.stage_profile["stages"]["stall"]["calls"] == sum(
-        r["name"] == "feeder" for r in _spans(recs)) - 1
+        r["name"] == "feeder" for r in _spans(recs)) - 1 == blocks
     assert prof.prof_main(["--check", ev]) == 0
 
 
