@@ -43,9 +43,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    solve wall (``audit_worker_s``), its start walls and the shares of the
    run's wall, fails if the audit was disabled, and is run again at audit
    rate 0, which must write the same FASTA byte for byte (its wall on the
-   line), then with the audit on the pipeline's thread only (no worker,
-   the torch CPU ladder) and with the default again (warm, as the run at
-   rate 0 is). Then the worker's reference on 32 and 256 real
+   line), then (the 20 kb runs) with the audit on the pipeline's thread
+   only (no worker, the torch CPU ladder) and with the default again
+   (warm, as the run at rate 0 is), the paged run also with the numpy take of the audited rows
+   (the take before the host library's); the audit's sends and the rows'
+   take are printed with their wall and the pipeline thread's CPU time in
+   them, and each warm rerun's wall against the run at rate 0. Then the
+   worker's reference on 32 and 256 real
    windows of the 100 kb set: bit-equal to the torch CPU ladder, and both
    timed (one thread);
 4b. the slice's checks on the 20 kb set, each a ``daccord`` run with the
@@ -65,15 +69,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    one below the deepest pile contains the deepest piles only; ``-J 0,3``,
    ``-J 1,3`` and ``-J 2,3`` concatenate to the unsharded FASTA, byte for
    byte;
-4c. hp phase, each run with the counts set to 0 before it: on a 100 kb /
-   30x set of 5 kb reads damaged by homopolymer indels (``hp_indel_slope``
-   1.0, seed 44, ~300k windows; one profile estimated as an hp run does),
-   dense fused ``-t N`` without the rescue, with ``--hp-rescue`` (median
+4c. hp phase, each run with the counts set to 0 before it: on the 20 kb
+   set damaged by homopolymer indels (``hp_indel_slope`` 1.0; one profile
+   estimated as an hp run does; a 100 kb hp set left the smoke for its
+   time limit), dense fused ``-t N`` without the rescue, with ``--hp-rescue`` (median
    vote, rescore accept) and with ``--hp-rescue --hp-vote posterior
    --hp-accept likelihood``: each prints its wall, windows/s,
    ``n_hp_rescued``, ``hp_wall_s`` and its share of the wall, ``audit_s``
    and the corrected and raw error, and both rescue runs must rescue
-   windows and beat the run without; on a 20 kb hp set of the same slope
+   windows and beat the run without; on the same set
    ``--paged on --dp scan -t N --hp-rescue`` must launch ``gather_pages``
    and ``heaviest_path``, and ``--backend native`` (the default hp rescue
    and an explicit ``--hp-rescue``, the same FASTA) must stay within 0.5%
@@ -104,21 +108,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``heaviest_path``, ``rescore`` and ``position_weights`` must launch), and
    shard 0 again with an ``InjectedCrash`` after its first checkpoint, then
    resumed: the same FASTA byte for byte; ``merge``, ``audit`` (the sha256
-   chain, and two piles re-solved on the CPU ladder) and ``qveval``; the
+   chain, and one pile re-solved on the CPU ladder) and ``qveval``; the
    plain arm, ``daccord`` on the unfiltered LAS with ``--qv-track ''``, and
    the two mixed arms (the unfiltered LAS ranked, the filtered LAS
    unranked): every arm's error and Q beside the card's name and power
    limit, the track arm held below half the raw error;
 4e. telemetry phase: the cost of ``--events`` on the 20 kb dense fused run
-   (``tools/wall_ab.py``, a fresh process a turn in the order A B B A, B
-   with ``--events``; then the same pair warm in this process, A B B
-   A, and one warm run of each under cProfile: the pipeline thread's own
-   time in the telemetry functions),
+   (warm in this process, A B B A, B with ``--events``; fresh processes in
+   turns are ``tools/wall_ab.py``'s, outside the smoke), and one warm run
+   of each under cProfile: the pipeline thread's own time in the telemetry
+   functions,
    the 100 kb dense fused run again with ``--events``,
    ``--metrics-snapshot-s 2`` and ``DACCORD_PROFILE_DIR`` (a torch.profiler
    capture of its second ladder call, the JAX package's bracket: from its
    dispatch to the drain that fetches it, the other calls in flight; again
-   at the 5th and the 13th call, each run bounded at 120 s), read by the
+   at the 5th call, the one that hung before the repair, bounded at 120 s),
+   read by the
    port's own tools:
    ``eventcheck --strict``, ``trace --check --json`` (the wall's split
    into spans, with "else" split into the pile loop's own work, the
@@ -160,6 +165,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``--workers 3 --flush-lag-ms 1000``) takes three 20 kb jobs: the OOM
    leaves a ceiling at half the width, every later merged batch (mixed ones
    among them, at least one) runs bisected, and the bytes do not move;
+4g. fleet and router phase, the multi-process layer through its entry
+   points (``python -m daccord_tpu_torch.tools.cli fleet|shard|serve|
+   router``), each process counting its own kernel launches (the shards in
+   ``shardNNNN.launches.json``, the peers in ``/v1/metrics``): the 100 kb
+   set through ``fleet -n 4 --backend cuda -b 2048 --merge`` at 1, 2 and 4
+   workers (``-t`` = the CPUs over the workers, at most 8), each fleet's
+   wall to the merged FASTA, windows/s, its workers' walls and saturation
+   gauges and the card's peak used memory (``nvidia-smi`` every 0.5 s);
+   the four shards as ``shard`` processes in turn; phase 4's single-process
+   run; every merged FASTA byte-identical to the in-turn shards'. The fleet
+   at W=2 under ``DACCORD_FAULT=worker_crash:1,worker_oom:2,lease_stall:1``
+   (same bytes, the OOM'd shard requeued once at ``-b 1024``, its event
+   file clean under ``eventcheck --strict``); the paged scan route's fleet
+   (``-n 2`` on the 20 kb set) against its in-turn shards. Then two
+   ``serve --backend cuda -b 2048 --peer-dir P --aot-cache A`` peers, each
+   run from a copy of the package with no kernel library in its build
+   directory (a peer on another host: the first builds and publishes the
+   five kernels, the second installs them from the cache), and a ``router
+   --peer-dir P``: 4f's dense mix through the router, every job
+   byte-identical to its solo card run, with its latency and the windows/s
+   against the solo runs' sum and against 4f's one service; the owner of
+   tenant a SIGKILLed in the middle of a proxied stream, the same
+   idempotency key resubmitted through the router until it lands, exactly
+   once, on the survivor, with the solo bytes; five ``aot.publish`` on the
+   first peer, five ``aot.hit`` on the second; a third peer started after
+   one byte of ``rescore``'s cache entry is flipped logs ``aot.reject
+   reason=corrupt``, builds that kernel with nvcc, re-publishes it and
+   serves the same bytes;
 5. kernel phase, on inputs made from real windows of the dataset (topped up
    from a seeded generator if there were fewer than B), each kernel held
    bit-equal to its plain torch version on the card and timed (its device
@@ -210,6 +243,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -946,7 +980,9 @@ def audit_text(stats) -> str:
     w = stats.wall_s
     return (f"shadow audit (rate 1/64) audit_s {stats.audit_s:.4f} s, "
             f"{stats.audit_s / w:.4f} of the wall (its sends {stats.audit_send_s:.4f} s, "
-            f"of which taking the sampled rows {stats.audit_take_s:.4f} s); audit_worker_s "
+            f"CPU {stats.audit_send_cpu_s:.4f} s; of which taking the sampled rows "
+            f"{stats.audit_take_s:.4f} s, CPU {stats.audit_take_cpu_s:.4f} s: the "
+            f"pipeline thread's CPU time, a 10 ms clock on some hosts); audit_worker_s "
             f"{stats.audit_worker_s:.4f} s ({stats.audit_worker_s / w:.4f}); "
             f"{stats.audit_local} of {stats.sup_counters.get('audits', 0)} audits on the "
             f"pipeline's thread, their warm-up audit_warm_s "
@@ -1206,15 +1242,17 @@ def hp_phase(d: dict, eprof: str, split_out: str, counters, tmp: str,
             f"{ {k: v[0] for k, v in launched.items()} }")
         return out, stats, launched, err, raw
 
-    big = dict(BIG_DATASET, seed=44, hp_indel_slope=1.0)
-    ds, ep = hp_set(big, "hpbig")
+    # the vote arms on the 20 kb hp set (the 100 kb one's three runs, ~50 s,
+    # left the smoke for its time limit)
+    small = dict(DATASET, hp_indel_slope=1.0)
+    ds, ep = hp_set(small, "hp20")
     dense = ["--device", DEVICE, "--paged", "off", "--dp", "fused", "-t", str(nthreads)]
-    _, off, l_off, e_off, raw = run("100 kb off", ds, ep, *dense, "--no-hp-rescue")
+    _, off, l_off, e_off, raw = run("20 kb off", ds, ep, *dense, "--no-hp-rescue")
     if off.n_hp_rescued:
         raise AssertionError("--no-hp-rescue rescued windows")
-    for tag, extra in (("100 kb median", ("--hp-rescue",)),
-                       ("100 kb posterior", ("--hp-rescue", "--hp-vote", "posterior",
-                                             "--hp-accept", "likelihood"))):
+    for tag, extra in (("20 kb median", ("--hp-rescue",)),
+                       ("20 kb posterior", ("--hp-rescue", "--hp-vote", "posterior",
+                                            "--hp-accept", "likelihood"))):
         _, st, launched, err, _ = run(tag, ds, ep, *dense, *extra)
         if not (st.n_hp_rescued > 0 and err < e_off):
             raise AssertionError(f"hp {tag}: rescued {st.n_hp_rescued} windows, error "
@@ -1223,8 +1261,6 @@ def hp_phase(d: dict, eprof: str, split_out: str, counters, tmp: str,
             if launched[name][0] <= 0:
                 raise AssertionError(f"hp {tag} never launched {name}")
 
-    small = dict(DATASET, hp_indel_slope=1.0)
-    ds, ep = hp_set(small, "hp20")
     card_out, card, launched, e_card, _ = run(
         "20 kb paged scan", ds, ep, "--device", DEVICE, "--paged", "on", "--dp", "scan",
         "-t", str(nthreads), "--hp-rescue")
@@ -1491,8 +1527,8 @@ def workflow_phase(counters, tmp: str, nthreads: int, smi: str) -> None:
     merged = os.path.join(w, "corrected.fasta")
     tool("merge", "merge", out, "2", merged)
     tool("audit", "audit", out, "--nshards", "2")
-    tool("audit --resolve 2", "audit", out, "--nshards", "2", "--db", db_path,
-         "--las", sym, "--resolve", "2", "--shard", "0")
+    tool("audit --resolve 1", "audit", out, "--nshards", "2", "--db", db_path,
+         "--las", sym, "--resolve", "1", "--shard", "0")
     qj = os.path.join(w, "q_track.json")
     tool("qveval (track arm)", "qveval", merged, ds["truth"], "--raw-db", db_path,
          "--json", qj)
@@ -1565,19 +1601,8 @@ def telemetry_phase(d: dict, eprof: str, big: dict, big_eprof: str, counters,
     from daccord_tpu_torch.tools.eventcheck import validate_events
     from daccord_tpu_torch.utils.obs import render_prom
 
-    # the cost of --events: fresh processes in turns, then warm in this one
-    ab_events = os.path.join(tmp, "ab.events.jsonl")
-    res = subprocess.run(
-        [sys.executable, "-m", "daccord_tpu_torch.tools.wall_ab", ".", ".",
-         "--turns", "ABBA", "--b-args", f"--events {ab_events}"],
-        capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise AssertionError(f"wall_ab failed:\n{res.stdout}{res.stderr}")
-    turns = [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
-    walls = {s: [t["wall_s"] for t in turns if t["side"] == s] for s in "AB"}
-    if "FASTA of every turn identical: True" not in res.stdout:
-        raise AssertionError(f"wall_ab: the FASTA differs with --events\n{res.stdout}")
-    cold = sum(walls["B"]) / sum(walls["A"]) - 1.0
+    # the cost of --events, warm in this process, in turns (the fresh-process
+    # turns of tools/wall_ab.py left the smoke for its time limit)
     base = [d["db"], d["las"], "-E", eprof, "-b", str(B), "--device", DEVICE,
             "--paged", "off", "--dp", "fused"]
     warm = {"A": [], "B": []}
@@ -1592,9 +1617,7 @@ def telemetry_phase(d: dict, eprof: str, big: dict, big_eprof: str, counters,
         if records(outs[i]) != records(outs[0]):
             raise AssertionError("the warm 20 kb run's FASTA differs with --events")
     hot = sum(warm["B"]) / sum(warm["A"]) - 1.0
-    log(f"telemetry cost, 20 kb dense fused -t 0 ({smi}): fresh processes A B B A "
-        f"without / with --events {[round(w, 3) for w in walls['A']]} / "
-        f"{[round(w, 3) for w in walls['B']]} s -> {cold:+.4f}; warm in this process "
+    log(f"telemetry cost, 20 kb dense fused -t 0 ({smi}): warm in this process "
         f"{[round(w, 3) for w in warm['A']]} / {[round(w, 3) for w in warm['B']]} s -> "
         f"{hot:+.4f} (predicted at most +0.02)")
     # the pipeline thread's own time in the telemetry plane's functions
@@ -1701,8 +1724,9 @@ def telemetry_phase(d: dict, eprof: str, big: dict, big_eprof: str, counters,
 
     # the capture's bracket (the calls in flight stay in flight) hung a warm
     # 100 kb run at its 5th call before the profiler took the graph cache's
-    # lock; the same run warm again at the 5th and the 13th, each bounded
-    for at in (5, 13):
+    # lock; the same run warm again at the 5th, bounded (the 13th call's run
+    # left the smoke for its time limit)
+    for at in (5,):
         bdir = os.path.join(tmp, f"capture_{at}")
         bev = os.path.join(tmp, f"bracket_{at}.events.jsonl")
         os.environ["DACCORD_PROFILE_DIR"] = bdir
@@ -1803,10 +1827,11 @@ SERVE_EVICT_S = 10.0            # the dense serve arm's idle TTL
 SERVE_MEM_SLACK = 64 << 20      # allocated bytes an evicted server may keep
 
 
-def serve_start(tmp: str, tag: str, extra=(), env_extra=None):
+def serve_start(tmp: str, tag: str, extra=(), env_extra=None, cwd=None):
     """Start ``python -m daccord_tpu_torch.tools.cli serve`` (the user's entry
-    point) on an ephemeral port: (process, port, workdir). The port comes from
-    its ready file; a process that dies first raises with its log."""
+    point) on an ephemeral port, from ``cwd`` (default: the checkout):
+    (process, port, workdir). The port comes from its ready file; a process
+    that dies first raises with its log."""
     workdir = os.path.join(tmp, f"serve_{tag}")
     ready = os.path.join(tmp, f"serve_{tag}.ready.json")
     logp = os.path.join(tmp, f"serve_{tag}.log")
@@ -1817,7 +1842,7 @@ def serve_start(tmp: str, tag: str, extra=(), env_extra=None):
     env = dict(os.environ, **(env_extra or {}))
     with open(logp, "wb") as fh:
         proc = subprocess.Popen(argv, env=env, stdout=fh, stderr=subprocess.STDOUT,
-                                cwd=os.path.dirname(os.path.abspath(__file__)))
+                                cwd=cwd or os.path.dirname(os.path.abspath(__file__)))
     deadline = time.time() + 120
     while not os.path.exists(ready):
         if proc.poll() is not None or time.time() > deadline:
@@ -1948,7 +1973,7 @@ def serve_metrics(port: int) -> dict:
     return json.loads(http(port, "GET", "/v1/metrics")[1])
 
 
-def serve_phase(d: dict, big: dict, tmp: str, smi: str) -> None:
+def serve_phase(d: dict, big: dict, tmp: str, smi: str) -> dict:
     """Phase 4f: the serving plane through its real entry point. Three
     ``serve`` processes on the card at -b 2048: the dense fused service takes
     three 20 kb jobs from two tenants and one 100 kb job at once; the paged
@@ -1956,7 +1981,8 @@ def serve_phase(d: dict, big: dict, tmp: str, smi: str) -> None:
     injected device OOM. Every streamed FASTA is held byte-identical to a solo
     card run of ``build_job_config``'s config; the dense service's groups
     evict at their idle TTL and its allocated device memory falls back; each
-    service stops clean on SIGTERM."""
+    service stops clean on SIGTERM. Returns the solo references and the dense
+    service's windows/s and its ratio to the solo runs' sum."""
     t_phase = time.perf_counter()
     on_card = DEVICE == "cuda"
     t0 = time.perf_counter()
@@ -1997,6 +2023,7 @@ def serve_phase(d: dict, big: dict, tmp: str, smi: str) -> None:
             + f"; service {wins} windows in {wall:.3f} s = {wins / wall:.0f} windows/s "
             f"against the solo runs' sum {wins} in {solo_s:.3f} s = {wins / solo_s:.0f} "
             f"windows/s ({solo_s / wall:.3f}x)")
+        dense_wps, dense_ratio = wins / wall, solo_s / wall
         warm = m1["warm"]
         for g in sorted({**groups, **{g["name"]: g for g in warm["groups"]}}.values(),
                         key=lambda g: g["name"]):
@@ -2128,6 +2155,511 @@ def serve_phase(d: dict, big: dict, tmp: str, smi: str) -> None:
         raise
     serve_stop(proc, port, wd, "fault")
     log(f"serve phase: {time.perf_counter() - t_phase:.1f} s (predicted at most 120 s)")
+    return {"refs": refs, "wps": dense_wps, "ratio": dense_ratio}
+
+
+FLEET_FAULT = "worker_crash:1,worker_oom:2,lease_stall:1"   # phase 4g's faulted fleet
+FLEET_SHARDS = 4             # the 100 kb fleet's -n
+FLEET_WIDTHS = (1, 2, 4)     # its --workers
+
+
+class MemSampler:
+    """The whole card's used memory (``nvidia-smi``, MiB), sampled every
+    half second on a thread while a multi-process run goes on."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = 0
+        self.samples = 0
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._loop, daemon=True)
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                                      "--format=csv,noheader,nounits"], capture_output=True,
+                                     text=True, timeout=10).stdout.split()
+                self.peak = max(self.peak, int(out[0]))
+                self.samples += 1
+            except (OSError, ValueError, IndexError, subprocess.SubprocessError):
+                pass
+            self._stop.wait(0.5)
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join(15)
+        return False
+
+
+def shard_flags(threads: int, extra=()) -> list[str]:
+    """The flags every fleet worker gets besides its shard and sidecars, so
+    that a shard run in turn by hand is the same run."""
+    backend = "cuda" if DEVICE == "cuda" else "cpu"
+    return ["--backend", backend, "--device", backend, "--checkpoint-every", "16",
+            "--ingest-policy", "strict", "-t", str(threads), "--no-hp-rescue",
+            "-b", str(B), *extra]
+
+
+def shard_outputs(outdir: str, n: int) -> dict:
+    """What a fleet's (or the in-turn runs') shards left: their manifests,
+    the metrics rollups' saturation gauges and the kernel launches summed
+    over every shard's attempts."""
+    launches: dict = {}
+    mans, gauges = [], []
+    for s in range(n):
+        with open(os.path.join(outdir, f"shard{s:04d}.json")) as fh:
+            mans.append(json.load(fh))
+        try:
+            with open(os.path.join(outdir, f"shard{s:04d}.metrics.json")) as fh:
+                gauges.append(json.load(fh).get("gauges", {}))
+        except (OSError, ValueError):
+            gauges.append({})
+        try:
+            with open(os.path.join(outdir, f"shard{s:04d}.launches.json")) as fh:
+                for k, v in json.load(fh).items():
+                    launches[k] = launches.get(k, 0) + v
+        except (OSError, ValueError):
+            pass
+    return {"manifests": mans, "gauges": gauges, "launches": launches,
+            "windows": sum(int(m["windows"]) for m in mans)}
+
+
+def fleet_run(ds: dict, outdir: str, n: int, workers: int, threads: int, extra=(),
+              env_extra=None) -> dict:
+    """One ``fleet`` through its command line (the user's entry point) with
+    ``--merge``: its wall from start to the merged FASTA, the card's peak
+    used memory meanwhile, and its shards' outputs."""
+    merged = outdir + ".fasta"
+    backend = "cuda" if DEVICE == "cuda" else "cpu"
+    argv = [sys.executable, "-m", "daccord_tpu_torch.tools.cli", "fleet", ds["db"],
+            ds["las"], outdir, "-n", str(n), "--workers", str(workers), "--backend",
+            backend, "--device", backend, "-b", str(B), "-t", str(threads),
+            "--merge", merged, *extra]
+    env = dict(os.environ, **(env_extra or {}))
+    with MemSampler() as mem:
+        t0 = time.perf_counter()
+        r = subprocess.run(argv, env=env, capture_output=True, text=True,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"fleet {' '.join(argv[3:])}: exit {r.returncode}\n"
+                             f"{r.stderr[-4000:]}")
+    with open(os.path.join(outdir, "fleet.json")) as fh:
+        fj = json.load(fh)
+    with open(merged, "rb") as fh:
+        data = fh.read()
+    return {"wall": wall, "mem_mib": mem.peak, "mem_samples": mem.samples,
+            "fleet": fj, "bytes": data, **shard_outputs(outdir, n)}
+
+
+def in_turn(ds: dict, outdir: str, n: int, threads: int, extra=()) -> dict:
+    """The same shards in turn in this process (the ``shard`` tool's
+    ``shard_main`` with the fleet's worker flags, warm: no process start),
+    and merged."""
+    from daccord_tpu_torch.parallel.launch import merge_shards
+    from daccord_tpu_torch.tools.cli import shard_main
+
+    t0 = time.perf_counter()
+    for s in range(n):
+        if shard_main([ds["db"], ds["las"], outdir, "-J", f"{s},{n}",
+                       *shard_flags(threads, extra)]) != 0:
+            raise AssertionError(f"shard {s},{n} failed")
+    merged = outdir + ".fasta"
+    merge_shards(outdir, n, merged)
+    wall = time.perf_counter() - t0
+    with open(merged, "rb") as fh:
+        return {"wall": wall, "bytes": fh.read(), **shard_outputs(outdir, n)}
+
+
+def fleet_text(tag: str, f: dict, threads: int) -> str:
+    walls = [round(float(m["wall_s"]), 3) for m in f["manifests"]]
+    gauges = [{k: g.get(k) for k in ("device_idle_frac", "host_blocked_frac",
+                                     "overlap_frac") if k in g} for g in f["gauges"]]
+    return (f"{tag}: wall {f['wall']:.3f} s from start to the merged FASTA, "
+            f"{f['windows']} windows, {f['windows'] / f['wall']:.0f} windows/s; -t "
+            f"{threads} a worker; workers' walls {walls} s; their saturation gauges "
+            f"{json.dumps(gauges)}; kernel launches {json.dumps(f['launches'])}; card "
+            f"memory used at most {f.get('mem_mib', 0)} MiB ({f.get('mem_samples', 0)} "
+            f"nvidia-smi samples); attempts {json.dumps(f['fleet'].get('attempts'))}")
+
+
+def need_launches(tag: str, launches: dict, kernels) -> None:
+    if DEVICE != "cuda":
+        return
+    for k in kernels:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"{tag}: the {k} kernel never launched")
+
+
+def router_jobs(rport: int, bodies: list) -> tuple[list, float]:
+    """Every job at once through the router, each from a thread: submit,
+    read the proxied stream to its end, the result and the status."""
+    import threading
+    import urllib.request
+
+    got: list = [None] * len(bodies)
+    errs: list = []
+
+    def client(i: int) -> None:
+        try:
+            _, raw = http(rport, "POST", "/v1/jobs", bodies[i])
+            job = json.loads(raw)["job"]
+            with urllib.request.urlopen(f"http://127.0.0.1:{rport}/v1/jobs/{job}/stream",
+                                        timeout=600) as r:
+                streamed = r.read()
+            _, result = http(rport, "GET", f"/v1/jobs/{job}/result?wait=1")
+            _, st = http(rport, "GET", f"/v1/jobs/{job}")
+            got[i] = (bodies[i], json.loads(st), streamed, result)
+        except Exception as e:  # noqa: BLE001 - raised below
+            errs.append(f"job {i}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    if errs or any(g is None for g in got):
+        raise AssertionError(f"router jobs failed: {errs}")
+    return got, wall
+
+
+def aot_events(workdir: str) -> list:
+    import glob
+
+    out = []
+    for f in sorted(glob.glob(os.path.join(workdir, "*.events.jsonl"))):
+        out += [json.loads(x) for x in open(f) if '"aot.' in x]
+    return out
+
+
+def fleet_router_phase(d: dict, big: dict, big_stats, served: dict, tmp: str, smi: str,
+                       ncpu: int) -> None:
+    """Phase 4g: the multi-process layer on the card. The 100 kb set through
+    ``fleet -n 4`` at W = 1, 2 and 4 workers, in turn by hand and in this
+    process's phase 4; the fleet under a crash, an OOM and a lease stall;
+    the paged scan route's fleet; then two ``serve`` peers behind a
+    ``router`` sharing one kernel cache, the dense mix of 4f through it, a
+    peer SIGKILLed mid-proxy, and a peer started on a flipped cache entry."""
+    import signal
+    import urllib.error
+
+    t_phase = time.perf_counter()
+    on_card = DEVICE == "cuda"
+    dense_k = ("dp_backtrack", "rescore", "position_weights")
+    paged_k = ("gather_pages", "heaviest_path", "rescore", "position_weights")
+
+    # ---- fleet shape: W = 1, 2, 4, the in-turn shards, phase 4's run ---------
+    runs = {}
+    for w in FLEET_WIDTHS:
+        t_w = max(1, min(8, ncpu // w))
+        f = fleet_run(big, os.path.join(tmp, f"fleet_w{w}"), FLEET_SHARDS, w, t_w)
+        log(fleet_text(f"fleet -n {FLEET_SHARDS} --workers {w} ({smi})", f, t_w))
+        need_launches(f"fleet W={w}", f["launches"], dense_k)
+        runs[w] = f
+    t_1 = max(1, min(8, ncpu))
+    turns = in_turn(big, os.path.join(tmp, "fleet_turns"), FLEET_SHARDS, t_1)
+    log(f"in turn, the {FLEET_SHARDS} shards one after another in this process (warm; "
+        f"the W=1 fleet is one shard process after another), -t {t_1} "
+        f"({smi}): wall {turns['wall']:.3f} s, {turns['windows']} windows, "
+        f"{turns['windows'] / turns['wall']:.0f} windows/s; shards' walls "
+        f"{[round(float(m['wall_s']), 3) for m in turns['manifests']]} s")
+    log(f"phase 4's single-process daccord run of the set (in this process, -t "
+        f"{min(8, ncpu)}): wall {big_stats.wall_s:.3f} s, {big_stats.n_windows} windows, "
+        f"{big_stats.n_windows / big_stats.wall_s:.0f} windows/s")
+    for w, f in runs.items():
+        if f["bytes"] != turns["bytes"]:
+            raise AssertionError(f"fleet W={w}: the merged FASTA differs from the "
+                                 f"in-turn shards'")
+    log(f"fleet W={'/'.join(map(str, FLEET_WIDTHS))}: merged FASTA byte-identical at "
+        f"every W and to the in-turn shards ({len(turns['bytes'])} bytes)")
+
+    # ---- the fleet under faults; the paged scan route ------------------------
+    fdir = os.path.join(tmp, "fleet_fault")
+    f = fleet_run(big, fdir, FLEET_SHARDS, 2, max(1, min(8, ncpu // 2)),
+                  env_extra={"DACCORD_FAULT": FLEET_FAULT})
+    from daccord_tpu_torch.tools.eventcheck import validate_events
+
+    evpath = os.path.join(fdir, "fleet.events.jsonl")
+    evs = [json.loads(x) for x in open(evpath)]
+    bad = validate_events(evpath, strict=True)
+    cap = [e for e in evs if e["event"] == "fleet.capacity"]
+    kinds = sorted(e["kind"] for e in evs if e["event"] == "fleet.fault")
+    log(fleet_text(f"fleet W=2 under DACCORD_FAULT={FLEET_FAULT}", f,
+                   max(1, min(8, ncpu // 2)))
+        + f"; faults {kinds}; retries "
+        f"{[e['reason'] for e in evs if e['event'] == 'fleet.retry']}; takeovers "
+        f"{sum(e['event'] == 'fleet.takeover' for e in evs)}; capacity {cap}; "
+        f"eventcheck --strict: {'clean' if not bad else bad[:3]}")
+    if f["bytes"] != turns["bytes"]:
+        raise AssertionError("the faulted fleet's merged FASTA differs from the clean one")
+    if len(cap) != 1 or cap[0]["batch"] != B // 2 or f["fleet"]["capacity_requeued"] \
+            != [cap[0]["shard"]]:
+        raise AssertionError(f"the OOM'd shard was not requeued once at -b {B // 2}: {cap}")
+    if bad or kinds != ["lease_stall", "worker_crash", "worker_oom"]:
+        raise AssertionError(f"faulted fleet: faults {kinds}, eventcheck {bad[:3]}")
+    t_2 = max(1, min(8, ncpu // 2))
+    paged = ("--paged", "on", "--dp", "scan")
+    fp = fleet_run(d, os.path.join(tmp, "fleet_paged"), 2, 2, t_2, extra=paged)
+    tp = in_turn(d, os.path.join(tmp, "fleet_paged_turns"), 2, t_2, extra=paged)
+    log(fleet_text(f"fleet -n 2 --workers 2 --paged on --dp scan, 20 kb ({smi})", fp, t_2)
+        + f"; in turn {tp['wall']:.3f} s")
+    if fp["bytes"] != tp["bytes"]:
+        raise AssertionError("the paged scan fleet's FASTA differs from its in-turn shards'")
+    need_launches("fleet paged scan", fp["launches"], paged_k)
+    log(f"fleet phase: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- router shape: two peers, one kernel cache ---------------------------
+    t_r = time.perf_counter()
+    peer_dir = os.path.join(tmp, "peers")
+    aot = os.path.join(tmp, "aotcache")
+    refs = served["refs"]
+    procs = {}
+
+    def peer(tag: str, extra=()):
+        """A serve peer run from a copy of the package whose build directory
+        holds no kernel library (a peer on another host), with the fleet's
+        cache and lease dir."""
+        host = os.path.join(tmp, f"host_{tag}")
+        pkg = os.path.dirname(os.path.abspath(__file__))
+        shutil.copytree(os.path.join(pkg, "daccord_tpu_torch"),
+                        os.path.join(host, "daccord_tpu_torch"),
+                        ignore=lambda d, names: [n for n in names if n.endswith(".so")
+                                                 and not n.startswith("dazz_native")])
+        t0 = time.perf_counter()
+        proc, port, wd = serve_start(
+            tmp, f"peer_{tag}", ["--workers", "4", "--lease-ttl-s", "600",
+                                 "--aot-cache", aot, *extra], cwd=host)
+        log(f"peer {tag}: ready in {time.perf_counter() - t0:.2f} s (kernels from the "
+            f"cache or built, the service up)")
+        procs[tag] = (proc, port, wd)
+        return proc, port, wd
+
+    def stop_all():
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    rproc = None
+    try:
+        peer("a", ["--peer-dir", peer_dir])
+        peer("b", ["--peer-dir", peer_dir])
+        rdir = os.path.join(tmp, "router")
+        rready = os.path.join(tmp, "router.ready.json")
+        rlog = open(os.path.join(tmp, "router.log"), "wb")
+        rproc = subprocess.Popen([sys.executable, "-m", "daccord_tpu_torch.tools.cli",
+                                  "router", "--workdir", rdir, "--peer-dir", peer_dir,
+                                  "--port", "0", "--ready-file", rready, "--poll-s", "0.5"],
+                                 stdout=rlog, stderr=subprocess.STDOUT,
+                                 cwd=os.path.dirname(os.path.abspath(__file__)))
+        deadline = time.time() + 60
+        while not os.path.exists(rready) and time.time() < deadline:
+            time.sleep(0.05)
+        rport = json.load(open(rready))["port"]
+        while time.time() < deadline:
+            rs = json.loads(http(rport, "GET", "/v1/router")[1])
+            if sum(p["alive"] and p["ready"] for p in rs["peers"]) == 2:
+                break
+            time.sleep(0.2)
+        else:
+            raise AssertionError(f"router: the peers never turned ready: {rs}")
+        names = {os.path.basename(procs[t][2]): t for t in ("a", "b")}
+        from daccord_tpu_torch.serve.router import Router
+
+        owner = {t: names[max(names, key=lambda n: Router._score(t, n))] for t in "ab"}
+        log(f"router on port {rport}: peers {sorted(names)}; rendezvous owners: tenant a "
+            f"-> peer {owner['a']}, tenant b -> peer {owner['b']}")
+        job20 = {"db": d["db"], "las": d["las"]}
+        job100 = {"db": big["db"], "las": big["las"]}
+        with MemSampler() as mem:
+            got, wall = router_jobs(rport, [dict(job20, tenant="a"), dict(job20, tenant="a"),
+                                            dict(job20, tenant="b"),
+                                            dict(job100, tenant="b")])
+        rs = json.loads(http(rport, "GET", "/v1/router")[1])
+        for body, st, streamed, result in got:
+            ref = refs["100kb" if body["db"] == big["db"] else "20kb"][0]
+            if st["state"] != "done" or streamed != ref or result != ref:
+                raise AssertionError(f"router: job {st['job']} ({body['tenant']}) differs "
+                                     f"from its solo card run: state {st['state']}, "
+                                     f"streamed {len(streamed)} / result {len(result)} / "
+                                     f"solo {len(ref)} bytes, streamed == result "
+                                     f"{streamed == result}")
+        wins = sum(st["windows"] for _, st, _, _ in got)
+        solo_s = sum(refs["100kb" if b["db"] == big["db"] else "20kb"][1].wall_s
+                     for b, _, _, _ in got)
+        log(f"router, two peers, 4f's dense mix ({smi}): 4 jobs byte-identical to their "
+            f"solo card runs (proxied stream and result); on peers "
+            f"{[rs['jobs'].get(st['job']) for _, st, _, _ in got]}; latencies "
+            + ", ".join(f"{st['job']} {b['tenant']} "
+                        f"{'100kb' if b['db'] == big['db'] else '20kb'} "
+                        f"{st['latency']['total_s']} s" for b, st, _, _ in got)
+            + f"; {wins} windows in {wall:.3f} s = {wins / wall:.0f} windows/s against the "
+            f"solo runs' sum {wins / solo_s:.0f} windows/s ({solo_s / wall:.3f}x; 4f's one "
+            f"service {served['wps']:.0f} windows/s, {served['ratio']:.3f}x); card memory "
+            f"used at most {mem.peak} MiB; router counters "
+            f"{ {k: rs[k] for k in ('routes', 'spills', 'proxied', 'proxy_errors')} }")
+        used = {names[rs["jobs"][st["job"]]] for _, st, _, _ in got}
+        for t in ("a", "b"):
+            m = serve_metrics(procs[t][1])
+            log(f"peer {t} device (its jobs' batches; the groups' capture warm-ups not "
+                f"counted): {json.dumps(m.get('device'))}")
+            if t in used:
+                need_launches(f"router peer {t}", m.get("device", {}).get("launches", {}),
+                              dense_k)
+
+        # ---- SIGKILL the owner of tenant a in the middle of a proxied job ------
+        import threading
+        import urllib.request
+
+        victim, survivor = owner["a"], "b" if owner["a"] == "a" else "a"
+        body = dict(job100, tenant="a", idempotency_key="kill-once")
+        st, raw = http(rport, "POST", "/v1/jobs", body)
+        jid1 = json.loads(raw)["job"]
+        streamed = {"bytes": 0, "error": None}
+
+        def reader():
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{rport}/v1/jobs/{jid1}/stream", timeout=600) as r:
+                    while True:
+                        c = r.read(4096)
+                        if not c:
+                            break
+                        streamed["bytes"] += len(c)
+            except Exception as e:  # noqa: BLE001 - the torn proxy is the point
+                streamed["error"] = f"{type(e).__name__}: {e}"
+
+        th = threading.Thread(target=reader, daemon=True)
+        th.start()
+        deadline = time.time() + 120
+        while streamed["bytes"] == 0 and time.time() < deadline and th.is_alive():
+            time.sleep(0.02)
+        vproc = procs[victim][0]
+        vproc.send_signal(signal.SIGKILL)
+        vproc.wait(30)
+        th.join(60)
+        t_kill = time.perf_counter()
+        jid2 = None
+        tries = 0
+        while time.perf_counter() - t_kill < 120:
+            tries += 1
+            try:
+                st, raw = http(rport, "POST", "/v1/jobs", body, timeout=60)
+                if st in (200, 201):
+                    jid2 = json.loads(raw)["job"]
+                    break
+            except urllib.error.HTTPError as e:
+                if e.code not in (502, 503) or not json.loads(e.read()).get("retryable"):
+                    raise
+            except (urllib.error.URLError, OSError):
+                pass
+            time.sleep(0.3)
+        landed_s = time.perf_counter() - t_kill
+        if jid2 is None:
+            raise AssertionError("router: the retried submit never landed")
+        _, got2 = http(rport, "GET", f"/v1/jobs/{jid2}/result?wait=1")
+        st, raw = http(rport, "POST", "/v1/jobs", body)
+        again = json.loads(raw)["job"]
+        rs = json.loads(http(rport, "GET", "/v1/router")[1])
+        from daccord_tpu_torch.serve.journal import replay
+
+        ents = {t: replay(os.path.join(procs[t][2], "journal.jsonl"))[0] for t in "ab"}
+        committed = [e for t in "ab" for e in ents[t].values()
+                     if e.idem == "kill-once" and e.state == "committed"]
+        on_survivor = [e for e in ents[survivor].values() if e.idem == "kill-once"]
+        log(f"router kill: peer {victim} (owner of tenant a) SIGKILLed after "
+            f"{streamed['bytes']} proxied stream bytes of {jid1} (the reader: "
+            f"{streamed['error']}); the retried submit landed on peer "
+            f"{names.get(rs['jobs'].get(jid2))} as {jid2} after {tries} tries in "
+            f"{landed_s:.2f} s; its bytes == the solo 100 kb run: "
+            f"{got2 == refs['100kb'][0]}; a further replay -> {again}; journals: "
+            f"{len(on_survivor)} entry of the key on the survivor, {len(committed)} "
+            f"committed fleet-wide")
+        if got2 != refs["100kb"][0] or again != jid2 or len(committed) != 1 \
+                or len(on_survivor) != 1 or names.get(rs["jobs"].get(jid2)) != survivor:
+            raise AssertionError("router kill: the retry did not land exactly once on "
+                                 "the survivor with the same bytes")
+        rproc.send_signal(signal.SIGTERM)
+        rc = rproc.wait(60)
+        rbad = validate_events(os.path.join(rdir, "router.events.jsonl"), strict=True)
+        log(f"router: SIGTERM -> exit {rc}; router.events.jsonl eventcheck --strict: "
+            f"{'clean' if not rbad else rbad[:3]}")
+        if rc != 0 or rbad:
+            raise AssertionError(f"router: unclean stop (exit {rc}, {rbad[:3]})")
+        sp, sport, swd = procs[survivor]
+        serve_stop(sp, sport, swd, f"peer {survivor}")
+
+        # ---- the kernel cache: five publishes, five hits, one corrupt reject ---
+        ev = {t: aot_events(procs[t][2]) for t in "ab"}
+        count = {t: {k: sum(e["event"] == k for e in ev[t])
+                     for k in ("aot.publish", "aot.hit", "aot.miss", "aot.reject")}
+                 for t in "ab"}
+        log(f"kernel cache: peer a {count['a']}, peer b {count['b']}")
+        if on_card and (count["a"]["aot.publish"] != 5 or count["b"]["aot.hit"] != 5
+                        or count["b"]["aot.publish"]):
+            raise AssertionError(f"kernel cache: want five publishes then five hits, got "
+                                 f"{count}")
+        if on_card:
+            from daccord_tpu_torch.kernels import nvcc
+            from daccord_tpu_torch.serve.aotcache import AotCache
+
+            path = AotCache(aot)._path("rescore", nvcc.source_key(nvcc.source("rescore")))
+            blob = bytearray(open(path, "rb").read())
+            blob[len(blob) // 2] ^= 0xFF
+            with open(path, "wb") as fh:
+                fh.write(bytes(blob))
+        proc, port, wd = peer("c")
+        got3, wall3 = router_jobs(port, [dict(job20, tenant="c")])
+        if got3[0][2] != refs["20kb"][0] or got3[0][3] != refs["20kb"][0]:
+            raise AssertionError("peer c (the flipped cache entry): its FASTA differs")
+        serve_stop(proc, port, wd, "peer c")
+        ev3 = aot_events(wd)
+        rej = [(e["key"], e["reason"]) for e in ev3 if e["event"] == "aot.reject"]
+        pubs = [e["key"] for e in ev3 if e["event"] == "aot.publish"]
+        hits = sum(e["event"] == "aot.hit" for e in ev3)
+        log(f"kernel cache, peer c after one flipped byte in rescore's entry: rejects "
+            f"{rej}, rebuilt and published {pubs}, hits {hits}; its 20 kb job "
+            f"byte-identical to the solo card run in {wall3:.3f} s")
+        if on_card and (rej != [("rescore", "corrupt")] or pubs != ["rescore"] or hits != 4):
+            raise AssertionError("kernel cache: the flipped entry was not rejected and "
+                                 "rebuilt")
+    except BaseException:
+        # what the router and the peers saw, before they go
+        rdir = os.path.join(tmp, "router")
+        log(f"router phase failed: router process "
+            f"{'running' if rproc is not None and rproc.poll() is None else rproc and rproc.returncode}; "
+            f"peers {[(t, p.poll()) for t, (p, _, _) in procs.items()]}")
+        for f in (os.path.join(tmp, "router.log"), os.path.join(rdir, "router.events.jsonl")):
+            if os.path.exists(f):
+                for line in open(f, errors="replace").read().splitlines()[-25:]:
+                    if "router.route" not in line:
+                        log(f"  {os.path.basename(f)}: {line[:400]}")
+        for t, (_, _, wd) in procs.items():
+            f = os.path.join(wd, "serve.events.jsonl")
+            if os.path.exists(f):
+                for line in open(f, errors="replace"):
+                    if any(k in line for k in ("abort", "disconnect", "error", "fail")):
+                        log(f"  peer {t} serve.events: {line.strip()[:400]}")
+            f = os.path.join(tmp, f"serve_peer_{t}.log")
+            if os.path.exists(f):
+                for line in open(f, errors="replace").read().splitlines()[-8:]:
+                    log(f"  peer {t} log: {line[:400]}")
+        if rproc is not None and rproc.poll() is None:
+            rproc.kill()
+            rproc.wait()
+        stop_all()
+        raise
+    stop_all()
+    log(f"router phase: {time.perf_counter() - t_r:.1f} s; fleet and router phase "
+        f"{time.perf_counter() - t_phase:.1f} s (predicted at most 150 s)")
 
 
 def reference_cost(big: dict, eprof: str) -> None:
@@ -2444,12 +2976,30 @@ def main() -> int:
                 f"s against {stats.wall_s:.3f} s at 1/64; solve_s {st0.solve_s:.3f}, "
                 f"device_s {st0.device_s:.3f}, else {else_s(st0):.3f})")
             # the audit without its worker (every sample on the pipeline's
-            # thread, on the torch CPU ladder), then the default again, warm
-            # like the run at rate 0
-            for label, worker in (("in-process audit only", False), ("default again", None)):
-                st1 = daccord_with([ds["db"], ds["las"], "-o", out0, "-E", ep, "-b", str(B),
-                                    "--device", dev.type, *args], counters,
-                                   audit_worker=worker)
+            # thread, on the torch CPU ladder; the 20 kb runs only: the 100
+            # kb one left the smoke for its time limit), then the default
+            # again, warm like the run at rate 0; the paged run also with the
+            # rows taken by the numpy take (the take before the host
+            # library's)
+            variants = [("default again", None, False)]
+            if ds is not big:
+                variants.insert(0, ("in-process audit only", False, False))
+            if tag == "paged scan":
+                variants.append(("default, numpy take", None, True))
+            for label, worker, plain_take in variants:
+                if plain_take:
+                    from daccord_tpu_torch.audit.worker import take_rows_plain
+                    from daccord_tpu_torch.runtime.supervisor import DeviceSupervisor
+
+                    own = DeviceSupervisor.__dict__["_take_rows"]
+                    DeviceSupervisor._take_rows = staticmethod(take_rows_plain)
+                try:
+                    st1 = daccord_with([ds["db"], ds["las"], "-o", out0, "-E", ep, "-b",
+                                        str(B), "--device", dev.type, *args], counters,
+                                       audit_worker=worker)
+                finally:
+                    if plain_take:
+                        DeviceSupervisor._take_rows = own
                 with open(out, "rb") as a, open(out0, "rb") as b0:
                     if a.read() != b0.read():
                         raise AssertionError(f"daccord {tag}, {label}: FASTA differs")
@@ -2457,9 +3007,10 @@ def main() -> int:
                     f"byte-identical; {audit_text(st1)}; {audit_tail_text(st1)}")
                 if worker is None:
                     share = st1.audit_s / st1.wall_s
-                    log(f"audit share, warm {tag} rerun: {share:.4f} of the wall (the "
-                        f"JAX package's contract: at most 0.02): "
-                        f"{'met' if share <= 0.02 else 'missed'}")
+                    log(f"audit share, warm {tag} rerun ({label}): {share:.4f} of the "
+                        f"wall (the JAX package's contract: at most 0.02): "
+                        f"{'met' if share <= 0.02 else 'missed'}; the warm wall against "
+                        f"the run at rate 0: {(st1.wall_s - st0.wall_s) / st1.wall_s:+.4f}")
         dense_launch = runs["dense fused"][2]
         paged_launch = runs["paged scan"][2]
         for run_launched, name in ((dense_launch, "dp_backtrack"),
@@ -2505,7 +3056,10 @@ def main() -> int:
         log(f"telemetry phase: {time.perf_counter() - t0:.1f} s (predicted at most 60 s)")
 
         # ---- 4f. the serving plane ---------------------------------------------
-        serve_phase(d, big, tmp, smi)
+        served = serve_phase(d, big, tmp, smi)
+
+        # ---- 4g. the multi-process layer: fleet, router, kernel cache ----------
+        fleet_router_phase(d, big, runs["100 kb dense fused"][1], served, tmp, smi, ncpu)
 
         # ---- 5. kernel phase ------------------------------------------------
         t0 = time.perf_counter()

@@ -29,7 +29,11 @@ A paged sample travels as it was dispatched: its rows' page table and the
 pool pages those rows name (:func:`sample_pages`), unpacked to the dense
 rows in the worker (``utils.pages.unpack_pages``, which
 ``PagedWindowBatch.to_dense`` calls too), so the pipeline's thread pays a
-table slice and a page gather per audited batch, not the unpack.
+table slice and a page gather per audited batch, not the unpack. It takes
+the rows in one pass of the host library with the interpreter lock held
+(:func:`take_rows`): the numpy take (:func:`take_rows_plain`) sorts the
+pages the rows name, and each of its ops may give the lock up to the
+feeder threads and wait to get it back.
 
 A worker that fails to start or answer raises :class:`AuditWorkerError`
 from :meth:`AuditWorker.result`; the supervisor then logs
@@ -75,7 +79,8 @@ def sample_pages(batch, rows):
     """The ``rows`` of a paged batch (``PagedWindowBatch``) as a sample the
     workers unpack: those rows' table, lens and nsegs, and the pool pages
     the table names (page 0, the all-PAD sentinel, kept first), with the
-    table renumbered into them."""
+    table renumbered into them. In numpy: the plain version of
+    :func:`take_rows`'s paged take."""
     import dataclasses
 
     import numpy as np
@@ -88,6 +93,70 @@ def sample_pages(batch, rows):
         table=np.searchsorted(used, table).astype(batch.table.dtype),
         lens=batch.lens[idx], nsegs=batch.nsegs[idx],
         read_ids=batch.read_ids[idx], wstarts=batch.wstarts[idx])
+
+
+def take_rows_plain(batch, rows):
+    """Row-subset copy of a batch in numpy: a dense ``WindowBatch``'s rows,
+    or a paged batch's as :func:`sample_pages` (the plain version of
+    :func:`take_rows`)."""
+    import dataclasses
+
+    import numpy as np
+
+    if hasattr(batch, "to_dense"):
+        return sample_pages(batch, rows)
+    idx = np.asarray(rows, dtype=np.int64)
+    return dataclasses.replace(
+        batch, seqs=batch.seqs[idx], lens=batch.lens[idx],
+        nsegs=batch.nsegs[idx], read_ids=batch.read_ids[idx],
+        wstarts=batch.wstarts[idx])
+
+
+def take_rows(batch, rows):
+    """:func:`take_rows_plain`'s copy, byte for byte, made by the host
+    library's ``take_rows`` and ``take_pages`` with the interpreter lock held
+    (``native.held``), one call an array."""
+    import dataclasses
+    import math
+
+    import numpy as np
+
+    from ..native import held
+
+    lib = held()
+    rows = [int(r) for r in rows]
+    n_rows = len(batch.nsegs)
+    if rows and (min(rows) < 0 or max(rows) >= n_rows):
+        raise IndexError(f"audit rows {min(rows)}..{max(rows)} of a batch of {n_rows}")
+    idx = np.asarray(rows, dtype=np.int64)
+    k = len(idx)
+
+    def take(a):
+        a = np.ascontiguousarray(a)
+        out = np.empty((k, *a.shape[1:]), a.dtype)
+        lib.take_rows(a.ctypes.data, a.itemsize * math.prod(a.shape[1:]),
+                      idx.ctypes.data, k, out.ctypes.data)
+        return out
+
+    if not hasattr(batch, "to_dense"):
+        return dataclasses.replace(
+            batch, seqs=take(batch.seqs), lens=take(batch.lens),
+            nsegs=take(batch.nsegs), read_ids=take(batch.read_ids),
+            wstarts=take(batch.wstarts))
+    table = np.ascontiguousarray(batch.table, dtype=np.int32)
+    pool = np.ascontiguousarray(batch.pool)
+    pages, page_bytes = table.shape[1], pool.itemsize * math.prod(pool.shape[1:])
+    out_table = np.empty((k, pages), np.int32)
+    out_pool = np.empty((k * pages + 1, *pool.shape[1:]), pool.dtype)
+    n = lib.take_pages(table.ctypes.data, pages, idx.ctypes.data, k, pool.ctypes.data,
+                       len(pool), page_bytes, out_table.ctypes.data, out_pool.ctypes.data)
+    if n < 0:
+        raise IndexError(f"the page table of audit rows {rows} names a page outside "
+                         f"the pool's {len(pool)}")
+    return dataclasses.replace(
+        batch, pool=out_pool[:n], table=out_table.astype(batch.table.dtype, copy=False),
+        lens=take(batch.lens), nsegs=take(batch.nsegs), read_ids=take(batch.read_ids),
+        wstarts=take(batch.wstarts))
 
 
 def _dense(sample: tuple) -> tuple:

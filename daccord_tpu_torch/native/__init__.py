@@ -30,6 +30,7 @@ CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_held: ctypes.PyDLL | None = None
 
 
 def cpu_key() -> str:
@@ -142,4 +143,26 @@ def load() -> ctypes.CDLL:
         lib.las_merge.restype = c.c_int64
         lib.las_merge.argtypes = [c.c_char_p, c.c_char_p, c.c_int32]
         _lib = lib
+        return lib
+
+
+def held() -> ctypes.PyDLL:
+    """The library's short entry points, ``take_rows`` and ``take_pages``,
+    called with the interpreter lock held: a call never hands the lock to
+    another thread and waits to get it back, as the numpy ops it replaces
+    each may."""
+    global _held
+    path = load()._name
+    with _lock:
+        if _held is not None:
+            return _held
+        lib = ctypes.PyDLL(path)
+        c = ctypes
+        p = c.c_void_p
+        lib.take_rows.restype = None
+        lib.take_rows.argtypes = [p, c.c_int64, p, c.c_int64, p]
+        lib.take_pages.restype = c.c_int64
+        lib.take_pages.argtypes = [p, c.c_int64, p, c.c_int64, p, c.c_int64, c.c_int64,
+                                   p, p]
+        _held = lib
         return lib

@@ -18,6 +18,10 @@
 // - las_sort / las_merge: the bounded-memory external LAS sort and the k-way
 //   merge of sorted LAS files (formats/extsort.py's python path is their
 //   plain version, byte-equal for the same mem_records).
+// - take_rows / take_pages: the shadow audit's row take of a dispatched
+//   batch (audit/worker.py take_rows; its numpy body is the plain version),
+//   called with the interpreter lock held, so the take never waits to get
+//   it back from the feeder threads.
 //
 // A plain C ABI for ctypes, built with g++ by daccord_tpu_torch/native. The
 // realignment replicates the numpy align_path of daccord_tpu_torch/oracle/
@@ -1767,6 +1771,61 @@ int64_t las_sort(const char* in_path, const char* out_path,
   if (merge_runs(runs, tsize, out_path, hdr16) != 0) return -5;
   for (const auto& p : runs) std::remove(p.c_str());
   return total;
+}
+
+
+// Rows idx[0..k) of a [*, row_bytes] array into out [k, row_bytes].
+void take_rows(const uint8_t* src, int64_t row_bytes, const int64_t* idx,
+               int64_t k, uint8_t* out) {
+  for (int64_t i = 0; i < k; ++i)
+    std::memcpy(out + i * row_bytes, src + idx[i] * row_bytes, row_bytes);
+}
+
+// Rows idx[0..k) of a page table [*, pages] as a sample of their own: the
+// pool pages they name, page 0 (the PAD sentinel) first and the rest in
+// ascending order, into out_pool [n, page_len], and the rows renumbered
+// into them, into out_table [k, pages]. Returns n (at most k * pages + 1),
+// or -1 if an entry names no page of the pool's n_pages. The numpy take
+// (union1d, searchsorted) gives the same bytes; a packed batch's pages rise
+// along its rows, so the sort is usually skipped.
+int64_t take_pages(const int32_t* table, int64_t pages, const int64_t* idx,
+                   int64_t k, const int8_t* pool, int64_t n_pages,
+                   int64_t page_len, int32_t* out_table, int8_t* out_pool) {
+  std::vector<int32_t> used;
+  used.reserve(k * pages + 1);
+  used.push_back(0);
+  bool rising = true;
+  for (int64_t i = 0; i < k; ++i) {
+    const int32_t* r = table + idx[i] * pages;
+    for (int64_t j = 0; j < pages; ++j) {
+      if (r[j] < 0 || r[j] >= n_pages) return -1;
+      if (r[j] != 0) {
+        rising = rising && r[j] > used.back();
+        used.push_back(r[j]);
+      }
+    }
+  }
+  if (rising) {
+    int32_t rank = 0;
+    for (int64_t i = 0; i < k; ++i) {
+      const int32_t* r = table + idx[i] * pages;
+      for (int64_t j = 0; j < pages; ++j)
+        out_table[i * pages + j] = r[j] != 0 ? ++rank : 0;
+    }
+  } else {
+    std::sort(used.begin(), used.end());
+    used.erase(std::unique(used.begin(), used.end()), used.end());
+    for (int64_t i = 0; i < k; ++i) {
+      const int32_t* r = table + idx[i] * pages;
+      for (int64_t j = 0; j < pages; ++j)
+        out_table[i * pages + j] = int32_t(
+            std::lower_bound(used.begin(), used.end(), r[j]) - used.begin());
+    }
+  }
+  for (size_t u = 0; u < used.size(); ++u)
+    std::memcpy(out_pool + u * page_len, pool + int64_t(used[u]) * page_len,
+                page_len);
+  return int64_t(used.size());
 }
 
 }  // extern "C"

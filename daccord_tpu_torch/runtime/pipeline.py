@@ -348,9 +348,13 @@ class PipelineStats:
                                  # drain (the wait for the last verdicts)
     audit_send_s: float = 0.0    # the part of audit_s spent in the sends at
                                  # dispatch (sample, rows, queue)
-    audit_take_s: float = 0.0    # of that, taking the sampled rows (a paged
-                                 # batch's table rows and the pages they
-                                 # name; the workers unpack them)
+    audit_send_cpu_s: float = 0.0  # the pipeline thread's CPU time in those
+                                 # sends: audit_send_s less it is waiting
+                                 # (for the interpreter lock above all)
+    audit_take_s: float = 0.0    # of audit_send_s, taking the sampled rows
+                                 # (a paged batch's table rows and the pages
+                                 # they name; the workers unpack them)
+    audit_take_cpu_s: float = 0.0  # the pipeline thread's CPU time in the take
     audit_tail: dict = field(default_factory=dict)  # with the workers: their
                                  # backlog when the final flush began and
                                  # each later part's send-to-solved seconds
@@ -2030,7 +2034,9 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
         stats.audit_disabled = stats.audit_disabled or sup.audit_disabled
         stats.sup_counters = dict(sup.counters)
         stats.audit_send_s = sup.audit_send_s
+        stats.audit_send_cpu_s = sup.audit_send_cpu_s
         stats.audit_take_s = sup.audit_take_s
+        stats.audit_take_cpu_s = sup.audit_take_cpu_s
         ev_log.log("sup_done", state=sup.state, degraded=sup.failed_over,
                    audit_s=round(sup.audit_s, 4), **sup.counters,
                    **{f"gov_{k}": v for k, v in gov.counters.items()})

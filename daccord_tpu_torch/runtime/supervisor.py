@@ -362,6 +362,10 @@ class DeviceSupervisor:
                                    # rows, queue to the worker)
         self.audit_take_s = 0.0    # of that, taking the sampled rows (a
                                    # paged batch's table rows and pages)
+        # this thread's CPU time in the sends and in the take: the rest of
+        # their wall is waiting (for the interpreter lock above all)
+        self.audit_send_cpu_s = 0.0
+        self.audit_take_cpu_s = 0.0
         self.audit_disabled: str | None = None   # why the audit stopped
         self._audit_warmed: set[tuple] = set()
         self._trust: dict[int, dict] = {}
@@ -807,22 +811,13 @@ class DeviceSupervisor:
 
     @staticmethod
     def _take_rows(batch, rows):
-        """Row-subset copy of a batch. A paged batch stays paged: those rows'
-        table and the pool pages it names (``audit.worker.sample_pages``),
-        unpacked where the sample is solved."""
-        import dataclasses
+        """Row-subset copy of a batch (``audit.worker.take_rows``, in the
+        host library with the interpreter lock held). A paged batch stays
+        paged: those rows' table and the pool pages it names, unpacked where
+        the sample is solved."""
+        from ..audit.worker import take_rows
 
-        import numpy as np
-
-        if hasattr(batch, "to_dense"):
-            from ..audit.worker import sample_pages
-
-            return sample_pages(batch, rows)
-        idx = np.asarray(rows, dtype=np.int64)
-        return dataclasses.replace(
-            batch, seqs=batch.seqs[idx], lens=batch.lens[idx],
-            nsegs=batch.nsegs[idx], read_ids=batch.read_ids[idx],
-            wstarts=batch.wstarts[idx])
+        return take_rows(batch, rows)
 
     @staticmethod
     def _rows_equal(dev: dict, ref: dict, i: int, j: int, tier0: bool = False):
@@ -852,15 +847,17 @@ class DeviceSupervisor:
         B = int(h.batch.size)
         if B <= 0:
             return
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.thread_time()
         rows = self._audit_sample(B)
         self._n_audit += 1
-        t1 = time.perf_counter()
+        t1, c1 = time.perf_counter(), time.thread_time()
         sample = self._take_rows(h.batch, rows)
-        t2 = time.perf_counter()
+        t2, c2 = time.perf_counter(), time.thread_time()
         h.audit = (rows, self._worker.submit(sample, tier0_only=_is_tier0(h.batch)))
         dt = time.perf_counter() - t0
         self.audit_take_s += t2 - t1
+        self.audit_take_cpu_s += c2 - c1
+        self.audit_send_cpu_s += time.thread_time() - c0
         self.audit_send_s += dt
         self.audit_s += dt
 

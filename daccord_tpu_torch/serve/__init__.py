@@ -22,27 +22,40 @@ thread, its supervisor and audit workers) resident across jobs.
     journal.py    the write-ahead job journal (fsync'd lifecycle records,
                   torn-tail-tolerant replay, idempotency-key memory,
                   compaction)
-    netio.py      the integrity header names (the router's client comes
-                  with the router)
+    netio.py      the HTTP choke point every router, autoscaler and client
+                  call rides (deadlines, transient-only retries, the
+                  per-peer circuit breaker, hedged reads, the body and
+                  stream byte counts)
+    router.py     the stateless front door: peers from the announce leases,
+                  rendezvous stickiness, spill, proxying with idempotency
+                  keys
+    autoscale.py  the SLO-burn autoscaler inside the router: spawns, drains
+                  and reaps serve peers
+    aotcache.py   the fleet-shared cache of the nvcc-built kernel libraries
+                  (``--aot-cache``)
 
 Byte contract: every job's FASTA is byte-identical to a solo ``daccord``
 run over the same inputs and config, under the fault and capacity matrix
 (device loss, a device OOM bisecting a mixed batch, aborts) and the crash
-matrix (a kill at every lifecycle point, journal replay, peer takeover).
-The router, the autoscaler and the shared compiled-artefact cache are not
-ported yet.
+matrix (a kill at every lifecycle point, journal replay, peer takeover),
+and through the router (a peer killed mid-proxy: the client's retry with
+the same idempotency key lands exactly once on the survivor).
 """
 
 from .admission import AdmissionConfig, AdmissionController, AdmissionReject
+from .aotcache import AotCache
+from .autoscale import AutoscaleConfig, Autoscaler
 from .batcher import JobAborted, JobSolver, SolveGroup
 from .jobs import Job, JobSpec, build_job_config, solve_fingerprint
 from .journal import JobJournal, JournalEntry
+from .router import Router, RouterConfig
 from .service import ConsensusService, ServeConfig
 from .state import WarmState
 
 __all__ = [
-    "AdmissionConfig", "AdmissionController", "AdmissionReject",
-    "ConsensusService", "Job", "JobAborted", "JobJournal", "JobSolver",
-    "JobSpec", "JournalEntry", "ServeConfig", "SolveGroup", "WarmState",
+    "AdmissionConfig", "AdmissionController", "AdmissionReject", "AotCache",
+    "AutoscaleConfig", "Autoscaler", "ConsensusService", "Job", "JobAborted",
+    "JobJournal", "JobSolver", "JobSpec", "JournalEntry", "Router",
+    "RouterConfig", "ServeConfig", "SolveGroup", "WarmState",
     "build_job_config", "solve_fingerprint",
 ]

@@ -143,8 +143,10 @@ class GroupConfig:
                                  # dispatch at batch >> shed_levels (the
                                  # batch ladder as the overload policy);
                                  # mutated via set_shed
-    aot_dir: str | None = None   # a shared compiled-artefact cache: not
-                                 # ported (raises when set)
+    aot_dir: str | None = None   # the fleet-shared kernel cache
+                                 # (serve/aotcache.py): a card group installs
+                                 # the nvcc-built kernels from it, or builds
+                                 # and publishes them, at its build
     audit_rate: float | None = None  # the shadow audit's rate for the group's
                                  # supervisor; None = env DACCORD_AUDIT_RATE
                                  # (1/64), 0 disables. Native groups never
@@ -167,10 +169,6 @@ class SolveGroup:
             raise ValueError(
                 f"mesh={gcfg.mesh}: solve groups over several cards wait for the "
                 "port of parallel/mesh.py (ROADMAP Queue 1 item 5)")
-        if gcfg.aot_dir:
-            raise ValueError(
-                "aot_dir: the shared compiled-artefact cache waits for its "
-                "decision with the router and the fleet (ROADMAP Queue 1 item 3)")
         self.key = key
         self.name = name
         self.cfg = cfg                      # canonical PipelineConfig
@@ -231,6 +229,12 @@ class SolveGroup:
         if g.backend not in ("cpu", "cuda"):
             raise ValueError(f"backend {g.backend!r}: expected native, cpu or cuda")
         dev = resolve_device(g.backend)
+        if dev.type == "cuda" and g.aot_dir:
+            # the ladder's kernels from the fleet's cache (or built here and
+            # published) before the first launch; once a process
+            from .aotcache import prepare_kernels
+
+            prepare_kernels(g.aot_dir, log=self.log)
 
         def make_ladder(device):
             return TierLadder.from_config(profile, cfg.consensus, max_kmers=cfg.max_kmers,

@@ -38,9 +38,8 @@ Streaming reads the job's ``out.fasta.part`` as it grows — the runner
 flushes after every emitted read, so the stream tracks pipeline progress at
 read granularity with no extra buffering layer.
 
-The integrity header and trailer names come from ``serve/netio.py``, which
-holds only them for now: the rest of ``netio`` (the verified client and
-proxy) comes with the router.
+The integrity header and trailer names come from ``serve/netio.py``, whose
+client (``request``, ``stream``) checks them: the router proxies through it.
 """
 
 from __future__ import annotations
@@ -220,20 +219,33 @@ class ServeHandler(BaseHTTPRequestHandler):
         def chunk(data: bytes) -> None:
             self.wfile.write(b"%x\r\n" % len(data) + data + b"\r\n")
 
+        def read_at(pos: int) -> bytes:
+            # the committed file, else the part, else the committed file
+            # again: the commit renames the part (atomically) and only then
+            # marks the job done, so a look that missed both files across
+            # the rename finds the bytes on its third try. (A look at the
+            # part alone could lose the part to the rename between its
+            # exists() and its open(): a torn stream, or with the job
+            # already done a short one behind a matching trailer.)
+            for src in (job.fasta, job.fasta_part, job.fasta):
+                try:
+                    with open(src, "rb") as fh:
+                        fh.seek(pos)
+                        return fh.read(1 << 20)
+                except FileNotFoundError:
+                    continue
+            return b""
+
         pos = 0
         try:
             while True:
-                src = job.fasta if os.path.exists(job.fasta) else \
-                    job.fasta_part
-                if os.path.exists(src):
-                    with open(src, "rb") as fh:
-                        fh.seek(pos)
-                        data = fh.read(1 << 20)
-                    if data:
-                        chunk(data)
-                        pos += len(data)
-                        continue
-                if job.state in (DONE, FAILED, ABORTED):
+                done = job.state in (DONE, FAILED, ABORTED)
+                data = read_at(pos)
+                if data:
+                    chunk(data)
+                    pos += len(data)
+                    continue
+                if done:
                     break
                 time.sleep(0.05)
             # terminal chunk + byte-count trailer: a consumer (the router's

@@ -122,6 +122,13 @@ class ServeConfig:
                                      # <workdir-basename>:<pid>
     lease_ttl_s: float = 15.0        # older per-job lease is stale (takeover)
     heartbeat_s: float = 1.0         # lease renewal + takeover-scan cadence
+    aot_dir: str | None = None       # the fleet-shared kernel cache
+                                     # (serve/aotcache.py): a cuda service
+                                     # installs the nvcc-built kernels from it
+                                     # (or builds and publishes them) before
+                                     # it reports ready; the serve CLI
+                                     # defaults it to $DACCORD_AOT_CACHE or
+                                     # <peer_dir>/aotcache
     audit_rate: float | None = None  # sampled shadow verification for the
                                      # solve groups; None = env
                                      # DACCORD_AUDIT_RATE (1/64), 0 = off
@@ -265,6 +272,12 @@ class ConsensusService:
         self.log_event("serve.start", workdir=cfg.workdir,
                        backend=cfg.backend, batch=int(cfg.batch),
                        workers=int(cfg.workers), pid=os.getpid())
+        if cfg.aot_dir and cfg.backend == "cuda":
+            # the ladder's kernels before the first job and before readiness:
+            # installed from the fleet's cache, or built here and published
+            from .aotcache import prepare_kernels
+
+            prepare_kernels(cfg.aot_dir, log=self.events)
         # the write-ahead journal opens AFTER replay folded (and compacted)
         # the previous incarnation's records — compaction rewrites the file
         # via rename, so it must finish before the append fd is taken
@@ -307,7 +320,7 @@ class ConsensusService:
                            paged=scfg.paged and scfg.backend != "native",
                            page_len=scfg.page_len, dp_route=scfg.dp_route,
                            shed_levels=self._shed,
-                           audit_rate=scfg.audit_rate)
+                           audit_rate=scfg.audit_rate, aot_dir=scfg.aot_dir)
         g = SolveGroup(key, profile, cfg, gcfg, log=glog, name=name)
         self.log_event("serve.group", group=name, key=key[:16],
                        backend=scfg.backend, batch=int(scfg.batch))

@@ -6,6 +6,12 @@
   into OUTDIR with a manifest and mid-shard checkpoints, the ``daccord``
   flags otherwise), ``merge`` (``daccord-merge``: the validating merge gate)
   and ``audit`` (``daccord-audit``: the sha256 chain of a shard directory);
+- the multi-process layer: ``fleet`` (``daccord-fleet``: every shard of a
+  run as supervised ``shard`` processes, with lease takeover, retries,
+  poison quarantine, the OOM requeue and ``--merge``), ``serve`` (the
+  always-on service; ``--peer-dir`` and ``--aot-cache`` join a fleet of
+  peers) and ``router`` (``daccord-router``: the front door of such a fleet,
+  with its ``--autoscale-*`` autoscaler);
 - the workflow before ``daccord``: ``inqual`` (the intrinsic-QV track the
   depth ranking reads), ``repeats``, ``filter``, ``filtersym``;
 - LAS tools ``lassort``, ``lasmerge``, ``lasindex``, ``lassplit``,
@@ -30,6 +36,7 @@ to the JAX package's::
     python -m daccord_tpu_torch.tools.cli filtersym F.las S.las --db DB
     python -m daccord_tpu_torch.tools.cli shard DB S.las OUT -J 0,2  (and 1,2)
     python -m daccord_tpu_torch.tools.cli merge OUT 2 OUT.fasta
+    python -m daccord_tpu_torch.tools.cli fleet DB S.las OUT -n 4 --workers 2 --merge OUT.fasta
 
     python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT [-E EPROF]
         [--eprof-only] [-J i,n | --block I] [-w W] [-a ADV] [-k K]
@@ -650,8 +657,30 @@ def shard_main(argv=None) -> int:
                       checkpoint_every=args.checkpoint_every)
     except IngestError as ex:
         raise SystemExit(f"daccord-shard: {ex}\n{_ingest_hint(args)}") from None
+    finally:
+        if args.device == "cuda":
+            _add_launches(os.path.join(args.outdir, f"shard{i:04d}.launches.json"))
     print(json.dumps(m), file=sys.stderr)
     return 0
+
+
+def _add_launches(path: str) -> None:
+    """Add this process's kernel launch counts to a shard's
+    ``shardNNNN.launches.json`` (summed over its attempts), so a fleet's
+    launches can be read after its worker processes are gone."""
+    from ..kernels import graphs
+
+    try:
+        with open(path) as fh:
+            seen = json.load(fh)
+    except (OSError, ValueError):
+        seen = {}
+    for mod in graphs._counter_modules():
+        name = mod.__name__.rsplit(".", 1)[1]
+        seen[name] = int(seen.get(name, 0)) + int(mod.launches)
+    from ..utils.aio import durable_write
+
+    durable_write(path, lambda fh: json.dump(seen, fh), mode="wt")
 
 
 def serve_main(argv=None) -> int:
@@ -747,6 +776,13 @@ def serve_main(argv=None) -> int:
                    help="bounded graceful shutdown: a drain outliving this "
                         "journal-marks in-flight jobs INTERRUPTED (resumable "
                         "on restart) and exits nonzero (0 = unbounded)")
+    p.add_argument("--aot-cache", default=None, metavar="DIR",
+                   help="fleet-shared kernel cache: the card's groups install "
+                        "the nvcc-built kernel libraries from (and publish "
+                        "them to) this shared-FS dir, so a fresh peer runs no "
+                        "nvcc (serve/aotcache.py). Default: $DACCORD_AOT_CACHE, "
+                        "else <peer-dir>/aotcache when --peer-dir is set; "
+                        "'off' disables")
     p.add_argument("--audit-rate", type=float, default=None, metavar="F",
                    help="sampled shadow verification for solve groups: the "
                         "fraction of windows per merged batch re-solved on "
@@ -789,6 +825,13 @@ def serve_main(argv=None) -> int:
     from ..serve import AdmissionConfig, ConsensusService, ServeConfig
     from ..serve.http import start_server
 
+    aot_dir = args.aot_cache or os.environ.get("DACCORD_AOT_CACHE")
+    if not aot_dir and args.peer_dir:
+        # the fleet's convention: the kernel cache lives beside the lease
+        # dir, shared by every peer of a takeover group
+        aot_dir = os.path.join(args.peer_dir, "aotcache")
+    if aot_dir in ("off", "none", "0"):
+        aot_dir = None
     cfg = ServeConfig(
         workdir=args.workdir, backend=args.backend,
         backend_explicit=backend_explicit, batch=args.batch,
@@ -802,6 +845,7 @@ def serve_main(argv=None) -> int:
         peer_dir=args.peer_dir, peer_name=args.peer_name,
         lease_ttl_s=args.lease_ttl_s, heartbeat_s=args.heartbeat_s,
         drain_deadline_s=args.drain_deadline_s, audit_rate=args.audit_rate,
+        aot_dir=aot_dir,
         admission=AdmissionConfig(
             max_queued_jobs=args.max_queued,
             tenant_max_queued=args.tenant_max_queued,
@@ -1316,11 +1360,275 @@ def qveval_main(argv=None) -> int:
         print(out, file=sys.stderr)
     return 0
 
+def router_main(argv=None) -> int:
+    """router: the stateless front door of a serve fleet. It discovers peers
+    from the shared lease dir's announce leases, rendezvous-hashes tenants to
+    the peers whose groups are warm, spills around shedding or burning
+    owners, proxies submit/result/stream/abort with idempotency keys passing
+    through, and (optionally) runs the SLO-burn autoscaler that spawns and
+    reaps serve peers."""
+    p = argparse.ArgumentParser(prog="router", description=router_main.__doc__)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8946,
+                   help="listen port (0 = ephemeral; pair with --ready-file)")
+    p.add_argument("--workdir", required=True,
+                   help="router state root: router.events.jsonl telemetry")
+    p.add_argument("--peer-dir", required=True, metavar="DIR",
+                   help="the serve fleet's shared lease root (the SAME dir "
+                        "every serve --peer-dir points at): peers are "
+                        "discovered from its announce leases")
+    p.add_argument("--poll-s", type=float, default=1.0,
+                   help="healthz poll + discovery sweep cadence")
+    p.add_argument("--lease-ttl-s", type=float, default=15.0,
+                   help="an announce lease older than this = peer down")
+    p.add_argument("--spill-burn", type=float, default=1.0,
+                   help="owner SLO burn >= this (red band) spills the tenant "
+                        "to the least-loaded ready peer (0 = never spill on "
+                        "burn)")
+    p.add_argument("--proxy-timeout-s", type=float, default=600.0)
+    p.add_argument("--healthz-timeout-s", type=float, default=5.0,
+                   help="per-poll deadline: bounds the poll loop against a "
+                        "hung peer socket")
+    p.add_argument("--breaker-fails", type=int, default=3,
+                   help="consecutive transport failures that open a peer's "
+                        "circuit breaker")
+    p.add_argument("--breaker-open-s", type=float, default=5.0,
+                   help="breaker cooldown before a half-open probe")
+    p.add_argument("--net-retries", type=int, default=2,
+                   help="transient-class (reset/refused) retry budget per "
+                        "proxied call; non-idempotent submits never retry")
+    p.add_argument("--events", default=None, metavar="PATH",
+                   help="router events jsonl (router.* + scale.*; default "
+                        "WORKDIR/router.events.jsonl)")
+    p.add_argument("--ready-file", default=None, metavar="PATH",
+                   help="write {port, pid} JSON here once bound")
+    # the SLO-burn autoscaler (off unless --autoscale-max > 0)
+    p.add_argument("--autoscale-max", type=int, default=0, metavar="N",
+                   help="enable the autoscaler with this fleet-size cap: "
+                        "sustained fleet burn spawns serve peers into "
+                        "--autoscale-root, idle spawned peers drain after "
+                        "--autoscale-idle-s (0 = autoscaler off)")
+    p.add_argument("--autoscale-min", type=int, default=1)
+    p.add_argument("--autoscale-root", default=None, metavar="DIR",
+                   help="workdir root for spawned peers (default "
+                        "WORKDIR/peers)")
+    p.add_argument("--autoscale-burn", type=float, default=1.0,
+                   help="fleet burn (max over ready peers) >= this arms the "
+                        "scale-out trigger")
+    p.add_argument("--autoscale-sustain-s", type=float, default=5.0)
+    p.add_argument("--autoscale-cooldown-s", type=float, default=30.0)
+    p.add_argument("--autoscale-idle-s", type=float, default=120.0,
+                   help="an idle spawned peer older than this drains "
+                        "(graceful shutdown; 0 = never scale in)")
+    p.add_argument("--autoscale-backend", choices=BACKENDS, default="cuda",
+                   help="the spawned peers' --backend (default the card; "
+                        "auto raises in the peer without one)")
+    p.add_argument("--autoscale-batch", type=int, default=None,
+                   help="the spawned peers' -b (default: their own auto batch)")
+    p.add_argument("--autoscale-workers", type=int, default=2)
+    p.add_argument("--autoscale-slo-p99-s", type=float, default=0.0,
+                   help="forwarded to spawned peers so they report burn")
+    p.add_argument("--autoscale-arg", action="append", default=[],
+                   metavar="ARG", help="extra serve flag for spawned peers "
+                        "(repeatable)")
+    args = p.parse_args(argv)
+
+    from ..serve.router import Router, RouterConfig, start_router
+
+    rcfg = RouterConfig(workdir=args.workdir, peer_dir=args.peer_dir,
+                        poll_s=args.poll_s, lease_ttl_s=args.lease_ttl_s,
+                        spill_burn=args.spill_burn,
+                        proxy_timeout_s=args.proxy_timeout_s,
+                        healthz_timeout_s=args.healthz_timeout_s,
+                        breaker_fails=args.breaker_fails,
+                        breaker_open_s=args.breaker_open_s,
+                        net_retries=args.net_retries,
+                        events_path=args.events)
+    router = Router(rcfg)
+    if args.autoscale_max > 0:
+        from ..serve.autoscale import AutoscaleConfig, Autoscaler
+
+        acfg = AutoscaleConfig(
+            peer_dir=args.peer_dir,
+            root=args.autoscale_root or os.path.join(args.workdir, "peers"),
+            max_peers=args.autoscale_max, min_peers=args.autoscale_min,
+            spawn_burn=args.autoscale_burn,
+            sustain_s=args.autoscale_sustain_s,
+            cooldown_s=args.autoscale_cooldown_s,
+            idle_ttl_s=args.autoscale_idle_s,
+            backend=args.autoscale_backend, batch=args.autoscale_batch,
+            workers=args.autoscale_workers,
+            slo_p99_s=args.autoscale_slo_p99_s,
+            extra_args=tuple(args.autoscale_arg))
+        router.autoscaler = Autoscaler(acfg, router.log)
+    httpd, port, _t = start_router(router, args.host, args.port)
+    if args.ready_file:
+        from ..utils.aio import durable_write
+
+        durable_write(args.ready_file,
+                      lambda fh: json.dump({"port": port, "pid": os.getpid()}, fh),
+                      mode="wt")
+    print(json.dumps({"routing": f"http://{args.host}:{port}",
+                      "peer_dir": args.peer_dir,
+                      "autoscale_max": args.autoscale_max}), file=sys.stderr)
+    import signal
+    import threading
+
+    def _stop(signum, frame):
+        threading.Thread(target=lambda: (router.shutdown(), httpd.shutdown()),
+                         daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _stop)
+    signal.signal(signal.SIGINT, _stop)
+    _t.join()
+    return 0
+
+
+def fleet_main(argv=None) -> int:
+    """fleet: run all N shards to completion under supervision — a bounded
+    local pool of shard worker processes plus shared-FS lease takeover for
+    several hosts; crashed or hung workers are requeued with backoff, a
+    shard that kills K consecutive workers is poison-quarantined while the
+    rest of the fleet continues, and --merge ends in the validating merge
+    gate."""
+    p = argparse.ArgumentParser(prog="fleet", description=fleet_main.__doc__)
+    p.add_argument("db")
+    p.add_argument("las")
+    p.add_argument("outdir")
+    p.add_argument("-n", "--nshards", type=int, required=True)
+    p.add_argument("--workers", type=int, default=2,
+                   help="local worker subprocess slots")
+    p.add_argument("--max-attempts", type=int, default=5,
+                   help="worker spawns per shard before it is quarantined")
+    p.add_argument("--poison-after", type=int, default=3,
+                   help="consecutive worker failures that declare a shard poison")
+    p.add_argument("--heartbeat", type=float, default=1.0, metavar="S",
+                   help="lease mtime renewal period")
+    p.add_argument("--lease-ttl", type=float, default=15.0, metavar="S",
+                   help="a lease older than this is stale: any host may take "
+                        "the shard over (must exceed a few heartbeats plus "
+                        "shared-FS mtime lag and host clock skew)")
+    p.add_argument("--stall-timeout", type=float, default=600.0, metavar="S",
+                   help="a worker whose progress manifest has not moved for "
+                        "this long is declared hung and requeued")
+    p.add_argument("--speculate-factor", type=float, default=4.0,
+                   help="re-execute a shard lagging the fleet median "
+                        "throughput by this factor once slots are idle "
+                        "(0 = off)")
+    p.add_argument("--checkpoint-every", type=int, default=16,
+                   help="worker checkpoint cadence (reads); progress "
+                        "manifests also drive hang detection")
+    p.add_argument("-b", "--batch", type=int, default=None,
+                   help="every worker's -b (default: the backend's auto "
+                        "batch, utils.obs.auto_batch_size)")
+    p.add_argument("--backend", choices=BACKENDS, default="auto",
+                   help="every worker's engine; auto = the card when the "
+                        "probe sees one, else an error, or with --device cpu "
+                        "the native engine (the CPU ladder without g++)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="every worker's --device (default: the backend's)")
+    p.add_argument("-t", "--threads", type=int, default=None,
+                   help="every worker's -t (feeder threads; default: the "
+                        "worker's own)")
+    p.add_argument("--dp", choices=("fused", "scan"), default=None,
+                   help="every worker's heaviest-path route")
+    p.add_argument("--ingest-policy", choices=("strict", "quarantine", "off"),
+                   default="strict")
+    p.add_argument("--paged", choices=("on", "off", "auto"), default="off",
+                   help="paged window batching forwarded to every worker "
+                        "(see daccord --paged)")
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="several cards a worker: not ported (N > 1 is "
+                        "refused)")
+    p.add_argument("--max-pile-overlaps", type=int, default=None, metavar="N",
+                   help="monster-pile budget forwarded to every worker (see "
+                        "daccord --max-pile-overlaps); 0 disables")
+    p.add_argument("--events", default=None, metavar="PATH",
+                   help="fleet events jsonl (spawn/heartbeat/takeover/retry/"
+                        "poison/speculate/done; schema: tools/eventcheck.py). "
+                        "Default: OUTDIR/fleet.events.jsonl")
+    p.add_argument("--no-worker-telemetry", action="store_true",
+                   help="do not thread per-worker telemetry sidecars "
+                        "(shardNNNN.events.jsonl, shardNNNN.ledger.jsonl) "
+                        "through the workers")
+    p.add_argument("--merge", default=None, metavar="FASTA",
+                   help="after the fleet finishes, run the validating merge "
+                        "gate into this file")
+    p.add_argument("--allow-degraded", action="store_true",
+                   help="let --merge proceed over degraded/quarantined/"
+                        "missing shards, and exit 0 even when shards were "
+                        "poisoned")
+    args = p.parse_args(argv)
+    want = {"cuda": "cuda", "cpu": "cpu", "native": "cpu"}.get(args.backend)
+    if args.device is not None and want is not None and args.device != want:
+        raise SystemExit(f"--backend {args.backend} contradicts --device "
+                         f"{args.device} (drop one of the two flags)")
+    from ..parallel.fleet import Fleet, FleetConfig
+    from ..parallel.launch import MergeGateError, merge_shards
+    from ..runtime.faults import FaultPlan
+
+    try:
+        faults = FaultPlan.from_env()
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    cfg = FleetConfig(nshards=args.nshards, workers=args.workers,
+                      max_attempts=args.max_attempts,
+                      poison_after=args.poison_after,
+                      heartbeat_s=args.heartbeat, lease_ttl_s=args.lease_ttl,
+                      stall_timeout_s=args.stall_timeout,
+                      speculate_factor=args.speculate_factor,
+                      checkpoint_every=args.checkpoint_every,
+                      batch=args.batch, backend=args.backend,
+                      device=args.device, threads=args.threads,
+                      dp_route=args.dp, ingest_policy=args.ingest_policy,
+                      paged=args.paged, mesh=args.mesh,
+                      max_pile_overlaps=args.max_pile_overlaps,
+                      worker_telemetry=not args.no_worker_telemetry,
+                      events_path=args.events if args.events is not None
+                      else os.path.join(args.outdir, "fleet.events.jsonl"))
+    try:
+        fleet = Fleet(args.db, args.las, args.outdir, cfg, faults=faults)
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"fleet: {e}") from None
+    manifest = fleet.run()
+    print(json.dumps({k: manifest[k] for k in
+                      ("nshards", "done", "poison", "degraded", "wall_s")}),
+          file=sys.stderr)
+    if args.merge:
+        try:
+            n = merge_shards(args.outdir, args.nshards, args.merge,
+                             allow_degraded=args.allow_degraded)
+        except MergeGateError as ex:
+            raise SystemExit("fleet: merge gate refused:\n  "
+                             + "\n  ".join(ex.issues)) from None
+        # the merged output's digest into fleet.json: the integrity chain's
+        # last durable link (the audit tool re-verifies it offline)
+        from ..parallel.launch import _write_manifest_durable
+        from ..utils.obs import sha256_file
+
+        merged_sha = sha256_file(args.merge)
+        fj = os.path.join(args.outdir, "fleet.json")
+        try:
+            with open(fj) as fh:
+                fm = json.load(fh)
+        except (OSError, ValueError):
+            fm = None
+        if fm is not None:
+            fm["merged_fasta"] = args.merge
+            fm["merged_fragments"] = n
+            fm["merged_sha256"] = merged_sha
+            _write_manifest_durable(fj, fm)
+        print(f"merged {n} fragments -> {args.merge} sha256={merged_sha}",
+              file=sys.stderr)
+    return 0 if (not manifest["poison"] or args.allow_degraded) else 1
+
 
 _TOOLS = {
     "daccord": daccord_main,
     "shard": shard_main,
     "serve": serve_main,
+    "router": router_main,
+    "fleet": fleet_main,
     "merge": merge_main,
     "audit": audit_main,
     "inqual": intrinsicqv_main,

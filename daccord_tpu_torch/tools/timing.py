@@ -35,19 +35,24 @@ def kernel_ms(fn, name: str | None, reps: int) -> tuple[float, str]:
     duration of the kernel whose name contains ``name``, which each call
     launches once, or, with ``name`` None, the summed duration of every
     kernel the calls launched, divided by ``reps``: (ms, "profiler"). If the
-    profiler records no such kernel, the calls are timed with CUDA events
-    instead: (ms, "events")."""
+    profiler records no such kernel in two sessions (on the H100 a session
+    now and then records no device event at all), the calls are timed with
+    CUDA events instead: (ms, "events")."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and (name is None or name in e.name)]
+    us = []
+    for _ in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and (name is None or name in e.name)]
+        if us:
+            break
     if not us:
         return event_ms(fn, reps), "events"
     if name is None:

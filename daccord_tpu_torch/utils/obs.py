@@ -395,6 +395,60 @@ def device_alive(timeout_s: float = 150, device: str = "cuda") -> bool:
     return "alive=1" in r.stdout
 
 
+_COUNT_PROBE = ("import torch\n"
+                "print('ndev=%d' % (torch.cuda.device_count() "
+                "if torch.cuda.is_available() else 0))\n")
+
+
+def probe_backend_status(timeout_s: float | None = None) -> tuple[int, str]:
+    """(device count, reason) of the card, asked from a throwaway child
+    process that imports torch and reads ``torch.cuda.device_count()``: a
+    wedged driver then costs at most ``timeout_s``, never the caller. Count
+    0 means no usable card; the reason says why (``probe_timeout`` |
+    ``init_error`` | ``no_devices`` | ``probe_error``), as in the JAX
+    package's probe. ``timeout_s`` defaults to ``DACCORD_PROBE_TIMEOUT_S``
+    (150 s; a malformed value reads as 150)."""
+    if timeout_s is None:
+        timeout_s = env_float("DACCORD_PROBE_TIMEOUT_S", 150.0)
+    try:
+        r = subprocess.run([sys.executable, "-c", _COUNT_PROBE],
+                           capture_output=True, text=True, timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        return 0, "probe_timeout"
+    except OSError:
+        return 0, "probe_error"
+    for line in r.stdout.splitlines():
+        if line.startswith("ndev="):
+            try:
+                n = int(line.split("=", 1)[1])
+            except ValueError:
+                return 0, "init_error"
+            return n, ("ok" if n > 0 else "no_devices")
+    return 0, "init_error"
+
+
+def resolve_auto_backend(device: str | None = None) -> str:
+    """``--backend auto`` as the multi-process layer resolves it: ``cuda``
+    when the bounded probe sees a card. With no card the port raises: it
+    never falls back on its own (the JAX function falls back quietly to the
+    native engine or its CPU ladder on a dead device). Only an explicit
+    ``device='cpu'`` takes the host: the native engine when the host library
+    loads, else the CPU ladder."""
+    if device is not None and str(device).startswith("cpu"):
+        try:
+            from ..native import load
+
+            load()
+            return "native"
+        except Exception:  # noqa: BLE001 -- no g++: the CPU ladder
+            return "cpu"
+    n, why = probe_backend_status()
+    if n > 0:
+        return "cuda"
+    raise RuntimeError(f"--backend auto: CUDA is not available (probe: {why}); "
+                       "pass --device cpu to run on the host")
+
+
 def env_float(name: str, default: float) -> float:
     """Float env knob with a silent fall-back on unparseable values (the
     runtime config pattern shared by the supervisor and the governor)."""

@@ -15,6 +15,8 @@ their separate solves and the torch reference's.
 import dataclasses
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -351,6 +353,106 @@ def test_a_paged_sample_is_its_pages_and_unpacks_to_the_dense_rows():
     for g, w in zip(got, (seqs[rows], lens[rows], nsegs[rows])):
         assert np.array_equal(g, w)
     assert np.array_equal(sample.to_dense().seqs, seqs[rows])
+
+
+def _take_batch(kind: str):
+    """A batch of 96 windows, dense or packed (``paged``), or packed with
+    its table rows' pages out of order (``shuffled``: the take's sort path),
+    and 40 sampled rows."""
+    from daccord_tpu_torch.kernels import paging
+    from daccord_tpu_torch.kernels.tensorize import BatchShape, WindowBatch
+    from daccord_tpu_torch.utils.bases import PAD
+
+    rng = np.random.default_rng(5)
+    B, D, L = 96, 8, 64
+    lens = rng.integers(0, L + 1, size=(B, D)).astype(np.int32)
+    nsegs = rng.integers(1, D + 1, size=B).astype(np.int32)
+    for i in range(B):
+        lens[i, nsegs[i]:] = 0
+    seqs = np.where(np.arange(L)[None, None, :] < lens[:, :, None],
+                    rng.integers(0, 4, size=(B, D, L)), PAD).astype(np.int8)
+    batch = WindowBatch(seqs=seqs, lens=lens, nsegs=nsegs,
+                        shape=BatchShape(depth=D, seg_len=L, wlen=40),
+                        read_ids=np.arange(B, dtype=np.int64),
+                        wstarts=np.arange(B, dtype=np.int64) * 10)
+    if kind != "dense":
+        batch = paging.pack_paged(batch, paging.ShapeFamily(depth=D, pages=D * L // 16,
+                                                            page_len=16))
+    if kind == "shuffled":
+        perm = rng.permutation(len(batch.pool) - 1) + 1
+        pool = batch.pool.copy()
+        pool[perm] = batch.pool[1:]
+        table = np.where(batch.table > 0, np.concatenate([[0], perm])[batch.table], 0)
+        batch = dataclasses.replace(batch, pool=pool, table=table.astype(np.int32))
+    rows = sorted(rng.choice(B, size=40, replace=False).tolist())
+    return batch, seqs, rows
+
+
+@pytest.mark.parametrize("kind", ["paged", "shuffled", "dense"])
+def test_the_take_is_the_plain_take_and_the_rows_the_worker_solves(kind):
+    """The supervisor's take (``take_rows``, the host library with the
+    interpreter lock held) is today's numpy take byte for byte: for a paged
+    batch ``sample_pages``'s table, pool, lens, nsegs and ids, whose unpack
+    in the worker gives the sampled rows of the dense batch that was packed;
+    for a dense one the row subset."""
+    batch, seqs, rows = _take_batch(kind)
+    got = DeviceSupervisor._take_rows(batch, rows)
+    want = audit_worker.take_rows_plain(batch, rows)
+    if kind != "dense":
+        assert np.array_equal(audit_worker.sample_pages(batch, rows).pool, want.pool)
+    fields = ("pool", "table") if kind != "dense" else ("seqs",)
+    for f in (*fields, "lens", "nsegs", "read_ids", "wstarts"):
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w), f
+    assert type(got) is type(batch) and got.shape == batch.shape
+    solved = audit_worker._dense((got.pool, got.table, got.lens, got.nsegs, (8, 64, 16))
+                                 if kind != "dense" else (got.seqs, got.lens, got.nsegs))
+    assert np.array_equal(solved[0], seqs[rows])
+    with pytest.raises(IndexError):
+        audit_worker.take_rows(batch, [0, len(batch.nsegs)])
+    if kind != "dense":
+        bad = batch.table.copy()
+        bad[rows[0], 0] = len(batch.pool)
+        with pytest.raises(IndexError):
+            audit_worker.take_rows(dataclasses.replace(batch, table=bad), rows)
+
+
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+def test_the_take_never_gives_up_the_interpreter_lock(kind):
+    """Beside a thread that counts while it holds the interpreter lock, the
+    count does not move during the supervisor's take (the numpy take's ops
+    may each give the lock up, and the take on the pipeline's thread then
+    waited for it beside the feeder threads), and it does move while this
+    thread sleeps."""
+    batch, _, rows = _take_batch(kind)
+    audit_worker.take_rows(batch, rows)           # the library loaded
+    count, stop = [0], threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            count[0] += 1
+            time.sleep(0)                          # hands the lock back
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(30.0)                    # no forced hand-over
+    t = threading.Thread(target=spin, daemon=True)
+    t.start()
+    try:
+        while count[0] < 10:
+            time.sleep(0.001)
+        moved = 0
+        for _ in range(20):
+            c0 = count[0]
+            audit_worker.take_rows(batch, rows)
+            moved += count[0] - c0
+        c0 = count[0]
+        time.sleep(0.01)
+        slept = count[0] - c0
+    finally:
+        stop.set()
+        t.join()
+        sys.setswitchinterval(old)
+    assert moved == 0 and slept > 0, (moved, slept)
 
 
 @pytest.mark.parametrize("in_worker", [True, False], ids=["worker", "in-process"])

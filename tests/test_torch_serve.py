@@ -666,23 +666,27 @@ def test_cpu_ladder_arm_byte_parity(dataset, tmp_path, mode):
     _lint(_events(svc.cfg.workdir))
 
 
-def test_serve_cli_refuses_a_card_it_does_not_have_and_unported_flags(tmp_path):
+def test_serve_cli_refuses_a_card_it_does_not_have_and_unported_flags(tmp_path, capsys):
     """``serve --backend cuda`` (and ``auto``, which follows ``--device``,
     cuda by default) exits at startup on a box with no card: nothing falls
-    back to the CPU. ``--mesh`` and ``--aot-cache`` are not flags of the
-    port's serve."""
+    back to the CPU. ``--mesh`` is not a flag of the port's serve;
+    ``--aot-cache`` is (the fleet-shared kernel cache)."""
     from daccord_tpu_torch.tools import cli
 
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    for argv in (["--backend", "cuda"], [], ["--device", "cuda"]):
+    for argv in (["--backend", "cuda"], [], ["--device", "cuda"],
+                 ["--aot-cache", str(tmp_path / "aot")]):
         with pytest.raises(SystemExit, match="CUDA is not available"):
             cli.main(["serve", "--workdir", str(tmp_path / "w"), *argv])
-    for flag in (["--mesh", "2"], ["--aot-cache", "x"]):
+    for flag in (["--mesh", "2"],):
         with pytest.raises(SystemExit) as ei:
             cli.main(["serve", "--workdir", str(tmp_path / "w"), "--backend", "native",
                       *flag])
         assert ei.value.code == 2
+    with pytest.raises(SystemExit) as ei:
+        cli.main(["serve", "--help"])
+    assert ei.value.code == 0 and "--aot-cache" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="contradicts"):
         cli.main(["serve", "--workdir", str(tmp_path / "w"), "--backend", "native",
                   "--device", "cuda"])

@@ -130,8 +130,9 @@ def test_myers_matches_jax():
 
 def test_port_imports_no_jax():
     """The port and every one of its modules (the telemetry readers,
-    ``utils/obs``, the serve plane and ``utils/lease`` among them) import
-    without jax or daccord_tpu."""
+    ``utils/obs``, the serve plane, ``utils/lease``, the fleet, the router,
+    netio, the autoscaler and the kernel cache among them) import without
+    jax or daccord_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import daccord_tpu_torch\n"
@@ -140,7 +141,9 @@ def test_port_imports_no_jax():
         "assert 'daccord_tpu_torch.parallel.launch' in sys.modules\n"
         "assert 'daccord_tpu_torch.tools.lastools' in sys.modules\n"
         "for m in ('utils.obs', 'tools.trace', 'tools.prof', 'tools.top', 'tools.sentinel',\n"
-        "          'serve', 'serve.service', 'serve.batcher', 'serve.http', 'utils.lease'):\n"
+        "          'serve', 'serve.service', 'serve.batcher', 'serve.http', 'utils.lease',\n"
+        "          'parallel.fleet', 'serve.netio', 'serve.router', 'serve.autoscale',\n"
+        "          'serve.aotcache'):\n"
         "    assert 'daccord_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'daccord_tpu' or m.startswith('daccord_tpu.'))\n"
