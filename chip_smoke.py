@@ -169,8 +169,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    points (``python -m daccord_tpu_torch.tools.cli fleet|shard|serve|
    router``), each process counting its own kernel launches (the shards in
    ``shardNNNN.launches.json``, the peers in ``/v1/metrics``): the 100 kb
-   set through ``fleet -n 4 --backend cuda -b 2048 --merge`` at 1, 2 and 4
-   workers (``-t`` = the CPUs over the workers, at most 8), each fleet's
+   set through ``fleet -n 4 --backend cuda -b 2048 --merge`` at 1 and 4
+   workers (``-t`` = the CPUs over the workers, at most 8; the clean W=2
+   arm left for the smoke's time), each fleet's
    wall to the merged FASTA, windows/s, its workers' walls and saturation
    gauges and the card's peak used memory (``nvidia-smi`` every 0.5 s);
    the four shards as ``shard`` processes in turn; phase 4's single-process
@@ -193,6 +194,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    one byte of ``rescore``'s cache entry is flipped logs ``aot.reject
    reason=corrupt``, builds that kernel with nvcc, re-publishes it and
    serves the same bytes;
+4h. mesh phase, ``daccord --mesh 2`` (``parallel/mesh.py``) with its two
+   members on two cards, or on a one-card host two members on ``cuda:0``
+   (``parallel.mesh.visible_devices`` replaced, as the tests replace it;
+   there ``daccord --mesh 2`` without the replacement first exits naming
+   the one card): the 20 kb dense fused and paged scan runs and the split
+   ladder at the auto batch (2 x 2048) each write phase 4's single-card
+   FASTA of the route byte for byte, every member launching the route's
+   kernels, with their windows/s beside the single card's, the dispatch
+   walls, each member's busy and overlap fractions and the card's peak
+   memory; on the supervisor phase's quarter set at ``-b 1024``,
+   ``device_lost:1@1`` shrinks the mesh 2 -> 1 around member 1 (``lost``,
+   no failover) and ``sdc:1@1`` at audit rate 1/4 is attributed to member
+   1 and strikes its trust in a throwaway registry, both with the clean
+   run's bytes and a clean ``eventcheck --strict``;
 5. kernel phase, on inputs made from real windows of the dataset (topped up
    from a seeded generator if there were fewer than B), each kernel held
    bit-equal to its plain torch version on the card and timed (its device
@@ -209,11 +224,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    - ``rescore`` on tier 0's candidates of the B real windows (and at the
      mean batch the run gave it), and ``position_weights`` on the kept
      k-mer index of each position ``prep_batch`` made at every ladder shape,
-     beside ``torch.matmul`` of the counts and the table;
+     timed in 20 turns with ``torch.matmul`` of the counts and the table in
+     one profiler session (medians, quartiles and extremes of both);
 6. one 2048-window batch: the gathered paged tile is bit-equal to the dense
    tile; the scan-route ladder, the paged ladder and the ladder with the
    plain DP are bit-equal to the fused-route ladder on the card; the same
-   batch through the CPU ladder is bit-equal to the card's. Beside it, one
+   batch through the CPU ladder is bit-equal to the card's, and through the
+   sharded solver over phase 4h's two members (count-read escalation, and
+   the JAX package's fixed cap at the slice width) to the single card's. Beside it, one
    ladder call's time split into tier 0's prep, DP kernel and rescore, and
    the device kernels and busy share of the call under ``torch.profiler``,
    with the kernels and with the torch rescore and ``torch.matmul`` in
@@ -273,6 +291,8 @@ REPLACES = {"dp_backtrack": "daccord_tpu/kernels/pallas_window.py:129",
             "position_weights": "none (XLA): daccord_tpu/kernels/window_kernel.py:286"}
 SUP_SHARD = "0,4"            # the supervisor phase's prefix of the 20 kb set
 SUP_B = 512
+MESH_N = 2                   # phase 4h's mesh members
+W_TURNS = 20                 # phase 5's turns of W against torch.matmul
 
 
 def log(*a) -> None:
@@ -530,10 +550,11 @@ def weights_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[d
     below M <= 1024 needs, though the kernel is handed searchsorted's int32;
     ol read once and W written once; against 2 f32 operations a nonzero
     count and column: the terms this data needs) and ``torch.matmul`` of the
-    f32 counts and the table."""
+    f32 counts and the table, the two timed in turns in one profiler
+    session."""
     from daccord_tpu_torch.kernels import position_weights as pw
     from daccord_tpu_torch.kernels import window_kernel
-    from daccord_tpu_torch.tools.timing import event_ms, kernel_ms
+    from daccord_tpu_torch.tools.timing import alternate_ms, event_ms, kernel_ms
 
     tseqs, tlens, tnsegs = (torch.as_tensor(a, device=dev) for a in (seqs, lens, nsegs))
     seen, rows = set(), []
@@ -565,19 +586,30 @@ def weights_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[d
             if not (torch.equal(got, ref) and torch.equal(got.cpu(), cpu)):
                 raise AssertionError(f"position_weights M={M} B={Bx}: kernel differs "
                                      f"from plain (card or CPU)")
-            ms, how = kernel_ms(lambda: pw.position_weights(kid, ol, M),
-                                "position_weights", 20)
             plain_ms = event_ms(lambda: pw.position_weights_plain(kid, ol, M), 3)
             occ = pw.occurrence_counts(kid, M, O)
-            lib_ms, lib_how = kernel_ms(lambda: torch.matmul(occ, ol.t()), None, 20)
+            # W and torch.matmul in turns in one profiler session, so one
+            # reading of the card's clocks holds for both
+            turns, how = alternate_ms([("W", lambda: pw.position_weights(kid, ol, M)),
+                                       ("matmul", lambda: torch.matmul(occ, ol.t()))],
+                                      W_TURNS)
+            ms, lib_ms = (float(np.median(turns[k])) for k in ("W", "matmul"))
+            lib_how = how
+            spread = {k: (min(v), float(np.percentile(v, 25)), float(np.percentile(v, 75)),
+                          max(v)) for k, v in turns.items()}
             diff = float((torch.matmul(occ, ol.t()) - got).abs().max())
             nnz = int((occ != 0).sum())
             bms, by = bound(2 * kid.numel() + nbytes(ol, got), 2 * nnz * P)
             log(f"kernel position_weights M={M} P={P} O={O} B={Bx}: bit-equal to plain "
-                f"on the card and on the CPU, kernel {ms:.4f} ms ({how}), plain "
-                f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms ({lib_how}; max |diff| "
+                f"on the card and on the CPU, kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms (max |diff| "
                 f"{diff:.3g}), bound {bms:.6f} ms ({by}; {nnz} nonzero counts of "
                 f"{occ.numel()})")
+            log(f"kernel position_weights M={M} P={P} B={Bx}: W and torch.matmul in "
+                f"{W_TURNS} turns each ({how}): median {ms:.4f} / {lib_ms:.4f} ms "
+                f"({ms / lib_ms:.3f}x); min, quartiles, max W "
+                f"{' '.join(f'{x:.4f}' for x in spread['W'])}, matmul "
+                f"{' '.join(f'{x:.4f}' for x in spread['matmul'])}")
             res[Bx] = dict(ms=ms, how=how, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms,
                            by=by)
         if (M, P) == (64, 41):
@@ -2160,7 +2192,8 @@ def serve_phase(d: dict, big: dict, tmp: str, smi: str) -> dict:
 
 FLEET_FAULT = "worker_crash:1,worker_oom:2,lease_stall:1"   # phase 4g's faulted fleet
 FLEET_SHARDS = 4             # the 100 kb fleet's -n
-FLEET_WIDTHS = (1, 2, 4)     # its --workers
+FLEET_WIDTHS = (1, 4)        # its --workers (W=2 left for the smoke's time;
+                             # the faulted fleet below runs at W=2)
 
 
 class MemSampler:
@@ -2356,7 +2389,7 @@ def fleet_router_phase(d: dict, big: dict, big_stats, served: dict, tmp: str, sm
     dense_k = ("dp_backtrack", "rescore", "position_weights")
     paged_k = ("gather_pages", "heaviest_path", "rescore", "position_weights")
 
-    # ---- fleet shape: W = 1, 2, 4, the in-turn shards, phase 4's run ---------
+    # ---- fleet shape: W = 1, 4, the in-turn shards, phase 4's run ------------
     runs = {}
     for w in FLEET_WIDTHS:
         t_w = max(1, min(8, ncpu // w))
@@ -2845,6 +2878,217 @@ def supervisor_phase(d: dict, eprof: str, counters, tmp: str) -> None:
         f"{st.audit_s:.3f} s of a {st.wall_s:.3f} s wall")
 
 
+def mesh_members() -> tuple[list, str]:
+    """Phase 4h's members: two distinct cards, or on a one-card host two
+    members on ``cuda:0``."""
+    if torch.cuda.device_count() >= MESH_N:
+        return [torch.device(DEVICE, i) for i in range(MESH_N)], f"{MESH_N} distinct cards"
+    return [torch.device(DEVICE, 0)] * MESH_N, "two members on one card"
+
+
+def mesh_phase(d: dict, eprof: str, runs: dict, warm: dict, peaks: dict, counters,
+               tmp: str, nthreads: int, smi: str) -> None:
+    """Phase 4h: ``--mesh 2`` through ``daccord``, the members on two cards
+    or, on a one-card host, two on ``cuda:0`` (``parallel.mesh.visible_devices``
+    replaced, as the tests replace it). The 20 kb dense fused and paged scan
+    runs and the split ladder at the auto batch (2048 x 2) write phase 4's
+    single-card FASTA of the same route, every member launching the route's
+    kernels (the dense and paged runs twice: their windows/s cold and warm
+    beside phase 4's cold and warm single-card runs); ``device_lost:1@1`` and
+    ``sdc:1@1``
+    on the supervisor phase's
+    quarter set at ``-b 1024`` shrink the mesh around member 1 and attribute
+    the corruption to it, with the clean bytes and a clean eventcheck; on a
+    one-card host ``daccord --mesh 2`` without the replacement exits naming
+    the one card."""
+    from daccord_tpu_torch.parallel import mesh as meshmod
+    from daccord_tpu_torch.tools import cli
+    from daccord_tpu_torch.tools.eventcheck import validate_events
+
+    members, how = mesh_members()
+    label = f"{how}, {smi}"
+    log(f"mesh phase: members {[str(m) for m in members]} ({how})")
+    real = meshmod.visible_devices
+    if how == "two members on one card":
+        out = os.path.join(tmp, "mesh_refused.fasta")
+        try:
+            cli.main(["daccord", d["db"], d["las"], "-o", out, "-E", eprof, "--mesh",
+                      str(MESH_N)])
+            raise AssertionError("daccord --mesh 2 ran on a host with one card")
+        except SystemExit as e:
+            msg = str(e.code)
+            if e.code in (0, None) or "only 1 cuda device visible" not in msg \
+                    or torch.cuda.get_device_name(0) not in msg or os.path.exists(out):
+                raise AssertionError(f"daccord --mesh 2 on one card: {msg!r}") from None
+        log(f"mesh phase, CLI: daccord --mesh 2 on this one-card host exits non-zero "
+            f"before any work: {msg}")
+        meshmod.visible_devices = lambda: list(members)
+
+    def text(path: str) -> str:
+        with open(path) as fh:
+            return fh.read()
+
+    def check_events(tag: str, ev: str) -> list:
+        errs = validate_events(ev, strict=True)
+        if errs:
+            raise AssertionError(f"mesh {tag}: events fail eventcheck: {errs[:3]}")
+        with open(ev) as fh:
+            return [json.loads(x) for x in fh]
+
+    mb = MESH_N * B
+    try:
+        for tag, args, ref in (
+                ("dense fused", ["--paged", "off", "--dp", "fused"], "dense fused"),
+                ("dense fused, warm", ["--paged", "off", "--dp", "fused"], "dense fused"),
+                ("paged scan", ["--paged", "on", "--dp", "scan", "-t", str(nthreads)],
+                 "paged scan"),
+                ("paged scan, warm", ["--paged", "on", "--dp", "scan", "-t", str(nthreads)],
+                 "paged scan"),
+                ("split", ["--paged", "off", "--dp", "fused", "--ladder", "split"],
+                 "dense fused")):
+            out = os.path.join(tmp, f"mesh_{tag.replace(' ', '_')}.fasta")
+            ev = out + ".events.jsonl"
+            torch.cuda.reset_peak_memory_stats()
+            stats, launched = daccord([d["db"], d["las"], "-o", out, "-E", eprof, "--device",
+                                       DEVICE, "-b", str(mb), "--mesh", str(MESH_N),
+                                       "--events", ev, *args], counters)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if text(out) != text(runs[ref][0]):
+                raise AssertionError(f"mesh {tag}: FASTA differs from phase 4's "
+                                     f"single-card {ref} run")
+            recs = check_events(tag, ev)
+            log_run(f"mesh {tag}", stats, launched)
+            for r in recs:
+                if r["event"] == "sup_retry":
+                    log(f"mesh {tag}: sup_retry {r['op']} attempt {r['attempt']}: "
+                        f"{r['reason']}")
+            hm = stats.mesh_health
+            need = (("heaviest_path", "gather_pages") if "scan" in tag else
+                    ("dp_backtrack",)) + ("rescore", "position_weights")
+            for i in range(MESH_N):
+                got = hm["devices"][i]["launches"]
+                # (a CPU rehearsal launches no kernel: the wrappers count the card's)
+                if DEVICE == "cuda" and any(got.get(k, 0) <= 0 for k in need):
+                    raise AssertionError(f"mesh {tag}: member {i} launched {got}")
+            single = warm[ref] if "warm" in tag else runs[ref][1]
+            walls = stats.dispatch_walls
+            log(f"mesh {tag} ({' '.join(args)}; -b {mb} = {MESH_N} x {B}, {label}): FASTA "
+                f"byte-identical to phase 4's single-card {ref} run; wall "
+                f"{stats.wall_s:.3f} s, {stats.windows_per_sec():.1f} windows/s against "
+                f"the single card's {single.windows_per_sec():.1f} "
+                f"({'its warm rerun' if 'warm' in tag else 'phase 4, cold'}) "
+                f"({stats.windows_per_sec() / single.windows_per_sec():.3f}x); batches "
+                f"{stats.n_batches}; device_s {stats.device_s:.3f} s; dispatch_walls "
+                f"pack_s {walls['pack_s']:.4f} stage_s {walls['stage_s']:.4f} launch_s "
+                f"{walls['launch_s']:.4f} restaged {walls['restaged']}; peak device "
+                f"memory {peak:.3f} GiB allocated against the single run's "
+                f"{peaks[ref] / 2**30:.3f} GiB")
+            for i in range(MESH_N):
+                r = hm["devices"][i]
+                log(f"mesh {tag}: member {i} ({members[i]}): rows {r['rows']}, busy_frac "
+                    f"{r['busy_frac']}, idle_frac {r['idle_frac']}, overlap_frac "
+                    f"{r['overlap_frac']}, launches {json.dumps(r['launches'])}")
+
+        # the fault rungs on the supervisor phase's quarter set
+        base = [d["db"], d["las"], "-E", eprof, "--device", DEVICE, "--paged", "off",
+                "--dp", "fused", "-J", SUP_SHARD]
+        clean = os.path.join(tmp, "mesh_sup_clean.fasta")
+        daccord([*base, "-b", str(SUP_B), "-o", clean, "--audit-rate", "0"], counters)
+        for spec, extra in (("device_lost:1@1", ("--audit-rate", "0")),
+                            ("sdc:1@1", ("--audit-rate", "0.25"))):
+            tag = spec.split(":")[0]
+            out = os.path.join(tmp, f"mesh_{tag}.fasta")
+            ev = out + ".events.jsonl"
+            cc = os.path.join(tmp, f"cc_mesh_{tag}")   # a throwaway trust registry
+            env = {"DACCORD_COMPCACHE": cc, "DACCORD_SUP_BACKOFF_S": "0.05",
+                   "DACCORD_FAULT": spec}
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                stats, _ = daccord([*base, "-b", str(MESH_N * SUP_B), "-o", out, "--mesh",
+                                    str(MESH_N), "--events", ev, *extra], counters)
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            if text(out) != text(clean):
+                raise AssertionError(f"mesh {spec}: FASTA differs from the clean run")
+            recs = check_events(tag, ev)
+            kinds = [r["event"] for r in recs]
+            if "sup_failover" in kinds:
+                raise AssertionError(f"mesh {spec}: the supervisor failed over")
+            if tag == "device_lost":
+                shr = [r for r in recs if r["event"] == "mesh.shrink"]
+                lost = [r["device"] for r in recs
+                        if r["event"] == "mesh.device" and r["state"] == "lost"]
+                if not shr or (shr[0]["nd_from"], shr[0]["nd_to"], shr[0]["culprit"]) \
+                        != (2, 1, 1) or lost[:1] != [1]:
+                    raise AssertionError(f"mesh {spec}: shrink {shr}, lost {lost}")
+                what = (f"mesh.shrink 2 -> 1 culprit 1, mesh.device 1 lost, no failover, "
+                        f"shrinks {stats.sup_counters['mesh_shrinks']}")
+            else:
+                from daccord_tpu_torch.utils.obs import trust_registry
+
+                sdc = [r["culprit"] for r in recs if r["event"] == "sup_sdc"]
+                trust = [(r["device"], r["state_from"], r["state_to"]) for r in recs
+                         if r["event"] == "trust.state"]
+                os.environ["DACCORD_COMPCACHE"] = cc
+                try:
+                    reg = trust_registry()
+                finally:
+                    if saved["DACCORD_COMPCACHE"] is None:
+                        os.environ.pop("DACCORD_COMPCACHE")
+                    else:
+                        os.environ["DACCORD_COMPCACHE"] = saved["DACCORD_COMPCACHE"]
+                if sdc[:1] != [1] or trust[:1] != [(1, "TRUSTED", "SUSPECT")] \
+                        or reg.get(f"{DEVICE}:m1", {}).get("state") != "SUSPECT":
+                    raise AssertionError(f"mesh {spec}: sup_sdc {sdc}, trust {trust}, "
+                                         f"registry {reg}")
+                what = (f"sup_sdc culprit 1 (audit.attrib), trust.state 1 TRUSTED -> "
+                        f"SUSPECT in the throwaway registry, {stats.sup_counters['audits']}"
+                        f" audits")
+            log(f"mesh {spec} (-J {SUP_SHARD} -b {MESH_N * SUP_B}, {label}): FASTA "
+                f"byte-identical to the clean single-card run; {what}; eventcheck "
+                f"--strict clean; wall {stats.wall_s:.3f} s")
+    finally:
+        meshmod.visible_devices = real
+
+
+def mesh_batch_check(ladder, batch, kern, params, dev) -> None:
+    """Phase 6's batch through the sharded solver over phase 4h's members,
+    bit-equal to the single-card ladder's packed result, with the count-read
+    escalation (the port's default) and with the JAX package's fixed cap at
+    the slice width; each call's wall."""
+    from daccord_tpu_torch.kernels.tiers import solve_ladder, unpack_result
+    from daccord_tpu_torch.parallel.mesh import make_mesh, make_sharded_solver
+    from daccord_tpu_torch.tools.timing import event_ms
+
+    members, how = mesh_members()
+    ref = unpack_result(kern.cpu().numpy(), params[0].cons_len)
+    walls = {}
+    for label, cap in (("count-read escalation", None), ("fixed cap", B // MESH_N)):
+        ms = make_sharded_solver(ladder, make_mesh(MESH_N, devices=members), esc_cap=cap)
+        try:
+            out = ms(batch)
+            for k in ("cons", "cons_len", "err", "solved", "tier", "m_ovf"):
+                if not np.array_equal(np.asarray(out[k]), ref[k]):
+                    raise AssertionError(f"mesh batch ({label}): {k} differs from the "
+                                         f"single-card ladder")
+            if out["esc_overflow"] != 0:
+                raise AssertionError(f"mesh batch ({label}): overflow {out['esc_overflow']}")
+            walls[label] = event_ms(lambda: ms(batch), 5)
+        finally:
+            ms.close()
+    single = event_ms(lambda: solve_ladder(batch, ladder), 5)
+    log(f"mesh batch check: the {batch.size}-window batch through the sharded solver "
+        f"({MESH_N} members, {how}) is bit-equal to the single-card ladder with both "
+        f"escalations; call wall (host fetch included) count-read "
+        f"{walls['count-read escalation']:.3f} ms, fixed cap {B // MESH_N} "
+        f"{walls['fixed cap']:.3f} ms, single card {single:.3f} ms")
+
+
 def fasta_drift(a: str, b: str) -> tuple[int, int, int, int]:
     """(records of ``a``, records of ``b`` identical to them, bases of ``a``,
     bases of ``b``)."""
@@ -2939,6 +3183,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s; {big_db.nreads} reads, "
             f"{big_db.totlen} bases")
         runs = {}
+        warm, peaks = {}, {}       # phase 4h compares with these
         for tag, ds, ep, args in (
                 ("dense fused", d, eprof, ["--paged", "off", "--dp", "fused"]),
                 ("paged scan", d, eprof, ["--paged", "on", "--dp", "scan",
@@ -2953,6 +3198,7 @@ def main() -> int:
             log_run(f"{tag} ({' '.join(args)})", stats, launched)
             log(f"daccord {tag}: audit tail: {audit_tail_text(stats)}")
             packed = stats.peak_inflight * B * (-(-ladder.params[0].cons_len // 4) + 3) * 4
+            peaks[tag] = torch.cuda.max_memory_allocated()
             log(f"daccord {tag}: peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated (a "
                 f"graph's memory counts in the run that captures it), "
@@ -3003,6 +3249,8 @@ def main() -> int:
                 with open(out, "rb") as a, open(out0, "rb") as b0:
                     if a.read() != b0.read():
                         raise AssertionError(f"daccord {tag}, {label}: FASTA differs")
+                if label == "default again":
+                    warm[tag] = st1
                 log(f"daccord {tag}, {label}: wall {st1.wall_s:.3f} s, FASTA "
                     f"byte-identical; {audit_text(st1)}; {audit_tail_text(st1)}")
                 if worker is None:
@@ -3061,6 +3309,11 @@ def main() -> int:
         # ---- 4g. the multi-process layer: fleet, router, kernel cache ----------
         fleet_router_phase(d, big, runs["100 kb dense fused"][1], served, tmp, smi, ncpu)
 
+        # ---- 4h. the device mesh ---------------------------------------------
+        t0 = time.perf_counter()
+        mesh_phase(d, eprof, runs, warm, peaks, counters, tmp, nthreads, smi)
+        log(f"mesh phase: {time.perf_counter() - t0:.1f} s (predicted at most 90 s)")
+
         # ---- 5. kernel phase ------------------------------------------------
         t0 = time.perf_counter()
         seqs, lens, nsegs = real_windows(db, las, cfg, B)
@@ -3114,6 +3367,10 @@ def main() -> int:
                 raise AssertionError(f"ladder with {what} differs from the fused "
                                      f"ladder on the card")
         res = unpack_result(kern.cpu().numpy(), params[0].cons_len)
+        mesh_batch_check(ladder, WindowBatch(
+            seqs=seqs[:B], lens=lens[:B], nsegs=nsegs[:B],
+            shape=BatchShape(depth=cfg.depth, seg_len=cfg.seg_len, wlen=cfg.consensus.w),
+            read_ids=np.zeros(B, np.int64), wstarts=np.zeros(B, np.int64)), kern, params, dev)
         log(f"one batch of {B}: gathered paged tile == dense tile; ladder with the "
             f"fused kernel == plain DP == scan route == paged scan route on the "
             f"card, bit-equal; tiers {np.unique(res['tier'], return_counts=True)}")

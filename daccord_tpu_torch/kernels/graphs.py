@@ -19,9 +19,11 @@ them (``non_blocking`` from the host arrays), the stages read them and the
 ladder's tables (copied in when the ladder changes), and write the state
 and the packed result, which the call clones before it lets another call
 in. Every cross-stage value lives in those buffers, never in a graph's own
-memory, so all graphs share one memory pool: calls run one at a time (a
-lock, and an event that the next call's stream waits on), and a graph's
-intermediates are dead once it ends.
+memory, so all graphs of a card share one memory pool: calls run one at a
+time (a lock, and an event that the next call on the card waits on), and a
+graph's intermediates are dead once it ends. A mesh member
+(``parallel/mesh.py``) keys its own shapes, so two members on one card
+never share static buffers.
 
 The first batch of a shape runs the stage eagerly on the caller's stream
 (the warm-up torch asks for before a capture, and that call's result), then
@@ -170,9 +172,11 @@ class GraphCache:
     def __init__(self):
         self._shapes: dict = {}
         self._lock = threading.RLock()
+        self._capturing = threading.Lock()
         self._pools: dict = {}
         self._side: dict = {}
-        self._last = None            # event after the last call's work
+        self._last: dict = {}        # by device: event after its last call's
+                                     # work (a card's graphs share one pool)
         self._retired: list = []     # what clear() dropped
         self.capture_s = 0.0
         self.captures = 0
@@ -184,6 +188,13 @@ class GraphCache:
         other card work that must not overlap a capture."""
         return self._lock
 
+    @property
+    def capturing(self) -> threading.Lock:
+        """Held while a graph is captured: card work of a thread outside the
+        calls (a mesh member's staged copies) takes it, so it never runs
+        beside a capture, yet overlaps the calls' replays."""
+        return self._capturing
+
     def shapes(self) -> int:
         """Shapes (each with its buffers and graphs) held now."""
         return len(self._shapes)
@@ -192,9 +203,9 @@ class GraphCache:
         """Forget ``ladder``: the shapes no other ladder ran are dropped,
         their graphs and buffers with them. Returns the count dropped."""
         with self._lock:
-            if self._last is not None:
+            for ev in self._last.values():
                 # nothing of a dropped graph may still run
-                self._last.synchronize()
+                ev.synchronize()
             n = 0
             for key, sh in list(self._shapes.items()):
                 sh.owners.discard(id(ladder))
@@ -212,33 +223,41 @@ class GraphCache:
         self._shapes = {}
         self._pools = {}
         self._side = {}
-        self._last = None
+        self._last = {}
 
     def run(self, batch, ladder, tier0_only: bool = False, esc_cap: int | None = None,
-            log=None) -> torch.Tensor:
+            log=None, inputs: tuple | None = None, member: int | None = None) -> torch.Tensor:
         """The packed result of one ladder call (tier 0 alone with
         ``tier0_only``) over the host ``batch`` on the ladder's card, on the
         current stream, as a tensor of its own. ``esc_cap`` fixes the wide
         rescue at the batch and the escalation at ``esc_cap`` slots and
         reads no count (no host sync at all). ``log`` (a ``JsonlLogger``)
-        gets one ``graph.capture`` event a capture."""
+        gets one ``graph.capture`` event a capture. ``inputs``: the batch's
+        uploads already on the card (a mesh member's staged slice), copied
+        into the static inputs instead of the host arrays. ``member``: the
+        mesh member of the call; each member has graphs and static buffers
+        of its own, so two members of one card never share them."""
         from .tiers import run_ladder, upload_arrays
 
         dev = ladder.device
-        arrays = tuple(np.ascontiguousarray(a) for a in upload_arrays(batch))
+        host = upload_arrays(batch)
         paged = getattr(batch, "pool", None) is not None
         key = (str(dev), ladder.route, tuple(ladder.params), ladder.wide_p0,
                (batch.family.page_len, batch.shape.seg_len) if paged else None,
-               tuple((a.shape, a.dtype.str) for a in arrays),
-               tuple(sorted((k, tuple(t.shape)) for k, t in ladder.tables.items())))
+               tuple((a.shape, a.dtype.str) for a in host),
+               tuple(sorted((k, tuple(t.shape)) for k, t in ladder.tables.items())),
+               member)
+        arrays = inputs if inputs is not None else tuple(np.ascontiguousarray(a)
+                                                         for a in host)
         with self._lock:
             cur = torch.cuda.current_stream(dev)
-            if self._last is not None:
-                cur.wait_event(self._last)
+            last = self._last.get(dev)
+            if last is not None:
+                cur.wait_event(last)
             sh = self._shapes.get(key)
             if sh is None:
                 sh = self._shapes[key] = _Shape(
-                    arrays, batch.shape.seg_len if paged else None, ladder, dev)
+                    host, batch.shape.seg_len if paged else None, ladder, dev)
             sh.owners.add(id(ladder))
             self._load(sh, arrays, ladder)
             run_ladder(lambda name, width: self._stage(sh, ladder, batch, name, width,
@@ -249,7 +268,7 @@ class GraphCache:
             out = sh.packed.clone()
             ev = torch.cuda.Event()
             ev.record(cur)
-            self._last = ev
+            self._last[dev] = ev
         return out
 
     # ---- one call ----------------------------------------------------------
@@ -264,7 +283,8 @@ class GraphCache:
         that record throws where nothing can catch it (a trapped run on an
         H100 aborted so)."""
         for t, a in zip(sh.inputs, arrays):
-            t.copy_(torch.from_numpy(a), non_blocking=True)
+            t.copy_(a if isinstance(a, torch.Tensor) else torch.from_numpy(a),
+                    non_blocking=True)
         if sh.source is not ladder.tables:
             for k, t in ladder.tables.items():
                 sh.tables[k].copy_(t)
@@ -321,7 +341,7 @@ class GraphCache:
             self._side[dev] = torch.cuda.Stream(dev)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self._side[dev]):
+        with self._capturing, torch.cuda.stream(self._side[dev]):
             graph.capture_begin(pool=self._pools[dev], capture_error_mode="thread_local")
             try:
                 fn()
@@ -347,7 +367,8 @@ class GraphCache:
 
 def _describe(key: tuple, sh: _Shape) -> str:
     shapes = "x".join(str(n) for n in sh.seqs.shape)
-    return f"{key[0]}:B{shapes}{':pg' if key[4] else ''}:{key[1]}"
+    member = "" if key[7] is None else f":m{key[7]}"
+    return f"{key[0]}:B{shapes}{':pg' if key[4] else ''}:{key[1]}{member}"
 
 
 #: the process's graph cache

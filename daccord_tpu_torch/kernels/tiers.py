@@ -351,7 +351,7 @@ def ladder_core_paged(pool: torch.Tensor, table: torch.Tensor, lens: torch.Tenso
                       nsegs: torch.Tensor, tables: tuple,
                       params: tuple[KernelParams, ...], *, page_len: int,
                       seg_len: int, wide_p0: KernelParams | None = None,
-                      dp=None, route: str = "fused") -> dict:
+                      dp=None, route: str = "fused", esc_cap: int | None = None) -> dict:
     """Paged form of :func:`ladder_core`: the page gather
     (``paging.gather_windows``, the kernel on CUDA) rebuilds the exact dense
     ``[B, D, L]`` tile on the device, then the unchanged ladder solves it.
@@ -359,7 +359,7 @@ def ladder_core_paged(pool: torch.Tensor, table: torch.Tensor, lens: torch.Tenso
     from .paging import gather_windows
 
     seqs = gather_windows(pool, table, lens, page_len=page_len, seg_len=seg_len)
-    return ladder_core(seqs, lens, nsegs, tables, params, wide_p0, dp, route)
+    return ladder_core(seqs, lens, nsegs, tables, params, wide_p0, dp, route, esc_cap)
 
 
 def tier0_core_paged(pool: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
@@ -422,14 +422,21 @@ def upload_arrays(batch) -> tuple[np.ndarray, ...]:
 
 
 def _ladder_packed(batch, ladder: TierLadder, tier0_only: bool = False,
-                   log=None) -> torch.Tensor:
+                   log=None, inputs: tuple | None = None, member: int | None = None,
+                   esc_cap: int | None = None) -> torch.Tensor:
     """The whole ladder (tier 0 alone with ``tier0_only``, Stream A) over
     one host batch, on the caller's current stream: the packed result on
     the ladder's device. On the card the stages replay as CUDA graphs
     (``kernels/graphs.py``, ``log`` gets its ``graph.capture`` events)
     unless the ladder was built with ``graphs=False``; on the CPU they run
     eagerly. A paged batch's page table is checked against its pool before
-    the upload."""
+    the upload.
+
+    ``inputs``: the batch's :func:`upload_arrays` already on the ladder's
+    device (a mesh member's staged slice), read instead of the host
+    arrays. ``member``: the mesh member the call solves for, its own graphs
+    and buffers. ``esc_cap``: the escalation at that fixed width with no
+    count read (``run_ladder``)."""
     paged = getattr(batch, "pool", None) is not None
     if paged:
         from .gather_pages import check_table
@@ -438,20 +445,24 @@ def _ladder_packed(batch, ladder: TierLadder, tier0_only: bool = False,
     if ladder.use_graphs:
         from .graphs import CACHE
 
-        return CACHE.run(batch, ladder, tier0_only=tier0_only, log=log)
+        return CACHE.run(batch, ladder, tier0_only=tier0_only, esc_cap=esc_cap, log=log,
+                         inputs=inputs, member=member)
     dev = ladder.device
     tables = tuple(ladder.tables[p.k] for p in ladder.params)
     params = tuple(ladder.params)
     p0 = params[0]
-    ins = tuple(torch.as_tensor(a, device=dev) for a in upload_arrays(batch))
+    ins = inputs if inputs is not None else tuple(
+        torch.as_tensor(a, device=dev) for a in upload_arrays(batch))
     if paged:
         kw = dict(page_len=batch.family.page_len, seg_len=batch.shape.seg_len,
                   route=ladder.route)
         out = (tier0_core_paged(*ins, tables[0], p0, **kw) if tier0_only else
-               ladder_core_paged(*ins, tables, params, wide_p0=ladder.wide_p0, **kw))
+               ladder_core_paged(*ins, tables, params, wide_p0=ladder.wide_p0,
+                                 esc_cap=esc_cap, **kw))
     else:
         out = (tier0_core(*ins, tables[0], p0, route=ladder.route) if tier0_only else
-               ladder_core(*ins, tables, params, ladder.wide_p0, route=ladder.route))
+               ladder_core(*ins, tables, params, ladder.wide_p0, route=ladder.route,
+                           esc_cap=esc_cap))
     return pack_result(out)
 
 
@@ -467,7 +478,7 @@ class _PackedHandle:
     thread moved on included), elsewhere ``solve_s``."""
 
     __slots__ = ("batch", "cl", "host", "event", "start_event", "error", "done",
-                 "solve_s", "cpu_s", "busy_s")
+                 "solve_s", "cpu_s", "busy_s", "launches")
 
     def __init__(self, batch, cl: int):
         self.batch = batch
@@ -480,6 +491,8 @@ class _PackedHandle:
         self.solve_s = 0.0
         self.cpu_s = 0.0
         self.busy_s = 0.0
+        self.launches: dict | None = None   # a mesh member's call on the card:
+                                            # its kernel launches by wrapper
 
 
 def _timed(h: _PackedHandle, tracer, call, parent: str | None = None) -> None:
@@ -532,13 +545,22 @@ class LadderDispatcher:
                                         name="ladder-dispatcher")
         self._thread.start()
 
-    def submit(self, batch, ladder: TierLadder, tier0_only: bool = False) -> _PackedHandle:
+    def submit(self, batch, ladder: TierLadder, tier0_only: bool = False,
+               inputs: tuple | None = None, ready=None, member: int | None = None,
+               esc_cap: int | None = None) -> _PackedHandle:
+        """Queue one call. A mesh member's call (``parallel/mesh.py``)
+        passes its slice already on the card (``inputs``, copied on the
+        member's copy stream) and the event that ends that copy
+        (``ready``): this stream waits on it before the call reads them.
+        ``member`` and ``esc_cap`` go to :func:`_ladder_packed`."""
         if not self._thread.is_alive():
             raise RuntimeError("the ladder dispatcher is closed")
         h = _PackedHandle(batch, ladder.params[0].cons_len)
         # the dispatch span open now parents the call's span on the thread
         parent = self.tracer.current() if self.tracer is not None else ""
-        self._q.put((h, ladder, tier0_only, parent))
+        kw = {k: v for k, v in dict(inputs=inputs, member=member, esc_cap=esc_cap).items()
+              if v is not None}
+        self._q.put((h, ladder, tier0_only, parent, kw, ready))
         return h
 
     def _loop(self) -> None:
@@ -546,27 +568,45 @@ class LadderDispatcher:
             item = self._q.get()
             if item is None:
                 return
-            h, ladder, tier0_only, parent = item
+            h, ladder, tier0_only, parent, kw, ready = item
             try:
-                _timed(h, self.tracer, lambda: self._call(h, ladder, tier0_only), parent)
+                _timed(h, self.tracer,
+                       lambda: self._call(h, ladder, tier0_only, kw, ready), parent)
             except BaseException as e:  # noqa: BLE001 - raised again by fetch
                 h.error = e
             finally:
                 h.done.set()
 
-    def _call(self, h: _PackedHandle, ladder: TierLadder, tier0_only: bool) -> None:
+    def _call(self, h: _PackedHandle, ladder: TierLadder, tier0_only: bool,
+              kw: dict, ready) -> None:
         log = self.tracer.log if self.tracer is not None else None
         if self.stream is None:
-            h.host = _ladder_packed(h.batch, ladder, tier0_only, log)
+            h.host = _ladder_packed(h.batch, ladder, tier0_only, log, **kw)
             return
         from .graphs import CACHE
 
         # under the graph cache's lock: another dispatcher's capture (a
         # second ladder of the process) never overlaps this call's card work
         with CACHE.lock, torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            if ready is not None:
+                # a staged slice: its copy ends before this stream reads it,
+                # and its memory is not reused while this stream may
+                self.stream.wait_event(ready)
+                for t in kw["inputs"]:
+                    t.record_stream(self.stream)
             start = torch.cuda.Event(enable_timing=True)
             start.record(self.stream)
-            packed = _ladder_packed(h.batch, ladder, tier0_only, log)
+            member = "member" in kw
+            if member:
+                # under the lock no other call launches: the counts' change
+                # is this member's
+                from .graphs import launch_counts
+
+                before = launch_counts()
+            packed = _ladder_packed(h.batch, ladder, tier0_only, log, **kw)
+            if member:
+                h.launches = {m.__name__.rsplit(".", 1)[-1]: n - before[m][0]
+                              for m, (n, _, _) in launch_counts().items()}
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
             host.copy_(packed, non_blocking=True)
             ev = torch.cuda.Event(enable_timing=True)

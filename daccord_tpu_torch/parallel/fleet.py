@@ -54,8 +54,9 @@ stand-in, ``lease_stall`` stops heartbeating the Nth claimed lease
 (backdated so the takeover fires at once). Events (``fleet.*``) pass the
 port's ``eventcheck --strict``.
 
-Several cards under one worker (the JAX ``--mesh``) wait for the port of
-``parallel/mesh.py`` (ROADMAP Queue 1 item 5): ``mesh > 1`` is refused.
+``mesh`` > 1 gives every worker ``--mesh N``: each shard process shards its
+batches over N members (``parallel/mesh.py``; one host, N cards is one
+worker), and the auto batch scales by N.
 """
 
 from __future__ import annotations
@@ -177,7 +178,8 @@ class FleetConfig:
     ingest_policy: str = "strict"
     paged: str = "off"                # ragged paged window batching, forwarded
                                       # to every worker (see daccord --paged)
-    mesh: int = 0                     # several cards a worker: refused
+    mesh: int = 0                     # each worker shards its batches over
+                                      # N mesh members (shard --mesh N)
                                       # above 1 (ROADMAP Queue 1 item 5)
     max_pile_overlaps: int | None = None  # monster-pile budget (None = the
                                           # pipeline default; 0 disables)
@@ -239,17 +241,18 @@ class Fleet:
     def __init__(self, db: str, las: str, outdir: str, cfg: FleetConfig,
                  faults: FaultPlan | None = None):
         self.db, self.las, self.outdir, self.cfg = db, las, outdir, cfg
-        if cfg.mesh and cfg.mesh > 1:
-            raise ValueError(
-                f"mesh={cfg.mesh}: a worker over several cards waits for the "
-                "port of parallel/mesh.py (ROADMAP Queue 1 item 5)")
+        self.mesh = cfg.mesh if cfg.mesh and cfg.mesh > 1 else 0
         # ``auto`` resolves once, before any lease is claimed (the bounded
         # probe would otherwise stall the heartbeats of the leases this host
         # holds): the card, or an error without one; every worker is then
         # given the resolved backend, so the fleet and its workers agree on
         # the batch the capacity requeue halves
-        self.backend = resolve_auto_backend(cfg.device) \
+        # (a mesh's members run the ladder: never the native engine)
+        self.backend = resolve_auto_backend(cfg.device, prefer_native=not self.mesh) \
             if cfg.backend == "auto" else cfg.backend
+        if self.mesh and self.backend == "native":
+            raise ValueError("--backend native solves on the host and cannot be "
+                             "combined with --mesh (pick one)")
         self.device = cfg.device or ("cuda" if self.backend == "cuda" else "cpu")
         self.faults = faults
         self.host = cfg.host or f"{socket.gethostname()}:{os.getpid()}"
@@ -286,6 +289,8 @@ class Fleet:
             # the shard tool's own --ledger default is 'auto': an opted-out
             # fleet must say so explicitly or workers write ledgers anyway
             argv += ["--ledger", "none"]
+        if self.mesh:
+            argv += ["--mesh", str(self.mesh)]
         if cfg.max_pile_overlaps is not None:
             argv += ["--max-pile-overlaps", str(cfg.max_pile_overlaps)]
         if cfg.threads is not None:
@@ -305,9 +310,9 @@ class Fleet:
     def _worker_batch(self) -> int:
         """The batch a worker runs: ``cfg.batch`` when -b was given, else
         ``utils.obs.auto_batch_size`` of the resolved backend (native 4096,
-        the card 2048, the CPU ladder 512), passed to every worker. The
-        capacity requeue halves THIS number."""
-        return self.cfg.batch or auto_batch_size(self.backend)
+        the card 2048, the CPU ladder 512; times the mesh width), passed to
+        every worker. The capacity requeue halves THIS number."""
+        return self.cfg.batch or auto_batch_size(self.backend, mesh=self.mesh)
 
     def _worker_env(self, sabotage: str | None) -> dict:
         env = dict(os.environ)

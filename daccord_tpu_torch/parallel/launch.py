@@ -10,8 +10,11 @@ manifest records the emitted piles, the FASTA size and the error profile
 every N reads, so a restarted run truncates the partial tail and resumes mid
 shard, byte-identical to an uninterrupted run. The merge gate checks every
 manifest, the byte-range coverage and each shard's counts and sha256 before
-the merged FASTA commits. ``jax.distributed`` (``init_distributed`` of the
-JAX module) has no counterpart here yet: the port runs one host.
+the merged FASTA commits. :func:`init_distributed` forms a
+``torch.distributed`` process group when several processes (hosts) share a
+run, as the JAX module's ``jax.distributed`` does: each corrects its own
+byte range on its local cards (``--mesh`` over them), and no correction
+traffic crosses processes.
 """
 
 from __future__ import annotations
@@ -22,6 +25,38 @@ import os
 from ..formats.dazzdb import read_db
 from ..formats.las import LasFile, index_las, shard_ranges
 from ..runtime.pipeline import PipelineConfig, correct_shard, correct_to_fasta
+
+
+def init_distributed(coordinator: str | None = None, num_processes: int | None = None,
+                     process_id: int | None = None, device: str = "cuda") -> tuple[int, int]:
+    """Join a ``torch.distributed`` process group when running several
+    processes; a no-op otherwise. Returns ``(rank, world_size)``.
+
+    ``coordinator`` (``host:port`` of rank 0, default ``DACCORD_COORDINATOR``)
+    None or empty: one process, ``(0, 1)``. Otherwise the group is formed
+    over ``tcp://coordinator`` with ``num_processes`` and ``process_id``
+    (default ``DACCORD_NUM_PROCESSES`` and ``DACCORD_PROCESS_ID``; nothing
+    is discovered from a cluster), on gloo for ``device='cpu'`` and NCCL on
+    cuda. A process already in a group gets its rank and size back."""
+    import torch.distributed as dist
+
+    if coordinator is None:
+        coordinator = os.environ.get("DACCORD_COORDINATOR")
+    if not coordinator:
+        return 0, 1
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    if num_processes is None and os.environ.get("DACCORD_NUM_PROCESSES"):
+        num_processes = int(os.environ["DACCORD_NUM_PROCESSES"])
+    if process_id is None and os.environ.get("DACCORD_PROCESS_ID"):
+        process_id = int(os.environ["DACCORD_PROCESS_ID"])
+    if num_processes is None or process_id is None:
+        raise ValueError("init_distributed: a coordinator needs num_processes and "
+                         "process_id (or DACCORD_NUM_PROCESSES, DACCORD_PROCESS_ID)")
+    dist.init_process_group(backend="gloo" if device == "cpu" else "nccl",
+                            init_method=f"tcp://{coordinator}",
+                            world_size=int(num_processes), rank=int(process_id))
+    return dist.get_rank(), dist.get_world_size()
 
 
 def shard_paths(outdir: str, shard: int) -> dict:

@@ -85,7 +85,9 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import sys
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -237,6 +239,14 @@ class PipelineConfig:
                                  # (hp_rescue_windows; inside the engine with
                                  # native_solver); False = the python
                                  # hp_candidate loop (the same bytes)
+    mesh: int = 0                # shard each batch over N mesh members
+                                 # (parallel/mesh.py): the cards
+                                 # parallel.mesh.visible_devices lists on
+                                 # cuda (fewer refuses the run), N members
+                                 # on the CPU; every member runs the whole
+                                 # ladder on its row slice. Supervised,
+                                 # device loss shrinks the mesh N -> N/2
+                                 # before any failover. 0 or 1 = one device
     job_tag: str | None = None   # the serve plane's job tag: stamped on every
                                  # dispatched batch (WindowBatch.job) and
                                  # every ledger row, so a merged trace
@@ -373,8 +383,14 @@ class PipelineStats:
     # stamped into shard_done, the metrics rollup and its .prom
     feeder_s: float = 0.0
     dispatch_s: float = 0.0
-    dispatch_walls: dict | None = None   # the staged dispatch's pack / stage /
-                                 # launch walls: a mesh's, None on one card
+    dispatch_walls: dict | None = None   # a mesh run's staged dispatch walls
+                                 # (pack_s, stage_s, launch_s, their sum
+                                 # dispatch_s, restaged); None on one device
+    mesh_health: dict | None = None  # a mesh run's final health map
+                                 # (ShardedLadderSolver.health_map: per
+                                 # member state, rows, busy/idle/overlap
+                                 # fractions, kernel launches); None on one
+                                 # device
     verdict: str = "balanced"
     bottleneck: dict = field(default_factory=dict)
     metrics: dict = field(default_factory=dict)  # the end-of-run
@@ -892,6 +908,58 @@ class _RowBuffer:
         return self.first_seen is not None and n_reads - self.first_seen >= limit
 
 
+class _Stager:
+    """The double-buffered staging of a mesh run's batches: one daemon
+    thread runs the host half of each dispatch (``ShardedLadderSolver.stage``:
+    the pad to a mesh multiple, the row slices and, on cuda, each slice's
+    copy on its member's copy stream) while earlier calls solve; the
+    pipeline's thread launches finished stages. Depth 2: one batch staging
+    and at most one waiting; :meth:`submit` blocks beyond that, so the
+    feeder cannot run ahead of the memory watermarks. A ticket keeps its
+    host batch: a staging error dispatches that instead, and every replay
+    of the supervisor uses it. The thread never logs (the events file has
+    one writer, the pipeline's thread, which logs ``dispatch.stage`` when it
+    launches the ticket)."""
+
+    class _Ticket:
+        __slots__ = ("batch", "meta", "staged", "error", "done")
+
+        def __init__(self, batch, meta):
+            self.batch = batch
+            self.meta = meta
+            self.staged = None
+            self.error: BaseException | None = None
+            self.done = threading.Event()
+
+    def __init__(self, stage_fn, prof=None):
+        self._stage_fn = stage_fn
+        self._prof = prof
+        self._q: queue.Queue = queue.Queue(maxsize=1)
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="mesh-stager")
+        self._thread.start()
+
+    def submit(self, batch, meta) -> "_Stager._Ticket":
+        t = self._Ticket(batch, meta)
+        self._q.put(t)
+        return t
+
+    def _loop(self) -> None:
+        while True:
+            t = self._q.get()
+            if t is None:
+                return
+            try:
+                t.staged = self._stage_fn(t.batch, prof=self._prof)
+            except BaseException as e:  # noqa: BLE001 - the launch dispatches t.batch
+                t.error = e
+            finally:
+                t.done.set()
+
+    def stop(self) -> None:
+        self._q.put(None)
+
+
 def _check_config(cfg: PipelineConfig) -> None:
     if cfg.feeder_threads < 0 or (cfg.feeder_threads and not cfg.use_native):
         raise ValueError(f"feeder_threads={cfg.feeder_threads}: threads window "
@@ -1148,12 +1216,13 @@ class SolvePath:
     belongs to the caller)."""
 
     def __init__(self, dispatch, fetch_many, sync_engine: bool, sup=None,
-                 dispatcher=None):
+                 dispatcher=None, mesh=None):
         self.dispatch = dispatch
         self.fetch_many = fetch_many
         self.sync_engine = sync_engine
         self.sup = sup
         self.dispatcher = dispatcher
+        self.mesh = mesh             # the sharded solver of a mesh path
 
     def audit_pending(self, handle) -> bool:
         """Whether ``handle``'s shadow-audit rows are not back yet."""
@@ -1162,6 +1231,8 @@ class SolvePath:
     def close(self) -> None:
         if self.dispatcher is not None:
             self.dispatcher.close()
+        if self.mesh is not None:
+            self.mesh.close()
         if self.sup is not None:
             self.sup.close()
 
@@ -1170,7 +1241,7 @@ def build_solve_path(profile: ErrorProfile, cfg: PipelineConfig, dev, ladder, *,
                      native: bool, supervise: bool, tracer, ev_log, plan, gov_cfg,
                      worker=None, engine_hp: bool | None = None, on_hp=None,
                      make_ladder=None, audit_rate: float | None = None,
-                     describe_prefix: str = "") -> SolvePath:
+                     describe_prefix: str = "", mesh: int = 0) -> SolvePath:
     """The solve path of a run: the one construction ``correct_shard`` and
     the serve plane's solve groups (``serve/batcher.py``) share, so the two
     cannot diverge.
@@ -1188,7 +1259,10 @@ def build_solve_path(profile: ErrorProfile, cfg: PipelineConfig, dev, ladder, *,
     shadow audit's reference is the ladder on the CPU (``make_ladder("cpu")``,
     built once, never copied off the card), solved in ``worker``'s processes
     when one is given (sent that ladder here). ``audit_rate`` None reads
-    ``cfg.audit_rate``."""
+    ``cfg.audit_rate``. ``mesh`` > 1 shards every batch over that many
+    members of ``dev``'s kind (``parallel/mesh.py``; a ``mesh.build`` span
+    and a ``mesh.init`` event) in place of the dispatcher, supervised with
+    the partial-mesh rung."""
     from ..kernels.tiers import audit_reference
     from .supervisor import DeviceSupervisor, SupervisorConfig
 
@@ -1221,13 +1295,28 @@ def build_solve_path(profile: ErrorProfile, cfg: PipelineConfig, dev, ladder, *,
             describe=describe_prefix + "native-ladder", fingerprint_prefix="native:",
             inline=True, governor_cfg=gov_cfg, tracer=tracer, audit_rate=audit_rate)
         return SolvePath(sup.dispatch, sup.fetch_many, sync_engine=True, sup=sup)
-    dispatcher = LadderDispatcher(dev, tracer) if cfg.max_inflight > 1 else None
-    # a batch's stream tag picks its program: Stream A (tier 0 alone) or
-    # the whole ladder (fused batches and Stream B's)
-    dispatch_fn = stream_dispatcher(ladder, dispatcher, tracer)
+    mesh_solver = dispatcher = None
+    if mesh > 1:
+        from ..parallel.mesh import make_mesh, make_sharded_solver
+
+        with tracer.span("mesh.build"):
+            mesh_solver = make_sharded_solver(ladder, make_mesh(mesh, platform=dev.type),
+                                              batch=cfg.batch_size, tracer=tracer)
+        ev_log.log("mesh.init", nd=int(mesh_solver.nd), devices=mesh_solver.describe(),
+                   esc_cap=int(mesh_solver._esc_cap_for(cfg.batch_size)))
+        # the mesh routes a batch's stream tag to its program itself
+        dispatch_fn, fetch_fn = mesh_solver.dispatch, mesh_solver.fetch
+        fetch_many_fn = mesh_solver.fetch_many
+    else:
+        dispatcher = LadderDispatcher(dev, tracer) if cfg.max_inflight > 1 else None
+        # a batch's stream tag picks its program: Stream A (tier 0 alone) or
+        # the whole ladder (fused batches and Stream B's)
+        dispatch_fn = stream_dispatcher(ladder, dispatcher, tracer)
+        fetch_fn, fetch_many_fn = fetch, fetch_many
+    sync_engine = dispatcher is None and mesh_solver is None
     if not supervise:
-        return SolvePath(dispatch_fn, fetch_many, sync_engine=dispatcher is None,
-                         dispatcher=dispatcher)
+        return SolvePath(dispatch_fn, fetch_many_fn, sync_engine=sync_engine,
+                         dispatcher=dispatcher, mesh=mesh_solver)
     from ..utils.obs import device_alive, measure_rtt_s
 
     host_ladder: list = []
@@ -1257,23 +1346,29 @@ def build_solve_path(profile: ErrorProfile, cfg: PipelineConfig, dev, ladder, *,
         # no graph capture of another thread overlaps the probe's copies
         with graphs.CACHE.lock:
             rtt_s = measure_rtt_s(device=dev)
+    if mesh_solver is not None:
+        desc = mesh_solver.describe()
+    else:
+        desc = "cpu-ladder" if dev.type == "cpu" else "device-ladder"
     sup = DeviceSupervisor(
-        dispatch_fn, fetch, fallback_factory=fallback_factory,
+        # a mesh's drained group is one guarded fetch, as in the JAX package
+        dispatch_fn, fetch_fn, fetch_many_fn if mesh_solver is not None else None,
+        fallback_factory=fallback_factory,
         log=ev_log, cfg=sup_cfg, faults=plan,
         # the card's warm deadline scales with its measured round trip; a
         # CPU ladder cannot hang the way a card can and keeps the flat
         # deadline, as the native engine does
         rtt_s=rtt_s,
         probe_fn=lambda: device_alive(sup_cfg.probe_timeout_s, str(dev)),
-        describe=describe_prefix + ("cpu-ladder" if dev.type == "cpu" else "device-ladder"),
+        describe=describe_prefix + desc,
         fingerprint_prefix=f"{dev.type}:", inline=dev.type == "cpu",
-        governor_cfg=gov_cfg, tracer=tracer,
+        governor_cfg=gov_cfg, tracer=tracer, mesh=mesh_solver,
         # the reference is the card's own ladder on the CPU, byte-exact
         # with the card; the native engine would not be
         audit_ref_factory=lambda: audit_reference(cpu_ladder()),
         audit_rate=audit_rate, audit_worker=worker)
-    return SolvePath(sup.dispatch, sup.fetch_many, sync_engine=dispatcher is None,
-                     sup=sup, dispatcher=dispatcher)
+    return SolvePath(sup.dispatch, sup.fetch_many, sync_engine=sync_engine,
+                     sup=sup, dispatcher=dispatcher, mesh=mesh_solver)
 
 
 def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
@@ -1305,6 +1400,18 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
                        detail=iss.detail)
         if report.issues and cfg.ingest_policy == "strict":
             raise report.error()
+    # a custom solver brings its own programs and the native engine solves
+    # on the host: both run on one device (logged, not refused). A cuda
+    # mesh with too few cards stops here, before the profile pass
+    mesh_n = cfg.mesh if cfg.mesh and cfg.mesh > 1 else 0
+    if mesh_n and (solver is not None or cfg.native_solver):
+        log.log("info", msg=f"mesh={mesh_n} inapplicable here (native engine "
+                            "or custom solver); running on one device")
+        mesh_n = 0
+    if mesh_n:
+        from ..parallel.mesh import check_mesh_devices
+
+        check_mesh_devices(mesh_n, dev.type)
     # quarantine: the profile sample and the family sample take clean piles
     # only (the aread index cannot be built over a corrupt file)
     clean = report.pile_ranges if report is not None and report.issues else None
@@ -1404,8 +1511,13 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
             profile, cfg, dev, ladder, native=native, supervise=cfg.supervise,
             tracer=tracer, ev_log=ev_log, plan=plan, gov_cfg=gov_cfg, worker=worker,
             on_hp=lambda n: setattr(stats, "n_hp_rescued", stats.n_hp_rescued + n),
-            make_ladder=make_ladder)
+            make_ladder=make_ladder, mesh=mesh_n)
     dispatch_fn, fetch_many_fn, sup = path.dispatch, path.fetch_many, path.sup
+    mesh_solver = path.mesh
+    # the ledger's mesh column: the run's own mesh, a mesh-backed serve
+    # group's width (its job solver's ``mesh``) or an injected sharded
+    # solver's; 0 leaves the rows as they were
+    ledger_mesh = mesh_n or int(getattr(solver, "nd", 0) or getattr(solver, "mesh", 0) or 0)
     audit_pending = (path.audit_pending if sup is not None and cfg.max_inflight > 1
                      else lambda h: False)
     # the saturation accounting: a synchronous engine (the native engine, or
@@ -1565,7 +1677,8 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
                 ledger.record(int(rid[i]), int(widx[i]), w, int(nsegs_b[i]), t,
                               tier_ks[t] if 0 <= t < len(tier_ks) else -1,
                               bool(solved[i]), stream,
-                              rescued=stream == "rescue" or t >= 1, wall_s=wall, job=job)
+                              rescued=stream == "rescue" or t >= 1, wall_s=wall, job=job,
+                              mesh=ledger_mesh)
 
     def drain(to_depth: int, audited_only: bool = False) -> None:
         """Fetch the oldest calls until ``to_depth`` stay in flight, and
@@ -1702,6 +1815,13 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
         tracer.close(fl_sp)
         b_sp = tracer.open("batch", attach=False, stream=stream, rows=int(take),
                            bucket=bi)
+        meta = (rid, widx, take, nsg, bi, stream, seqs, lens, b_sp)
+        if stager is not None:
+            # staged under the calls in flight, launched in order
+            launch_staged()
+            staged_pending.append(stager.submit(batch, meta))
+            launch_staged()
+            return
         # a capture starts and stops outside the dispatch span: its cost is
         # its own (profile.capture's wall_s), not the dispatch's
         capture = prof_due()
@@ -1710,6 +1830,11 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
         d_sp = tracer.open("dispatch", parent=b_sp, stream=stream)
         handle = timed_dispatch(batch)
         tracer.close(d_sp)
+        queue_call(handle, meta)
+
+    def queue_call(handle, meta) -> None:
+        """A dispatched call into the deque; a full deque drains half."""
+        rid, widx, take, nsg, bi, stream, seqs, lens, b_sp = meta
         metrics.counter("dispatches").inc()
         stats.n_batches += 1
         stats.batches_by_bucket[labels[bi]] = stats.batches_by_bucket.get(labels[bi], 0) + 1
@@ -1719,6 +1844,40 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
         if len(inflight) >= cfg.max_inflight:
             drain(cfg.max_inflight // 2,
                   audited_only=len(inflight) < AUDIT_LAG * cfg.max_inflight)
+
+    # a mesh run stages batch N+1 (pad, slices, copies to the members) on a
+    # thread while the calls in flight solve, and launches it from here;
+    # DACCORD_MESH_PIPELINE=0 dispatches unstaged (same bytes)
+    stager = None
+    staged_pending: deque = deque()
+    if mesh_solver is not None and os.environ.get("DACCORD_MESH_PIPELINE", "1") != "0":
+        stager = _Stager(mesh_solver.stage, prof=prof)
+        ev_log.log("dispatch.pipeline", depth=2, solver=mesh_solver.describe())
+
+    def launch_staged(block: bool = False) -> None:
+        """Launch the staged batches in order. A batch still staging blocks
+        only with ``block`` or an empty deque (the members would idle)."""
+        while staged_pending:
+            t = staged_pending[0]
+            if not t.done.is_set() and not block and inflight:
+                return
+            t.done.wait()
+            staged_pending.popleft()
+            take, b_sp = t.meta[2], t.meta[8]
+            if t.error is None:
+                ev_log.log("dispatch.stage", rows=int(take),
+                           pack_s=round(t.staged.pack_s, 4),
+                           stage_s=round(t.staged.stage_s, 4))
+            if prof_due():
+                prof_start()
+            l_sp = tracer.open("dispatch.launch", parent=b_sp, attach=False, rows=int(take))
+            t_l = time.perf_counter()
+            # a batch whose staging failed is dispatched as it is
+            handle = timed_dispatch(t.batch if t.error is not None else t.staged)
+            tracer.close(l_sp)
+            ev_log.log("dispatch.launch", rows=int(take),
+                       launch_s=round(time.perf_counter() - t_l, 4))
+            queue_call(handle, t.meta)
 
     def flush_rescues(final: bool, pressure: bool = False) -> None:
         """Stream B: each bucket's rescue pool as dense whole-ladder
@@ -1761,6 +1920,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
                 submit_batch(buf, bi, take_rows(buf, bi), "tier0" if split else "full")
         flush_rescues(final)
         if final:
+            launch_staged(block=True)
             a0 = sup.audit_s if sup is not None else 0.0
             drain_final()
             stats.audit_drain_s = (sup.audit_s if sup is not None else 0.0) - a0
@@ -1768,6 +1928,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
             # never pool, so one more round empties the pools
             while any(pb.nrows for pb in pools):
                 flush_rescues(True)
+                launch_staged(block=True)
                 drain(0)
 
     emit_idx = 0
@@ -1898,8 +2059,35 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
             dpb = device_peak_bytes(dev)
             if dpb is not None:
                 g("device_peak_bytes").set(float(dpb))
+        hm = mesh_telemetry()
         if not final:
-            metrics.snapshot(ev_log)
+            metrics.snapshot(ev_log, **({"mesh": hm} if hm else {}))
+        return hm
+
+    def mesh_telemetry() -> dict | None:
+        """A mesh run's health map (``ShardedLadderSolver.health_map``) for
+        the snapshot, its gauges, and a ``mesh.device`` row per member with
+        the slice width its capacity rung runs at, when the governor has
+        ratcheted one."""
+        if mesh_solver is None:
+            return None
+        hm = mesh_solver.health_map()
+        rat = sup.governor.active_state() if sup is not None else {}
+        rung_rows = min(rat.values()) // max(mesh_solver.nd, 1) if rat else None
+        if rung_rows is not None:
+            hm["rung_rows_per_device"] = int(rung_rows)
+        metrics.gauge("mesh_nd").set(float(hm["nd"]))
+        metrics.gauge("mesh_devices_lost").set(
+            float(sum(1 for r in hm["devices"].values() if r["state"] != "ok")))
+        for i, row in sorted(hm["devices"].items()):
+            ev_log.log("mesh.device", device=int(i), state=row["state"],
+                       platform=row["platform"], dispatches=int(row["dispatches"]),
+                       dispatch_wall_s=round(row["dispatch_wall_s"], 4),
+                       rows=int(row["rows"]), hbm_peak_bytes=row["hbm_peak_bytes"],
+                       busy_frac=row["busy_frac"], idle_frac=row["idle_frac"],
+                       overlap_frac=row["overlap_frac"],
+                       **({"rung_rows": int(rung_rows)} if rung_rows is not None else {}))
+        return hm
 
     bp_latched = None
     last_snap = time.perf_counter()
@@ -1936,6 +2124,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
                                      "tier0" if split else "full")
                 flush_rescues(False, pressure=True)
                 if level == "hard":
+                    launch_staged(block=True)
                     drain(0)
                 yield from emit_ready()
                 if not injected:
@@ -1981,7 +2170,8 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
                 if ledger is not None:
                     for wj in np.nonzero(shallow)[0]:
                         ledger.record(aread, int(wj), w, int(nsegs[wj]), -1, -1, False,
-                                      "skip", rescued=False, wall_s=0.0, job=job)
+                                      "skip", rescued=False, wall_s=0.0, job=job,
+                                      mesh=ledger_mesh)
                 keep = ~shallow
                 seqs, lens, nsegs, widx = seqs[keep], lens[keep], nsegs[keep], widx[keep]
                 rid = np.full(len(nsegs), aread, dtype=np.int64)
@@ -2013,6 +2203,8 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
             stats.audit_tail = worker.anatomy(t_final)
         yield from emit_ready()
     finally:
+        if stager is not None:
+            stager.stop()
         path.close()
         if qfh is not None:
             qfh.close()
@@ -2047,11 +2239,17 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
     _, sat_summ, sat_verdict = saturation()
     stats.feeder_s = round(stats.windowing_s, 4)
     stats.dispatch_s = round(stats.ladder_s, 4)
+    walls = None
+    if mesh_solver is not None:
+        # a mesh dispatch's host walls decompose into pack, stage and launch
+        walls = stats.dispatch_walls = mesh_solver.dispatch_walls()
+        stats.dispatch_s = round(walls["dispatch_s"], 4)
     stats.stage_profile = sat_summ
     stats.verdict = sat_verdict["verdict"]
     stats.bottleneck = sat_verdict
-    metrics_snap(final=True)
-    metrics.snapshot(ev_log, final=True)
+    hm_final = metrics_snap(final=True)
+    stats.mesh_health = hm_final
+    metrics.snapshot(ev_log, final=True, **({"mesh": hm_final} if hm_final else {}))
     stats.metrics = metrics.rollup()
     stats.metrics["verdict"] = stats.verdict
     done = dict(
@@ -2064,11 +2262,15 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
         # the anchors tools/trace.py reconciles its span sums against
         device_s=round(stats.device_s, 4), host_s=round(stats.host_s, 4),
         # the saturation profiler's record, tools/prof.py's first source;
-        # one card: mesh 0, and no staged-dispatch walls
+        # a mesh run adds its staged dispatch's walls
         stages={k: v["wall_s"] for k, v in sat_summ["stages"].items()},
         stage_threads=sat_summ["threads"], feeder_s=stats.feeder_s,
         dispatch_s=stats.dispatch_s, verdict=stats.verdict, bottleneck=sat_verdict,
-        mesh=0, tiers=stats.tier_histogram, native=stats.native_host,
+        mesh=int(ledger_mesh),
+        **({"pack_s": round(walls["pack_s"], 4), "stage_s": round(walls["stage_s"], 4),
+            "launch_s": round(walls["launch_s"], 4), "restaged": int(walls["restaged"])}
+           if walls is not None else {}),
+        tiers=stats.tier_histogram, native=stats.native_host,
         ladder=cfg.ladder_mode, rescue_slots=stats.rescue_slots_executed,
         rescue_windows=stats.n_rescue_windows,
         rescue_density=round(stats.rescue_density, 4),

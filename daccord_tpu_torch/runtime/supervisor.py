@@ -1,8 +1,8 @@
 """Device supervisor: fault-tolerant dispatch/fetch with watchdog
 classification, failover and optional failback.
 
-The port's copy of ``daccord_tpu/runtime/supervisor.py`` for one card: the
-state machine, its events and its fault plan are the JAX package's, so a
+The port's copy of ``daccord_tpu/runtime/supervisor.py``: the state
+machine, its events and its fault plan are the JAX package's, so a
 ``DACCORD_FAULT`` spec walks the same transitions in both packages::
 
     HEALTHY ──cold shape──▶ COMPILING ──done──▶ HEALTHY
@@ -67,9 +67,18 @@ CPU ladder in numpy, byte-equal to the reference); its rows are compared
 when the batch is fetched. Without a worker (the CPU default) the sample is
 solved in this process at fetch time.
 
-The mesh parts of the JAX module (the partial-mesh rung, per-member
-attribution and the persisted trust registry) are left out: on one card a
-culprit is never attributed (-1) and trust strikes live for the run.
+*Mesh* (``parallel/mesh.py``, ``mesh=`` the sharded solver): its shape
+keys end in ``:m<N>`` (the active width), the governor bisects in mesh
+multiples, and declared device loss first shrinks the mesh N -> N/2 (the
+partial-mesh rung: ``mesh.shrink`` with the culprit member and a
+``mesh.device`` row per member it drops) and replays the retained batch on
+the rest, byte-identical; only at width 1 does the run fail over. A shadow
+audit divergence on a mesh is attributed to its member by solving the
+divergent window once on every member, and strikes that member's trust
+ratchet (TRUSTED -> SUSPECT -> QUARANTINED), persisted in the trust registry
+(``utils.obs.record_trust``, keys ``<platform>:m<K>``); a quarantined member
+is shrunk out, in this run and, from the registry, at the next one's start
+(``DACCORD_TRUST_PROBATION=1`` demotes it to SUSPECT instead).
 """
 
 from __future__ import annotations
@@ -80,7 +89,10 @@ import threading
 import time
 from dataclasses import dataclass
 
+import os
+
 from ..kernels.nvcc import KernelError
+from ..utils.obs import TRUST_QUARANTINED, TRUST_SUSPECT, TRUST_TRUSTED
 from ..utils.obs import env_float as _env_float
 from .faults import (FaultCompileStall, FaultDeviceLost, FaultDeviceOOM,
                      FaultDispatchError, FaultHang, FaultPlan)
@@ -107,12 +119,6 @@ TRANSITIONS = {
     # a failback rebuilds nothing but treats every shape as cold again
     FAILBACK: {HEALTHY, COMPILING, SUSPECT, LOST},
 }
-
-#: trust ratchet of the card (TRUSTED -> SUSPECT -> QUARANTINED), the
-#: states ``eventcheck`` knows
-TRUST_TRUSTED = "TRUSTED"
-TRUST_SUSPECT = "SUSPECT"
-TRUST_QUARANTINED = "QUARANTINED"
 
 #: what a CUDA error that leaves the process's context unusable says
 #: (cudaGetErrorString, and torch's "CUDA error: ..." on every later call)
@@ -259,25 +265,26 @@ class _SupHandle:
                               # at dispatch and sent to the worker
 
 
-def shape_key(batch, fp_prefix: str) -> str:
+def shape_key(batch, fp_prefix: str, mesh_suffix: str = "") -> str:
     """The shape identity of a batch: the cold-shape registry and the
     governor's ratchet key (``cuda:B2048xD32xL64``; paged batches add the
     table, page and pool dims and ``:pg``). A Stream A batch of the
     two-stream ladder (``stream == "tier0"``) runs another program at the
     same shape (tier 0 alone, its own graph) and adds ``:t0``; Stream B's
-    rescue batches run the whole ladder and share the fused key."""
+    rescue batches run the whole ladder and share the fused key. A mesh
+    dispatch ends in ``mesh_suffix`` (``:m<N>``)."""
     t0 = ":t0" if getattr(batch, "stream", "full") == "tier0" else ""
     if getattr(batch, "pool", None) is not None:
         b, ppw = batch.table.shape
         return (f"{fp_prefix}B{b}xD{batch.lens.shape[1]}"
                 f"xL{batch.shape.seg_len}"
                 f"xP{ppw}x{batch.family.page_len}"
-                f"xN{batch.pool.shape[0]}:pg{t0}")
+                f"xN{batch.pool.shape[0]}:pg{t0}{mesh_suffix}")
     seqs = getattr(batch, "seqs", None)
     if seqs is None:
-        return fp_prefix + "opaque"
+        return fp_prefix + "opaque" + mesh_suffix
     b, d, l = seqs.shape
-    return f"{fp_prefix}B{b}xD{d}xL{l}{t0}"
+    return f"{fp_prefix}B{b}xD{d}xL{l}{t0}{mesh_suffix}"
 
 
 def _is_tier0(batch) -> bool:
@@ -291,7 +298,9 @@ class DeviceSupervisor:
     transparently.
 
     ``inline=True`` runs ops on the caller's thread with no watchdog (a
-    CPU ladder cannot hang the way a card can). ``probe_fn`` answers
+    CPU ladder cannot hang the way a card can). ``mesh`` is the sharded
+    solver (``parallel/mesh.py``) of a mesh primary; ``fetch_many_fn`` a
+    grouped fetch, guarded as one op (the mesh's, as in the JAX package). ``probe_fn`` answers
     whether the device is alive (default :func:`utils.obs.device_alive` on
     cuda). ``audit_ref_factory`` builds the shadow audit's in-process
     reference; ``audit_rate`` None reads ``DACCORD_AUDIT_RATE`` (default
@@ -299,16 +308,18 @@ class DeviceSupervisor:
     the samples in its own process; the in-process reference re-solves a
     batch found divergent. The caller closes the worker."""
 
-    def __init__(self, dispatch_fn, fetch_fn, *, fallback_factory=None, log=None, cfg: SupervisorConfig | None = None,
+    def __init__(self, dispatch_fn, fetch_fn, fetch_many_fn=None, *, fallback_factory=None,
+                 log=None, cfg: SupervisorConfig | None = None,
                  faults: FaultPlan | None = None, probe_fn=None, describe: str = "",
                  fingerprint_prefix: str = "", inline: bool = False,
-                 governor_cfg: GovernorConfig | None = None, tracer=None,
+                 governor_cfg: GovernorConfig | None = None, tracer=None, mesh=None,
                  audit_ref_factory=None, audit_rate: float | None = None,
                  audit_worker=None, rtt_s: float | None = None):
         from ..utils.obs import NullLogger, Tracer
 
         self._dispatch_fn = dispatch_fn
         self._fetch_fn = fetch_fn
+        self._fetch_many_fn = fetch_many_fn
         self._fallback_factory = fallback_factory
         self._fallback = None
         self.cfg = cfg or SupervisorConfig.from_env()
@@ -325,7 +336,7 @@ class DeviceSupervisor:
         self.state = HEALTHY
         self.failed_over = False
         self.fail_reason: str | None = None
-        # the JAX package's counters (mesh_shrinks stays 0 on one card)
+        # the JAX package's counters
         self.counters = {"dispatch": 0, "fetch": 0, "retries": 0,
                          "timeouts": 0, "probes": 0, "degraded_solves": 0,
                          "heartbeats": 0, "mesh_shrinks": 0,
@@ -334,9 +345,13 @@ class DeviceSupervisor:
         # dispatch time, so the pipeline's fetch timer never sees them)
         self.gov_device_s = 0.0
         self.tracer = tracer if tracer is not None else Tracer(self.log)
+        self._mesh = mesh
         self.governor = CapacityGovernor(
             self._gov_solve_width, log=self.log,
-            cfg=governor_cfg or GovernorConfig.from_env(), tracer=self.tracer)
+            cfg=governor_cfg or GovernorConfig.from_env(), tracer=self.tracer,
+            # a mesh bisects its slices in lockstep: widths stay mesh
+            # multiples and the floor scales by the mesh's width
+            quantum_fn=(lambda: self._mesh.nd) if mesh is not None else None)
         if rtt_s:
             self.op_deadline_s = max(self.cfg.min_op_deadline_s,
                                      rtt_s * self.cfg.rtt_mult)
@@ -370,12 +385,15 @@ class DeviceSupervisor:
         self._audit_warmed: set[tuple] = set()
         self._trust: dict[int, dict] = {}
         self._trust_strikes_max = max(1, int(_env_float("DACCORD_TRUST_STRIKES", 2)))
+        self._trust_probation = os.environ.get("DACCORD_TRUST_PROBATION", "") == "1"
         self.log.log("sup_init", primary=describe or "solver",
                      op_deadline_s=round(self.op_deadline_s, 1),
                      compile_deadline_s=self.cfg.compile_deadline_s,
                      rtt_s=rtt_s, faults=bool(self.faults),
                      failback=self.cfg.failback, inline=inline,
                      audit_rate=self._audit_rate)
+        if self._mesh is not None:
+            self._trust_load()
 
     def close(self) -> None:
         """Stop the watchdog's worker thread."""
@@ -409,8 +427,15 @@ class DeviceSupervisor:
         self.log.log("sup_probe", alive=alive, wall_s=round(time.time() - t0, 3))
         return alive
 
+    def _mesh_suffix(self) -> str:
+        """``:m<N>`` of a mesh primary at its current width: a mesh call is
+        another program than one card's at the same batch shape (and than
+        the same mesh at another width), so it is cold, ratcheted and
+        registered apart. The partial-mesh rung changes N mid-run."""
+        return f":m{self._mesh.nd}" if self._mesh is not None else ""
+
     def _shape_key(self, batch) -> str:
-        return shape_key(batch, self._fp_prefix)
+        return shape_key(batch, self._fp_prefix, self._mesh_suffix())
 
     def _is_fresh(self, key: str) -> bool:
         """Cold classification: not yet dispatched in this process and not
@@ -596,8 +621,65 @@ class DeviceSupervisor:
         self._transition(FAILBACK, reason="re-probe alive")
         self._seen_shapes.clear()
         self._ignore_fp_registry = True
+        if self._mesh is not None and self._mesh.nd < len(getattr(self._mesh, "_devices0", [])):
+            # the revived members come back whole, every shape cold again
+            nd_from = self._mesh.nd
+            self._mesh.restore()
+            self.log.log("mesh.restore", nd_from=nd_from, nd_to=self._mesh.nd)
         self.log.log("sup_failback")
         return True
+
+    # ---- partial-mesh degradation rung ----------------------------------
+
+    def _mesh_degrade(self, reason: str, culprit: int = -1) -> bool:
+        """On declared device loss with a mesh primary: shrink the mesh
+        N -> N/2 and keep the run on the rest (the caller replays the
+        retained batch, byte-identical: windows solve independently)
+        instead of failing over whole. False at width 1 (``mesh.degrade``):
+        the caller fails over. Walks SUSPECT -> RETRYING.
+
+        The culprit: an injected loss names its member
+        (``device_lost:N@K``); a real loss on a card mesh probes every
+        member against one deadline. It rides ``mesh.shrink``, and each
+        member the shrink drops gets a ``mesh.device`` row."""
+        m = self._mesh
+        if m is None:
+            return False
+        if m.nd <= 1:
+            self.log.log("mesh.degrade", nd=int(m.nd), reason=reason[:200])
+            return False
+        nd_from = m.nd
+        if culprit < 0:
+            if self.faults is not None and self.faults.dead_device >= 0:
+                culprit = self.faults.dead_device
+            elif self.faults is None and not getattr(m, "host_local", True):
+                with self.tracer.span("probe"):
+                    dead = m.probe_devices()
+                if len(dead) == 1:
+                    culprit = dead[0]
+        prev = {i: row.get("state") for i, row in getattr(m, "device_stats", {}).items()}
+        m.shrink(culprit=culprit)
+        if self.faults is not None:
+            # an injected loss marks the whole backend dead; here it was one
+            # member, which the shrink just removed: the rest are a fresh
+            # primary (a second device_lost spec kills another member)
+            self.faults.device_dead = False
+            self.faults.dead_device = -1
+        self.counters["mesh_shrinks"] += 1
+        self.log.log("mesh.shrink", nd_from=int(nd_from), nd_to=int(m.nd),
+                     culprit=int(culprit), reason=reason[:200])
+        self._log_dropped(prev)
+        self._transition(RETRYING, reason=f"partial mesh {nd_from}->{m.nd}")
+        return True
+
+    def _log_dropped(self, prev: dict) -> None:
+        """One ``mesh.device`` row per member whose state changed since
+        ``prev``."""
+        for i, row in getattr(self._mesh, "device_stats", {}).items():
+            if row.get("state") != prev.get(i):
+                self.log.log("mesh.device", device=int(i), state=row["state"],
+                             platform=row.get("platform", "?"),
+                             dispatches=int(row.get("dispatches", 0)))
 
     # ---- capacity governor hooks ---------------------------------------
 
@@ -631,14 +713,21 @@ class DeviceSupervisor:
     def _gov_dispatch(self, batch, key: str, reason: str | None) -> _SupHandle:
         """Route ``batch`` through the governor's degradation ladder; a
         handle carrying the solved result. A ladder exhausted all the way
-        down, or a device loss mid-walk, fails over."""
+        down fails over; a device loss mid-walk shrinks a mesh primary
+        first (the ratchets then key under the new ``:m<N>``), else fails
+        over."""
         t0 = time.time()
         try:
-            try:
-                out = self.governor.solve(batch, key, reason=reason)
-            except DeviceLostError as e:
-                self._engage_fallback(str(e))
-                return _SupHandle(None, batch, key, degraded=True)
+            while True:
+                try:
+                    out = self.governor.solve(batch, key, reason=reason)
+                    break
+                except DeviceLostError as e:
+                    if self._mesh_degrade(str(e)):
+                        key = self._shape_key(batch)
+                        continue
+                    self._engage_fallback(str(e))
+                    return _SupHandle(None, batch, key, degraded=True)
         except CapacityError as e:
             # last rung: failover. SUSPECT precedes LOST, the legal chain
             self._transition(SUSPECT, reason=f"capacity: {e}"[:200])
@@ -652,6 +741,11 @@ class DeviceSupervisor:
     # ---- solver interface ----------------------------------------------
 
     def dispatch(self, batch) -> _SupHandle:
+        # a mesh StagedBatch carries its member slices and the host batch
+        # they came from: only the first attempt uses the slices, and every
+        # replay (retry, bisect, shrink, failover) the host batch
+        staged = batch if hasattr(batch, "replay_batch") else None
+        batch = staged.replay_batch if staged is not None else batch
         key = self._shape_key(batch)
         if self.state == DEGRADED:
             self._maybe_failback()
@@ -667,16 +761,26 @@ class DeviceSupervisor:
             # a ratcheted shape dispatches at its known-good width directly
             return self._gov_dispatch(batch, key, reason=None)
         self.counters["dispatch"] += 1
-        fresh = self._is_fresh(key)
-        t_d = time.time()
-        try:
-            inner = self._guarded("dispatch", self._dispatch_fn,
-                                  lambda attempt: (batch,), key, fresh, width=w)
-        except CapacityError as e:
-            return self._gov_dispatch(batch, key, reason=str(e))
-        except DeviceLostError as e:
-            self._engage_fallback(str(e))
-            return _SupHandle(None, batch, key, degraded=True)
+        while True:
+            fresh = self._is_fresh(key)
+            t_d = time.time()
+            arg = staged if staged is not None else batch
+            try:
+                inner = self._guarded("dispatch", self._dispatch_fn,
+                                      lambda attempt: (arg if attempt == 1 else batch,),
+                                      key, fresh, width=w)
+                break
+            except CapacityError as e:
+                return self._gov_dispatch(batch, key, reason=str(e))
+            except DeviceLostError as e:
+                # the partial-mesh rung: a narrower mesh is a new primary at
+                # a new :m<N> key; the slices staged for the old one go
+                if self._mesh_degrade(str(e)):
+                    staged = None
+                    key = self._shape_key(batch)
+                    continue
+                self._engage_fallback(str(e))
+                return _SupHandle(None, batch, key, degraded=True)
         self._seen_shapes.add(key)
         if fresh:
             self._record_compile(key, time.time() - t_d)
@@ -726,14 +830,50 @@ class DeviceSupervisor:
             return self._degraded_solve(h.batch, "fetch")
         except DeviceLostError as e:
             self._audit_drop(h)
+            if self._mesh_degrade(str(e)):
+                # replay the retained batch on the narrower mesh; a further
+                # loss recurses (another shrink, or failover at width 1)
+                return self.fetch(self.dispatch(h.batch))
             self._engage_fallback(str(e))
             return self._degraded_solve(h.batch, "fetch")
 
     def fetch_many(self, handles: list) -> list:
         """:meth:`fetch` of each handle, in order: each fetch is its own
         guarded op (a local card has no transfer round trip to group), as
-        the JAX package's synchronous CPU engine counts them."""
-        return [self.fetch(h) for h in handles]
+        the JAX package's synchronous CPU engine counts them. With a
+        ``fetch_many_fn`` (a mesh) the group is one guarded op, as the JAX
+        package's grouped fetch is; on a declared loss every batch of the
+        group replays on the narrower mesh, or on the failover engine."""
+        if (self._fetch_many_fn is None or len(handles) == 1
+                or any(h.degraded or h.result is not None for h in handles)
+                or self.state in (LOST, DEGRADED)):
+            return [self.fetch(h) for h in handles]
+        self.counters["fetch"] += 1
+        width = max((w for w in map(self._width_of, (h.batch for h in handles))
+                     if w is not None), default=None)
+
+        def make_args(attempt):
+            for h in handles:
+                if attempt > 1 or h.inner is None:
+                    h.inner = self._dispatch_fn(h.batch)
+            return ([h.inner for h in handles],)
+
+        try:
+            outs = self._guarded("fetch", self._fetch_many_fn, make_args,
+                                 handles[0].key, fresh=False, width=width)
+            return [self._postfetch(h, o) for h, o in zip(handles, outs)]
+        except CapacityError:
+            # a group is not a capacity unit: each batch on its own width
+            self.counters["fetch"] -= 1
+            return [self.fetch(h) for h in handles]
+        except DeviceLostError as e:
+            for h in handles:
+                self._audit_drop(h)
+            if self._mesh_degrade(str(e)):
+                self.counters["fetch"] -= 1
+                return [self.fetch(self.dispatch(h.batch)) for h in handles]
+            self._engage_fallback(str(e))
+            return [self._degraded_solve(h.batch, "fetch") for h in handles]
 
     # ---- silent-data-corruption defense --------------------------------
 
@@ -747,13 +887,28 @@ class DeviceSupervisor:
         if self.faults is not None and self.faults.has_sdc_faults():
             spec = self.faults.sdc_check()
             if spec is not None:
-                self._corrupt_rows(out, range(int(out["cons"].shape[0])))
+                self._sdc_corrupt(out, spec.device)
         if self._audit_rate > 0.0 and self._audit_ref_factory is not None:
             if h.audit is None:
                 out = self._audit(h, out)
             else:
                 out = self._audit_remote(h, out)
         return out
+
+    def _sdc_corrupt(self, out: dict, device: int) -> None:
+        """Corrupt the rows mesh member ``device`` solved (every row when
+        the spec names no member or there is no mesh); nothing when the
+        member was shrunk out, or got only pad rows."""
+        B = int(out["cons"].shape[0])
+        rows = range(B)
+        if device >= 0 and self._mesh is not None and self._mesh.nd > 1:
+            members = self._mesh.member_ids()
+            if device not in members:
+                return
+            per = -(-B // len(members))
+            j = members.index(device)
+            rows = range(j * per, min((j + 1) * per, B))
+        self._corrupt_rows(out, rows)
 
     @staticmethod
     def _corrupt_rows(out: dict, rows) -> None:
@@ -801,10 +956,19 @@ class DeviceSupervisor:
     def _audit_sample(self, B: int) -> list[int]:
         """The seeded row sample of one audited batch: ``max(1,
         round(B * rate))`` rows, seeded by (seed, audit ordinal) so a rerun
-        samples the same rows."""
+        samples the same rows. On a mesh a lying member cannot hide in the
+        rows not sampled: when the budget covers the mesh every member's
+        slice gives a row each batch, below it the slices take turns."""
         rng = random.Random((self.cfg.seed << 16) ^ self._n_audit)
         k = min(max(1, round(B * self._audit_rate)), B)
         rows: set[int] = set()
+        if self._mesh is not None and self._mesh.nd > 1:
+            nd = self._mesh.nd
+            per = -(-B // nd)
+            for j in (range(nd) if k >= nd else [self._n_audit % nd]):
+                lo, hi = j * per, min((j + 1) * per, B)
+                if lo < hi:
+                    rows.add(rng.randrange(lo, hi))
         while len(rows) < k:
             rows.add(rng.randrange(B))
         return sorted(rows)
@@ -912,16 +1076,66 @@ class DeviceSupervisor:
 
         B = int(np.asarray(out["cons"]).shape[0])
         self.counters["sdc_detected"] += 1
+        culprit = self._sdc_attribute(h.batch, divergent[0])
         self.log.log("sup_sdc", key=h.key, rows=int(B), sampled=len(rows),
-                     divergent=len(divergent), row=int(divergent[0]), culprit=-1)
+                     divergent=len(divergent), row=int(divergent[0]),
+                     culprit=int(culprit))
         eng = self._audit_engine()
         if eng is not None:
             batch = h.batch
             dense = batch.to_dense() if hasattr(batch, "to_dense") else batch
             with self.tracer.span("audit.resolve", rows=int(B)):
                 out = eng(dense)
-        self._trust_strike(-1, "shadow audit divergence")
+        self._trust_strike(culprit, "shadow audit divergence")
         return out
+
+    def _sdc_attribute(self, batch, row: int) -> int:
+        """The mesh member that solved divergent window ``row`` wrongly:
+        the window solved once on every member (the row repeated mesh-width
+        times, one a slice) on the raw mesh, not the supervised path, and
+        each member's copy compared with the reference. An injected liar
+        (``sdc:N@K``) lies here too. -1 off a mesh or when no copy
+        diverges."""
+        m = self._mesh
+        if m is None or m.nd <= 1:
+            return -1
+        eng = self._audit_engine()
+        if eng is None:
+            return -1
+        import dataclasses
+
+        import numpy as np
+
+        dense = batch.to_dense() if hasattr(batch, "to_dense") else batch
+        nd = int(m.nd)
+
+        def rep(a):
+            return np.repeat(a[row:row + 1], nd, axis=0)
+
+        probe = dataclasses.replace(
+            dense, seqs=rep(dense.seqs), lens=rep(dense.lens), nsegs=rep(dense.nsegs),
+            read_ids=rep(dense.read_ids), wstarts=rep(dense.wstarts), stream="full")
+        members = m.member_ids()
+        try:
+            pout = m.fetch(m.dispatch(probe))
+        except Exception as e:
+            self.log.log("audit.attrib", row=int(row), culprit=-1, nd=nd,
+                         error=str(e)[:200])
+            return -1
+        if self.faults is not None:
+            liars = self.faults.sdc_liars()
+            for j, orig in enumerate(members):
+                if orig in liars:
+                    self._corrupt_rows(pout, [j])
+        ref1 = eng(dataclasses.replace(
+            dense, seqs=dense.seqs[row:row + 1], lens=dense.lens[row:row + 1],
+            nsegs=dense.nsegs[row:row + 1], read_ids=dense.read_ids[row:row + 1],
+            wstarts=dense.wstarts[row:row + 1], stream="full"))
+        culprits = [members[j] for j in range(len(members))
+                    if self._rows_equal(pout, ref1, j, 0) is False]
+        culprit = int(culprits[0]) if culprits else -1
+        self.log.log("audit.attrib", row=int(row), culprit=culprit, nd=nd)
+        return culprit
 
     def _audit(self, h, out: dict):
         """Shadow-verify a seeded sample of ``out``'s rows, drawn now,
@@ -959,24 +1173,80 @@ class DeviceSupervisor:
         self.audit_s += time.time() - t0
         return out
 
+    def _trust_key(self, orig: int) -> str:
+        """The trust registry's key of member ``orig``: ``<platform>:m<K>``
+        (-1: the device of a run without a mesh)."""
+        return f"{self._fp_prefix}m{int(orig)}"
+
     def _trust_strike(self, orig: int, reason: str) -> None:
-        """Ratchet the card TRUSTED -> SUSPECT -> QUARANTINED (never looser
-        within a run); quarantine fails over to the degraded engine."""
-        ent = self._trust.setdefault(int(orig), {"state": TRUST_TRUSTED, "strikes": 0})
+        """Ratchet a device TRUSTED -> SUSPECT -> QUARANTINED (never looser
+        within a run), persisted in the trust registry so the next run
+        starts from it. Quarantine drives the existing rungs: the
+        partial-mesh shrink for an attributed member, whole-program
+        failover otherwise."""
+        from ..utils.obs import record_trust
+
+        orig = int(orig)
+        ent = self._trust.setdefault(orig, {"state": TRUST_TRUSTED, "strikes": 0})
         ent["strikes"] += 1
         frm = ent["state"]
         to = TRUST_QUARANTINED if ent["strikes"] >= self._trust_strikes_max else TRUST_SUSPECT
         if frm == TRUST_QUARANTINED:
             to = TRUST_QUARANTINED
         ent["state"] = to
-        self.log.log("trust.state", device=int(orig), state_from=frm, state_to=to,
+        self.log.log("trust.state", device=orig, state_from=frm, state_to=to,
                      strikes=int(ent["strikes"]))
+        record_trust(self._trust_key(orig), to, ent["strikes"])
         if to != TRUST_QUARANTINED or frm == TRUST_QUARANTINED:
             return
-        if self._fallback_factory is not None:
+        # SUSPECT first: the state machine has no HEALTHY -> RETRYING edge
+        if (self._mesh is not None and self._mesh.nd > 1
+                and orig in self._mesh.member_ids()):
+            if self.state in (HEALTHY, COMPILING):
+                self._transition(SUSPECT, reason=reason)
+            self._mesh_degrade(f"trust quarantined: {reason}", culprit=orig)
+        elif self._fallback_factory is not None:
             if self.state in (HEALTHY, COMPILING, RETRYING):
                 self._transition(SUSPECT, reason=reason)
             try:
                 self._engage_fallback(f"trust quarantined: {reason}")
             except DeviceLostError:
                 pass        # no fallback buildable: keep running, keep auditing
+
+    def _trust_load(self) -> None:
+        """The registry's trust state of the active mesh members, read once
+        after ``sup_init``: a quarantined member is shrunk out before it
+        solves a window, unless ``DACCORD_TRUST_PROBATION=1`` demotes it to
+        SUSPECT for a re-verify."""
+        from ..utils.obs import record_trust, trust_registry
+
+        reg = trust_registry()
+        if not reg:
+            return
+        m = self._mesh
+        for orig in list(m.member_ids()):
+            ent = reg.get(self._trust_key(orig))
+            if not ent:
+                continue
+            state = ent.get("state")
+            strikes = int(ent.get("strikes", 0))
+            self._trust[int(orig)] = {"state": state, "strikes": strikes}
+            self.log.log("trust.load", device=int(orig), state=state, strikes=strikes)
+            if state != TRUST_QUARANTINED:
+                continue
+            if self._trust_probation:
+                demoted = max(0, strikes - 1)
+                self._trust[int(orig)] = {"state": TRUST_SUSPECT, "strikes": demoted}
+                self.log.log("trust.state", device=int(orig), state_from=state,
+                             state_to=TRUST_SUSPECT, strikes=demoted)
+                record_trust(self._trust_key(orig), TRUST_SUSPECT, demoted)
+                continue
+            while m.nd > 1 and orig in m.member_ids():
+                nd_from = m.nd
+                prev = {i: row.get("state") for i, row in
+                        getattr(m, "device_stats", {}).items()}
+                m.shrink(culprit=int(orig))
+                self.counters["mesh_shrinks"] += 1
+                self.log.log("mesh.shrink", nd_from=int(nd_from), nd_to=int(m.nd),
+                             culprit=int(orig), reason="trust quarantined (registry)")
+                self._log_dropped(prev)

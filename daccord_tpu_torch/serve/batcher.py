@@ -45,6 +45,7 @@ dispatcher thread still overlaps each job's host windowing with the card.
 from __future__ import annotations
 
 import gc
+import os
 import threading
 import time
 from collections import deque
@@ -136,7 +137,8 @@ class GroupConfig:
     paged_families: int = 4
     dp_route: str = "fused"      # the ladder's heaviest-path route (fused |
                                  # scan); bit-identical, so not a key
-    mesh: int = 0                # several cards: not ported (raises above 1)
+    mesh: int = 0                # mesh-backed group: merged batches shard
+                                 # over N members (parallel/mesh.py)
     max_inflight: int = 8        # merged batches in flight before a drain
     min_width: int = 8           # shed floor for the width ladder
     shed_levels: int = 0         # current load-shed level: merged batches
@@ -165,10 +167,6 @@ class SolveGroup:
 
     def __init__(self, key: str, profile, cfg, gcfg: GroupConfig,
                  log=None, name: str = "g0"):
-        if gcfg.mesh and gcfg.mesh > 1:
-            raise ValueError(
-                f"mesh={gcfg.mesh}: solve groups over several cards wait for the "
-                "port of parallel/mesh.py (ROADMAP Queue 1 item 5)")
         self.key = key
         self.name = name
         self.cfg = cfg                      # canonical PipelineConfig
@@ -190,6 +188,7 @@ class SolveGroup:
         self.sat = {"dispatch_s": 0.0, "fetch_blocked_s": 0.0, "busy_s": 0.0}
         self._sync_engine = gcfg.backend == "native"
         self.ladder = None
+        self.mesh_solver = None      # the sharded solver of a mesh group
         self.worker = None
         self.graphs = {"precaptured": 0, "precapture_s": 0.0}
         self._profile = profile
@@ -214,9 +213,12 @@ class SolveGroup:
         from ..utils.device import resolve_device
 
         g = self.gcfg
+        mesh = g.mesh if g.mesh and g.mesh > 1 else 0
         common = dict(supervise=True, tracer=self.tracer, ev_log=self.log,
                       plan=FaultPlan.from_env(), gov_cfg=g.governor,
                       audit_rate=g.audit_rate, describe_prefix="serve-")
+        if g.backend == "native" and mesh:
+            raise ValueError("native serve groups solve on the host: no mesh")
         if g.backend == "native":
             if g.paged or g.ladder_mode == "split":
                 raise ValueError("native serve groups run fused dense: the "
@@ -229,6 +231,10 @@ class SolveGroup:
         if g.backend not in ("cpu", "cuda"):
             raise ValueError(f"backend {g.backend!r}: expected native, cpu or cuda")
         dev = resolve_device(g.backend)
+        if mesh:
+            from ..parallel.mesh import check_mesh_devices
+
+            check_mesh_devices(mesh, dev.type)
         if dev.type == "cuda" and g.aot_dir:
             # the ladder's kernels from the fleet's cache (or built here and
             # published) before the first launch; once a process
@@ -263,7 +269,8 @@ class SolveGroup:
                 self.ladder = make_ladder(dev)
                 self.path = build_solve_path(profile, cfg, dev, self.ladder, native=False,
                                              worker=self.worker, make_ladder=make_ladder,
-                                             **common)
+                                             mesh=mesh, **common)
+                self.mesh_solver = self.path.mesh
                 if dev.type == "cuda":
                     self._precapture()
         except BaseException:
@@ -288,6 +295,12 @@ class SolveGroup:
         from ..utils.bases import PAD
 
         B = self._width()
+        # a mesh group's members each capture their own slice's shapes
+        ms = self.mesh_solver
+        members = ([(m, ms._member_ladder(m)) for m in ms.member_ids()]
+                   if ms is not None else [(None, self.ladder)])
+        if ms is not None:
+            B = -(-B // ms.nd)
         c0, s0 = graphs.CACHE.captures, graphs.CACHE.capture_s
         before = graphs.launch_counts()
         for d, ln in dense_buckets(self.cfg):
@@ -297,8 +310,9 @@ class SolveGroup:
                                 nsegs=np.zeros(B, np.int32), shape=shape,
                                 read_ids=np.full(B, -1, np.int64),
                                 wstarts=np.zeros(B, np.int64))
-            for width in graphs.widths(B):
-                graphs.CACHE.run(empty, self.ladder, esc_cap=width, log=self.log)
+            for m, lad in members:
+                for width in graphs.widths(B):
+                    graphs.CACHE.run(empty, lad, esc_cap=width, log=self.log, member=m)
         graphs._add_counts(graphs._counts_delta(graphs.launch_counts(), before), -1)
         self.graphs = {"precaptured": graphs.CACHE.captures - c0,
                        "precapture_s": round(graphs.CACHE.capture_s - s0, 4)}
@@ -504,11 +518,16 @@ class SolveGroup:
                 self.worker.close()
                 self.worker = None
             ladder, self.ladder = self.ladder, None
-            if ladder is not None and ladder.device.type == "cuda":
-                from ..kernels import graphs
+            ms, self.mesh_solver = self.mesh_solver, None
+            # a mesh group's members hold graphs of their own ladders too
+            ladders = ([ladder] if ladder is not None else []) + (
+                [x for x in ms.ladders() if x is not ladder] if ms is not None else [])
+            for lad in ladders:
+                if lad.device.type == "cuda":
+                    from ..kernels import graphs
 
-                graphs.CACHE.release(ladder)
-            del path, ladder
+                    graphs.CACHE.release(lad)
+            del path, ladder, ladders, ms
             # the supervisor and its governor hold each other: collect the
             # cycle now, so the ladder's tables leave the card with it
             gc.collect()
@@ -643,6 +662,12 @@ class SolveGroup:
                      stream=pool.stream, width=int(merged.size),
                      reason=reason, job="+".join(jobs))
         t_d = time.perf_counter()
+        if (self.mesh_solver is not None
+                and os.environ.get("DACCORD_MESH_PIPELINE", "1") != "0"):
+            # a mesh group stages merged batches (slices copied to the
+            # members) while earlier ones solve; every replay of the
+            # supervisor works on the host batch the staged one keeps
+            merged = self.mesh_solver.stage(merged)
         dh = self.path.dispatch(merged)
         dt = time.perf_counter() - t_d
         self.sat["dispatch_s"] += dt
@@ -769,6 +794,12 @@ class JobSolver:
     def hp_ols(self):
         """The group's shared hp-pass OffsetLikely tables (read-only)."""
         return self.group.hp_ols
+
+    @property
+    def mesh(self) -> int:
+        """The group's mesh width (0 = one device): the pipeline stamps it
+        into the job's ledger rows."""
+        return int(self.group.gcfg.mesh or 0)
 
     def describe(self) -> str:
         return f"serve-batcher:{self.group.name}"

@@ -184,14 +184,17 @@ def build_job_config(spec: JobSpec, backend: str, backend_explicit: bool,
         ladder_mode=ladder_mode)
 
 
-def solve_fingerprint(profile, cfg, backend: str) -> str:
+def solve_fingerprint(profile, cfg, backend: str, mesh: int = 0) -> str:
     """Key under which jobs may share device batches: everything that can
     change a window's bytes (the profile's floats, the consensus and ladder
     semantics, the engine family) and nothing that cannot (batch width,
     shapes, telemetry paths, job identity). Full-precision float reprs: two
     jobs share a group only when their solve semantics are bit-identical.
     The engine key is ``native`` or the device type the ladder runs on
-    (``cuda``, ``cpu``)."""
+    (``cuda``, ``cpu``). ``mesh`` (the group's mesh width) joins the key
+    though it changes no byte: a mesh group owns its members' graphs and
+    its ``:m<N>`` ratchets, so a mesh and a one-device group never share
+    warm state (0 or 1: the key of one device, unchanged)."""
     import hashlib
 
     c = cfg.consensus
@@ -210,6 +213,8 @@ def solve_fingerprint(profile, cfg, backend: str) -> str:
         "max_kmers": cfg.max_kmers, "rescue_max_kmers": cfg.rescue_max_kmers,
         "overflow_rescue": cfg.overflow_rescue,
     }
+    if mesh and mesh > 1:
+        payload["mesh"] = int(mesh)
     return hashlib.sha256(
         json.dumps(payload, sort_keys=True).encode()).hexdigest()[:24]
 
@@ -348,7 +353,7 @@ def run_job(job: Job, service) -> None:
         kw = (dict(pile_ranges=report.pile_ranges)
               if report is not None and report.issues else {})
         profile = estimate_profile_for_shard(db, las, cfg, **kw)
-        key = solve_fingerprint(profile, cfg, scfg.backend)
+        key = solve_fingerprint(profile, cfg, scfg.backend, mesh=scfg.group_mesh())
         group = service.warm.acquire(
             key, lambda: service.build_group(key, profile, cfg))
         service.note_tenant_key(job.tenant, key)

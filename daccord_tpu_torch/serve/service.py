@@ -80,6 +80,11 @@ class ServeConfig:
     page_len: int = 16
     dp_route: str = "fused"          # the groups' heaviest-path route (fused |
                                      # scan; bit-identical)
+    mesh: int = 0                    # mesh-backed solve groups (ladder
+                                     # groups only): merged batches shard
+                                     # over N members; the solve fingerprint
+                                     # holds N, so mesh and one-device groups
+                                     # never share warm state
     flush_lag_s: float = 0.05        # stale cross-job pool flush deadline
     idle_evict_s: float = 600.0      # warm-group TTL
     job_retention_s: float = 3600.0  # terminal jobs leave the in-memory
@@ -165,6 +170,10 @@ class ServeConfig:
         # the native engine escalates per window on the host: stream routing
         # (and paging) are the ladder's
         return "fused" if self.backend == "native" else self.ladder_mode
+
+    def group_mesh(self) -> int:
+        # the same rule for the mesh: its members run the ladder
+        return 0 if self.backend == "native" else (self.mesh or 0)
 
 
 class ConsensusService:
@@ -320,7 +329,8 @@ class ConsensusService:
                            paged=scfg.paged and scfg.backend != "native",
                            page_len=scfg.page_len, dp_route=scfg.dp_route,
                            shed_levels=self._shed,
-                           audit_rate=scfg.audit_rate, aot_dir=scfg.aot_dir)
+                           audit_rate=scfg.audit_rate, aot_dir=scfg.aot_dir,
+                           mesh=scfg.group_mesh())
         g = SolveGroup(key, profile, cfg, gcfg, log=glog, name=name)
         self.log_event("serve.group", group=name, key=key[:16],
                        backend=scfg.backend, batch=int(scfg.batch))

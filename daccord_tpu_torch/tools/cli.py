@@ -50,7 +50,7 @@ to the JAX package's::
         [--hp-accept rescore|likelihood]
         [--paged on|off|auto] [--page-len N] [--dp fused|scan]
         [--ladder fused|split] [--max-inflight N] [--depth-buckets LIST]
-        [--no-supervise]
+        [--mesh N] [--no-supervise]
         [--failover-backend auto|native|cpu] [--failback] [--audit-rate F]
         [--events PATH] [--log PATH] [--ledger PATH] [--native-threads N]
         [--metrics-snapshot-s S] [--profile DIR]
@@ -71,7 +71,9 @@ overlaps is contained the same way. ``--ladder split`` runs the JAX
 package's two-stream ladder: tier-0 batches (Stream A), their failures and
 top-M capped rows pooled on the host and solved again in dense whole-ladder
 batches (Stream B); the FASTA is byte-identical to ``--ladder fused``.
-``--mode patch`` keeps the read's own bases where a window is unsolved
+``--mesh N`` shards each batch's windows over N mesh members
+(``parallel/mesh.py``): N cards on cuda (fewer exit before any work), N
+members on the CPU with ``--device cpu``; the same bytes. ``--mode patch`` keeps the read's own bases where a window is unsolved
 instead of splitting the read there. ``--hp-rescue`` solves the windows that
 failed or solved badly and hold a long homopolymer run again in
 run-length-compressed space (``oracle/hp.py``; ``--hp-vote`` and
@@ -160,7 +162,7 @@ USAGE = ("usage: python -m daccord_tpu_torch.tools.cli daccord DB LAS -o OUT "
          "[--hp-accept rescore|likelihood] "
          "[--paged on|off|auto] [--page-len N] [--dp fused|scan] "
          "[--ladder fused|split] [--max-inflight N] [--depth-buckets LIST] "
-         "[--no-supervise] "
+         "[--mesh N] [--no-supervise] "
          "[--failover-backend auto|native|cpu] [--failback] [--audit-rate F] "
          "[--events PATH] [--log PATH] [--ledger PATH] [--native-threads N] "
          "[--metrics-snapshot-s S] [--profile DIR]")
@@ -244,8 +246,10 @@ def _parser(shard: bool = False) -> argparse.ArgumentParser:
     if not shard:
         p.add_argument("--stats", default=None, metavar="PATH",
                        help="also write the run statistics JSON here")
-    p.add_argument("-b", "--batch", type=int, default=defaults.batch_size,
-                   help="windows per ladder call")
+    p.add_argument("-b", "--batch", type=int, default=None,
+                   help=f"windows per ladder call (default {defaults.batch_size}, "
+                        "times N with --mesh N: each member's slice keeps one "
+                        "device's width)")
     p.add_argument("-t", "--threads", type=int, default=0,
                    help="pile windowing threads ahead of the batching loop "
                         "(0 = in the loop)")
@@ -292,6 +296,14 @@ def _parser(shard: bool = False) -> argparse.ArgumentParser:
                    help="heaviest-path route: 'fused' (DP + backtrack in one "
                         "kernel) or 'scan' (DP kernel writing the score and "
                         "pointer stacks, backtrack in torch); bit-identical")
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="shard every batch's windows over N mesh members, "
+                        "each running the whole ladder on its row slice "
+                        "(parallel/mesh.py): N cards on cuda (fewer visible "
+                        "cards refuse the run), N members on the CPU with "
+                        "--device cpu; supervised, a lost member shrinks the "
+                        "mesh N -> N/2 before any failover; byte-identical "
+                        "FASTA. 0 or 1 = one device")
     p.add_argument("--ladder", choices=("fused", "split"), default=defaults.ladder_mode,
                    help="'fused' solves each batch with the whole ladder in "
                         "one call; 'split' is the two-stream ladder: tier-0 "
@@ -360,9 +372,26 @@ def _resolve_device(args) -> None:
     args.device = args.device or want or "cuda"
 
 
+def _check_mesh(args) -> None:
+    """``--mesh``: not with the native engine (JAX's rule), and on cuda no
+    more members than visible cards (exits naming them, before any work)."""
+    if args.mesh < 0:
+        raise SystemExit("--mesh must be 0 (one device) or positive")
+    if args.mesh > 1 and args.backend == "native":
+        raise SystemExit("--backend native solves on the host and cannot be "
+                         "combined with --mesh (pick one)")
+    if args.mesh > 1:
+        from ..parallel.mesh import check_mesh_devices
+
+        check_mesh_devices(args.mesh, args.device or "cuda")
+
+
 def _check(args) -> None:
     """The argument checks that need no file, before any work."""
     _resolve_device(args)
+    _check_mesh(args)
+    if args.batch is None:
+        args.batch = PipelineConfig().batch_size * max(args.mesh, 1)
     native = args.backend == "native"
     if args.block is not None and args.J is not None:
         raise SystemExit("--block and -J are mutually exclusive")
@@ -577,7 +606,7 @@ def _pipeline_config(args) -> PipelineConfig:
                           metrics_snapshot_s=args.metrics_snapshot_s,
                           failover_backend=args.failover_backend,
                           failback=args.failback, audit_rate=args.audit_rate,
-                          native_threads=args.native_threads)
+                          native_threads=args.native_threads, mesh=args.mesh)
 
 
 def stats_record(stats, args) -> dict:
@@ -718,6 +747,10 @@ def serve_main(argv=None) -> int:
                         "format (kernels/paging.py); ladder groups only")
     p.add_argument("--dp", choices=("fused", "scan"), default="fused",
                    help="the groups' heaviest-path route (see daccord --dp)")
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="mesh-backed solve groups: merged cross-job batches "
+                        "shard over N members (see daccord --mesh), N times "
+                        "the merged width by default; ladder groups only")
     p.add_argument("--flush-lag-ms", type=float, default=50.0,
                    help="stale cross-job pool flush deadline: bounds the "
                         "latency one job's rows can pay waiting for others")
@@ -795,6 +828,7 @@ def serve_main(argv=None) -> int:
     _resolve_device(args)
     if args.backend == "auto":
         args.backend = args.device
+    _check_mesh(args)
     if args.paged and args.backend == "native":
         raise SystemExit("--paged is the ladder's wire format; --backend "
                          "native solves dense rows on host (drop one flag)")
@@ -821,7 +855,7 @@ def serve_main(argv=None) -> int:
     from ..utils.obs import auto_batch_size
 
     if args.batch is None:
-        args.batch = auto_batch_size(args.backend)
+        args.batch = auto_batch_size(args.backend, mesh=args.mesh)
     from ..serve import AdmissionConfig, ConsensusService, ServeConfig
     from ..serve.http import start_server
 
@@ -845,7 +879,7 @@ def serve_main(argv=None) -> int:
         peer_dir=args.peer_dir, peer_name=args.peer_name,
         lease_ttl_s=args.lease_ttl_s, heartbeat_s=args.heartbeat_s,
         drain_deadline_s=args.drain_deadline_s, audit_rate=args.audit_rate,
-        aot_dir=aot_dir,
+        aot_dir=aot_dir, mesh=args.mesh,
         admission=AdmissionConfig(
             max_queued_jobs=args.max_queued,
             tenant_max_queued=args.tenant_max_queued,
@@ -1538,8 +1572,9 @@ def fleet_main(argv=None) -> int:
                    help="paged window batching forwarded to every worker "
                         "(see daccord --paged)")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="several cards a worker: not ported (N > 1 is "
-                        "refused)")
+                   help="every worker shards its batches over N mesh members "
+                        "(see daccord --mesh): one host, N cards is one "
+                        "worker; the auto batch scales by N")
     p.add_argument("--max-pile-overlaps", type=int, default=None, metavar="N",
                    help="monster-pile budget forwarded to every worker (see "
                         "daccord --max-pile-overlaps); 0 disables")
@@ -1563,6 +1598,8 @@ def fleet_main(argv=None) -> int:
     if args.device is not None and want is not None and args.device != want:
         raise SystemExit(f"--backend {args.backend} contradicts --device "
                          f"{args.device} (drop one of the two flags)")
+    _check_mesh(argparse.Namespace(mesh=args.mesh, backend=args.backend,
+                                   device=args.device or want))
     from ..parallel.fleet import Fleet, FleetConfig
     from ..parallel.launch import MergeGateError, merge_shards
     from ..runtime.faults import FaultPlan

@@ -58,3 +58,42 @@ def kernel_ms(fn, name: str | None, reps: int) -> tuple[float, str]:
     if name is None:
         return sum(us) / reps / 1e3, "profiler"
     return float(np.median(us)) / 1e3, "profiler"
+
+
+def alternate_ms(calls: list, turns: int) -> tuple[dict, str]:
+    """Device milliseconds of several calls timed in turns: ``calls`` is a
+    list of ``(label, fn)``, and each turn runs every ``fn`` once, in order,
+    inside one ``torch.profiler`` session, so the calls share the card's
+    clocks and its neighbours. A call's time in a turn is the device time of
+    every kernel it launched (its ``record_function`` range's device
+    total). Returns ({label: [ms per turn]}, "profiler"); when two sessions
+    record no device time for some turn, each call is timed between two
+    CUDA events in the same turns instead: (..., "events")."""
+    for _ in range(2):
+        for _, fn in calls:
+            fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(2):      # a session now and then records no device event
+        with torch.profiler.profile(activities=acts) as prof:
+            for t in range(turns):
+                for label, fn in calls:
+                    with torch.profiler.record_function(f"turn{t}:{label}"):
+                        fn()
+            torch.cuda.synchronize()
+        by_name = {e.name: e.device_time_total for e in prof.events()
+                   if e.name.startswith("turn")}
+        out = {label: [by_name.get(f"turn{t}:{label}", 0.0) / 1e3 for t in range(turns)]
+               for label, _ in calls}
+        if all(v > 0 for ms in out.values() for v in ms):
+            return out, "profiler"
+    out = {label: [] for label, _ in calls}
+    for _ in range(turns):
+        for label, fn in calls:
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            out[label].append(s.elapsed_time(e))
+    return out, "events"

@@ -39,8 +39,10 @@ The port's copy of those parts of ``daccord_tpu/utils/obs.py``:
   :func:`auto_batch_size` (the merged dispatch width ``serve`` uses when
   ``-b`` is not given).
 
-The fleet's and the mesh's parts of the JAX module (the trust registry and
-the auto backend probe) are not ported yet.
+- The trust registry (:func:`trust_registry`, :func:`record_trust`): each
+  mesh member's trust state (TRUSTED, SUSPECT, QUARANTINED) beside the
+  cold-shape registry, keyed ``<platform>:m<K>``, so a lying member stays
+  out across runs.
 """
 
 from __future__ import annotations
@@ -99,14 +101,15 @@ def disk_free_mb(path: str) -> float:
     return st.f_bavail * st.f_frsize / float(1 << 20)
 
 
-def auto_batch_size(backend: str) -> int:
+def auto_batch_size(backend: str, mesh: int = 0) -> int:
     """The batch when ``-b`` is not given, by the port's backend: the native
     engine pays no shape-scaled cost, so bigger is better (4096); the ladder
     on the card runs 2048 (the TPU's width in the JAX package's mapping),
-    on the CPU 512."""
+    on the CPU 512, times the mesh width when batches shard over ``mesh``
+    members (each member's slice keeps one device's width)."""
     if backend == "native":
         return 4096
-    return 2048 if backend == "cuda" else 512
+    return (2048 if backend == "cuda" else 512) * max(int(mesh or 0), 1)
 
 
 class JsonlLogger:
@@ -271,8 +274,9 @@ class WindowLedger:
     pipeline accounted (identity, length, depth, the tier reached, whether
     it solved, its batch's turnaround from dispatch to scatter), through a
     buffered :class:`JsonlLogger`. Rows record the outcome at solve time; a
-    later end-trim does not rewrite them. ``job`` (a serve job's tag) joins
-    a row only when given, so a batch run's ledger keeps its schema."""
+    later end-trim does not rewrite them. ``job`` (a serve job's tag) and
+    ``mesh`` (the solve path's mesh width) join a row only when given, so a
+    batch run's ledger on one device keeps its schema."""
 
     def __init__(self, path: str):
         self.log = JsonlLogger(path, buffer_lines=256, flush_s=5.0)
@@ -280,7 +284,7 @@ class WindowLedger:
 
     def record(self, aread: int, widx: int, length: int, depth: int,
                tier: int, k: int, solved: bool, stream: str, rescued: bool,
-               wall_s: float, job: str | None = None) -> None:
+               wall_s: float, job: str | None = None, mesh: int = 0) -> None:
         self.rows += 1
         log = self.log
         if log._fh is None:
@@ -289,6 +293,8 @@ class WindowLedger:
         # highest-volume record, and skipping json.dumps keeps it cheap. The
         # job tag is a client's string, so it is quoted by json.dumps
         jf = ', "job": %s' % json.dumps(job) if job else ""
+        if mesh:
+            jf += ', "mesh": %d' % mesh
         now = time.time()
         with log._lock:
             log._buf.append(
@@ -427,14 +433,17 @@ def probe_backend_status(timeout_s: float | None = None) -> tuple[int, str]:
     return 0, "init_error"
 
 
-def resolve_auto_backend(device: str | None = None) -> str:
+def resolve_auto_backend(device: str | None = None, prefer_native: bool = True) -> str:
     """``--backend auto`` as the multi-process layer resolves it: ``cuda``
     when the bounded probe sees a card. With no card the port raises: it
     never falls back on its own (the JAX function falls back quietly to the
     native engine or its CPU ladder on a dead device). Only an explicit
     ``device='cpu'`` takes the host: the native engine when the host library
-    loads, else the CPU ladder."""
+    loads, else the CPU ladder; the CPU ladder with ``prefer_native=False``
+    (a ``--mesh`` run: its members run the ladder)."""
     if device is not None and str(device).startswith("cpu"):
+        if not prefer_native:
+            return "cpu"
         try:
             from ..native import load
 
@@ -962,3 +971,50 @@ def measure_rtt_s(n: int = 3, timeout_s: float = 30.0, device=None) -> float | N
     t.start()
     t.join(timeout_s)
     return box[0] if box else None
+
+
+#: the trust states a device ratchets through (strings: they go straight
+#: into JSON events and the registry)
+TRUST_TRUSTED = "TRUSTED"
+TRUST_SUSPECT = "SUSPECT"
+TRUST_QUARANTINED = "QUARANTINED"
+
+
+def _trust_path() -> str | None:
+    d = compcache_dir()
+    return os.path.join(d, "daccord_trust.json") if d else None
+
+
+def trust_registry() -> dict:
+    """The trust registry as ``{key: {"state", "strikes", "ts"}}``, keyed by
+    the supervisor's device identity (``cuda:m1``). Empty when the registry
+    is off or unreadable."""
+    p = _trust_path()
+    if p is None or not os.path.exists(p):
+        return {}
+    try:
+        with open(p) as fh:
+            d = json.load(fh)
+    except (OSError, json.JSONDecodeError):
+        return {}
+    if not isinstance(d, dict):
+        return {}
+    return {str(k): v for k, v in d.items() if isinstance(v, dict)}
+
+
+def record_trust(key: str, state: str, strikes: int) -> None:
+    """Persist one device's trust state (an atomic rewrite, best-effort).
+    The entry is overwritten: trust is a current state, not a history."""
+    p = _trust_path()
+    if p is None:
+        return
+    try:
+        reg = trust_registry()
+        reg[key] = {"state": state, "strikes": int(strikes), "ts": round(time.time(), 1)}
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        tmp = f"{p}.tmp.{os.getpid()}.{threading.get_ident()}"
+        with open(tmp, "wt") as fh:
+            json.dump(reg, fh)
+        os.replace(tmp, p)
+    except (OSError, json.JSONDecodeError):
+        pass

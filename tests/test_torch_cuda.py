@@ -528,3 +528,45 @@ def test_kernel_launch_error_raises_through_the_supervisor(cuda, tmp_path, monke
     kid = torch.arange(4, dtype=torch.int32, device=cuda).view(1, 4, 1).expand(2, 4, 56).contiguous()
     got = position_weights.position_weights(kid, ol[:41, :56].contiguous(), 4)
     assert torch.equal(got.cpu(), torch.full((2, 4, 41), 56.0))
+
+
+@pytest.mark.cuda
+def test_two_mesh_members_on_one_card_equal_the_single_card_ladder(cuda, tmp_path):
+    """Two mesh members on ``cuda:0`` (their own streams, graphs and staged
+    copies) solve one real batch, dense and paged, bit-equal to the
+    single-card ladder; each member launches the kernels."""
+    from daccord_tpu_torch.formats.dazzdb import read_db
+    from daccord_tpu_torch.formats.las import LasFile
+    from daccord_tpu_torch.kernels.tensorize import BatchShape, WindowBatch
+    from daccord_tpu_torch.kernels.tiers import TierLadder, solve_ladder
+    from daccord_tpu_torch.parallel.mesh import make_mesh, make_sharded_solver
+    from daccord_tpu_torch.runtime.pipeline import (PipelineConfig,
+                                                    estimate_profile_for_shard,
+                                                    iter_pile_blocks)
+    from daccord_tpu_torch.sim import SimConfig, make_dataset
+
+    d = make_dataset(str(tmp_path), SimConfig(genome_len=3000, coverage=20,
+                                              read_len_mean=1000, seed=3))
+    db, las = read_db(d["db"]), LasFile(d["las"])
+    cfg = PipelineConfig(device="cpu")
+    prof = estimate_profile_for_shard(db, las, cfg)
+    blocks = [(s[n >= 3], ln[n >= 3], n[n >= 3]) for _, _, s, ln, n in
+              iter_pile_blocks(db, las, cfg)]
+    seqs, lens, nsegs = (np.concatenate([b[i] for b in blocks])[:512] for i in range(3))
+    batch = WindowBatch(seqs=seqs, lens=lens, nsegs=nsegs,
+                        shape=BatchShape(depth=seqs.shape[1], seg_len=seqs.shape[2]),
+                        read_ids=np.arange(len(nsegs), dtype=np.int64),
+                        wstarts=np.zeros(len(nsegs), np.int64))
+    lad = TierLadder.from_config(prof, cfg.consensus, device=cuda)
+    ref = solve_ladder(batch, lad)
+    fam = paging.ShapeFamily(depth=seqs.shape[1],
+                             pages=seqs.shape[1] * seqs.shape[2] // 16, page_len=16)
+    for b in (batch, paging.pack_paged(batch, fam)):
+        solver = make_sharded_solver(lad, make_mesh(2, devices=[cuda, cuda]))
+        try:
+            out = solver(b)
+            assert solver.health_map()["devices"][1]["launches"]["rescore"] > 0
+        finally:
+            solver.close()
+        for k in ("cons", "cons_len", "err", "solved", "tier", "m_ovf"):
+            np.testing.assert_array_equal(out[k], ref[k])

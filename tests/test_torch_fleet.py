@@ -375,7 +375,7 @@ def test_auto_backend_raises_without_a_card_and_never_falls_back(dataset, tmp_pa
     monkeypatch.setattr(obs, "probe_backend_status", lambda timeout_s=None: (1, "ok"))
     f = fleet_mod.Fleet(dataset["db"], dataset["las"], d, _cfg(d, backend="auto"))
     assert (f.backend, f.device, f._worker_batch()) == ("cuda", "cuda", 2048)
-    with pytest.raises(SystemExit, match="Queue 1 item 5"):
+    with pytest.raises(SystemExit, match="cannot be combined with --mesh"):
         cli.main(["fleet", dataset["db"], dataset["las"], d, "-n", "2",
                   "--backend", "native", "--mesh", "2"])
     with pytest.raises(SystemExit, match="contradicts"):
