@@ -208,6 +208,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    no failover) and ``sdc:1@1`` at audit rate 1/4 is attributed to member
    1 and strikes its trust in a throwaway registry, both with the clean
    run's bytes and a clean ``eventcheck --strict``;
+4i. bench tools phase (``tools/kernelbench.py``, ``tools/topmbench.py``):
+   ``kernelbench --batch 2048 --reps 4`` with every stage but
+   ``ladder_mesh``, each row logged, the fused and scan ladders' results
+   equal on the batch; ``topmbench --regimes rep8``, every cell on the card
+   with its kernels' launches, the M48 cell's FASTA byte-equal to the same
+   cell on the CPU ladder (a process that runs on beside phases 5-7, checked
+   after phase 7; M96's comparison left for the smoke's time);
+   ``dp_backtrack``, ``heaviest_path`` and W at top-M 48, 96 and 128 (P=41)
+   bit-equal to their plain versions at B and at the rep8 run's mean batch,
+   timed beside their bounds (logged; the kernels' JSON line keeps phase
+   5's rows);
 5. kernel phase, on inputs made from real windows of the dataset (topped up
    from a seeded generator if there were fewer than B), each kernel held
    bit-equal to its plain torch version on the card and timed (its device
@@ -439,9 +450,11 @@ def dp_case(kernel: str, fn, plain, ins, kw: dict, ops: int, label: str) -> dict
                 bound_ms=bms, by=by)
 
 
-def dp_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[dict]:
+def dp_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict,
+                    wide_too: bool = True) -> list[dict]:
     """``dp_backtrack`` and ``heaviest_path`` at every ladder shape, at B and
-    at the batch the path gave the shape (``path_b[kernel][(M, P)]``)."""
+    at the batch the path gave the shape (``path_b[kernel][(M, P)]``); with
+    ``wide_too`` also at M=512, B=256."""
     from daccord_tpu_torch.kernels import dp_backtrack, heaviest_path
     from daccord_tpu_torch.kernels.window_kernel import prep_batch
 
@@ -455,7 +468,8 @@ def dp_kernel_phase(ladder, seqs, lens, nsegs, dev, path_b: dict) -> list[dict]:
     # the wide layout (M > 256: two threads a column, the bits sharing their
     # shared memory with the score rows and pointer stack), at B=256
     wide = replace(ladder.params[0], max_kmers=512)
-    shapes.append(wide)
+    if wide_too:
+        shapes.append(wide)
     tseqs, tlens, tnsegs = (torch.as_tensor(a, device=dev) for a in (seqs, lens, nsegs))
     for p in shapes:
         if p is wide:
@@ -2878,6 +2892,145 @@ def supervisor_phase(d: dict, eprof: str, counters, tmp: str) -> None:
         f"{st.audit_s:.3f} s of a {st.wall_s:.3f} s wall")
 
 
+# phase 4i's topmbench cells held to the CPU ladder (M96 left for the smoke's
+# time: a run with it took 1,212.9 s, the CPU cells 131 s of phase 4i)
+TOPM_CPU_CELLS = ("M48",)
+TOPM_KERNEL_M = (48, 96, 128)     # phase 4i's kernel shapes (M, P=41) at B
+# phase 4i's CPU cells, in a process of their own on 4 threads that runs on
+# beside phases 5-7: ``topmbench --device cpu`` with its dataset cache in
+# argv[1]
+TOPM_CPU_RUN = """
+import sys
+import torch
+from daccord_tpu_torch.tools import ladderbench, topmbench
+torch.set_num_threads(4)
+ladderbench.CACHE = sys.argv[1]
+sys.exit(topmbench.main(["--device", "cpu", "--regimes", "rep8", "--cells", sys.argv[2]]))
+"""
+
+
+def bench_tools_phase(db, las, cfg, ladder, counters, tmp: str, smi: str):
+    """Phase 4i: the port's bench tools on the card. ``kernelbench --batch
+    2048 --reps 4`` with every stage but ``ladder_mesh`` (each row logged;
+    the fused and scan ladders' results equal), then ``topmbench --regimes
+    rep8``: every cell on the card with its kernels' launches by shape. Then
+    ``dp_backtrack``, ``heaviest_path`` and W at top-M 48, 96 and 128 (P=41)
+    on real windows at B and at the mean batch the rep8 run gave each,
+    bit-equal to their plain versions and timed beside their bounds (W in
+    turns with ``torch.matmul``). The M48 cell also runs on the CPU ladder
+    (``topmbench --device cpu`` on its own copy of the seeded set), in a
+    process started here that runs on beside phases 5-7; returns what
+    :func:`bench_tools_cpu_check` takes once they are done."""
+    import atexit
+    from dataclasses import replace
+
+    from daccord_tpu_torch.formats.dazzdb import read_db
+    from daccord_tpu_torch.formats.las import LasFile
+    from daccord_tpu_torch.runtime.pipeline import estimate_profile_for_shard
+    from daccord_tpu_torch.tools import kernelbench, ladderbench, topmbench
+
+    t_phase = time.perf_counter()
+    cpu_cache = os.path.join(tmp, "bench_cache_cpu")
+    cpu_run = subprocess.Popen(
+        [sys.executable, "-c", TOPM_CPU_RUN, cpu_cache, ",".join(TOPM_CPU_CELLS)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: cpu_run.poll() is None and cpu_run.kill())
+    cache, ladderbench.CACHE = ladderbench.CACHE, os.path.join(tmp, "bench_cache")
+    try:
+        # ---- kernelbench ------------------------------------------------------
+        stages = [st for st in kernelbench.STAGES if st != "ladder_mesh"]
+        res = {}
+        t0 = time.perf_counter()
+        launched = counted(lambda: res.update(kernelbench.bench(
+            B, 4, stages, DEVICE, emit=lambda line: log(f"kernelbench: {line}"))), counters)
+        outs = res["outs"]
+        for key in ("cons", "cons_len", "err", "solved", "tier", "m_ovf"):
+            if not np.array_equal(outs["ladder_full"][key], outs["ladder_scan"][key]):
+                raise AssertionError(f"kernelbench: ladder_full and ladder_scan differ "
+                                     f"in {key}")
+        log(f"kernelbench --batch {B} --reps 4 ({','.join(stages)}): "
+            f"{time.perf_counter() - t0:.1f} s; ladder_full == ladder_scan on the "
+            f"batch (cons, cons_len, err, solved, tier, m_ovf); launches {launched} "
+            f"({smi})")
+        for k, n in launched.items():
+            if n <= 0:
+                raise AssertionError(f"kernelbench never launched {k}")
+
+        # ---- topmbench --regimes rep8 -------------------------------------------
+        t0 = time.perf_counter()
+        paths = ladderbench._dataset("tm_rep8", **topmbench.REGIMES["rep8"])
+        prof = estimate_profile_for_shard(read_db(paths["db"]), LasFile(paths["las"]),
+                                          topmbench.cell_config(64, False, DEVICE))
+        path_b = {"dp_backtrack": {}, "heaviest_path": {}, "position_weights": {}}
+        total = dict.fromkeys(launched, 0)
+        for label, mk, rescue in topmbench.CELLS:
+            zero_counts(counters)
+            r = topmbench.run_cell(paths, label, mk, rescue, prof, device=DEVICE)
+            torch.cuda.synchronize()
+            by_kernel = {mod.__name__.rsplit(".", 1)[1]: (
+                mod.launches, dict(mod.launches_by_shape),
+                dict(getattr(mod, "windows_by_shape", {}))) for mod in counters}
+            for k, (n, _, _) in by_kernel.items():
+                total[k] += n
+            log(f"topmbench rep8: {json.dumps(r)}; launches "
+                f"{ {k: v[0] for k, v in by_kernel.items()} }, by shape "
+                f"{ {k: v[1] for k, v in by_kernel.items() if v[1]} }")
+            for kernel in ("dp_backtrack", "rescore", "position_weights"):
+                if by_kernel[kernel][0] <= 0:
+                    raise AssertionError(f"topmbench {label} never launched {kernel}")
+            if not rescue:
+                for kernel in path_b:
+                    path_b[kernel].update(mean_batches(by_kernel, kernel))
+        log(f"topmbench --regimes rep8 on the card: {time.perf_counter() - t0:.1f} s; "
+            f"launches {total}")
+
+        # ---- the kernels at top-M 48, 96 and 128 ---------------------------------
+        seqs, lens, nsegs = real_windows(db, las, cfg, B)
+        if len(nsegs) < B:
+            raise AssertionError(f"only {len(nsegs)} real windows for the top-M kernels")
+        p0 = ladder.params[0]
+        for M in TOPM_KERNEL_M:
+            lad = replace(ladder, params=[replace(p0, max_kmers=M)], wide_p0=None)
+            dp_kernel_phase(lad, seqs, lens, nsegs, torch.device(DEVICE),
+                            {k: path_b[k] for k in ("dp_backtrack", "heaviest_path")},
+                            wide_too=False)
+            weights_kernel_phase(lad, seqs, lens, nsegs, torch.device(DEVICE),
+                                 path_b["position_weights"])
+    finally:
+        ladderbench.CACHE = cache
+    log(f"bench tools phase: {time.perf_counter() - t_phase:.1f} s on the card (the CPU "
+        f"ladder's {', '.join(TOPM_CPU_CELLS)} run on beside phases 5-7; predicted at "
+        f"most 60 s)")
+    return cpu_run, os.path.join(tmp, "bench_cache"), cpu_cache
+
+
+def bench_tools_cpu_check(cpu_run, card_cache: str, cpu_cache: str) -> None:
+    """The end of phase 4i: the CPU ladder's topmbench cells, started by
+    :func:`bench_tools_phase`, wrote the card's FASTA byte for byte."""
+    t0 = time.perf_counter()
+    try:
+        out, err = cpu_run.communicate(timeout=600)
+    finally:
+        if cpu_run.poll() is None:
+            cpu_run.kill()
+            cpu_run.communicate()
+    if cpu_run.returncode != 0:
+        raise AssertionError(f"topmbench --device cpu failed: {err[-2000:]}")
+    for line in out.splitlines():
+        log(f"topmbench rep8 on the CPU ladder: {line}")
+    for label in TOPM_CPU_CELLS:
+        name = os.path.join("ladder_tm_rep8", f"tm_{label}.fasta")
+        with open(os.path.join(card_cache, name), "rb") as a, \
+                open(os.path.join(cpu_cache, name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"topmbench {label}: the card's FASTA differs from "
+                                     f"the CPU ladder's")
+    log(f"topmbench rep8 {', '.join(TOPM_CPU_CELLS)}: the card's FASTA byte-identical to "
+        f"the CPU ladder's (waited {time.perf_counter() - t0:.1f} s for the CPU process "
+        f"after phase 7)")
+
+
 def mesh_members() -> tuple[list, str]:
     """Phase 4h's members: two distinct cards, or on a one-card host two
     members on ``cuda:0``."""
@@ -3314,6 +3467,9 @@ def main() -> int:
         mesh_phase(d, eprof, runs, warm, peaks, counters, tmp, nthreads, smi)
         log(f"mesh phase: {time.perf_counter() - t0:.1f} s (predicted at most 90 s)")
 
+        # ---- 4i. the bench and decision tools on the card -----------------------
+        topm_cpu = bench_tools_phase(db, las, cfg, ladder, counters, tmp, smi)
+
         # ---- 5. kernel phase ------------------------------------------------
         t0 = time.perf_counter()
         seqs, lens, nsegs = real_windows(db, las, cfg, B)
@@ -3398,6 +3554,7 @@ def main() -> int:
         t0 = time.perf_counter()
         supervisor_phase(d, eprof, counters, tmp)
         log(f"supervisor phase: {time.perf_counter() - t0:.1f} s")
+        bench_tools_cpu_check(*topm_cpu)
 
         for tag, (out, _, _, ds) in runs.items():
             t0 = time.perf_counter()

@@ -82,19 +82,12 @@ def _kmer_ids(seqs: torch.Tensor, lens: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(valid, ids, torch.full_like(ids, 4**k))
 
 
-def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
-               ol: torch.Tensor, p: KernelParams) -> dict:
-    """Graph construction for a batch of windows.
-
-    seqs [B, D, L] int8, lens [B, D] i32, nsegs [B] i32, ol [P, O] f32 ->
-    dict of sel [B, M] i32 (kept k-mer codes, ascending, 4**k for empty
-    slots), adjW [B, M, M] f32 (0 or -1e30), W [B, M, P] f32, score0 [B, M]
-    f32, snk_ok [B, M] bool, m_overflow [B] bool.
-
-    Every position holds at most one kept k-mer (the kept codes are
-    distinct), so occurrences are carried as one kept-index per position
-    instead of the JAX package's [D, npos, M] one-hot; counts, anchors and
-    edge support are exact integer reductions either way."""
+def count_topm(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
+               p: KernelParams) -> tuple:
+    """The first stage of :func:`prep_batch`: k-mer counting, the frequency
+    filter and top-M compaction. Returns ids [B, D, npos] i64 (4**k at
+    invalid positions), sel [B, M] i64 (kept codes, ascending, 4**k for
+    empty slots) and m_overflow [B] bool (more k-mers passed than M)."""
     k, M = p.k, p.max_kmers
     B, D, L = seqs.shape
     dev = seqs.device
@@ -104,8 +97,6 @@ def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
     if N < M:
         raise ValueError(f"prep_batch: {N} k-mer positions cannot fill the "
                          f"top-{M} active set")
-
-    # ---- k-mer counting + top-M compaction -------------------------------
     ids = _kmer_ids(seqs, lens, k)                          # [B, D, npos]
     sorted_ids = ids.reshape(B, N).sort(dim=1).values
     newrun = torch.ones((B, N), dtype=torch.bool, device=dev)
@@ -132,8 +123,31 @@ def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
     sel = torch.where(topv > 0, torch.gather(sorted_ids, 1, top.indices),
                       torch.full_like(topv, SENT))
     sel = sel.sort(dim=1).values                            # code-ascending
-    sel_valid = sel < SENT
     m_overflow = (start_counts > 0).sum(dim=1) > M
+    return ids, sel, m_overflow
+
+
+def prep_batch(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
+               ol: torch.Tensor, p: KernelParams) -> dict:
+    """Graph construction for a batch of windows.
+
+    seqs [B, D, L] int8, lens [B, D] i32, nsegs [B] i32, ol [P, O] f32 ->
+    dict of sel [B, M] i32 (kept k-mer codes, ascending, 4**k for empty
+    slots), adjW [B, M, M] f32 (0 or -1e30), W [B, M, P] f32, score0 [B, M]
+    f32, snk_ok [B, M] bool, m_overflow [B] bool.
+
+    Every position holds at most one kept k-mer (the kept codes are
+    distinct), so occurrences are carried as one kept-index per position
+    instead of the JAX package's [D, npos, M] one-hot; counts, anchors and
+    edge support are exact integer reductions either way."""
+    k, M = p.k, p.max_kmers
+    B, D, L = seqs.shape
+    dev = seqs.device
+    npos = L - k + 1
+    SENT = 4**k
+    N = D * npos
+    ids, sel, m_overflow = count_topm(seqs, lens, nsegs, p)
+    sel_valid = sel < SENT
 
     # ---- occurrences: kept index of every position (-1 = none) -----------
     # kid in int32 (searchsorted's narrow output), what the W kernel reads

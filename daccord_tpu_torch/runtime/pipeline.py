@@ -22,8 +22,9 @@ in this order:
   (``oracle/windows.py``, ``kernels/tensorize.py``), which writes the same
   bytes. A pile of more than ``max_pile_overlaps`` overlaps is contained
   before it is windowed, as a quarantined pile is (the monster-pile guard);
-- skip-shallow: windows with fewer than ``min_depth`` segments never reach
-  the device (the solver would mark them unsolved);
+- skip-shallow (``skip_shallow``, on by default): windows with fewer than
+  ``min_depth`` segments never reach the device (the solver would mark them
+  unsolved; off, it does, and the FASTA is the same);
 - batching, one ladder call per batch of ``batch_size`` rows (a partial
   batch is padded with empty rows so every call of a bucket has one shape).
   Dense (``paged="off"``), each window goes to the smallest (D, L) bucket of
@@ -140,6 +141,9 @@ class PipelineConfig:
                                  # rescue_max_kmers
     profile_sample_piles: int = 4    # piles (strided across the range) of
                                  # the profile pass
+    profile_sample_offset: int = 0   # pile-index shift of that stride;
+                                 # distinct offsets draw disjoint samples
+                                 # (tools/profilevar.py)
     device: str = "cuda"         # "cuda" or "cpu"; no silent fallback
     max_inflight: int = 8        # ladder calls in flight: the deque fills to
                                  # this depth, then drains half of it
@@ -178,6 +182,10 @@ class PipelineConfig:
                                  # the library releases the GIL. Needs
                                  # use_native
     depth_rank: bool = True      # best-ranked overlaps fill the depth slots
+    skip_shallow: bool = True    # windows with fewer than min_depth segments
+                                 # stay on the host, unsolved; False sends
+                                 # them to the ladder, which marks them
+                                 # unsolved (the same FASTA)
     qv_track: str | None = "inqual"  # intrinsic-QV track whose B-read tile
                                  # QVs join the depth-ranking score (absent
                                  # track: trace-diff rate only)
@@ -527,9 +535,10 @@ def _stride_take(n_items: int, n: int, offset: int = 0) -> np.ndarray:
 
 
 def _strided_pile_ranges(las: LasFile, n: int, start: int | None = None,
-                         end: int | None = None) -> list[tuple[int, int]]:
+                         end: int | None = None, offset: int = 0) -> list[tuple[int, int]]:
     """Byte ranges of ``n`` piles spread evenly across ``[start, end)``
-    (default: the whole file), from the aread index sidecar."""
+    (default: the whole file), from the aread index sidecar, the stride
+    shifted by ``offset`` piles."""
     idx = index_las(las.path)
     lo = start if start is not None else _HDR_SIZE
     hi = end if end is not None else aio.getsize(las.path)
@@ -539,7 +548,7 @@ def _strided_pile_ranges(las: LasFile, n: int, start: int | None = None,
     if len(sel) == 0:
         return [(lo, hi)]
     out = []
-    for t in _stride_take(len(sel), n):
+    for t in _stride_take(len(sel), n, offset):
         j = int(sel[t])
         s = int(idx[j, 1])
         e = int(idx[j + 1, 1]) if j + 1 < len(idx) else hi
@@ -555,11 +564,12 @@ def _sample_windows(db: DazzDB, las: LasFile, cfg: PipelineConfig,
     profile pass and the paged family derivation. ``pile_ranges`` (the ingest
     scan's clean piles, under the quarantine policy) replaces the index
     stride, so the sample never decodes a corrupt pile."""
+    off = cfg.profile_sample_offset
     if pile_ranges is not None:
         ranges = [pile_ranges[int(t)]
-                  for t in _stride_take(len(pile_ranges), cfg.profile_sample_piles)]
+                  for t in _stride_take(len(pile_ranges), cfg.profile_sample_piles, off)]
     else:
-        ranges = _strided_pile_ranges(las, cfg.profile_sample_piles, start, end)
+        ranges = _strided_pile_ranges(las, cfg.profile_sample_piles, start, end, off)
     refined_all, windows_all = [], []
     for s, e in ranges:
         for aread, pile in las.iter_piles(s, e):
@@ -2163,7 +2173,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
             else:
                 pr = pending[aread] = _PendingRead(aread, a_bases, nwin)
                 widx = np.arange(nwin, dtype=np.int64)
-                shallow = nsegs < min_depth
+                shallow = (nsegs < min_depth) if cfg.skip_shallow else np.zeros(nwin, bool)
                 n_sh = int(shallow.sum())
                 pr.n_done += n_sh
                 stats.n_skipped_shallow += n_sh
@@ -2289,13 +2299,14 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
 def correct_to_fasta(db_path: str, las_path: str, out_path,
                      cfg: PipelineConfig | None = None,
                      start: int | None = None, end: int | None = None,
-                     profile: ErrorProfile | None = None) -> PipelineStats:
+                     profile: ErrorProfile | None = None, solver=None) -> PipelineStats:
     """Run the pipeline over ``[start, end)`` of the LAS and write the
     corrected fragments as FASTA (``-`` = stdout); records are named
-    ``read<id>/<fragment>``. The data kinds of ``DACCORD_FAULT`` corrupt the
-    inputs first (as in the JAX package). Under the quarantine policy the
-    sidecar defaults to ``<out>.quarantine.jsonl`` and starts fresh, as a
-    ledger does."""
+    ``read<id>/<fragment>``. ``solver`` is :func:`correct_shard`'s (e.g. a
+    ``parallel.mesh`` sharded solver). The data kinds of ``DACCORD_FAULT``
+    corrupt the inputs first (as in the JAX package). Under the quarantine
+    policy the sidecar defaults to ``<out>.quarantine.jsonl`` and starts
+    fresh, as a ledger does."""
     from .faults import maybe_apply_data_faults
 
     cfg = cfg or PipelineConfig()
@@ -2319,7 +2330,8 @@ def correct_to_fasta(db_path: str, las_path: str, out_path,
     las = LasFile(las_path)
     stats = PipelineStats()
     recs = []
-    for rid, frags, st in correct_shard(db, las, cfg, start, end, profile=profile):
+    for rid, frags, st in correct_shard(db, las, cfg, start, end, profile=profile,
+                                        solver=solver):
         stats = st
         for fi, f in enumerate(frags):
             recs.append(FastaRecord(f"read{rid}/{fi}", ints_to_seq(f)))

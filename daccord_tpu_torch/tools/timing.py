@@ -13,6 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+#: profiler sessions tried before a timing falls back to CUDA events: on the
+#: H100 a session now and then records no device event, most often the
+#: process's first
+SESSIONS = 4
+
 
 def event_ms(fn, reps: int) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs, each between two
@@ -35,15 +40,14 @@ def kernel_ms(fn, name: str | None, reps: int) -> tuple[float, str]:
     duration of the kernel whose name contains ``name``, which each call
     launches once, or, with ``name`` None, the summed duration of every
     kernel the calls launched, divided by ``reps``: (ms, "profiler"). If the
-    profiler records no such kernel in two sessions (on the H100 a session
-    now and then records no device event at all), the calls are timed with
-    CUDA events instead: (ms, "events")."""
+    profiler records no such kernel in ``SESSIONS`` sessions, the calls are
+    timed with CUDA events instead: (ms, "events")."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     us = []
-    for _ in range(2):
+    for _ in range(SESSIONS):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
@@ -66,15 +70,15 @@ def alternate_ms(calls: list, turns: int) -> tuple[dict, str]:
     inside one ``torch.profiler`` session, so the calls share the card's
     clocks and its neighbours. A call's time in a turn is the device time of
     every kernel it launched (its ``record_function`` range's device
-    total). Returns ({label: [ms per turn]}, "profiler"); when two sessions
-    record no device time for some turn, each call is timed between two
-    CUDA events in the same turns instead: (..., "events")."""
+    total). Returns ({label: [ms per turn]}, "profiler"); when ``SESSIONS``
+    sessions record no device time for some turn, each call is timed
+    between two CUDA events in the same turns instead: (..., "events")."""
     for _ in range(2):
         for _, fn in calls:
             fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(2):      # a session now and then records no device event
+    for _ in range(SESSIONS):
         with torch.profiler.profile(activities=acts) as prof:
             for t in range(turns):
                 for label, fn in calls:

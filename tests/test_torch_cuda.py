@@ -310,6 +310,45 @@ def test_ladder_on_the_card_equals_the_cpu_ladder(cuda, tmp_path):
     assert torch.equal(packed[0], packed[1])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [48, 96, 128])
+def test_ladder_at_odd_top_m_replay_equals_eager_and_the_cpu(cuda, tmp_path, M):
+    """The whole ladder at top-M 48, 96 and 128 (topmbench's cells) on real
+    windows: the CUDA graphs' replay, the eager ladder on the card and the
+    CPU ladder give one packed result, bit for bit."""
+    from daccord_tpu_torch.formats.dazzdb import read_db
+    from daccord_tpu_torch.formats.las import LasFile
+    from daccord_tpu_torch.kernels.tensorize import BatchShape, WindowBatch
+    from daccord_tpu_torch.kernels.tiers import TierLadder, _ladder_packed
+    from daccord_tpu_torch.runtime.pipeline import (PipelineConfig,
+                                                    estimate_profile_for_shard,
+                                                    iter_pile_blocks)
+    from daccord_tpu_torch.sim import SimConfig, make_dataset
+
+    d = make_dataset(str(tmp_path), SimConfig(genome_len=3000, coverage=20,
+                                              read_len_mean=1000, seed=3))
+    db, las = read_db(d["db"]), LasFile(d["las"])
+    cfg = PipelineConfig(device="cpu")
+    prof = estimate_profile_for_shard(db, las, cfg)
+    blocks = [(s[n >= 3], ln[n >= 3], n[n >= 3]) for _, _, s, ln, n in
+              iter_pile_blocks(db, las, cfg)]
+    seqs, lens, nsegs = (np.concatenate([b[i] for b in blocks])[:512] for i in range(3))
+    batch = WindowBatch(seqs=seqs, lens=lens, nsegs=nsegs,
+                        shape=BatchShape(depth=seqs.shape[1], seg_len=seqs.shape[2]),
+                        read_ids=np.arange(len(nsegs), dtype=np.int64),
+                        wstarts=np.zeros(len(nsegs), np.int64))
+    got = {}
+    for tag, dev, graphs in (("cpu", "cpu", None), ("eager", cuda, False),
+                             ("graphs", cuda, True)):
+        lad = TierLadder.from_config(prof, cfg.consensus, max_kmers=M, device=dev,
+                                     graphs=graphs)
+        got[tag] = _ladder_packed(batch, lad).cpu()
+        if graphs:
+            got["replay"] = _ladder_packed(batch, lad).cpu()
+    for tag in ("eager", "graphs", "replay"):
+        assert torch.equal(got[tag], got["cpu"]), tag
+
+
 TRAP = """
 import sys, torch
 from daccord_tpu_torch.kernels import dp_backtrack, heaviest_path

@@ -131,8 +131,8 @@ def test_myers_matches_jax():
 def test_port_imports_no_jax():
     """The port and every one of its modules (the telemetry readers,
     ``utils/obs``, the serve plane, ``utils/lease``, the fleet, the router,
-    netio, the autoscaler, the kernel cache and the mesh among them) import
-    without jax or daccord_tpu."""
+    netio, the autoscaler, the kernel cache, the mesh and the eleven bench
+    and decision tools among them) import without jax or daccord_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import daccord_tpu_torch\n"
@@ -143,7 +143,10 @@ def test_port_imports_no_jax():
         "for m in ('utils.obs', 'tools.trace', 'tools.prof', 'tools.top', 'tools.sentinel',\n"
         "          'serve', 'serve.service', 'serve.batcher', 'serve.http', 'utils.lease',\n"
         "          'parallel.fleet', 'serve.netio', 'serve.router', 'serve.autoscale',\n"
-        "          'serve.aotcache', 'parallel.mesh'):\n"
+        "          'serve.aotcache', 'parallel.mesh', 'tools.ladderbench',\n"
+        "          'tools.kernelbench', 'tools.feederbench', 'tools.scalebench',\n"
+        "          'tools.consensusbench', 'tools.mismatchbench', 'tools.hpdrainbench',\n"
+        "          'tools.hperrors', 'tools.topmbench', 'tools.profilevar', 'tools.hptune'):\n"
         "    assert 'daccord_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'daccord_tpu' or m.startswith('daccord_tpu.'))\n"
