@@ -226,7 +226,8 @@ class GraphCache:
         self._last = {}
 
     def run(self, batch, ladder, tier0_only: bool = False, esc_cap: int | None = None,
-            log=None, inputs: tuple | None = None, member: int | None = None) -> torch.Tensor:
+            log=None, inputs: tuple | None = None, member: int | None = None,
+            read_wrap=None) -> torch.Tensor:
         """The packed result of one ladder call (tier 0 alone with
         ``tier0_only``) over the host ``batch`` on the ladder's card, on the
         current stream, as a tensor of its own. ``esc_cap`` fixes the wide
@@ -236,7 +237,8 @@ class GraphCache:
         uploads already on the card (a mesh member's staged slice), copied
         into the static inputs instead of the host arrays. ``member``: the
         mesh member of the call; each member has graphs and static buffers
-        of its own, so two members of one card never share them."""
+        of its own, so two members of one card never share them.
+        ``read_wrap`` wraps the count read (``tiers._count_read_timer``)."""
         from .tiers import run_ladder, upload_arrays
 
         dev = ladder.device
@@ -260,9 +262,10 @@ class GraphCache:
                     host, batch.shape.seg_len if paged else None, ladder, dev)
             sh.owners.add(id(ladder))
             self._load(sh, arrays, ladder)
+            read = lambda: self._read_counts(sh)  # noqa: E731
             run_ladder(lambda name, width: self._stage(sh, ladder, batch, name, width,
                                                       log, key),
-                       lambda: self._read_counts(sh), sh.B,
+                       read_wrap(read) if read_wrap is not None else read, sh.B,
                        1 if tier0_only else len(ladder.params),
                        ladder.wide_p0 is not None and not tier0_only, esc_cap)
             out = sh.packed.clone()

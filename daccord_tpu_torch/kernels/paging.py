@@ -107,6 +107,7 @@ class PagedWindowBatch:
     wstarts: np.ndarray    # int64 [B]
     stream: str = "full"   # as WindowBatch.stream
     job: str = ""          # as WindowBatch.job
+    rid: str = ""          # as WindowBatch.rid
 
     @property
     def size(self) -> int:

@@ -44,6 +44,9 @@ class WindowBatch:
                           # to ("" in a batch run, "a+b" for a batch merged
                           # across jobs); telemetry only, never a shape or
                           # graph key
+    rid: str = ""         # a serve group's merged batch: its trace id (the
+                          # group.flush span), on the records of its path;
+                          # telemetry only
 
     @property
     def size(self) -> int:

@@ -289,6 +289,30 @@ def run_stage(st: dict, name: str, width: int | None, seqs: torch.Tensor,
         esc_stage(st, seqs, lens, nsegs, tables, params, width, dp, route)
 
 
+def _count_read_timer(h):
+    """The wrapper a call built for handle ``h`` puts around its
+    ``read_counts`` (the call's host sync, :func:`run_ladder`): each read
+    booked on ``h`` (``count_read_ns``, ``count_reads``) and, with the
+    handle's tracer, a ``ladder.count_read`` span."""
+
+    def wrap(read_counts):
+        def read():
+            tr = h.tracer
+            sp = tr.open("ladder.count_read", batch=h.rid) if tr is not None else None
+            t0 = time.perf_counter_ns()
+            try:
+                return read_counts()
+            finally:
+                h.count_read_ns += time.perf_counter_ns() - t0
+                h.count_reads += 1
+                if sp is not None:
+                    tr.close(sp)
+
+        return read
+
+    return wrap
+
+
 def run_ladder(stage, read_counts, B: int, n_tiers: int, wide: bool,
                esc_cap: int | None = None) -> None:
     """The ladder's control, shared by the eager ladder and its graphs:
@@ -316,7 +340,8 @@ def run_ladder(stage, read_counts, B: int, n_tiers: int, wide: bool,
 def ladder_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
                 tables: tuple, params: tuple[KernelParams, ...],
                 wide_p0: KernelParams | None = None, dp=None,
-                route: str = "fused", esc_cap: int | None = None) -> dict:
+                route: str = "fused", esc_cap: int | None = None,
+                read_wrap=None) -> dict:
     """Full escalation ladder over one batch, the stages run eagerly
     (:func:`run_ladder`: at most two host syncs).
 
@@ -324,13 +349,15 @@ def ladder_core(seqs: torch.Tensor, lens: torch.Tensor, nsegs: torch.Tensor,
     None gives no ``esc_overflow``. ``wide_p0`` re-solves every window
     whose tier-0 top-M cap bound at the rescue set size. ``route`` and
     ``dp`` select the heaviest-path route and its implementation (see
-    ``solve_batch_core``)."""
+    ``solve_batch_core``). ``read_wrap`` wraps the count read (a handle's
+    :func:`_count_read_timer`)."""
     B = seqs.shape[0]
     st = new_state(B, params[0].cons_len, seqs.device)
+    read = lambda: st["counts"].tolist()  # noqa: E731
     run_ladder(lambda name, width: run_stage(st, name, width, seqs, lens, nsegs, tables,
                                              params, wide_p0, dp, route),
-               lambda: st["counts"].tolist(), B, len(params), wide_p0 is not None,
-               esc_cap)
+               read_wrap(read) if read_wrap is not None else read, B, len(params),
+               wide_p0 is not None, esc_cap)
     return state_result(st, B)
 
 
@@ -351,7 +378,8 @@ def ladder_core_paged(pool: torch.Tensor, table: torch.Tensor, lens: torch.Tenso
                       nsegs: torch.Tensor, tables: tuple,
                       params: tuple[KernelParams, ...], *, page_len: int,
                       seg_len: int, wide_p0: KernelParams | None = None,
-                      dp=None, route: str = "fused", esc_cap: int | None = None) -> dict:
+                      dp=None, route: str = "fused", esc_cap: int | None = None,
+                      read_wrap=None) -> dict:
     """Paged form of :func:`ladder_core`: the page gather
     (``paging.gather_windows``, the kernel on CUDA) rebuilds the exact dense
     ``[B, D, L]`` tile on the device, then the unchanged ladder solves it.
@@ -359,7 +387,8 @@ def ladder_core_paged(pool: torch.Tensor, table: torch.Tensor, lens: torch.Tenso
     from .paging import gather_windows
 
     seqs = gather_windows(pool, table, lens, page_len=page_len, seg_len=seg_len)
-    return ladder_core(seqs, lens, nsegs, tables, params, wide_p0, dp, route, esc_cap)
+    return ladder_core(seqs, lens, nsegs, tables, params, wide_p0, dp, route, esc_cap,
+                       read_wrap)
 
 
 def tier0_core_paged(pool: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
@@ -422,8 +451,8 @@ def upload_arrays(batch) -> tuple[np.ndarray, ...]:
 
 
 def _ladder_packed(batch, ladder: TierLadder, tier0_only: bool = False,
-                   log=None, inputs: tuple | None = None, member: int | None = None,
-                   esc_cap: int | None = None) -> torch.Tensor:
+                   log=None, read_wrap=None, inputs: tuple | None = None,
+                   member: int | None = None, esc_cap: int | None = None) -> torch.Tensor:
     """The whole ladder (tier 0 alone with ``tier0_only``, Stream A) over
     one host batch, on the caller's current stream: the packed result on
     the ladder's device. On the card the stages replay as CUDA graphs
@@ -436,7 +465,8 @@ def _ladder_packed(batch, ladder: TierLadder, tier0_only: bool = False,
     device (a mesh member's staged slice), read instead of the host
     arrays. ``member``: the mesh member the call solves for, its own graphs
     and buffers. ``esc_cap``: the escalation at that fixed width with no
-    count read (``run_ladder``)."""
+    count read (``run_ladder``). ``read_wrap``: a wrapper around the count
+    read (the handle's :func:`_count_read_timer`)."""
     paged = getattr(batch, "pool", None) is not None
     if paged:
         from .gather_pages import check_table
@@ -446,7 +476,7 @@ def _ladder_packed(batch, ladder: TierLadder, tier0_only: bool = False,
         from .graphs import CACHE
 
         return CACHE.run(batch, ladder, tier0_only=tier0_only, esc_cap=esc_cap, log=log,
-                         inputs=inputs, member=member)
+                         inputs=inputs, member=member, read_wrap=read_wrap)
     dev = ladder.device
     tables = tuple(ladder.tables[p.k] for p in ladder.params)
     params = tuple(ladder.params)
@@ -458,11 +488,11 @@ def _ladder_packed(batch, ladder: TierLadder, tier0_only: bool = False,
                   route=ladder.route)
         out = (tier0_core_paged(*ins, tables[0], p0, **kw) if tier0_only else
                ladder_core_paged(*ins, tables, params, wide_p0=ladder.wide_p0,
-                                 esc_cap=esc_cap, **kw))
+                                 esc_cap=esc_cap, read_wrap=read_wrap, **kw))
     else:
         out = (tier0_core(*ins, tables[0], p0, route=ladder.route) if tier0_only else
                ladder_core(*ins, tables, params, ladder.wide_p0, route=ladder.route,
-                           esc_cap=esc_cap))
+                           esc_cap=esc_cap, read_wrap=read_wrap))
     return pack_result(out)
 
 
@@ -475,12 +505,24 @@ class _PackedHandle:
     or for the interpreter lock). ``busy_s``, set by :func:`fetch`, is the
     time its engine had the call: on cuda the card's span of it (between
     two timing events on the dispatcher's stream, the async tail after the
-    thread moved on included), elsewhere ``solve_s``."""
+    thread moved on included), elsewhere ``solve_s``.
+
+    The host timers (nanoseconds, ``time.perf_counter_ns``), each written by
+    one thread and read by the fetcher once ``done`` is set: ``idle_ns``,
+    the dispatcher's wall blocked on its empty queue before it took the
+    call (None off a dispatcher); ``count_read_ns`` and ``count_reads``,
+    the call's host syncs; ``wait_ns``, :func:`fetch`'s wait for the call
+    and its copy. ``rid`` is the batch's trace id (a serve group's merged
+    batch, ``WindowBatch.rid``); ``tracer`` is set for such a batch alone,
+    and records its ``ladder.queue``, ``ladder.count_read`` and
+    ``ladder.wait`` spans (a pipeline run's events keep the JAX package's
+    spans and ``ladder.call``)."""
 
     __slots__ = ("batch", "cl", "host", "event", "start_event", "error", "done",
-                 "solve_s", "cpu_s", "busy_s", "launches")
+                 "solve_s", "cpu_s", "busy_s", "launches", "idle_ns", "count_read_ns",
+                 "count_reads", "wait_ns", "tracer", "rid")
 
-    def __init__(self, batch, cl: int):
+    def __init__(self, batch, cl: int, tracer=None):
         self.batch = batch
         self.cl = cl
         self.host: torch.Tensor | None = None
@@ -493,18 +535,25 @@ class _PackedHandle:
         self.busy_s = 0.0
         self.launches: dict | None = None   # a mesh member's call on the card:
                                             # its kernel launches by wrapper
+        self.idle_ns: int | None = None
+        self.count_read_ns = 0
+        self.count_reads = 0
+        self.wait_ns = 0
+        self.rid = getattr(batch, "rid", "")
+        self.tracer = tracer if self.rid and tracer is not None and tracer.enabled else None
 
 
 def _timed(h: _PackedHandle, tracer, call, parent: str | None = None) -> None:
     """Run ``call()`` for ``h``: its wall and this thread's CPU time on the
-    handle, and with a ``tracer`` one ``ladder.call`` span (rows, wall_s,
-    cpu_s), a child of ``parent`` (default: the span open where the call
-    was made, the pipeline's ``dispatch``); it never joins the span stack,
-    since the thread may not be the stack's."""
-    if parent is None and tracer is not None:
-        parent = tracer.current()
-    sid = (tracer.open("ladder.call", parent=parent, attach=False, rows=int(h.batch.size))
-           if tracer is not None else None)
+    handle, and with a
+    ``tracer`` one ``ladder.call`` span (rows, the batch's id, wall_s,
+    cpu_s) on this thread, a child of ``parent`` (default: this thread's
+    open span, the pipeline's ``dispatch`` when the call runs where it was
+    made)."""
+    sid = None
+    if tracer is not None:
+        kw = {"batch": h.rid} if h.rid else {}
+        sid = tracer.open("ladder.call", parent=parent, rows=int(h.batch.size), **kw)
     t0, c0 = time.perf_counter(), time.thread_time()
     try:
         call()
@@ -555,20 +604,29 @@ class LadderDispatcher:
         ``member`` and ``esc_cap`` go to :func:`_ladder_packed`."""
         if not self._thread.is_alive():
             raise RuntimeError("the ladder dispatcher is closed")
-        h = _PackedHandle(batch, ladder.params[0].cons_len)
+        h = _PackedHandle(batch, ladder.params[0].cons_len, self.tracer)
         # the dispatch span open now parents the call's span on the thread
         parent = self.tracer.current() if self.tracer is not None else ""
+        # the wait in the queue: opened here, closed by the dispatcher
+        q_sp = (h.tracer.open("ladder.queue", parent=parent, attach=False, batch=h.rid)
+                if h.tracer is not None else None)
         kw = {k: v for k, v in dict(inputs=inputs, member=member, esc_cap=esc_cap).items()
               if v is not None}
-        self._q.put((h, ladder, tier0_only, parent, kw, ready))
+        self._q.put((h, ladder, tier0_only, parent, kw, ready, q_sp))
         return h
 
     def _loop(self) -> None:
         while True:
+            t0 = time.perf_counter_ns()
             item = self._q.get()
+            idle = time.perf_counter_ns() - t0
             if item is None:
                 return
-            h, ladder, tier0_only, parent, kw, ready = item
+            h, ladder, tier0_only, parent, kw, ready, q_sp = item
+            # the wall blocked on an empty queue before this call
+            h.idle_ns = idle
+            if q_sp is not None:
+                h.tracer.close(q_sp)
             try:
                 _timed(h, self.tracer,
                        lambda: self._call(h, ladder, tier0_only, kw, ready), parent)
@@ -581,7 +639,8 @@ class LadderDispatcher:
               kw: dict, ready) -> None:
         log = self.tracer.log if self.tracer is not None else None
         if self.stream is None:
-            h.host = _ladder_packed(h.batch, ladder, tier0_only, log, **kw)
+            h.host = _ladder_packed(h.batch, ladder, tier0_only, log,
+                                    _count_read_timer(h), **kw)
             return
         from .graphs import CACHE
 
@@ -603,7 +662,8 @@ class LadderDispatcher:
                 from .graphs import launch_counts
 
                 before = launch_counts()
-            packed = _ladder_packed(h.batch, ladder, tier0_only, log, **kw)
+            packed = _ladder_packed(h.batch, ladder, tier0_only, log,
+                                    _count_read_timer(h), **kw)
             if member:
                 h.launches = {m.__name__.rsplit(".", 1)[-1]: n - before[m][0]
                               for m, (n, _, _) in launch_counts().items()}
@@ -638,11 +698,12 @@ def solve_ladder_async(batch, ladder: TierLadder,
     a ``ladder.call`` span with a ``tracer``."""
     if dispatcher is not None:
         return dispatcher.submit(batch, ladder, tier0_only)
-    h = _PackedHandle(batch, ladder.params[0].cons_len)
+    h = _PackedHandle(batch, ladder.params[0].cons_len, tracer)
     log = tracer.log if tracer is not None else None
 
     def call():
-        h.host = _ladder_packed(batch, ladder, tier0_only, log).cpu()
+        h.host = _ladder_packed(batch, ladder, tier0_only, log,
+                                _count_read_timer(h)).cpu()
 
     _timed(h, tracer, call)
     h.done.set()
@@ -651,15 +712,24 @@ def solve_ladder_async(batch, ladder: TierLadder,
 
 def fetch(h: _PackedHandle) -> dict:
     """Wait for one call and return its host numpy results; re-raises the
-    call's exception."""
-    h.done.wait()
+    call's exception. The wait (for the call, then for its copy) is booked
+    on the handle (``wait_ns``) and, with a tracer, is a ``ladder.wait``
+    span."""
+    sp = h.tracer.open("ladder.wait", batch=h.rid) if h.tracer is not None else None
+    t0 = time.perf_counter_ns()
+    try:
+        h.done.wait()
+        if h.error is None and h.event is not None:
+            h.event.synchronize()
+    finally:
+        h.wait_ns += time.perf_counter_ns() - t0
+        if sp is not None:
+            h.tracer.close(sp)
     if h.error is not None:
         raise h.error
     h.busy_s = h.solve_s
-    if h.event is not None:
-        h.event.synchronize()
-        if h.start_event is not None:
-            h.busy_s = h.start_event.elapsed_time(h.event) / 1e3
+    if h.event is not None and h.start_event is not None:
+        h.busy_s = h.start_event.elapsed_time(h.event) / 1e3
     return unpack_result(h.host.numpy(), h.cl)
 
 

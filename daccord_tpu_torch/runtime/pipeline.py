@@ -1565,7 +1565,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
     # thread (both threads' stacks, H100: PERF.md section 7), and under the
     # lock no replay runs while CUPTI turns on or off. Never on the native
     # engine or with a custom solver
-    from ..utils.obs import env_float
+    from ..utils.obs import env_float, profile_all_threads
 
     prof_dir = os.environ.get("DACCORD_PROFILE_DIR")
     cap = {"n": 0, "fetched": 0, "active": None,
@@ -1587,7 +1587,7 @@ def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,
             if dev.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             os.makedirs(prof_dir, exist_ok=True)
-            p = torch.profiler.profile(activities=acts)
+            p = profile_all_threads(acts)
             with graphs.CACHE.lock:
                 p.start()
             cap["active"] = p

@@ -250,9 +250,11 @@ class _SupHandle:
     re-dispatch it and a failover can replay it on the degraded engine.
     ``result`` is set when the governor already solved the batch at
     dispatch time; fetch returns it directly, even after a later
-    failover."""
+    failover. ``audit_wait_ns`` is the fetch's wall in its shadow audit
+    (the ``audit`` span: the wait for the worker's rows, or the in-process
+    solve of the sample), booked by a serve group at its drain."""
 
-    __slots__ = ("inner", "batch", "key", "degraded", "result", "audit")
+    __slots__ = ("inner", "batch", "key", "degraded", "result", "audit", "audit_wait_ns")
 
     def __init__(self, inner, batch, key: str, degraded: bool = False,
                  result=None):
@@ -263,6 +265,7 @@ class _SupHandle:
         self.result = result
         self.audit = None     # (rows, worker ticket): the sample drawn
                               # at dispatch and sent to the worker
+        self.audit_wait_ns = 0
 
 
 def shape_key(batch, fp_prefix: str, mesh_suffix: str = "") -> str:
@@ -285,6 +288,19 @@ def shape_key(batch, fp_prefix: str, mesh_suffix: str = "") -> str:
         return fp_prefix + "opaque" + mesh_suffix
     b, d, l = seqs.shape
     return f"{fp_prefix}B{b}xD{d}xL{l}{t0}{mesh_suffix}"
+
+
+def _batch_id(batch) -> dict:
+    """``{"batch": id}`` for a serve group's merged batch (its trace id,
+    ``WindowBatch.rid``), else {}."""
+    rid = getattr(batch, "rid", "")
+    return {"batch": rid} if rid else {}
+
+
+def _book_audit_wait(h, t0_ns: int) -> None:
+    """Add the audit's wall since ``t0_ns`` to ``h.audit_wait_ns`` (a
+    handle of another kind gets the attribute)."""
+    h.audit_wait_ns = getattr(h, "audit_wait_ns", 0) + time.perf_counter_ns() - t0_ns
 
 
 def _is_tier0(batch) -> bool:
@@ -505,7 +521,10 @@ class DeviceSupervisor:
                     # make_args runs inside the worker: a retry's re-dispatch
                     # is a device call that can hang too
                     a = attempt
-                    out = self._wd.run(lambda: fn(*make_args(a)), (), deadline,
+                    # the op's spans parent under the caller's open span
+                    out = self._wd.run(self.tracer.adopted(self.tracer.current(),
+                                                           lambda: fn(*make_args(a))),
+                                       (), deadline,
                                        slice_s=cfg.heartbeat_s if fresh else None,
                                        on_wait=heartbeat if fresh else None)
                 if self.state in (COMPILING, RETRYING, FAILBACK, SUSPECT):
@@ -1049,14 +1068,17 @@ class DeviceSupervisor:
         if worker is None:
             return out          # disabled since the batch was dispatched
         t0 = time.time()
+        t_w = time.perf_counter_ns()
         try:
-            with self.tracer.span("audit", rows=len(rows)):
+            with self.tracer.span("audit", rows=len(rows), **_batch_id(h.batch)):
                 # a CPU process's wait: the flat deadline, not the card's
                 # RTT-scaled one
                 ref = worker.result(ticket, self.cfg.op_deadline_s)
         except AuditWorkerError as e:
             self._audit_off(e)
             return out
+        finally:
+            _book_audit_wait(h, t_w)
         self.counters["audits"] += 1
         tier0 = _is_tier0(h.batch)
         divergent = [i for j, i in enumerate(rows)
@@ -1163,8 +1185,10 @@ class DeviceSupervisor:
                 eng(sample)
             self.audit_warm_s += time.time() - t0
         t0 = time.time()
-        with self.tracer.span("audit", rows=len(rows)):
+        t_w = time.perf_counter_ns()
+        with self.tracer.span("audit", rows=len(rows), **_batch_id(h.batch)):
             ref = eng(sample)
+        _book_audit_wait(h, t_w)
         tier0 = _is_tier0(h.batch)
         divergent = [i for j, i in enumerate(rows)
                      if self._rows_equal(out, ref, i, j, tier0) is False]

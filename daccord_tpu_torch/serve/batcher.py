@@ -40,6 +40,20 @@ Group modes mirror the pipeline's dispatch strategies:
 Locking: one RLock per group serializes pool mutation, flushes and drains.
 Jobs take turns driving the device (one card is one resource); the
 dispatcher thread still overlaps each job's host windowing with the card.
+
+Host timers: ``SolveGroup.counters`` holds, beside its counts, integer
+nanoseconds (``time.perf_counter_ns``) of the group's host side, always on
+and booked under the group's lock: the lock's wait and hold
+(:class:`_TimedLock`), the flushes, the drains' wait in the solve path's
+fetch and, of it, the card's and the shadow audit's, the scatter, the
+ladder dispatcher's idle wall and its count reads (carried on each call's
+handle from the dispatcher thread and booked at the drain), and the
+group's build. :data:`TIME_COUNTERS` names them. With an events log the
+same boundaries are spans (``group.build``, ``group.flush``,
+``group.drain``, ``group.scatter``, ``job.fetch``; the path's
+``ladder.queue``, ``ladder.call``, ``ladder.count_read``, ``ladder.wait``
+and ``audit``), and every record of one merged batch carries its id, the
+``group.flush`` span's (``batch``).
 """
 
 from __future__ import annotations
@@ -64,13 +78,67 @@ class JobAborted(RuntimeError):
     pipeline unwinds on it; the other jobs never see it."""
 
 
+#: the host timers of ``SolveGroup.counters`` (nanoseconds) and their
+#: counts, in the order the service exports them
+TIME_COUNTERS = ("lock_wait_ns", "lock_held_ns", "flush_ns", "drain_wait_ns",
+                 "drain_card_wait_ns", "drain_audit_wait_ns", "scatter_ns",
+                 "dispatcher_idle_ns", "count_read_ns", "build_ns")
+TIME_COUNTS = ("lock_acquires", "ticker_skips", "dispatcher_calls", "count_reads")
+
+_ns = time.perf_counter_ns
+
+
+class _TimedLock:
+    """The group's RLock, timed into ``counters`` by its holder: each
+    blocking outermost acquire adds its wait to ``lock_wait_ns`` and one to
+    ``lock_acquires``, and each outermost hold (acquire to the release that
+    ends a re-entry chain, try-locks included) its wall to
+    ``lock_held_ns``. ``wait_ns`` is the latest outermost acquire's wait,
+    read by its holder for the span it opens."""
+
+    __slots__ = ("_rl", "_c", "_depth", "_t0", "wait_ns")
+
+    def __init__(self, counters: dict):
+        self._rl = threading.RLock()
+        self._c = counters
+        self._depth = 0          # only the holder reads or writes it
+        self._t0 = 0
+        self.wait_ns = 0
+
+    def acquire(self, blocking: bool = True) -> bool:
+        t0 = _ns()
+        if not self._rl.acquire(blocking):
+            return False
+        self._depth += 1
+        if self._depth == 1:
+            self._t0 = now = _ns()
+            self.wait_ns = w = now - t0
+            if blocking:
+                c = self._c
+                c["lock_wait_ns"] += w
+                c["lock_acquires"] += 1
+        return True
+
+    def release(self) -> None:
+        self._depth -= 1
+        if self._depth == 0:
+            self._c["lock_held_ns"] += _ns() - self._t0
+        self._rl.release()
+
+    __enter__ = acquire
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
 class JobHandle:
     """One job-side dispatch: ``n`` rows whose results arrive as ordered
     parts (a handle's rows may split across consecutive merged batches).
     ``result()`` merges them with the governor's ``merge_results``, the
-    row-exact merge the bisect rung uses."""
+    row-exact merge the bisect rung uses. ``batches`` lists the ids of the
+    merged batches its rows went into (with an events log)."""
 
-    __slots__ = ("job", "n", "parts", "filled", "event", "aborted")
+    __slots__ = ("job", "n", "parts", "filled", "event", "aborted", "batches")
 
     def __init__(self, job: str, n: int):
         self.job = job
@@ -79,6 +147,7 @@ class JobHandle:
         self.filled = 0
         self.event = threading.Event()
         self.aborted = False
+        self.batches: list[str] = []
 
     def add_part(self, n: int, out: dict) -> None:
         self.parts.append((n, out))
@@ -173,18 +242,23 @@ class SolveGroup:
         self.gcfg = gcfg
         self.log = log if log is not None else NullLogger()
         self.tracer = Tracer(self.log)
-        self._lock = threading.RLock()
         self._pools: dict[tuple, _Pool] = {}
         self._inflight: deque = deque()
         self._families: dict[tuple, list] = {}   # (D, L) -> ShapeFamily list
         self.counters = {"dispatches": 0, "rows": 0, "batches": 0,
                          "mixed_batches": 0, "demand_flushes": 0,
-                         "lag_flushes": 0, "shed_flushes": 0}
+                         "lag_flushes": 0, "shed_flushes": 0,
+                         **dict.fromkeys(TIME_COUNTERS + TIME_COUNTS, 0)}
+        self._lock = _TimedLock(self.counters)
+        # the ticker's failed try-locks, counted by the ticker alone and
+        # copied into counters under the lock (each drain, each tick)
+        self._ticker_skips = 0
         # saturation accounting over the group's lifetime: dispatch wall,
         # fetch-blocked wall and the engine's busy wall. A native group
         # solves inside the dispatch call, so its busy time is its dispatch
         # wall; a ladder group books each call's own span on its engine (on
-        # the card between two timing events), as the pipeline does
+        # the card between two timing events), as the pipeline does. The
+        # walls are the host timers' clock reads, in seconds
         self.sat = {"dispatch_s": 0.0, "fetch_blocked_s": 0.0, "busy_s": 0.0}
         self._sync_engine = gcfg.backend == "native"
         self.ladder = None
@@ -193,7 +267,17 @@ class SolveGroup:
         self.graphs = {"precaptured": 0, "precapture_s": 0.0}
         self._profile = profile
         self._hp_ols = None          # lazy (the hp pass's tables)
-        self._build_solver(profile, cfg)
+        t_b = time.perf_counter_ns()
+        parts: dict[str, int] = {}
+        self._build_solver(profile, cfg, parts)
+        with self._lock:
+            self.counters["build_ns"] = build = time.perf_counter_ns() - t_b
+        # recorded once built: the build logs the file's first sup_init,
+        # a segment boundary its spans may not straddle
+        sp = self.tracer.past("group.build", build, backend=gcfg.backend,
+                              width=int(gcfg.batch))
+        for name, ns in parts.items():
+            self.tracer.past(name, ns, parent=sp)
         # refcount/idle bookkeeping owned by WarmState
         self.refs = 0
         self.last_used = time.time()
@@ -203,7 +287,9 @@ class SolveGroup:
     # solve-path construction (the pipeline's, shared)
     # ------------------------------------------------------------------
 
-    def _build_solver(self, profile, cfg) -> None:
+    def _build_solver(self, profile, cfg, parts: dict) -> None:
+        """Build the solve path; ``parts`` gets the walls (ns) of the audit
+        workers' start, the ladder, the path and the graphs' capture."""
         import torch
 
         from ..kernels import graphs
@@ -258,21 +344,28 @@ class SolveGroup:
             # two groups of one process never share (and overwrite) one
             from ..audit.worker import AuditWorker
 
+            t0 = time.perf_counter_ns()
             try:
                 self.worker = AuditWorker()
             except Exception as e:
                 self.log.log("audit.disabled", error=str(e)[:200])
+            parts["audit.start"] = time.perf_counter_ns() - t0
         try:
             with graphs.CACHE.lock:
                 # the tables' uploads, the round-trip probe and the captures
                 # touch the card: never beside another thread's capture
+                t0 = time.perf_counter_ns()
                 self.ladder = make_ladder(dev)
+                t1 = time.perf_counter_ns()
                 self.path = build_solve_path(profile, cfg, dev, self.ladder, native=False,
                                              worker=self.worker, make_ladder=make_ladder,
                                              mesh=mesh, **common)
+                t2 = time.perf_counter_ns()
+                parts.update({"ladder.build": t1 - t0, "solve_path.build": t2 - t1})
                 self.mesh_solver = self.path.mesh
                 if dev.type == "cuda":
                     self._precapture()
+                    parts["graphs.precapture"] = time.perf_counter_ns() - t2
         except BaseException:
             # a group that cannot serve gives back what it started
             if getattr(self, "path", None) is not None:
@@ -382,7 +475,7 @@ class SolveGroup:
             while pool.rows >= self._width():
                 self._flush(pk, reason="full")
             if len(self._inflight) >= self.gcfg.max_inflight:
-                self._drain(self.gcfg.max_inflight // 2)
+                self._drain(self.gcfg.max_inflight // 2, "dispatch")
         return h
 
     def fetch(self, handle: JobHandle) -> dict:
@@ -391,18 +484,27 @@ class SolveGroup:
         group's own), so a lone job proceeds at full speed and jobs complete
         each other's handles as a side effect of their own."""
         if not handle.event.is_set():
-            with self._lock:
-                while not handle.event.is_set():
-                    pk = self._pool_of(handle)
-                    if pk is not None:
-                        self.counters["demand_flushes"] += 1
-                        self._flush(pk, reason="demand")
-                    elif self._inflight:
-                        self._drain(0)
-                    else:
-                        raise RuntimeError(
-                            f"handle for job {handle.job!r} has rows neither "
-                            "pooled nor in flight (batcher bookkeeping bug)")
+            # the job's whole wait, the lock's included
+            sp = self.tracer.open("job.fetch", job=handle.job, rows=handle.n)
+            wait_ns = 0
+            try:
+                with self._lock:
+                    wait_ns = self._lock.wait_ns
+                    while not handle.event.is_set():
+                        pk = self._pool_of(handle)
+                        if pk is not None:
+                            self.counters["demand_flushes"] += 1
+                            self._flush(pk, reason="demand")
+                        elif self._inflight:
+                            self._drain(0, "fetch")
+                        else:
+                            raise RuntimeError(
+                                f"handle for job {handle.job!r} has rows neither "
+                                "pooled nor in flight (batcher bookkeeping bug)")
+            finally:
+                if sp is not None:
+                    self.tracer.close(sp, lock_wait_us=round(wait_ns / 1e3, 1),
+                                      batches=list(handle.batches))
         if handle.aborted:
             raise JobAborted(f"job {handle.job!r} aborted")
         return handle.result()
@@ -416,8 +518,10 @@ class SolveGroup:
         waiting for others). Non-blocking on the group lock: the ticker must
         not stall behind one group's solve, whose own flushes drain it."""
         if not self._lock.acquire(blocking=False):
+            self._ticker_skips += 1
             return
         try:
+            self.counters["ticker_skips"] = self._ticker_skips
             now = time.time()
             for pk, pool in list(self._pools.items()):
                 if (pool.rows and pool.oldest_ts is not None
@@ -425,7 +529,7 @@ class SolveGroup:
                     self.counters["lag_flushes"] += 1
                     self._flush(pk, reason="lag")
             if self._inflight:
-                self._drain(0)
+                self._drain(0, "ticker")
         finally:
             self._lock.release()
 
@@ -457,7 +561,7 @@ class SolveGroup:
                 while pool.rows:
                     self._flush(pk, reason="final")
             if self._inflight:
-                self._drain(0)
+                self._drain(0, "final")
 
     def busy(self) -> bool:
         """True while the group lock is held (a flush or drain is running).
@@ -582,10 +686,33 @@ class SolveGroup:
                 return f
         return fams[-1]
 
+    def _lock_wait_field(self) -> dict:
+        """The ``lock_wait_us`` of the first span opened under the lock's
+        latest acquire (taken once; {} for later spans)."""
+        w, self._lock.wait_ns = self._lock.wait_ns, 0
+        return {"lock_wait_us": round(w / 1e3, 1)} if w else {}
+
     def _flush(self, pk: tuple, reason: str) -> None:
         pool = self._pools.get(pk)
         if pool is None or not pool.rows:
             return
+        t_f = time.perf_counter_ns()
+        sp = None
+        if self.tracer.enabled:
+            sp = self.tracer.open("group.flush", reason=reason,
+                                  **self._lock_wait_field())
+        done: dict = {}
+        try:
+            self._flush_rows(pool, reason, sp, t_f, done)
+        finally:
+            if sp is not None:
+                self.tracer.close(sp, **done)
+
+    def _flush_rows(self, pool: _Pool, reason: str, sp: str | None, t_f: int,
+                    done: dict) -> None:
+        """The body of :meth:`_flush` (its span ``sp`` open since ``t_f``):
+        take the rows, merge, pad or pack, dispatch. ``done`` gets the
+        span's closing fields."""
         width = self._width()
         take = min(width, pool.rows)
         # pop a `take`-row prefix, splitting the last block if needed
@@ -661,7 +788,14 @@ class SolveGroup:
         self.log.log("serve.batch", windows=rows, jobs=len(jobs),
                      stream=pool.stream, width=int(merged.size),
                      reason=reason, job="+".join(jobs))
-        t_d = time.perf_counter()
+        if sp is not None:
+            # the merged batch's id, carried by every record of its path
+            merged.rid = sp
+            for h, _, _ in taken:
+                if not h.batches or h.batches[-1] != sp:
+                    h.batches.append(sp)
+            done.update(rows=rows, jobs=len(jobs), width=int(merged.size))
+        t_d = time.perf_counter_ns()
         if (self.mesh_solver is not None
                 and os.environ.get("DACCORD_MESH_PIPELINE", "1") != "0"):
             # a mesh group stages merged batches (slices copied to the
@@ -669,7 +803,9 @@ class SolveGroup:
             # supervisor works on the host batch the staged one keeps
             merged = self.mesh_solver.stage(merged)
         dh = self.path.dispatch(merged)
-        dt = time.perf_counter() - t_d
+        t_e = time.perf_counter_ns()
+        self.counters["flush_ns"] += t_e - t_f
+        dt = (t_e - t_d) / 1e9
         self.sat["dispatch_s"] += dt
         if self._sync_engine:
             self.sat["busy_s"] += dt
@@ -715,12 +851,26 @@ class SolveGroup:
     # drain + scatter
     # ------------------------------------------------------------------
 
-    def _drain(self, to_depth: int) -> None:
+    def _drain(self, to_depth: int, cause: str) -> None:
+        """Fetch the oldest merged batches in flight down to ``to_depth``
+        and scatter their rows to the handles; ``cause`` (dispatch, fetch,
+        ticker or final) names the caller on the ``group.drain`` span."""
         n_pop = len(self._inflight) - to_depth
         if n_pop <= 0:
             return
-        entries = [self._inflight.popleft() for _ in range(n_pop)]
-        t_f = time.perf_counter()
+        sp = None
+        if self.tracer.enabled:
+            sp = self.tracer.open("group.drain", cause=cause, batches=n_pop,
+                                  **self._lock_wait_field())
+        try:
+            self._drain_entries([self._inflight.popleft() for _ in range(n_pop)])
+        finally:
+            if sp is not None:
+                self.tracer.close(sp)
+
+    def _drain_entries(self, entries: list) -> None:
+        c = self.counters
+        t_f = time.perf_counter_ns()
         try:
             outs = self.path.fetch_many([e[0] for e in entries])
         except BaseException:
@@ -732,16 +882,36 @@ class SolveGroup:
                 for handle, _n in rowmap:
                     handle.abort()
             raise
-        self.sat["fetch_blocked_s"] += time.perf_counter() - t_f
+        dt = time.perf_counter_ns() - t_f
+        c["ticker_skips"] = self._ticker_skips
+        c["drain_wait_ns"] += dt
+        self.sat["fetch_blocked_s"] += dt / 1e9
         for (dh, rowmap, rows), out in zip(entries, outs):
+            # the waits and the dispatcher's timers the call's handles carry
+            # from the threads that took them
+            c["drain_audit_wait_ns"] += getattr(dh, "audit_wait_ns", 0)
+            inner = getattr(dh, "inner", dh)
             if not self._sync_engine:
-                inner = getattr(dh, "inner", dh)
                 self.sat["busy_s"] += getattr(inner, "busy_s", 0.0)
+            c["drain_card_wait_ns"] += getattr(inner, "wait_ns", 0)
+            if getattr(inner, "idle_ns", None) is not None:
+                c["dispatcher_idle_ns"] += inner.idle_ns
+                c["dispatcher_calls"] += 1
+                c["count_read_ns"] += inner.count_read_ns
+                c["count_reads"] += inner.count_reads
+            t_s = time.perf_counter_ns()
+            sp = None
+            if self.tracer.enabled:
+                rid = getattr(getattr(dh, "batch", None), "rid", "")
+                sp = self.tracer.open("group.scatter", batch=rid, parts=len(rowmap))
             lo = 0
             for handle, n in rowmap:
                 part = self._slice_out(out, lo, lo + n, rows)
                 lo += n
                 handle.add_part(n, part)
+            if sp is not None:
+                self.tracer.close(sp)
+            c["scatter_ns"] += time.perf_counter_ns() - t_s
 
     @staticmethod
     def _slice_out(out: dict, lo: int, hi: int, live: int) -> dict:

@@ -59,8 +59,8 @@ from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..utils import lease
+from ..utils.obs import JsonlLogger
 from . import netio
-from .service import _LockedLogger
 
 # hop-by-hop headers a proxy must not forward (RFC 9110 §7.6.1)
 _HOP_HEADERS = {"connection", "keep-alive", "proxy-authenticate",
@@ -128,7 +128,7 @@ class Router:
         ev = cfg.events_path or os.path.join(cfg.workdir,
                                              "router.events.jsonl")
         self.log = log if log is not None else \
-            _LockedLogger(ev, buffer_lines=16, flush_s=1.0)
+            JsonlLogger(ev, buffer_lines=16, flush_s=1.0)
         self._lock = threading.Lock()
         self.peers: dict[str, Peer] = {}
         self._job_map: dict[str, str] = {}    # job id -> peer name (cache)

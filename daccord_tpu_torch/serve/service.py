@@ -45,27 +45,9 @@ from dataclasses import dataclass, field
 
 from ..utils.obs import JsonlLogger, MetricsRegistry
 from .admission import AdmissionConfig, AdmissionController
-from .batcher import GroupConfig, SolveGroup
+from .batcher import TIME_COUNTERS, TIME_COUNTS, GroupConfig, SolveGroup
 from .jobs import ABORTED, DONE, FAILED, QUEUED, RUNNING, Job, JobSpec, run_job
 from .state import WarmState
-
-
-class _LockedLogger(JsonlLogger):
-    """JsonlLogger safe for concurrent writers (HTTP threads, workers, the
-    ticker): the timestamp is taken and the line buffered under one lock, so
-    ``t`` stays monotonic per file — the strict eventcheck contract."""
-
-    def __init__(self, path: str | None = None, **kw):
-        super().__init__(path, **kw)
-        self._wlock = threading.Lock()
-
-    def log(self, event: str, **fields) -> None:
-        with self._wlock:
-            super().log(event, **fields)
-
-    def close(self) -> None:
-        with self._wlock:
-            super().close()
 
 
 @dataclass
@@ -189,7 +171,7 @@ class ConsensusService:
             cfg.admission.watch_dir = cfg.workdir
         ev = cfg.events_path or os.path.join(cfg.workdir,
                                              "serve.events.jsonl")
-        self.events = _LockedLogger(ev, buffer_lines=16, flush_s=1.0)
+        self.events = JsonlLogger(ev, buffer_lines=16, flush_s=1.0)
         self.metrics = MetricsRegistry()
         self.faults = FaultPlan.from_env()
         self.admission = AdmissionController(cfg.admission, log=self.events,
@@ -321,7 +303,7 @@ class ConsensusService:
         supervisor stream per file)."""
         scfg = self.cfg
         name = f"g{next(self._group_ids)}"
-        glog = _LockedLogger(os.path.join(scfg.workdir,
+        glog = JsonlLogger(os.path.join(scfg.workdir,
                                           f"{name}.events.jsonl"),
                              buffer_lines=16, flush_s=1.0)
         gcfg = GroupConfig(backend=scfg.backend, batch=scfg.batch,
@@ -1616,10 +1598,13 @@ class ConsensusService:
             g("leases_held").set(float(len(self._owned_leases)))
         mixed = rows = 0
         busy_s = blocked_s = 0.0
+        timers = dict.fromkeys(TIME_COUNTERS + TIME_COUNTS, 0)
         for grp in self.warm.groups():
             s = grp.stats()
             mixed += s["mixed_batches"]
             rows += s["rows"]
+            for k in timers:
+                timers[k] += s.get(k, 0)
             # per-group starvation gauges: each warm group's
             # device-idle / host-blocked fractions over its own lifetime
             sat = s.get("saturation") or {}
@@ -1631,6 +1616,13 @@ class ConsensusService:
             blocked_s += float(sat.get("blocked_s", 0.0))
         g("batcher_rows").set(float(rows))
         g("batcher_mixed_batches").set(float(mixed))
+        # the groups' host timers, summed: batcher_lock_held_s,
+        # batcher_drain_audit_wait_s, batcher_dispatcher_idle_s, ... and
+        # their counts (batcher_lock_acquires, batcher_ticker_skips, ...)
+        for k in TIME_COUNTERS:
+            g(f"batcher_{k[:-3]}_s").set(timers[k] / 1e9)
+        for k in TIME_COUNTS:
+            g(f"batcher_{k}").set(float(timers[k]))
         # service-level saturation + verdict over the DEMAND wall: device
         # gaps while jobs were live mean the feeders (job windowing) starve
         # the warm groups — the serve-plane form of host_feeder

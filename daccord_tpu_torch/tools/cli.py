@@ -534,17 +534,20 @@ def daccord_run(argv=None):
 
 class _profiled:
     """``--profile DIR``: one ``torch.profiler`` capture around the run
-    (host ops, and the card's kernels on cuda), written into DIR as a chrome
-    trace when the run ends, whether or not it finished."""
+    (every thread's host ops and trace spans, and the card's kernels on
+    cuda), written into DIR as a chrome trace when the run ends, whether or
+    not it finished."""
 
     def __init__(self, out_dir: str, device: str):
         import torch
+
+        from ..utils.obs import profile_all_threads
 
         self.dir = out_dir
         acts = [torch.profiler.ProfilerActivity.CPU]
         if device == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-        self.prof = torch.profiler.profile(activities=acts)
+        self.prof = profile_all_threads(acts)
 
     def __enter__(self):
         os.makedirs(self.dir, exist_ok=True)

@@ -9,7 +9,11 @@ The port's copy of those parts of ``daccord_tpu/utils/obs.py``:
   :data:`DURABLE_EVENTS` through at once. ``tools/eventcheck.py`` lints the
   files it writes.
 - :class:`Tracer`: hierarchical ``span_open``/``span_close`` spans (run ->
-  pile -> batch -> dispatch/fetch/flush), read by ``tools/trace.py``.
+  pile -> batch -> dispatch/fetch/flush; a serve group's flush, drain and
+  scatter), read by ``tools/trace.py``: a parent stack for each thread,
+  records buffered raw and formatted at the logger's flush, starts on the
+  Unix clock a torch profiler's trace uses, and mirrored into the profiler
+  while one records.
 - :class:`MetricsRegistry`: counters, gauges and histograms, with periodic
   ``metrics`` snapshot events and the end-of-run rollup a shard commits as
   ``*.metrics.json``; :func:`render_prom` and :func:`parse_prom` are its
@@ -112,69 +116,140 @@ def auto_batch_size(backend: str, mesh: int = 0) -> int:
     return (2048 if backend == "cuda" else 512) * max(int(mesh or 0), 1)
 
 
+#: the span records' encoder (json.dumps' defaults, and str for a field
+#: json cannot take)
+_SPAN_JSON = json.JSONEncoder(default=str)
+
+
 class JsonlLogger:
     def __init__(self, path: str | None = None, stream=None,
                  buffer_lines: int = 1, flush_s: float = 0.0):
         """``buffer_lines=1`` (default) flushes after every record. Hot-path
         writers (the ledger) pass ``buffer_lines`` > 1 and a ``flush_s``
         bound; records in :data:`DURABLE_EVENTS` always flush through, and
-        ``close()`` flushes the tail. ``path='-'`` writes to stderr."""
+        ``close()`` flushes the tail. ``path='-'`` writes to stderr.
+
+        The buffer keeps each record in the order it was stamped: a
+        :meth:`log` record as its JSON line, a span record
+        (:meth:`span_record`, the :class:`Tracer`'s) as a raw tuple that
+        becomes its line at the flush. A flush swaps the buffer out under
+        the buffer's lock, takes the file's lock before it gives that one
+        up, and formats and writes outside the buffer's lock: the other
+        writers go on stamping meanwhile, the file keeps the stamping order
+        (``t`` monotonic, eventcheck's strict lint), and the two locks are
+        always taken in that one order."""
         self._fh = None
         if path == "-":
             self._fh = stream or sys.stderr
         elif path:
             self._fh = open(path, "at")
         self._t0 = time.time()
-        self._buf: list[str] = []
+        self._buf: list = []
         self._buffer_lines = max(1, int(buffer_lines))
         self._flush_s = flush_s
         self._last_flush = self._t0
         self._lock = threading.Lock()   # the supervisor's watchdog threads log too
+        self._io_lock = threading.Lock()   # the file: one flush writes at a time
+
+    def _due(self, event: str, now: float) -> bool:
+        return (len(self._buf) >= self._buffer_lines or event in DURABLE_EVENTS
+                or bool(self._flush_s and now - self._last_flush >= self._flush_s))
 
     def log(self, event: str, **fields) -> None:
         if self._fh is None:
             return
-        with self._lock:
-            now = time.time()
+        self._lock.acquire()
+        try:
+            # the span records' reading of the clock (span_record), so the
+            # two kinds keep their order in the file to the microsecond
+            now = time.time_ns() / 1e9
             # t = process-relative; ts = absolute epoch, the key that merges
             # several processes' files onto one timeline
             rec = {"t": round(now - self._t0, 3), "ts": round(now, 6),
                    "event": event, **fields}
             self._buf.append(json.dumps(rec) + "\n")
-            if (len(self._buf) >= self._buffer_lines
-                    or event in DURABLE_EVENTS
-                    or (self._flush_s and now - self._last_flush >= self._flush_s)):
-                self._flush_locked()
+        except BaseException:
+            self._lock.release()
+            raise
+        self._release(event, now)
 
-    def flush(self) -> None:
-        with self._lock:
-            self._flush_locked()
+    def span_record(self, event: str, head: tuple, fields: dict) -> None:
+        """Buffer one span record unformatted: ``event``, the ``(key,
+        value)`` pairs of ``head`` and then ``fields`` after ``t`` and
+        ``ts``, stamped with the Unix time in nanoseconds read under the
+        buffer's lock."""
+        if self._fh is None:
+            return
+        self._lock.acquire()
+        ns = time.time_ns()
+        self._buf.append((ns, event, head, fields))
+        self._release(event, ns / 1e9)
 
-    def _flush_locked(self) -> None:
-        if self._fh is None or not self._buf:
+    def _release(self, event: str, now: float) -> None:
+        """Release the buffer's lock after a record, flushing first when
+        one is due."""
+        if self._due(event, now):
+            self._flush_held(now)
+        else:
+            self._lock.release()
+
+    def _flush_held(self, now: float) -> None:
+        """Flush, entered holding the buffer's lock and leaving it released:
+        the buffer swapped out, the file's lock taken before the buffer's
+        is given up (two flushes write in the order they took their
+        buffers), then formatted and written under the file's lock alone."""
+        try:
+            buf, self._buf = self._buf, []
+            self._last_flush = now
+            self._io_lock.acquire()
+        finally:
+            self._lock.release()
+        try:
+            self._write(buf)
+        finally:
+            self._io_lock.release()
+
+    def _line(self, rec) -> str:
+        if isinstance(rec, str):
+            return rec
+        ns, event, head, fields = rec
+        now = ns / 1e9
+        out = {"t": round(now - self._t0, 3), "ts": round(now, 6), "event": event}
+        out.update(head)
+        out.update(fields)
+        # formatted away from the caller that recorded it: a field json
+        # cannot take is written as its str, never raised at the flush
+        return _SPAN_JSON.encode(out) + "\n"
+
+    def _write(self, buf: list) -> None:
+        fh = self._fh
+        if fh is None or not buf:
             return
         try:
             from . import aio
 
             aio.io_gate("sidecar", op="events")
-            self._fh.write("".join(self._buf))
-            self._fh.flush()
+            fh.write("".join(map(self._line, buf)))
+            fh.flush()
         except (OSError, ValueError):
             # telemetry never raises into the data path: a full or failing
             # volume drops the buffered lines and counts them
-            _note_dropped(len(self._buf))
-        self._buf.clear()
-        self._last_flush = time.time()
+            _note_dropped(len(buf))
+
+    def flush(self) -> None:
+        self._lock.acquire()
+        self._flush_held(time.time())
 
     def close(self) -> None:
         self.flush()
-        if self._fh is not None and self._fh is not sys.stderr:
-            try:
-                self._fh.close()
-            except OSError:
-                _note_dropped(0)
-        # a closed logger drops later records instead of raising
-        self._fh = None
+        with self._io_lock:
+            if self._fh is not None and self._fh is not sys.stderr:
+                try:
+                    self._fh.close()
+                except OSError:
+                    _note_dropped(0)
+            # a closed logger drops later records instead of raising
+            self._fh = None
 
     def __enter__(self) -> "JsonlLogger":
         return self
@@ -194,59 +269,175 @@ class NullLogger(JsonlLogger):
 _SPAN_IDS = itertools.count(1)
 
 
+def _profiling() -> bool:
+    """Whether a torch profiler session is recording: the process-wide flag
+    of ``torch.autograd.profiler`` (a session that records every thread,
+    :func:`profile_all_threads`, leaves the thread-local
+    ``torch._C._autograd._profiler_enabled()`` False on the threads it did
+    not start on), or that. False in a process that never imported torch
+    (the audit workers import numpy alone)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and bool(getattr(prof, "_is_profiler_enabled", False)
+                                     or prof.torch._C._autograd._profiler_enabled())
+
+
+_MIRROR_WARM = False
+
+
+def _warm_mirror() -> None:
+    """Do once what a process's first ``record_function`` does around its
+    range's start (resolve the range's op; import the profiler's CUPTI
+    monitor, ~1 ms each on the CPU), so that it never lies between a span's
+    stamp and its mirror's start."""
+    global _MIRROR_WARM
+    if _MIRROR_WARM:
+        return
+    import torch
+
+    torch.ops.profiler._record_function_enter_new
+    monitor = getattr(torch.autograd.profiler, "_maybe_cupti_monitor", None)
+    if monitor is not None:
+        monitor()
+    _MIRROR_WARM = True
+
+
+def profile_all_threads(activities):
+    """A ``torch.profiler.profile`` over ``activities`` that records the
+    host ops and ranges of every thread (the ladder dispatcher's, the job
+    threads', the watchdog's), where this torch has the option; else one
+    that records the starting thread's."""
+    import torch
+
+    try:
+        cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return torch.profiler.profile(activities=activities)
+    return torch.profiler.profile(activities=activities, experimental_config=cfg)
+
+
 class Tracer:
     """Hierarchical trace spans over a :class:`JsonlLogger`.
 
-    ``open`` emits ``span_open`` (id, parent, name) and pushes the span on
-    the parent stack; ``close`` emits ``span_close`` with the measured wall.
-    Ids are ``<pid-hex>-<n>``. Non-nested spans pass ``attach=False`` with
-    an explicit ``parent`` so the stack stays well-formed. ``unwind``
-    closes every span still open (status=abort), from the owners' ``finally``
-    blocks, so every open has a close."""
+    ``open`` records ``span_open`` (id, parent, name) and pushes the span
+    on the calling thread's parent stack; ``close`` records ``span_close``
+    with the span's wall. Each thread has a stack of its own, so a span's
+    default parent is its own thread's innermost open span. Ids are
+    ``<pid-hex>-<n>``. A span opened on one thread and closed on another
+    (or one that must not parent the thread's later spans) passes
+    ``attach=False``, with an explicit ``parent`` where it has one.
+    ``unwind`` closes every span still open (status=abort), from the
+    owners' ``finally`` blocks, so every open has a close.
+
+    A record is the logger's raw tuple until the logger's flush formats it
+    (:meth:`JsonlLogger.span_record`). A span's ``ts`` is its Unix time in
+    nanoseconds (``time.time_ns``), the clock a torch profiler's exported
+    trace places its events on (``baseTimeNanoseconds`` + ``ts`` x 1000);
+    its wall comes from ``time.perf_counter_ns``. While a profiler session
+    records, an attached span also opens a ``torch.profiler.record_function``
+    range of its name, closed with it, so the exported trace shows the
+    host's spans beside the card's work. Without a log the tracer records
+    nothing: ``open`` returns None."""
 
     def __init__(self, log: JsonlLogger | None):
         self.log = log if log is not None else NullLogger()
         self.enabled = self.log._fh is not None
         self._pid = "%x" % os.getpid()
-        self._stack: list[str] = []
-        self._open: dict[str, tuple[str, float]] = {}
+        self._tls = threading.local()
+        # sid -> (name, perf_counter_ns at open, owning stack or None,
+        #         profiler range or None, opening thread)
+        self._open: dict[str, tuple] = {}
+
+    def _stack(self) -> list:
+        st = getattr(self._tls, "stack", None)
+        if st is None:
+            st = self._tls.stack = []
+        return st
 
     def open(self, name: str, parent: str | None = None, attach: bool = True,
              **fields) -> str | None:
         if not self.enabled:
             return None
         sid = f"{self._pid}-{next(_SPAN_IDS)}"
+        st = self._stack()
         if parent is None:
-            parent = self._stack[-1] if self._stack else ""
-        self._open[sid] = (name, time.time())
+            parent = st[-1] if st else ""
+        rf = None
         if attach:
-            self._stack.append(sid)
-        self.log.log("span_open", span=sid, parent=parent, name=name, **fields)
+            st.append(sid)
+            if _profiling():
+                _warm_mirror()
+                import torch
+
+                # entered just before the stamp, so that nothing (a flush the
+                # record makes due) comes between the range's start and it
+                rf = torch.profiler.record_function(name)
+                rf.__enter__()
+        self.log.span_record("span_open", (("span", sid), ("parent", parent),
+                                           ("name", name)), fields)
+        self._open[sid] = (name, time.perf_counter_ns(), st if attach else None, rf,
+                           threading.get_ident())
         return sid
 
     def close(self, sid: str | None, **fields) -> None:
         if sid is None:
             return
-        name, t0 = self._open.pop(sid, (None, 0.0))
+        name, t0, st, rf, tid = self._open.pop(sid, (None, 0, None, None, 0))
         if name is None:
             return   # unknown or already closed: close is idempotent
-        if sid in self._stack:
-            self._stack.remove(sid)
-        self.log.log("span_close", span=sid, name=name,
-                     wall_s=round(time.time() - t0, 6), **fields)
+        wall = time.perf_counter_ns() - t0
+        if st is not None and sid in st:
+            st.remove(sid)
+        if rf is not None and tid == threading.get_ident():
+            rf.__exit__(None, None, None)
+        self.log.span_record("span_close", (("span", sid), ("name", name),
+                                            ("wall_s", round(wall / 1e9, 6))), fields)
+
+    def past(self, name: str, wall_ns: int, parent: str | None = None,
+             **fields) -> str | None:
+        """Record a span measured before it could be recorded (``wall_ns``
+        long, from ``time.perf_counter_ns``): its open and close, stamped
+        now, the close carrying that wall. For work that straddles a
+        segment boundary of the events file (a ``sup_init`` without a
+        ``shard_start`` before it), which an open span may not."""
+        sid = self.open(name, parent=parent, attach=False, **fields)
+        if sid is not None:
+            self._open[sid] = (name, time.perf_counter_ns() - wall_ns, None, None, 0)
+            self.close(sid)
+        return sid
 
     def span(self, name: str, **fields):
         """Context manager form; closes with ``status=error`` on exception."""
         return _SpanCtx(self, name, fields)
 
     def current(self) -> str:
-        """The innermost attached span still open ("" when none): the
-        parent a span opened on another thread names."""
-        return self._stack[-1] if self.enabled and self._stack else ""
+        """The calling thread's innermost attached span still open ("" when
+        none): the parent a span opened on another thread names."""
+        if not self.enabled:
+            return ""
+        st = self._stack()
+        return st[-1] if st else ""
+
+    def adopted(self, parent: str, fn):
+        """``fn`` wrapped to run with ``parent`` as its thread's innermost
+        span: an op one thread hands to another (the supervisor's watchdog)
+        parents its spans under the span of the thread that handed it."""
+        if not self.enabled or not parent:
+            return fn
+
+        def run(*a, **kw):
+            st = self._stack()
+            st.append(parent)
+            try:
+                return fn(*a, **kw)
+            finally:
+                st.remove(parent)
+
+        return run
 
     def unwind(self, status: str = "abort") -> None:
         """Close every span still open, innermost first."""
-        for sid in sorted(self._open, key=lambda s: self._open[s][1], reverse=True):
+        spans = self._open.copy()
+        for sid in sorted(spans, key=lambda s: spans[s][1], reverse=True):
             self.close(sid, status=status)
 
 
@@ -296,17 +487,15 @@ class WindowLedger:
         if mesh:
             jf += ', "mesh": %d' % mesh
         now = time.time()
-        with log._lock:
-            log._buf.append(
-                '{"t": %.3f, "ts": %.6f, "event": "window", "aread": %d, '
+        line = ('{"t": %.3f, "ts": %.6f, "event": "window", "aread": %d, '
                 '"widx": %d, "len": %d, "depth": %d, "tier": %d, "k": %d, '
                 '"solved": %s, "stream": "%s", "rescued": %s, "wall_s": %.6f%s}\n'
                 % (now - log._t0, now, aread, widx, length, depth, tier, k,
                    "true" if solved else "false", stream,
                    "true" if rescued else "false", wall_s, jf))
-            if (len(log._buf) >= log._buffer_lines
-                    or (log._flush_s and now - log._last_flush >= log._flush_s)):
-                log._flush_locked()
+        log._lock.acquire()
+        log._buf.append(line)
+        log._release("window", now)
 
     def close(self) -> None:
         self.log.close()

@@ -189,11 +189,12 @@ def test_solve_fingerprint_includes_mesh():
                                                                             mesh=4)
 
 
-def test_stage_launch_split_units():
+def test_stage_launch_split_units(request):
     """``stage`` pads to a mesh multiple and keeps the host batch; a batch
     staged before a shrink is staged again at launch (``restaged``);
     staging under a call in flight books as overlapped."""
     s = ShardedLadderSolver(_stub_ladder(), _cpu_mesh(8), batch=64)
+    request.addfinalizer(s.close)    # its dispatcher thread ends with the test
     b = _unit_batch(60)
     st = s.stage(b)
     assert isinstance(st, meshmod.StagedBatch)

@@ -829,3 +829,36 @@ def test_group_under_thread_stress_gives_every_job_its_own_rows(dataset, tmp_pat
     st = group.counters
     assert st["rows"] == 12 * 40 and st["mixed_batches"] >= 1
     assert not group._inflight and not any(p.rows for p in group._pools.values())
+
+
+def test_gauges_export_the_groups_summed_host_timers(dataset, tmp_path):
+    """The service's gauges sum its warm groups' host timers
+    (``SolveGroup.counters``) in seconds and counts; the prom text carries
+    them and ``parse_prom`` reads it without an error."""
+    from daccord_tpu_torch.serve.batcher import TIME_COUNTERS, TIME_COUNTS
+    from daccord_tpu_torch.utils.obs import parse_prom
+
+    out, d = dataset
+    svc = _svc(tmp_path / "srv")
+    try:
+        j = svc.submit({"db": out["db"], "las": out["las"]})
+        assert svc.wait(j["job"], WAIT_S)["state"] == "done"
+        groups = list(svc.warm.groups())
+        assert groups
+        # the render reads the groups (a try-lock each): between two readings
+        before = {k: sum(g.counters[k] for g in groups) for k in TIME_COUNTERS + TIME_COUNTS}
+        samples, errs = parse_prom(svc.stats_prom())
+        after = {k: sum(g.counters[k] for g in groups) for k in TIME_COUNTERS + TIME_COUNTS}
+    finally:
+        svc.shutdown()
+    assert errs == []
+    val = {k: v[0][1] for k, v in samples.items()}
+    for k in TIME_COUNTERS:
+        # gauges keep six decimals: a microsecond
+        got = val[f"daccord_serve_batcher_{k[:-3]}_s"]
+        assert before[k] / 1e9 - 1e-6 <= got <= after[k] / 1e9 + 1e-6, k
+    for k in TIME_COUNTS:
+        assert before[k] <= val[f"daccord_serve_batcher_{k}"] <= after[k], k
+    assert val["daccord_serve_batcher_lock_held_s"] > 0
+    assert val["daccord_serve_batcher_flush_s"] > 0
+    assert val["daccord_serve_batcher_lock_acquires"] > 0
