@@ -455,6 +455,14 @@ class ShardedLadderSolver:
     def fetch_many(self, handles) -> list[dict]:
         return [self.fetch(h) for h in handles]
 
+    @staticmethod
+    def landed(handle: _MeshHandle) -> bool:
+        """Whether every member's call of ``handle`` has landed
+        (``tiers.landed``): its :meth:`fetch` would not wait."""
+        from ..kernels.tiers import landed
+
+        return all(landed(h) for _, h in handle.parts)
+
     def __call__(self, batch) -> dict:
         return self.fetch(self.dispatch(batch))
 

@@ -105,7 +105,7 @@ from ..kernels import paging
 from ..kernels.tensorize import BatchShape, WindowBatch, pad_batch, tensorize_windows
 from ..kernels import graphs
 from ..kernels.graphs import pick_width
-from ..kernels.tiers import (LadderDispatcher, TierLadder, fetch, fetch_many,
+from ..kernels.tiers import (LadderDispatcher, TierLadder, fetch, fetch_many, landed,
                              rescue_candidates, stream_dispatcher, upload_arrays)
 from ..native.api import ColumnarLas, process_pile_native
 from ..oracle.consensus import ConsensusConfig, estimate_profile_two_pass, stitch_results
@@ -1222,21 +1222,33 @@ class SolvePath:
     them up: the ladder's ``LadderDispatcher`` thread (None: the calls run
     on the caller's thread, or the native engine's) and the supervisor
     (None: unsupervised). ``sync_engine``: the engine solves inside the
-    dispatch call. :meth:`close` stops the threads (the audit worker
-    belongs to the caller)."""
+    dispatch call. ``engine_landed`` tells, without waiting, whether the
+    engine's handle of a call has its result on the host (None: a
+    synchronous engine's handle always has). :meth:`close` stops the
+    threads (the audit worker belongs to the caller)."""
 
     def __init__(self, dispatch, fetch_many, sync_engine: bool, sup=None,
-                 dispatcher=None, mesh=None):
+                 dispatcher=None, mesh=None, engine_landed=None):
         self.dispatch = dispatch
         self.fetch_many = fetch_many
         self.sync_engine = sync_engine
         self.sup = sup
         self.dispatcher = dispatcher
         self.mesh = mesh             # the sharded solver of a mesh path
+        self._engine_landed = engine_landed or (lambda h: True)
 
     def audit_pending(self, handle) -> bool:
         """Whether ``handle``'s shadow-audit rows are not back yet."""
         return self.sup is not None and self.sup.audit_pending(handle)
+
+    def landed(self, handle) -> bool:
+        """Whether ``handle``'s result is on the host, so that its fetch
+        neither waits on the engine nor solves on the host (a supervised
+        handle: ``DeviceSupervisor.landed``). Never waits; the shadow
+        audit's rows are :meth:`audit_pending`'s."""
+        if self.sup is None:
+            return self._engine_landed(handle)
+        return self.sup.landed(handle, self._engine_landed)
 
     def close(self) -> None:
         if self.dispatcher is not None:
@@ -1324,9 +1336,11 @@ def build_solve_path(profile: ErrorProfile, cfg: PipelineConfig, dev, ladder, *,
         dispatch_fn = stream_dispatcher(ladder, dispatcher, tracer)
         fetch_fn, fetch_many_fn = fetch, fetch_many
     sync_engine = dispatcher is None and mesh_solver is None
+    engine_landed = mesh_solver.landed if mesh_solver is not None else landed
     if not supervise:
         return SolvePath(dispatch_fn, fetch_many_fn, sync_engine=sync_engine,
-                         dispatcher=dispatcher, mesh=mesh_solver)
+                         dispatcher=dispatcher, mesh=mesh_solver,
+                         engine_landed=engine_landed)
     from ..utils.obs import device_alive, measure_rtt_s
 
     host_ladder: list = []
@@ -1378,7 +1392,8 @@ def build_solve_path(profile: ErrorProfile, cfg: PipelineConfig, dev, ladder, *,
         audit_ref_factory=lambda: audit_reference(cpu_ladder()),
         audit_rate=audit_rate, audit_worker=worker)
     return SolvePath(sup.dispatch, sup.fetch_many, sync_engine=sync_engine,
-                     sup=sup, dispatcher=dispatcher, mesh=mesh_solver)
+                     sup=sup, dispatcher=dispatcher, mesh=mesh_solver,
+                     engine_landed=engine_landed)
 
 
 def _correct_range(db, las, cfg, start, end, profile, dev, paged_on, stats,

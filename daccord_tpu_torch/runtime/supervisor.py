@@ -1044,6 +1044,18 @@ class DeviceSupervisor:
         self.audit_send_s += dt
         self.audit_s += dt
 
+    def landed(self, h: _SupHandle, engine_landed) -> bool:
+        """Whether :meth:`fetch` of ``h`` would take its result without
+        waiting on the engine or solving it on the host: a governor result,
+        or a primary call that ``engine_landed(h.inner)`` says has landed.
+        A degraded handle, or any while failed over, re-solves on the
+        failover engine: not landed. The audit is :meth:`audit_pending`'s."""
+        if h.result is not None:
+            return True
+        if h.degraded or h.inner is None or self.state in (LOST, DEGRADED):
+            return False
+        return engine_landed(h.inner)
+
     def audit_pending(self, h) -> bool:
         """Whether ``h``'s sample is with the worker and its rows are not
         back yet (no wait: the fetch of ``h`` would wait for them)."""

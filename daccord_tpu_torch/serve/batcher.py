@@ -40,6 +40,17 @@ Group modes mirror the pipeline's dispatch strategies:
 Locking: one RLock per group serializes pool mutation, flushes and drains.
 Jobs take turns driving the device (one card is one resource); the
 dispatcher thread still overlaps each job's host windowing with the card.
+The merged batches in flight leave their deque oldest first, so each handle
+receives its parts in order, and a drain fetches only what its caller
+needs, so that no one waits under the lock for a batch nobody is waiting on:
+a job's fetch stops after the newest batch that holds its handle's rows;
+the service's ticker takes only the oldest batches whose results are on the
+host and whose shadow-audit rows are back, and never waits; a dispatch that
+fills the deque to ``max_inflight`` fetches its oldest half, and shutdown
+all of it. Every sampled batch is still compared before its rows reach a
+job. ``counters["drain_batches"]`` counts the batches drains fetched and
+``counters["drain_kept"]`` those a job's or the ticker's drain left in
+flight (the whole deque would have gone).
 
 Host timers: ``SolveGroup.counters`` holds, beside its counts, integer
 nanoseconds (``time.perf_counter_ns``) of the group's host side, always on
@@ -79,11 +90,12 @@ class JobAborted(RuntimeError):
 
 
 #: the host timers of ``SolveGroup.counters`` (nanoseconds) and their
-#: counts, in the order the service exports them
+#: counts, and the drains' counts, in the order the service exports them
 TIME_COUNTERS = ("lock_wait_ns", "lock_held_ns", "flush_ns", "drain_wait_ns",
                  "drain_card_wait_ns", "drain_audit_wait_ns", "scatter_ns",
                  "dispatcher_idle_ns", "count_read_ns", "build_ns")
-TIME_COUNTS = ("lock_acquires", "ticker_skips", "dispatcher_calls", "count_reads")
+TIME_COUNTS = ("lock_acquires", "ticker_skips", "dispatcher_calls", "count_reads",
+               "drain_batches", "drain_kept")
 
 _ns = time.perf_counter_ns
 
@@ -475,14 +487,18 @@ class SolveGroup:
             while pool.rows >= self._width():
                 self._flush(pk, reason="full")
             if len(self._inflight) >= self.gcfg.max_inflight:
-                self._drain(self.gcfg.max_inflight // 2, "dispatch")
+                self._drain(len(self._inflight) - self.gcfg.max_inflight // 2,
+                            "dispatch")
         return h
 
     def fetch(self, handle: JobHandle) -> dict:
         """Block until ``handle``'s rows are solved; the calling job thread
         drives the shared flush/drain machinery itself (no thread of the
         group's own), so a lone job proceeds at full speed and jobs complete
-        each other's handles as a side effect of their own."""
+        each other's handles as a side effect of their own. While some of
+        the handle's rows are pooled their bucket flushes; once all are in
+        flight the deque drains oldest first through the newest batch that
+        holds them, and the batches after it stay in flight."""
         if not handle.event.is_set():
             # the job's whole wait, the lock's included
             sp = self.tracer.open("job.fetch", job=handle.job, rows=handle.n)
@@ -495,12 +511,13 @@ class SolveGroup:
                         if pk is not None:
                             self.counters["demand_flushes"] += 1
                             self._flush(pk, reason="demand")
-                        elif self._inflight:
-                            self._drain(0, "fetch")
                         else:
-                            raise RuntimeError(
-                                f"handle for job {handle.job!r} has rows neither "
-                                "pooled nor in flight (batcher bookkeeping bug)")
+                            n = self._through(handle)
+                            if not n:
+                                raise RuntimeError(
+                                    f"handle for job {handle.job!r} has rows neither "
+                                    "pooled nor in flight (batcher bookkeeping bug)")
+                            self._drain(n, "fetch")
             finally:
                 if sp is not None:
                     self.tracer.close(sp, lock_wait_us=round(wait_ns / 1e3, 1),
@@ -513,23 +530,31 @@ class SolveGroup:
         return [self.fetch(h) for h in handles]
 
     def flush_stale(self, max_age_s: float) -> None:
-        """Service-ticker hook: flush pools whose oldest rows have waited
-        longer than ``max_age_s`` (bounds the latency one job's rows can pay
-        waiting for others). Non-blocking on the group lock: the ticker must
-        not stall behind one group's solve, whose own flushes drain it."""
+        """Service-ticker hook: land the oldest batches in flight that are
+        ready, their results on the host and their shadow-audit rows back,
+        stopping at the first that is not (a degraded one, which would
+        solve on the host, included: the jobs' own fetches wait for those);
+        then flush pools whose oldest rows have waited longer than
+        ``max_age_s`` (bounds the latency one job's rows can pay waiting
+        for others) while the deque has room below ``max_inflight`` (a
+        dispatch's drain or a job's fetch makes more). Non-blocking on the
+        group lock, and it never waits under it: the ticker must not stall
+        behind one group's solve, nor stall the jobs behind a batch none of
+        them is waiting on."""
         if not self._lock.acquire(blocking=False):
             self._ticker_skips += 1
             return
         try:
             self.counters["ticker_skips"] = self._ticker_skips
+            self._drain(self._ready(), "ticker")
             now = time.time()
             for pk, pool in list(self._pools.items()):
+                if len(self._inflight) >= self.gcfg.max_inflight:
+                    break
                 if (pool.rows and pool.oldest_ts is not None
                         and now - pool.oldest_ts >= max_age_s):
                     self.counters["lag_flushes"] += 1
                     self._flush(pk, reason="lag")
-            if self._inflight:
-                self._drain(0, "ticker")
         finally:
             self._lock.release()
 
@@ -560,8 +585,7 @@ class SolveGroup:
             for pk, pool in list(self._pools.items()):
                 while pool.rows:
                     self._flush(pk, reason="final")
-            if self._inflight:
-                self._drain(0, "final")
+            self._drain(len(self._inflight), "final")
 
     def busy(self) -> bool:
         """True while the group lock is held (a flush or drain is running).
@@ -851,17 +875,41 @@ class SolveGroup:
     # drain + scatter
     # ------------------------------------------------------------------
 
-    def _drain(self, to_depth: int, cause: str) -> None:
-        """Fetch the oldest merged batches in flight down to ``to_depth``
-        and scatter their rows to the handles; ``cause`` (dispatch, fetch,
-        ticker or final) names the caller on the ``group.drain`` span."""
-        n_pop = len(self._inflight) - to_depth
+    def _through(self, handle: JobHandle) -> int:
+        """How many of the oldest batches in flight a drain must fetch to
+        land every row of ``handle`` in flight: through the newest that
+        holds some (0: none does)."""
+        for i in range(len(self._inflight) - 1, -1, -1):
+            if any(h is handle for h, _ in self._inflight[i][1]):
+                return i + 1
+        return 0
+
+    def _ready(self) -> int:
+        """How many of the oldest batches in flight are ready, in a row: a
+        fetch of each would neither wait (its result on the host, its
+        shadow-audit rows back) nor solve on the host."""
+        path = self.path
+        n = 0
+        for dh, _, _ in self._inflight:
+            if path.audit_pending(dh) or not path.landed(dh):
+                break
+            n += 1
+        return n
+
+    def _drain(self, n_pop: int, cause: str) -> None:
+        """Fetch the ``n_pop`` oldest merged batches in flight and scatter
+        their rows to the handles; ``cause`` (dispatch, fetch, ticker or
+        final) names the caller on the ``group.drain`` span. A fetch's or
+        the ticker's drain counts what it left in flight as kept."""
+        kept = len(self._inflight) - n_pop if cause in ("fetch", "ticker") else 0
+        self.counters["drain_kept"] += kept
         if n_pop <= 0:
             return
+        self.counters["drain_batches"] += n_pop
         sp = None
         if self.tracer.enabled:
             sp = self.tracer.open("group.drain", cause=cause, batches=n_pop,
-                                  **self._lock_wait_field())
+                                  kept=kept, **self._lock_wait_field())
         try:
             self._drain_entries([self._inflight.popleft() for _ in range(n_pop)])
         finally:
